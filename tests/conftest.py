@@ -62,6 +62,11 @@ def pytest_configure(config):
         "slow_build: large out-of-core index build; deselected from the "
         "tier-1 run unless --slow-build is passed",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (a repro_torch kernel on the card); the "
+        "test skips itself where torch.cuda.is_available() is False",
+    )
 
 
 def pytest_collection_modifyitems(config, items):
