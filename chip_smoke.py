@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
-Drives the port's main path at warp-xtr width on a synthetic index of
+Drives the port's retrieval path at warp-xtr width on a synthetic index of
 LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
 ``search_lifestyle``: 23.71M tokens, 119,461 docs, 2^17 centroids, cap
 1024; D = 128, nbits = 4, 32 query tokens, nprobe 32, k 100, k_impute 64),
@@ -23,7 +23,17 @@ built on the card from ``--seed`` (the index build itself is not ported):
      that rate (submit-to-reply latency); every reply is held against
      ``plan.retrieve``;
   4. match the committed fixture (``tests/data/torch_fixture``, expected
-     results written by the JAX package) on the card.
+     results written by the JAX package) on the card;
+  5. LM generation (``lm``) at qwen2-0.5b full width and depth
+     (``repro_torch/configs/qwen2_0_5b.py``: 24 layers, d 896, 14 heads,
+     2 kv heads, head_dim 64, vocab 151,936; random bf16 weights from
+     ``--seed``): the flash-attention kernel against its plain version at
+     the prefill's shapes (and padded, windowed, non-causal and Dh 128
+     ones), then ``repro_torch.serving.generate`` on a 4 x 2048-token
+     prompt for 32 greedy tokens at executor "kernel" and "reference":
+     prefill logits within ``LM_LOGITS_TOL``, identical tokens or a first
+     difference at a reported near-tie of the reference's top-2 logits,
+     and exactly one flash launch per layer per kernel ``generate``.
 
 Top-k doc ids must be identical. A swap is allowed only between scores
 tied within what the kernels' measured error allows (``tie_tolerance``),
@@ -51,6 +61,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense tensor cores
 
 ARCH = dict(dim=128, nbits=4, query_maxlen=32, nprobe=32, k=100, k_impute=64)
 GEOMETRY = dict(n_tokens=23_710_000, n_docs=119_461, n_centroids=1 << 17, cap=1024)
@@ -77,8 +88,28 @@ KERNEL_INFO = {
         "src/repro_torch/kernels/csrc/ragged_fused_gather_score.cu",
         "src/repro/kernels/fused_gather_score.py:537",
     ),
+    "flash_attention": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:85",
+    ),
 }
 TOL = 1e-4  # kernel vs plain version, and scores across executors
+
+# LM phase: qwen2-0.5b generation. The prompt is 4 x 2048 random token ids.
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
+# Flash kernel vs its plain version: float32 sums in another order (f32),
+# plus one rounding of outputs of magnitude up to ~4 to bf16 (ulp 2^-6).
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+FLASH_CASES = (  # name, B, H, Hkv, S, Dh, causal, window
+    ("qwen2", 4, 14, 2, 2048, 64, True, None),  # the prefill's shape: timed
+    ("padded", 4, 14, 2, 1000, 64, True, None),
+    ("window", 4, 14, 2, 2048, 64, True, 512),
+    ("noncausal", 4, 14, 2, 1024, 64, False, None),
+    ("dh128", 4, 32, 8, 2048, 128, True, None),
+)
+# Prefill logits, kernel vs reference executor, and the top-2 gap that
+# counts as a near-tie: 4 bf16 ulps at the logits' magnitude (4 to 8).
+LM_LOGITS_TOL = 0.125
 
 
 def log(msg: str) -> None:
@@ -282,7 +313,6 @@ def phase_kernels(torch, index, plan_ragged, flush):
             "replaces": KERNEL_INFO[name][1],
             "launches": 0,
             "max_abs_err": err,
-            "max_err": err,
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -576,6 +606,239 @@ def phase_fixture(torch, dev):
     log(f"[fixture] {n} (query, config, executor) results match the JAX expected ids")
 
 
+def phase_flash(torch, dev, flush):
+    """The flash kernel against its plain version at every ``FLASH_CASES``
+    shape in float32 and bf16 (through ``ops.flash_attention``, which pads
+    S to the tile), then timed at the prefill's shape beside the plain
+    version and ``scaled_dot_product_attention``. Returns the kernels row."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    errs = {}
+    for name, b, h, hkv, s, dh, causal, window in FLASH_CASES:
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = (
+                torch.randn(b, s, n, dh, generator=g, device=dev).to(getattr(torch, dtype))
+                for n in (h, hkv, hkv)
+            )
+            kw = dict(causal=causal, window=window)
+            got = ops.flash_attention(q, k, v, **kw)
+            want = ops.flash_attention(q, k, v, **kw, use_kernel=False)
+            torch.cuda.synchronize()
+            if got.dtype != q.dtype or got.shape != q.shape:
+                fail(f"flash {name}/{dtype}: output {got.dtype} {tuple(got.shape)}")
+            err = float((got.float() - want.float()).abs().max())
+            if not err <= FLASH_TOL[dtype]:
+                fail(f"flash {name}/{dtype}: max abs err {err} vs its plain version > {FLASH_TOL[dtype]}")
+            errs[f"{name}/{dtype}"] = err
+    log(f"[flash] max abs err vs the plain version (limits {json.dumps(FLASH_TOL)}): {json.dumps(errs)}")
+
+    _, b, h, hkv, s, dh, _, _ = FLASH_CASES[0]
+    q, k, v = (
+        torch.randn(b, n, s, dh, generator=g, device=dev).to(torch.bfloat16)
+        for n in (h, hkv, hkv)
+    )
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = time_cuda(torch, lambda: flash_attention_cuda(q, k, v, causal=True), flush)
+    plain_ms = time_cuda(torch, lambda: ref.flash_attention(q, k, v, causal=True), flush, iters=5)
+    library_ms = time_cuda(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), flush)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())  # q, k, v read; out written
+    ops_ = 4 * b * h * s * s * dh * 0.5  # the causal half
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / BF16_OPS_PER_S
+    row = {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": KERNEL_INFO["flash_attention"][0],
+        "replaces": KERNEL_INFO["flash_attention"][1],
+        "launches": 0,
+        "max_abs_err": errs["qwen2/bfloat16"],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+        "bytes": int(nbytes),
+    }
+    log(
+        f"[flash] timed at B={b} H={h} Hkv={hkv} S={s} Dh={dh} bf16 causal: "
+        f"{json.dumps(row)}"
+    )
+    return row
+
+
+def first_differences(torch, model, prompt, got, want):
+    """Where greedy tokens ``got`` first differ from the reference model's
+    own ``want``, row by row: (row, step, the reference's top-2 logits
+    there), replaying the reference's tokens to that step."""
+    from repro_torch.models import KVCache
+
+    out = []
+    for row in range(want.shape[0]):
+        diff = torch.nonzero(got[row] != want[row]).flatten()
+        if diff.numel() == 0:
+            continue
+        step = int(diff[0])
+        cache = KVCache.empty(model.cfg, want.shape[0], prompt.shape[1] + want.shape[1], device=prompt.device)
+        logits, cache = model.prefill(prompt, cache)
+        for t in range(step):
+            logits, cache = model.decode_step(want[:, t].long(), cache)
+        top2 = torch.topk(logits[row].float(), 2).values.tolist()
+        out.append((row, step, top2))
+    return out
+
+
+def lm_rates(torch, model, prompt, runs: int = 3) -> dict:
+    """p50 over ``runs`` of prefill tokens/s (the whole prompt) and greedy
+    decode tokens/s (``LM_NEW - 1`` steps of the batch)."""
+    from repro_torch.models import KVCache
+
+    pre, dec = [], []
+    b, s = prompt.shape
+    for _ in range(runs):
+        cache = KVCache.empty(model.cfg, b, s + LM_NEW, device=prompt.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(prompt, cache)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(LM_NEW - 1):
+            logits, cache = model.decode_step(logits.argmax(-1), cache)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pre.append(b * s / (t1 - t0))
+        dec.append(b * (LM_NEW - 1) / (t2 - t1))
+    return {"prefill_tokens_per_s_p50": float(np.median(pre)),
+            "decode_tokens_per_s_p50": float(np.median(dec))}
+
+
+def phase_lm(torch, dev, seed: int, profile: bool) -> int:
+    """qwen2-0.5b generation at full width and depth, kernel executor vs
+    reference executor. Returns the flash launches of one kernel
+    ``generate`` (the main path's count)."""
+    from repro_torch.configs.qwen2_0_5b import CONFIG
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import KVCache, TransformerLM, init_params
+    from repro_torch.serving import generate
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    params = init_params(CONFIG, g, device=dev, dtype=torch.bfloat16)
+    models = {ex: TransformerLM.from_params(CONFIG, params, executor=ex) for ex in ("kernel", "reference")}
+    prompt = torch.randint(0, CONFIG.vocab, (LM_BATCH, LM_PROMPT), generator=g, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.values())
+    log(
+        f"[lm] qwen2-0.5b: {CONFIG.n_layers} layers, d {CONFIG.d_model}, {CONFIG.n_heads} heads "
+        f"({CONFIG.n_kv_heads} kv, head_dim {CONFIG.resolved_head_dim}), vocab {CONFIG.vocab}; "
+        f"{n_params} bf16 parameters made in {time.perf_counter() - t0:.1f}s; prompt "
+        f"{LM_BATCH} x {LM_PROMPT}, {LM_NEW} new tokens, greedy, bf16 cache"
+    )
+
+    logits = {}
+    for ex, model in models.items():
+        cache = KVCache.empty(CONFIG, LM_BATCH, LM_PROMPT + LM_NEW, device=dev)
+        logits[ex], _ = model.prefill(prompt, cache)
+    lerr = float((logits["kernel"].float() - logits["reference"].float()).abs().max())
+    if not bool(torch.isfinite(logits["kernel"]).all()) or tuple(logits["kernel"].shape) != (LM_BATCH, CONFIG.vocab):
+        fail("lm: prefill logits are not finite values of shape [B, vocab]")
+    if not lerr <= LM_LOGITS_TOL:
+        fail(f"lm: prefill logits, kernel vs reference executor, differ by {lerr} > {LM_LOGITS_TOL}")
+    log(
+        f"[lm] prefill logits kernel vs reference: max abs diff {lerr} (limit {LM_LOGITS_TOL}); "
+        f"logit magnitude max {float(logits['reference'].float().abs().max())}"
+    )
+
+    tokens, launches = {}, {}
+    for ex, model in models.items():
+        reset_launches()
+        tokens[ex] = generate(model, prompt, max_new_tokens=LM_NEW)
+        torch.cuda.synchronize()
+        launches[ex] = dict(LAUNCHES)  # read right after the path's run
+    if launches["kernel"]["flash_attention"] != CONFIG.n_layers:
+        fail(f"lm: {launches['kernel']['flash_attention']} flash launches per kernel generate, "
+             f"expected one per layer ({CONFIG.n_layers})")
+    if any(launches["reference"].values()):
+        fail(f"lm: the reference executor launched a kernel: {launches['reference']}")
+    got, want = tokens["kernel"], tokens["reference"]
+    if tuple(got.shape) != (LM_BATCH, LM_NEW) or int(got.min()) < 0 or int(got.max()) >= CONFIG.vocab:
+        fail(f"lm: generated tokens of shape {tuple(got.shape)} outside the vocabulary")
+    ties = first_differences(torch, models["reference"], prompt, got, want)
+    for row, step, top2 in ties:
+        gap = top2[0] - top2[1]
+        if not gap <= LM_LOGITS_TOL:
+            fail(f"lm: row {row} first differs at step {step}, where the reference's top-2 "
+                 f"logits {top2} are {gap} apart > {LM_LOGITS_TOL}")
+        log(f"[ties] lm row {row}: tokens first differ at step {step}, reference top-2 logits {top2} (gap {gap})")
+    same = int((got == want).all(dim=1).sum())
+    log(
+        f"[lm] generate: kernel vs reference tokens identical in {same} of {LM_BATCH} rows "
+        f"({len(ties)} rows first differ at a near-tie); flash launches per generate "
+        f"kernel {launches['kernel']['flash_attention']}, reference {launches['reference']['flash_attention']}"
+    )
+    for ex, model in models.items():
+        log(f"[lm] {ex} executor: {json.dumps(lm_rates(torch, model, prompt))}")
+    if profile:
+        profile_lm(torch, models["kernel"], prompt)
+    return launches["kernel"]["flash_attention"]
+
+
+def profile_lm(torch, model, prompt, steps: int = 4):
+    """One kernel-executor prefill, then ``steps`` decode steps, each under
+    ``torch.profiler``: wall time, summed device kernel time and busy
+    share, the flash kernel's time and launches, the top device kernels
+    and (decode) the top host ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import KVCache
+
+    def traced(fn):
+        fn()  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.key_averages()
+        dev_k = sorted(
+            ((getattr(e, "self_device_time_total", 0), e.count, e.key) for e in events
+             if str(e.device_type).endswith("CUDA")),
+            reverse=True,
+        )
+        host = sorted(
+            ((e.self_cpu_time_total, e.key) for e in events if str(e.device_type).endswith("CPU")),
+            reverse=True,
+        )
+        busy = sum(t for t, _, _ in dev_k)
+        flash = [(t, c) for t, c, k in dev_k if "flash_fwd" in k]
+        launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+        return (
+            f"{wall_us:.1f} us wall, device kernels {busy:.1f} us ({busy / wall_us:.1%} busy), "
+            f"{launches} kernel launches; flash kernel {sum(t for t, _ in flash):.1f} us in "
+            f"{sum(c for _, c in flash)} launches; top kernels: "
+            + "; ".join(f"{k[:48]} x{c} {t:.1f}us" for t, c, k in dev_k[:5])
+            + " | top host ops (self CPU): "
+            + "; ".join(f"{k[:32]} {t:.1f}us" for t, k in host[:5])
+        )
+
+    b, s = prompt.shape
+    cache = KVCache.empty(model.cfg, b, s + LM_NEW, device=prompt.device)
+    prefill = traced(lambda: model.prefill(prompt, cache))  # the returned cache is dropped
+    log(f"[profile] lm prefill of {b} x {s} (kernel executor): {prefill}")
+    logits, filled = model.prefill(prompt, cache)
+    nxt = logits.argmax(-1)
+
+    def decode():
+        c = filled
+        for _ in range(steps):
+            _, c = model.decode_step(nxt, c)
+
+    log(f"[profile] lm decode, {steps} steps of batch {b} from position {s}: {traced(decode)}")
+
+
 def run(torch, dev, args) -> list:
     """All phases on ``dev``; returns the kernels rows (raises on any
     failed check)."""
@@ -597,8 +860,7 @@ def run(torch, dev, args) -> list:
     ))
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     kernels = phase_kernels(torch, index, plan_ragged, flush)
-    del flush
-    kernel_err = max(row["max_abs_err"] for row in kernels)
+    kernel_err = max(row["max_abs_err"] for row in kernels)  # the scoring kernels
     queries, qmask = make_queries(torch, index, 128, args.seed + 1)
     counts, _ = phase_retrieve(torch, retriever, queries, qmask, 4, kernel_err)
     for row in kernels:
@@ -607,7 +869,12 @@ def run(torch, dev, args) -> list:
         phase_profile(torch, retriever, queries, qmask)
     phase_serve(torch, retriever, 256, args.seed + 2, kernel_err)
     phase_fixture(torch, dev)
-    return kernels
+    del retriever, index, plan_ragged, queries, qmask
+
+    flash = phase_flash(torch, dev, flush)
+    del flush
+    flash["launches"] = phase_lm(torch, dev, args.seed + 3, args.profile)
+    return kernels + [flash]
 
 
 def main() -> int:
@@ -615,7 +882,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
         "--profile", action="store_true",
-        help="after the retrieve phase, profile where a retrieve's time goes",
+        help="profile where a retrieve's time goes (after the retrieve phase) "
+        "and where an LM prefill's time goes (after the lm phase)",
     )
     args = ap.parse_args()
 
@@ -634,7 +902,9 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     log(f"[setup] torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
+    t0 = time.perf_counter()
     kernels = run(torch, torch.device("cuda"), args)
+    log(f"[done] all phases in {time.perf_counter() - t0:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({

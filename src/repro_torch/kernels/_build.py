@@ -36,7 +36,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point of each kernel library: (symbol, argtypes).
 KERNELS = {
     "selective_sum": (
@@ -49,6 +49,10 @@ KERNELS = {
     "ragged_fused_gather_score": (
         "warp_ragged_fused_gather_score",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "flash_attention": (
+        "warp_flash_attention",
+        [_P, _P, _P, _P, *[_I] * 6, *[_L] * 9, _I, _I, _I, _P],
     ),
 }
 

@@ -1,4 +1,5 @@
-"""Dispatch of the scoring stage: CUDA kernel or plain version.
+"""Dispatch of the scoring stage and of flash attention: CUDA kernel or
+plain version.
 
 Counterpart of ``repro/kernels/ops.py``. ``use_kernel=True`` (the resolved
 ``executor="kernel"``) goes through the kernel wrappers, which launch the
@@ -18,9 +19,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decompress_score import selective_sum as _selective_sum_kernel
+from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 from repro_torch.kernels.fused_gather_score import (
     DEFAULT_RAGGED_TILE_C,
     DEFAULT_TILE_C,
@@ -33,6 +36,7 @@ __all__ = [
     "fused_gather_selective_sum",
     "ragged_selective_sum",
     "ragged_fused_gather_selective_sum",
+    "flash_attention",
     "resolve_tile_c",
     "resolve_tile_choice",
     "validate_tile_c",
@@ -195,3 +199,44 @@ def ragged_fused_gather_selective_sum(
     if not use_kernel:
         return ref.ragged_fused_gather_score(*args, nbits=nbits, dim=dim, tile_c=tile_c)
     return ragged_fused_gather_score(*args, nbits=nbits, dim=dim, tile_c=tile_c)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    tq: int = 128,
+    tk: int = 128,
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """Flash-attention forward. q [B, Sq, H, Dh], k/v [B, Skv, Hkv, Dh]
+    (the layers' layout) -> [B, Sq, H, Dh]. Pads S to the tile size as the
+    JAX dispatch does; GQA reads kv head h // (H / Hkv) instead of
+    repeating heads. ``use_kernel=False`` runs the plain version on any
+    device."""
+    sq, skv = q.shape[1], k.shape[1]
+    tq = min(tq, max(8, sq))
+    tk = min(tk, max(8, skv))
+    sq_p, skv_p = _round_up(sq, tq), _round_up(skv, tk)
+    if skv_p != skv and not causal:
+        # Padded key positions (> Sq - 1) are hidden only by causality;
+        # without it they would contribute — the caller must pre-pad.
+        raise ValueError("non-causal flash_attention requires Skv % tk == 0")
+    if sq_p != sq:
+        q = F.pad(q, (0, 0, 0, 0, 0, sq_p - sq))
+    if skv_p != skv:
+        k = F.pad(k, (0, 0, 0, 0, 0, skv_p - skv))
+        v = F.pad(v, (0, 0, 0, 0, 0, skv_p - skv))
+    fn = _flash_kernel if use_kernel else ref.flash_attention
+    out = fn(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window, tq=tq, tk=tk,
+    )
+    return out.transpose(1, 2)[:, :sq]

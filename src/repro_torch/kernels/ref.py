@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the scoring kernels: the semantics contract.
 
-Counterparts of ``repro/kernels/ref.py``. Every CUDA kernel in this
-package is held against the function here of the same name; the CPU
-tests hold these against the JAX references. They gather — they are the
-contract, not the fast path.
+Counterparts of ``repro/kernels/ref.py`` (and, for ``flash_attention``,
+of the function ``repro/kernels/flash_attention.py`` computes). Every CUDA
+kernel in this package is held against the function here of the same
+name; the CPU tests hold these against the JAX references. They gather
+and materialize — they are the contract, not the fast path.
 
 ``v`` is the per-query-token table ``v[q, d, code] = q_d * bucket_weight
 [code]`` (f32[Q, D, 2^b]); a token row's score is ``sum_d v[q, d,
@@ -12,6 +13,8 @@ fused versions, here).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -25,6 +28,7 @@ __all__ = [
     "ragged_selective_sum_lut",
     "fused_gather_score",
     "ragged_fused_gather_score",
+    "flash_attention",
 ]
 
 # Dimensions scored per gather step; bounds the gathered intermediate at
@@ -167,3 +171,57 @@ def ragged_fused_gather_score(
     scores = ragged_selective_sum(gathered, qtok_slot, v, nbits=nbits, dim=dim)
     scores = scores + per_slot(pscore.float(), tile_c)
     return torch.where(valid, scores, 0.0)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    tq: int = 128,
+    tk: int = 128,
+) -> torch.Tensor:
+    """q [B, H, Sq, Dh], k/v [B, Hkv, Skv, Dh] (Hkv | H; head h reads kv
+    head h // (H / Hkv)) -> [B, H, Sq, Dh] in ``q.dtype``.
+
+    The TPU kernel's recurrence, block by block over ``tk`` keys: float32
+    scores scaled by 1/sqrt(Dh), masked to -1e30 where ``rel = q_pos -
+    k_pos`` breaks ``rel >= 0`` (causal) or ``rel < window``, running
+    (max, sum, acc) in float32, ``acc / max(sum, 1e-30)``. Positions are
+    absolute indices into the arrays. ``tq`` is the TPU's query tile; it
+    does not change the function and is not used here."""
+    b, h, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    scale = 1.0 / math.sqrt(dh)
+    qf = q.float().reshape(b, hkv, rep * sq, dh)  # the heads sharing a kv head, stacked
+    q_pos = torch.arange(sq, device=q.device).unsqueeze(-1)
+    m = l = acc = None
+    for k0 in range(0, skv, tk):
+        kb = k[:, :, k0 : k0 + tk].float()  # [B, Hkv, T, Dh]
+        vb = v[:, :, k0 : k0 + tk].float()
+        t = kb.shape[2]
+        s = (qf @ kb.transpose(-1, -2)).reshape(b, hkv, rep, sq, t) * scale
+        rel = q_pos - torch.arange(k0, k0 + t, device=q.device)
+        mask = torch.ones_like(rel, dtype=torch.bool)
+        if causal:
+            mask &= rel >= 0
+        if window is not None:
+            mask &= rel < window
+        s = torch.where(mask, s, -1e30)
+        m_blk = s.amax(-1)
+        p = torch.exp(s - m_blk.unsqueeze(-1))
+        l_blk = p.sum(-1)
+        acc_blk = (p.reshape(b, hkv, rep * sq, t) @ vb).reshape(b, hkv, rep, sq, dh)
+        if m is None:
+            m, l, acc = m_blk, l_blk, acc_blk
+            continue
+        m_tot = torch.maximum(m, m_blk)
+        a_prev, a_blk = torch.exp(m - m_tot), torch.exp(m_blk - m_tot)
+        m = m_tot
+        l = l * a_prev + l_blk * a_blk
+        acc = acc * a_prev.unsqueeze(-1) + acc_blk * a_blk.unsqueeze(-1)
+    out = acc / l.clamp_min(1e-30).unsqueeze(-1)
+    return out.reshape(b, h, sq, dh).to(q.dtype)

@@ -1,0 +1,245 @@
+"""Shared neural layers of the port: RMSNorm, RoPE, dense, GQA attention
+(chunked, decode), SwiGLU. Counterpart of ``repro/models/layers.py``.
+
+The functions take tensors and keep the JAX layers' layouts and dtype
+rules: statistics and rotations in float32, weights cast to the input's
+dtype, attention q [..., S, H, Dh] against k/v [..., S, Hkv, Dh] with
+query head h reading kv head h // (H / Hkv). ``RMSNorm``, ``Dense`` and
+``SwiGLU`` are the modules that hold parameters; ``Dense`` keeps its
+weight in ``nn.Linear``'s [d_out, d_in] layout.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = [
+    "rms_norm",
+    "rope_frequencies",
+    "apply_rope",
+    "rope_tables",
+    "rotate",
+    "dense",
+    "chunked_attention",
+    "gqa_attention",
+    "decode_attention",
+    "swiglu",
+    "RMSNorm",
+    "Dense",
+    "SwiGLU",
+]
+
+_MASKED = -1e30
+
+
+# ---------------------------------------------------------------- RMSNorm
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """float32 statistics and float32 scale, cast back to ``x.dtype``."""
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+# ------------------------------------------------------------------- RoPE
+def rope_frequencies(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exps)
+
+
+def rope_tables(positions: torch.Tensor, freqs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions [..., S] -> (cos, sin) [..., S, 1, Dh/2] in float32: what
+    ``apply_rope`` rotates by, computed once for every layer's q and k."""
+    angles = positions.unsqueeze(-1).float() * freqs  # [..., S, Dh/2]
+    return torch.cos(angles).unsqueeze(-2), torch.sin(angles).unsqueeze(-2)
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [..., S, H, Dh] rotated split-half by ``rope_tables``, in float32,
+    cast back to ``x.dtype``."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+    """x [..., S, H, Dh], positions [..., S] -> x rotated split-half, in
+    float32, cast back to ``x.dtype``."""
+    return rotate(x, *rope_tables(positions, freqs))
+
+
+# ------------------------------------------------------------------ Dense
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
+    """weight [d_out, d_in] and bias cast to ``x.dtype``."""
+    return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
+
+
+# -------------------------------------------------------------- Attention
+def _grouped(q: torch.Tensor, hkv: int) -> torch.Tensor:
+    """[..., Sq, H, Dh] -> [..., Hkv, rep * Sq, Dh]: the query heads that
+    share a kv head stacked, so one product per kv head serves them all
+    (the JAX layers repeat kv heads instead)."""
+    *batch, sq, h, dh = q.shape
+    g = q.reshape(*batch, sq, hkv, h // hkv, dh).movedim(-4, -2)  # [..., Hkv, rep, Sq, Dh]
+    return g.reshape(*batch, hkv, -1, dh)
+
+
+def _ungrouped(o: torch.Tensor, sq: int) -> torch.Tensor:
+    """[..., Hkv, rep * Sq, Dh] -> [..., Sq, H, Dh]."""
+    *batch, hkv, _, dh = o.shape
+    o = o.reshape(*batch, hkv, -1, sq, dh).movedim(-2, -4)  # [..., Sq, Hkv, rep, Dh]
+    return o.reshape(*batch, sq, -1, dh)
+
+
+def chunked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    window: int | None = None,
+    q_positions: torch.Tensor | None = None,
+    kv_positions: torch.Tensor | None = None,
+    chunk_size: int = 1024,
+) -> torch.Tensor:
+    """Attention over KV chunks with a running (max, sum, acc).
+
+    q [..., Sq, H, Dh]; k/v [..., Sk, Hkv, Dh] with Hkv | H. Masks come
+    from absolute positions (causal, window) and hide kv positions < 0,
+    filled with -1e30. As in JAX, the probabilities are cast to
+    ``v.dtype`` before the product with v, and the accumulator is kept in
+    ``q.dtype``."""
+    *batch, sq, h, dh = q.shape
+    sk, hkv = k.shape[-3], k.shape[-2]
+    dev = q.device
+    scale = 1.0 / math.sqrt(dh)
+    if q_positions is None:
+        q_positions = torch.arange(sq, device=dev).expand(*batch, sq)
+    if kv_positions is None:
+        kv_positions = torch.arange(sk, device=dev).expand(*batch, sk)
+    pad = -sk % chunk_size
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = F.pad(kv_positions, (0, pad), value=-(10**9))
+    ct = torch.promote_types(q.dtype, k.dtype)  # JAX's einsum promotes
+    qg = _grouped(q.to(ct), hkv)  # [..., Hkv, rep * Sq, Dh]
+    shape = (*batch, hkv, h // hkv, sq)
+    m_run = torch.full(shape, -math.inf, dtype=torch.float32, device=dev)
+    l_run = torch.zeros(shape, dtype=torch.float32, device=dev)
+    acc = torch.zeros((*shape, dh), dtype=q.dtype, device=dev)
+    for c0 in range(0, sk + pad, chunk_size):
+        kc = k[..., c0 : c0 + chunk_size, :, :].to(ct).movedim(-2, -3)  # [..., Hkv, C, Dh]
+        vc = v[..., c0 : c0 + chunk_size, :, :].movedim(-2, -3)
+        kp = kv_positions[..., c0 : c0 + chunk_size]
+        rel = q_positions.unsqueeze(-1) - kp.unsqueeze(-2)  # [..., Sq, C]
+        mask = (kp >= 0).unsqueeze(-2).expand_as(rel)
+        if causal:
+            mask = mask & (rel >= 0)
+        if window is not None:
+            mask = mask & (rel < window)
+        mask = mask.unsqueeze(-3).unsqueeze(-3)  # over (Hkv, rep)
+        logits = (qg @ kc.transpose(-1, -2)).float().reshape(*shape, -1) * scale
+        logits = torch.where(mask, logits, _MASKED)
+        m_c = logits.amax(-1)
+        p = torch.exp(logits - m_c.unsqueeze(-1))
+        l_c = p.sum(-1)
+        acc_c = (p.to(v.dtype).flatten(-3, -2) @ vc).reshape(*shape, dh)
+        m_new = torch.maximum(m_run, m_c)
+        a1 = torch.exp(m_run - m_new)
+        a2 = torch.exp(m_c - m_new)
+        l_run = l_run * a1 + l_c * a2
+        acc = acc * a1.unsqueeze(-1).to(acc.dtype) + acc_c * a2.unsqueeze(-1).to(acc.dtype)
+        m_run = m_new
+    out = acc / l_run.clamp_min(1e-30).unsqueeze(-1).to(acc.dtype)
+    return _ungrouped(out.flatten(-3, -2), sq).to(q.dtype)
+
+
+def gqa_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    chunk_size: int = 1024,
+) -> torch.Tensor:
+    """Self-attention through ``chunked_attention`` with the chunk capped
+    at the key length, as the JAX layers' entry point does."""
+    return chunked_attention(
+        q, k, v, causal=causal, window=window, chunk_size=min(chunk_size, k.shape[-3])
+    )
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    kv_len: torch.Tensor,
+    *,
+    window: int | None = None,
+) -> torch.Tensor:
+    """One position per row: q [B, 1, H, Dh] against the cache
+    [B, S, Hkv, Dh]. Hides positions >= kv_len (and those outside the
+    sliding window); float32 softmax; probabilities cast to the cache's
+    dtype for the product with v, so the output is in that dtype."""
+    b, _, h, dh = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    scale = 1.0 / math.sqrt(dh)
+    ct = torch.promote_types(q.dtype, k_cache.dtype)
+    qg = _grouped(q.to(ct), hkv)  # [B, Hkv, rep, Dh]
+    kc = k_cache.to(ct).transpose(1, 2)  # [B, Hkv, S, Dh]
+    logits = (qg @ kc.transpose(-1, -2)).float() * scale  # [B, Hkv, rep, S]
+    pos = torch.arange(s, device=q.device)
+    valid = pos < kv_len.unsqueeze(-1)  # [B, S]
+    if window is not None:
+        valid = valid & (pos >= kv_len.unsqueeze(-1) - window)
+    logits = torch.where(valid[:, None, None, :], logits, _MASKED)
+    p = torch.softmax(logits, dim=-1).to(v_cache.dtype)
+    return _ungrouped(p @ v_cache.transpose(1, 2), 1)  # [B, 1, H, Dh]
+
+
+# ----------------------------------------------------------------- SwiGLU
+def swiglu(x: torch.Tensor, gate, up, down) -> torch.Tensor:
+    """down(silu(gate(x)) * up(x)); each of gate/up/down is (weight, bias)."""
+    return dense(F.silu(dense(x, *gate)) * dense(x, *up), *down)
+
+
+# ---------------------------------------------------------------- modules
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.scale)
+
+
+class Dense(nn.Module):
+    """y = x @ weight.T (+ bias), weight [d_out, d_in] in ``nn.Linear``'s
+    layout, weight and bias cast to the input's dtype."""
+
+    def __init__(self, d_in: int, d_out: int, *, bias: bool = False):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(d_out, d_in))
+        self.bias = nn.Parameter(torch.zeros(d_out)) if bias else None
+
+    @property
+    def params(self):
+        return self.weight, self.bias
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.weight, self.bias)
+
+
+class SwiGLU(nn.Module):
+    def __init__(self, d_model: int, d_ff: int):
+        super().__init__()
+        self.gate = Dense(d_model, d_ff)
+        self.up = Dense(d_model, d_ff)
+        self.down = Dense(d_ff, d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return swiglu(x, self.gate.params, self.up.params, self.down.params)

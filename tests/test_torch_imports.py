@@ -1,7 +1,8 @@
 """The port stands alone and runs on the card unless asked otherwise:
-no JAX and no ``repro`` import anywhere in ``src/repro_torch`` or
-``chip_smoke.py``; entry points refuse to fall back to the CPU; the kernel
-executor refuses a CPU index."""
+no JAX and no ``repro`` import anywhere in ``src/repro_torch`` (the
+retrieval slice and the LM slice: models, configs, generation, the flash
+kernel) or ``chip_smoke.py``; entry points refuse to fall back to the CPU;
+the kernel executor refuses a CPU index."""
 
 import ast
 import os
@@ -40,7 +41,16 @@ def _imported_modules(path):
 
 def test_port_imports_neither_jax_nor_repro():
     files = _port_files()
-    assert len(files) >= 17
+    assert len(files) >= 24
+    names = {os.path.relpath(f, ROOT) for f in files}
+    assert {
+        "src/repro_torch/models/layers.py",
+        "src/repro_torch/models/transformer.py",
+        "src/repro_torch/models/convert.py",
+        "src/repro_torch/configs/qwen2_0_5b.py",
+        "src/repro_torch/serving/generate.py",
+        "src/repro_torch/kernels/flash_attention.py",
+    } <= names
     bad = [
         f"{os.path.relpath(f, ROOT)}: import {m}"
         for f in files
@@ -53,7 +63,9 @@ def test_port_imports_neither_jax_nor_repro():
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys; import repro_torch.core, repro_torch.serving, "
-        "repro_torch.store, repro_torch.kernels.ops, repro_torch.data; "
+        "repro_torch.store, repro_torch.kernels.ops, repro_torch.data, "
+        "repro_torch.models, repro_torch.configs.qwen2_0_5b, "
+        "repro_torch.kernels.flash_attention; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )

@@ -2,7 +2,9 @@
 on the card: edge shapes (an index smaller than one tile, runs ending at
 the last row, padding tiles, dims that are not a multiple of the word
 size) at nbits 2/4/8; invalid slots exactly 0; tolerance 1e-4 (float32
-sums in another order). Marked ``cuda``: each test skips itself without a
+sums in another order). Flash attention over causal and window masks,
+padded S, Dh 64 and 128, float32 and bf16, H != Hkv: 1e-4 at float32,
+2e-2 at bf16 output (one rounding of values of magnitude up to ~4). Marked ``cuda``: each test skips itself without a
 card. This file imports no JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
@@ -19,9 +21,10 @@ import torch
 
 from repro_torch.core import Retriever, WarpSearchConfig
 from repro_torch.core import worklist as wl
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decompress_score import selective_sum_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.fused_gather_score import (
     fused_gather_score_cuda,
     ragged_fused_gather_score_cuda,
@@ -176,3 +179,115 @@ def test_fixture_retrieval_on_card(card, executor):
         )
         launched = sum(LAUNCHES[k] - before[k] for k in LAUNCHES)
         assert (launched > 0) == (executor == "kernel")
+
+
+FLASH_CASES = [
+    # b, s, h, hkv, dh, causal, window
+    (2, 256, 4, 2, 64, True, None),
+    (1, 200, 4, 1, 64, True, None),  # S not a multiple of the kernel's tiles
+    (1, 384, 2, 2, 128, True, 96),  # window: rows whose first tiles are masked
+    (2, 128, 4, 4, 64, False, None),
+    (1, 256, 8, 2, 128, False, 64),  # window without causality
+    (1, 1000, 14, 2, 64, True, 512),
+]
+
+
+def _flash_inputs(seed, b, s, h, hkv, dh, dtype, device):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (
+        torch.randn(b, n, s, dh, generator=g).to(device=device, dtype=dtype)
+        for n in (h, hkv, hkv)
+    )
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,dh,causal,window", FLASH_CASES)
+def test_flash_attention_kernel_on_card(card, dtype, b, s, h, hkv, dh, causal, window):
+    q, k, v = _flash_inputs(b + s + dh, b, s, h, hkv, dh, dtype, card)
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = tref.flash_attention(q, k, v, causal=causal, window=window)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_attention_bf16_unaligned_rows_on_card(card, dh):
+    """bf16 rows that do not start on 16 bytes take the float32-FMA path
+    of the kernel (the tensor-core path loads 16-byte pieces): same result."""
+    q, k, v = _flash_inputs(dh, 2, 192, 4, 2, dh, torch.bfloat16, card)
+    buf = torch.zeros(3, 2, 4, 192, dh + 1, dtype=torch.bfloat16, device=card)
+    qm, km, vm = buf[0, :, :, :, 1:], buf[1, :, :2, :, 1:], buf[2, :, :2, :, 1:]
+    for dst, src in ((qm, q), (km, k), (vm, v)):
+        dst.copy_(src)
+    got = flash_attention_cuda(qm, km, vm, causal=True)
+    torch.testing.assert_close(
+        got.float(), tref.flash_attention(q, k, v, causal=True).float(), rtol=2e-2, atol=2e-2
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40)])
+def test_flash_attention_dispatch_pads_on_card(card, causal, window):
+    """ops.flash_attention on [B, S, H, Dh] with S padded to the tile: the
+    kernel reads the transposed views and matches the plain version."""
+    g = torch.Generator().manual_seed(7)
+    q = torch.randn(2, 100, 6, 64, generator=g).to(card)
+    k, v = (torch.randn(2, 100, 3, 64, generator=g).to(card) for _ in range(2))
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, tq=64, tk=64)
+    want = ops.flash_attention(
+        q, k, v, causal=causal, window=window, tq=64, tk=64, use_kernel=False
+    )
+    torch.testing.assert_close(got, want, **CARD_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_rejects_what_it_does_not_take(card):
+    q = torch.zeros(1, 2, 64, 32, device=card)
+    with pytest.raises(ValueError, match="head_dim=32"):
+        flash_attention_cuda(q, q, q)
+    q = torch.zeros(1, 2, 64, 64, device=card, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_cuda(q, q, q)
+
+
+@pytest.mark.cuda
+def test_lm_generate_kernel_executor_on_card(card):
+    """A small bf16 LM with head_dim 64: prefill logits of the kernel and
+    reference executors agree, one flash launch per layer per generate,
+    tokens equal or first differing at a near-tie of the reference."""
+    from repro_torch.models import KVCache, TransformerConfig, TransformerLM, init_params
+    from repro_torch.serving import generate
+
+    cfg = TransformerConfig(
+        n_layers=3, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, vocab=1024,
+        head_dim=64, qkv_bias=True, tie_embeddings=True, sliding_window=96,
+    )
+    params = init_params(cfg, torch.Generator(device=card).manual_seed(0), device=card)
+    models = {ex: TransformerLM.from_params(cfg, params, executor=ex) for ex in ("kernel", "reference")}
+    prompt = torch.randint(0, cfg.vocab, (2, 300), device=card)
+    logits = {
+        ex: m.prefill(prompt, KVCache.empty(cfg, 2, 316, device=card))[0] for ex, m in models.items()
+    }
+    torch.testing.assert_close(logits["kernel"], logits["reference"], rtol=0, atol=0.125)
+    before = LAUNCHES["flash_attention"]
+    got = generate(models["kernel"], prompt, max_new_tokens=16)
+    assert LAUNCHES["flash_attention"] == before + cfg.n_layers
+    want = generate(models["reference"], prompt, max_new_tokens=16)
+    assert LAUNCHES["flash_attention"] == before + cfg.n_layers
+    for row in range(2):
+        diff = torch.nonzero(got[row] != want[row]).flatten()
+        if diff.numel():
+            step = int(diff[0])
+            cache = KVCache.empty(cfg, 2, 316, device=card)
+            lg, cache = models["reference"].prefill(prompt, cache)
+            for t in range(step):
+                lg, cache = models["reference"].decode_step(want[:, t].long(), cache)
+            top2 = torch.topk(lg[row].float(), 2).values
+            assert float(top2[0] - top2[1]) <= 0.125
