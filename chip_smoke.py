@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--profile]
+    python3 chip_smoke.py [--seed 0] [--profile] [--lm-seeds 1]
 
 Drives the port's retrieval path at warp-xtr width on a synthetic index of
 LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
@@ -29,11 +29,15 @@ built on the card from ``--seed`` (the index build itself is not ported):
      2 kv heads, head_dim 64, vocab 151,936; random bf16 weights from
      ``--seed``): the flash-attention kernel against its plain version at
      the prefill's shapes (and padded, windowed, non-causal and Dh 128
-     ones), then ``repro_torch.serving.generate`` on a 4 x 2048-token
-     prompt for 32 greedy tokens at executor "kernel" and "reference":
-     prefill logits within ``LM_LOGITS_TOL``, identical tokens or a first
-     difference at a reported near-tie of the reference's top-2 logits,
-     and exactly one flash launch per layer per kernel ``generate``.
+     ones), element by element, and planted faults the bf16 rule must
+     reject; then ``repro_torch.serving.generate`` on a 4 x 2048-token
+     prompt for 32 greedy tokens at executor "kernel" and "reference",
+     with exactly one flash launch per layer per kernel ``generate``.
+     Fed the same tokens (the reference's), the two executors must agree:
+     the kernel at each layer's own attention inputs, the prefill KV cache
+     per layer, and the logits at every step; tokens are identical or
+     first differ at a reported near-tie of the reference's top-2 logits.
+     ``--lm-seeds N`` repeats these checks on N weight seeds.
 
 Top-k doc ids must be identical. A swap is allowed only between scores
 tied within what the kernels' measured error allows (``tie_tolerance``),
@@ -97,9 +101,12 @@ TOL = 1e-4  # kernel vs plain version, and scores across executors
 
 # LM phase: qwen2-0.5b generation. The prompt is 4 x 2048 random token ids.
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
-# Flash kernel vs its plain version: float32 sums in another order (f32),
-# plus one rounding of outputs of magnitude up to ~4 to bf16 (ulp 2^-6).
-FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# Flash kernel vs its plain version, element by element: float32 sums in
+# another order (float32: abs limit); at bf16 both outputs are rounded once
+# from float32 values that differ by far less than a bf16 ulp, so they may
+# differ by one ulp of the larger, plus FLASH_BF16_ATOL for outputs near 0.
+FLASH_F32_TOL = 1e-4
+FLASH_BF16_ATOL = 1e-5
 FLASH_CASES = (  # name, B, H, Hkv, S, Dh, causal, window
     ("qwen2", 4, 14, 2, 2048, 64, True, None),  # the prefill's shape: timed
     ("padded", 4, 14, 2, 1000, 64, True, None),
@@ -107,9 +114,15 @@ FLASH_CASES = (  # name, B, H, Hkv, S, Dh, causal, window
     ("noncausal", 4, 14, 2, 1024, 64, False, None),
     ("dh128", 4, 32, 8, 2048, 128, True, None),
 )
-# Prefill logits, kernel vs reference executor, and the top-2 gap that
-# counts as a near-tie: 4 bf16 ulps at the logits' magnitude (4 to 8).
+# Prefill and teacher-forced decode logits, kernel vs reference executor,
+# and the top-2 gap that counts as a near-tie: 4 bf16 ulps at the logits'
+# magnitude (4 to 8).
 LM_LOGITS_TOL = 0.125
+# Prefill KV cache, kernel vs reference executor, per layer: the norm of
+# the difference relative to the reference's. Not a per-element ulp limit:
+# one-ulp differences in a layer's attention flip bf16 roundings in every
+# later layer, and the difference grows with depth (to ~2^-6 at layer 23).
+LM_KV_TOL = 2.0 ** -5
 
 
 def log(msg: str) -> None:
@@ -606,17 +619,49 @@ def phase_fixture(torch, dev):
     log(f"[fixture] {n} (query, config, executor) results match the JAX expected ids")
 
 
+def bf16_ulp(torch, x):
+    """One bf16 ulp at each |x| (x float32): 2^(e - 8) for |x| = m * 2^e,
+    m in [0.5, 1); 0 at 0."""
+    _, e = torch.frexp(x)
+    return torch.where(x != 0, torch.ldexp(torch.ones_like(x), e - 8), torch.zeros_like(x))
+
+
+def bf16_excess(torch, got, want):
+    """(max |got - want|, max over elements of |got - want| less one bf16
+    ulp of the larger of |got|, |want|): the bf16 rule is excess <=
+    ``FLASH_BF16_ATOL``."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    ulp = bf16_ulp(torch, torch.maximum(got.abs(), want.abs()))
+    return float(diff.max()), float((diff - ulp).max())
+
+
+def attention_p_bf16(torch, q, k, v):
+    """Causal attention over [B, S, H(kv), Dh] with float32 scores and sums
+    but the probabilities rounded to bf16 before the product with v: what
+    the flash kernel would compute if it dropped its p_lo term."""
+    rep = q.shape[2] // k.shape[2]
+    k, v = (t.repeat_interleave(rep, dim=2).float() for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / q.shape[-1] ** 0.5
+    s = s.masked_fill(torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).triu(1), -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(torch.bfloat16).float(), v)
+    return (out / p.sum(-1).transpose(1, 2).unsqueeze(-1)).to(q.dtype)
+
+
 def phase_flash(torch, dev, flush):
     """The flash kernel against its plain version at every ``FLASH_CASES``
     shape in float32 and bf16 (through ``ops.flash_attention``, which pads
-    S to the tile), then timed at the prefill's shape beside the plain
-    version and ``scaled_dot_product_attention``. Returns the kernels row."""
+    S to the tile), element by element; then the bf16 rule is shown to
+    reject a planted fault (one kv tile's values zeroed), and the kernel is
+    timed at the prefill's shape beside the plain version and
+    ``scaled_dot_product_attention``. Returns the kernels row."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     g = torch.Generator(device=dev)
     g.manual_seed(7)
-    errs = {}
+    errs, excess = {}, {}
     for name, b, h, hkv, s, dh, causal, window in FLASH_CASES:
         for dtype in ("float32", "bfloat16"):
             q, k, v = (
@@ -629,11 +674,40 @@ def phase_flash(torch, dev, flush):
             torch.cuda.synchronize()
             if got.dtype != q.dtype or got.shape != q.shape:
                 fail(f"flash {name}/{dtype}: output {got.dtype} {tuple(got.shape)}")
-            err = float((got.float() - want.float()).abs().max())
-            if not err <= FLASH_TOL[dtype]:
-                fail(f"flash {name}/{dtype}: max abs err {err} vs its plain version > {FLASH_TOL[dtype]}")
-            errs[f"{name}/{dtype}"] = err
-    log(f"[flash] max abs err vs the plain version (limits {json.dumps(FLASH_TOL)}): {json.dumps(errs)}")
+            key = f"{name}/{dtype}"
+            if dtype == "float32":
+                errs[key] = float((got - want).abs().max())
+                if not errs[key] <= FLASH_F32_TOL:
+                    fail(f"flash {key}: max abs err {errs[key]} vs its plain version > {FLASH_F32_TOL}")
+                continue
+            errs[key], excess[key] = bf16_excess(torch, got, want)
+            if name == "qwen2":
+                planted = (q, k, v, want)
+    log(f"[flash] max abs err vs the plain version: {json.dumps(errs)}; bf16, the most an "
+        f"element differs beyond one ulp of the larger output: {json.dumps(excess)}")
+    for key, x in excess.items():
+        if not x <= FLASH_BF16_ATOL:
+            fail(f"flash {key}: an element differs from its plain version by {x} more than "
+                 f"one bf16 ulp of the larger output (> {FLASH_BF16_ATOL})")
+
+    # The bf16 rule must reject planted faults at the prefill's shape: the
+    # last kv tile's values lost, and p rounded to bf16 before p.v.
+    q, k, v, want = planted
+    v_bad = v.clone()
+    v_bad[:, -64:] = 0
+    faults = {
+        "last kv tile zeroed": ops.flash_attention(q, k, v_bad, causal=True, use_kernel=False),
+        "p rounded to bf16": attention_p_bf16(torch, q, k, v),
+    }
+    for what, bad in faults.items():
+        bad_err, bad_excess = bf16_excess(torch, bad, want)
+        if not bad_excess > FLASH_BF16_ATOL:
+            fail(f"flash: the bf16 rule does not reject a planted fault ({what})")
+        log(f"[flash] planted fault at qwen2/bfloat16, {what}: max abs err {bad_err}, "
+            f"{bad_excess} beyond one ulp: rejected")
+    log(f"[flash] qwen2/bfloat16 outputs: median |out| {float(want.float().abs().median())}, "
+        f"max {float(want.float().abs().max())}")
+    del planted, faults, v_bad
 
     _, b, h, hkv, s, dh, _, _ = FLASH_CASES[0]
     q, k, v = (
@@ -668,25 +742,68 @@ def phase_flash(torch, dev, flush):
     return row
 
 
-def first_differences(torch, model, prompt, got, want):
-    """Where greedy tokens ``got`` first differ from the reference model's
-    own ``want``, row by row: (row, step, the reference's top-2 logits
-    there), replaying the reference's tokens to that step."""
+def lm_parity(torch, models, prompt, want) -> dict:
+    """Both executors fed the same tokens: the prompt, then the reference
+    executor's greedy tokens ``want`` [B, LM_NEW] (teacher forcing). Returns
+    the measurements the lm checks read: for each layer, the flash kernel
+    on the reference prefill's own attention inputs against the reference's
+    output there (the most an element differs beyond one bf16 ulp); the
+    prefill KV cache of the two executors per layer (max abs diff, and the
+    norm of the difference relative to the reference's); the max abs
+    logits diff at every step (0: the prefill); and the reference's logits'
+    argmax and top-2 at every step."""
+    from unittest import mock
+
+    from repro_torch.configs.qwen2_0_5b import CONFIG
+    from repro_torch.kernels import ops
     from repro_torch.models import KVCache
 
-    out = []
-    for row in range(want.shape[0]):
-        diff = torch.nonzero(got[row] != want[row]).flatten()
-        if diff.numel() == 0:
-            continue
-        step = int(diff[0])
-        cache = KVCache.empty(model.cfg, want.shape[0], prompt.shape[1] + want.shape[1], device=prompt.device)
-        logits, cache = model.prefill(prompt, cache)
-        for t in range(step):
-            logits, cache = model.decode_step(want[:, t].long(), cache)
-        top2 = torch.topk(logits[row].float(), 2).values.tolist()
-        out.append((row, step, top2))
-    return out
+    b, s = prompt.shape
+    flash, captured = ops.flash_attention, []
+
+    def capture(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        captured.append((q, k, v, kw, out))
+        return out
+
+    logits, caches = {}, {}
+    for ex, m in models.items():
+        cache = KVCache.empty(CONFIG, b, s + LM_NEW, device=prompt.device)
+        with mock.patch.object(ops, "flash_attention", capture if ex == "reference" else flash):
+            logits[ex], caches[ex] = m.prefill(prompt, cache)
+    if len(captured) != CONFIG.n_layers:
+        fail(f"lm: the reference prefill ran attention {len(captured)} times, not once per layer")
+    layer_excess = []
+    for q, k, v, kw, out in captured:
+        got = flash(q, k, v, **{**kw, "use_kernel": True})
+        layer_excess.append(bf16_excess(torch, got, out)[1])
+    del captured
+    kv = []
+    for layer in range(CONFIG.n_layers):
+        row = {}
+        for name in ("k", "v"):
+            got = getattr(caches["kernel"], name)[layer, :, :s].float()
+            ref = getattr(caches["reference"], name)[layer, :, :s].float()
+            diff = got - ref
+            row[name] = (float(diff.abs().max()), float(diff.norm() / ref.norm()))
+        kv.append(row)
+    steps, argmax, top2, lmax = [], [], [], 0.0
+    for t in range(LM_NEW):
+        if t:
+            for ex, m in models.items():
+                logits[ex], caches[ex] = m.decode_step(want[:, t - 1].long(), caches[ex])
+        lk, lr = logits["kernel"].float(), logits["reference"].float()
+        if not bool(torch.isfinite(lk).all()) or tuple(lk.shape) != (b, CONFIG.vocab):
+            fail(f"lm: step {t} logits are not finite values of shape [B, vocab]")
+        steps.append(float((lk - lr).abs().max()))
+        lmax = max(lmax, float(lr.abs().max()))
+        argmax.append(lr.argmax(-1))
+        top2.append(torch.topk(lr, 2).values)
+    return {
+        "layer_excess": layer_excess, "kv": kv, "logits": steps,
+        "argmax": torch.stack(argmax, 1), "top2": torch.stack(top2, 1),
+        "logit_max": lmax,
+    }
 
 
 def lm_rates(torch, model, prompt, runs: int = 3) -> dict:
@@ -713,76 +830,112 @@ def lm_rates(torch, model, prompt, runs: int = 3) -> dict:
             "decode_tokens_per_s_p50": float(np.median(dec))}
 
 
-def phase_lm(torch, dev, seed: int, profile: bool) -> int:
-    """qwen2-0.5b generation at full width and depth, kernel executor vs
-    reference executor. Returns the flash launches of one kernel
-    ``generate`` (the main path's count)."""
-    from repro_torch.configs.qwen2_0_5b import CONFIG
-    from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.models import KVCache, TransformerLM, init_params
-    from repro_torch.serving import generate
-
-    t0 = time.perf_counter()
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    params = init_params(CONFIG, g, device=dev, dtype=torch.bfloat16)
-    models = {ex: TransformerLM.from_params(CONFIG, params, executor=ex) for ex in ("kernel", "reference")}
-    prompt = torch.randint(0, CONFIG.vocab, (LM_BATCH, LM_PROMPT), generator=g, device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params.values())
-    log(
-        f"[lm] qwen2-0.5b: {CONFIG.n_layers} layers, d {CONFIG.d_model}, {CONFIG.n_heads} heads "
-        f"({CONFIG.n_kv_heads} kv, head_dim {CONFIG.resolved_head_dim}), vocab {CONFIG.vocab}; "
-        f"{n_params} bf16 parameters made in {time.perf_counter() - t0:.1f}s; prompt "
-        f"{LM_BATCH} x {LM_PROMPT}, {LM_NEW} new tokens, greedy, bf16 cache"
-    )
-
-    logits = {}
-    for ex, model in models.items():
-        cache = KVCache.empty(CONFIG, LM_BATCH, LM_PROMPT + LM_NEW, device=dev)
-        logits[ex], _ = model.prefill(prompt, cache)
-    lerr = float((logits["kernel"].float() - logits["reference"].float()).abs().max())
-    if not bool(torch.isfinite(logits["kernel"]).all()) or tuple(logits["kernel"].shape) != (LM_BATCH, CONFIG.vocab):
-        fail("lm: prefill logits are not finite values of shape [B, vocab]")
-    if not lerr <= LM_LOGITS_TOL:
-        fail(f"lm: prefill logits, kernel vs reference executor, differ by {lerr} > {LM_LOGITS_TOL}")
-    log(
-        f"[lm] prefill logits kernel vs reference: max abs diff {lerr} (limit {LM_LOGITS_TOL}); "
-        f"logit magnitude max {float(logits['reference'].float().abs().max())}"
-    )
-
-    tokens, launches = {}, {}
-    for ex, model in models.items():
-        reset_launches()
-        tokens[ex] = generate(model, prompt, max_new_tokens=LM_NEW)
-        torch.cuda.synchronize()
-        launches[ex] = dict(LAUNCHES)  # read right after the path's run
-    if launches["kernel"]["flash_attention"] != CONFIG.n_layers:
-        fail(f"lm: {launches['kernel']['flash_attention']} flash launches per kernel generate, "
-             f"expected one per layer ({CONFIG.n_layers})")
-    if any(launches["reference"].values()):
-        fail(f"lm: the reference executor launched a kernel: {launches['reference']}")
-    got, want = tokens["kernel"], tokens["reference"]
-    if tuple(got.shape) != (LM_BATCH, LM_NEW) or int(got.min()) < 0 or int(got.max()) >= CONFIG.vocab:
-        fail(f"lm: generated tokens of shape {tuple(got.shape)} outside the vocabulary")
-    ties = first_differences(torch, models["reference"], prompt, got, want)
-    for row, step, top2 in ties:
+def check_lm(par: dict, got, want, seed: int) -> None:
+    """Raises unless the measurements of ``lm_parity`` hold: the flash
+    kernel within the bf16 rule at every layer's own inputs, layer 0's
+    cache identical (no attention has run before it), every later layer's
+    within ``LM_KV_TOL``, logits within ``LM_LOGITS_TOL`` at every step,
+    the reference's teacher-forced argmax its own greedy tokens, and every
+    row where the kernel's tokens ``got`` part from ``want`` first doing
+    so at a near-tie of the reference's top-2 logits (each reported)."""
+    for layer, x in enumerate(par["layer_excess"]):
+        if not x <= FLASH_BF16_ATOL:
+            fail(f"lm seed {seed}: at layer {layer}'s own inputs the flash kernel differs from the "
+                 f"reference by {x} more than one bf16 ulp (> {FLASH_BF16_ATOL})")
+    for layer, row in enumerate(par["kv"]):
+        for name, (err, rel) in row.items():
+            if layer == 0 and err != 0:
+                fail(f"lm seed {seed}: layer 0 {name} cache differs ({err}) before any attention ran")
+            if not rel <= LM_KV_TOL:
+                fail(f"lm seed {seed}: layer {layer} {name} cache, kernel vs reference, relative "
+                     f"norm of the difference {rel} > {LM_KV_TOL}")
+    worst = max(par["logits"])
+    if not worst <= LM_LOGITS_TOL:
+        step = par["logits"].index(worst)
+        fail(f"lm seed {seed}: teacher-forced logits at step {step} differ by {worst} > {LM_LOGITS_TOL}")
+    if not bool((par["argmax"] == want).all()):
+        fail(f"lm seed {seed}: the reference's teacher-forced argmax is not its own greedy output")
+    for row in range(want.shape[0]):
+        diff = (got[row] != want[row]).nonzero().flatten()
+        if diff.numel() == 0:
+            continue
+        step = int(diff[0])
+        top2 = par["top2"][row, step].tolist()
         gap = top2[0] - top2[1]
         if not gap <= LM_LOGITS_TOL:
-            fail(f"lm: row {row} first differs at step {step}, where the reference's top-2 "
-                 f"logits {top2} are {gap} apart > {LM_LOGITS_TOL}")
-        log(f"[ties] lm row {row}: tokens first differ at step {step}, reference top-2 logits {top2} (gap {gap})")
-    same = int((got == want).all(dim=1).sum())
-    log(
-        f"[lm] generate: kernel vs reference tokens identical in {same} of {LM_BATCH} rows "
-        f"({len(ties)} rows first differ at a near-tie); flash launches per generate "
-        f"kernel {launches['kernel']['flash_attention']}, reference {launches['reference']['flash_attention']}"
-    )
-    for ex, model in models.items():
-        log(f"[lm] {ex} executor: {json.dumps(lm_rates(torch, model, prompt))}")
-    if profile:
-        profile_lm(torch, models["kernel"], prompt)
-    return launches["kernel"]["flash_attention"]
+            fail(f"lm seed {seed}: row {row} first differs at step {step}, where the reference's "
+                 f"top-2 logits {top2} are {gap} apart > {LM_LOGITS_TOL}")
+        log(f"[ties] lm seed {seed} row {row}: tokens first differ at step {step}, reference "
+            f"top-2 logits {top2} (gap {gap})")
+
+
+def phase_lm(torch, dev, seeds, profile: bool) -> int:
+    """qwen2-0.5b generation at full width and depth, kernel executor vs
+    reference executor, for weights and prompt drawn from each of
+    ``seeds``. The first seed is the main path: its kernel ``generate``'s
+    flash launches are returned, and its tokens/s (and, with ``profile``,
+    its breakdown) are measured."""
+    from repro_torch.configs.qwen2_0_5b import CONFIG
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import TransformerLM, init_params
+    from repro_torch.serving import generate
+
+    for seed in seeds:
+        first = seed == seeds[0]
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        params = init_params(CONFIG, g, device=dev, dtype=torch.bfloat16)
+        models = {ex: TransformerLM.from_params(CONFIG, params, executor=ex) for ex in ("kernel", "reference")}
+        prompt = torch.randint(0, CONFIG.vocab, (LM_BATCH, LM_PROMPT), generator=g, device=dev)
+        torch.cuda.synchronize()
+        if first:
+            log(
+                f"[lm] qwen2-0.5b: {CONFIG.n_layers} layers, d {CONFIG.d_model}, {CONFIG.n_heads} "
+                f"heads ({CONFIG.n_kv_heads} kv, head_dim {CONFIG.resolved_head_dim}), vocab "
+                f"{CONFIG.vocab}; {sum(p.numel() for p in params.values())} bf16 parameters made "
+                f"in {time.perf_counter() - t0:.1f}s; prompt {LM_BATCH} x {LM_PROMPT}, {LM_NEW} "
+                f"new tokens, greedy, bf16 cache; weight seeds {list(seeds)}"
+            )
+
+        tokens, launches = {}, {}
+        for ex, model in models.items():
+            reset_launches()
+            tokens[ex] = generate(model, prompt, max_new_tokens=LM_NEW)
+            torch.cuda.synchronize()
+            launches[ex] = dict(LAUNCHES)  # read right after the path's run
+        if launches["kernel"]["flash_attention"] != CONFIG.n_layers:
+            fail(f"lm: {launches['kernel']['flash_attention']} flash launches per kernel generate, "
+                 f"expected one per layer ({CONFIG.n_layers})")
+        if any(launches["reference"].values()):
+            fail(f"lm: the reference executor launched a kernel: {launches['reference']}")
+        if first:
+            main = launches["kernel"]["flash_attention"]
+        got, want = tokens["kernel"], tokens["reference"]
+        if tuple(got.shape) != (LM_BATCH, LM_NEW) or int(got.min()) < 0 or int(got.max()) >= CONFIG.vocab:
+            fail(f"lm: generated tokens of shape {tuple(got.shape)} outside the vocabulary")
+
+        par = lm_parity(torch, models, prompt, want)
+        kv_rel = [max(r["k"][1], r["v"][1]) for r in par["kv"]]
+        log(
+            f"[lm] seed {seed}: flash kernel at each layer's own inputs, the most an element "
+            f"differs from the reference beyond one bf16 ulp: {max(par['layer_excess'])} (limit "
+            f"{FLASH_BF16_ATOL}); prefill cache kernel vs reference, relative norm of the "
+            f"difference per layer (larger of k, v) {json.dumps(kv_rel)} (limit {LM_KV_TOL}), max "
+            f"abs {max(r[n][0] for r in par['kv'] for n in r)}; teacher-forced logits max abs diff "
+            f"per step (0 = prefill) {json.dumps(par['logits'])} (limit {LM_LOGITS_TOL}, logits up "
+            f"to {par['logit_max']}); tokens identical in {int((got == want).all(dim=1).sum())} "
+            f"of {LM_BATCH} rows"
+        )
+        check_lm(par, got, want, seed)
+        if first:
+            for ex, model in models.items():
+                log(f"[lm] {ex} executor: {json.dumps(lm_rates(torch, model, prompt))}")
+            if profile:
+                profile_lm(torch, models["kernel"], prompt)
+        del params, models, par
+    log(f"[lm] flash launches per kernel generate {main}, per reference generate 0")
+    return main
 
 
 def profile_lm(torch, model, prompt, steps: int = 4):
@@ -873,7 +1026,8 @@ def run(torch, dev, args) -> list:
 
     flash = phase_flash(torch, dev, flush)
     del flush
-    flash["launches"] = phase_lm(torch, dev, args.seed + 3, args.profile)
+    seeds = [args.seed + 3 + i for i in range(args.lm_seeds)]
+    flash["launches"] = phase_lm(torch, dev, seeds, args.profile)
     return kernels + [flash]
 
 
@@ -884,6 +1038,11 @@ def main() -> int:
         "--profile", action="store_true",
         help="profile where a retrieve's time goes (after the retrieve phase) "
         "and where an LM prefill's time goes (after the lm phase)",
+    )
+    ap.add_argument(
+        "--lm-seeds", type=int, default=1,
+        help="hold the lm phase's kernel and reference executors to each other on this "
+        "many weight seeds (the first is the main path)",
     )
     args = ap.parse_args()
 

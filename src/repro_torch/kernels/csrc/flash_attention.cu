@@ -13,18 +13,16 @@
 // 4*B*H*S*S*Dh/2 = 30.1 GFLOP (30 us at the 989 TFLOP/s bf16 tensor-core
 // peak) against 33.6 MB of q, k, v and out (10 us at 3.35 TB/s).
 //
-// Two paths. bf16 inputs whose rows start on 16 bytes run on the tensor
-// cores (flash_fwd_mma_kernel, below); float32 inputs, and bf16 rows that
-// do not, run the float32 FMA kernel described next.
+// Two paths, one per dtype. bf16 inputs run on the tensor cores
+// (flash_fwd_mma_kernel, below); float32 inputs run the FMA kernel
+// described next.
 //
 // Design. One block of 256 threads per (q-block of 64 rows, head, batch).
 // It stages its q-block once in shared memory and streams k/v tiles of 64
 // keys through it; each thread owns 4 rows x 4 keys of the score tile and
 // 4 rows x Dh/16 columns of the output, keeping the running (max, sum,
 // acc) of its rows in float32 registers: the TPU kernel's sequential KV
-// grid axis becomes this loop. Inputs are converted to float32 on the way
-// into shared memory, and every product and sum is float32 FMA, so bf16
-// and float32 inputs go through the same arithmetic.
+// grid axis becomes this loop. Every product and sum is float32 FMA.
 //
 // Masks. Masked scores are -1e30, as on the TPU: a row whose tiles are all
 // masked gets the mean of v over all keys, never 0/0 or inf - inf. A row's
@@ -61,20 +59,12 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 template <int DH>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (DH * kQP + DH * kKP + kBK * DH + kBK * kPP);
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   float* q_t = smem;               // [DH][kQP]  q tile, transposed
@@ -86,14 +76,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * kBQ, hh = blockIdx.y, bb = blockIdx.z;
   const int hk = hh / (p.h / p.hkv);
-  const T* qg = static_cast<const T*>(p.q) + bb * p.q_sb + hh * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + bb * p.kv_sb + hk * p.kv_sh;
-  const T* vg = static_cast<const T*>(p.v) + bb * p.kv_sb + hk * p.kv_sh;
-  T* og = static_cast<T*>(p.o) + bb * p.o_sb + hh * p.o_sh;
+  const float* qg = static_cast<const float*>(p.q) + bb * p.q_sb + hh * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + bb * p.kv_sb + hk * p.kv_sh;
+  const float* vg = static_cast<const float*>(p.v) + bb * p.kv_sb + hk * p.kv_sh;
+  float* og = static_cast<float*>(p.o) + bb * p.o_sb + hh * p.o_sh;
 
   for (int i = tid; i < kBQ * DH; i += kThreads) {
     const int r = i / DH, d = i % DH;
-    q_t[d * kQP + r] = q0 + r < p.sq ? to_f32(qg[(q0 + r) * p.q_ss + d]) : 0.f;
+    q_t[d * kQP + r] = q0 + r < p.sq ? qg[(q0 + r) * p.q_ss + d] : 0.f;
   }
 
   // kv tiles this block visits.
@@ -120,8 +110,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
       const int c = i / DH, d = i % DH;
       const bool in = k0 + c < p.skv;
       const int64_t off = static_cast<int64_t>(k0 + c) * p.kv_ss + d;
-      k_t[d * kKP + c] = in ? to_f32(kg[off]) : 0.f;
-      v_s[c * DH + d] = in ? to_f32(vg[off]) : 0.f;
+      k_t[d * kKP + c] = in ? kg[off] : 0.f;
+      v_s[c * DH + d] = in ? vg[off] : 0.f;
     }
     __syncthreads();
 
@@ -197,11 +187,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     const int r = q0 + ty * 4 + i;
     if (r >= p.sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* orow = og + static_cast<int64_t>(r) * p.o_ss;
+    float* orow = og + static_cast<int64_t>(r) * p.o_ss;
 #pragma unroll
     for (int jj = 0; jj < DH / 64; ++jj)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) orow[jj * 64 + tx * 4 + j] = from_f32<T>(acc[i][jj * 4 + j] * inv);
+      for (int j = 0; j < 4; ++j) orow[jj * 64 + tx * 4 + j] = acc[i][jj * 4 + j] * inv;
   }
 }
 
@@ -395,14 +385,14 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_mma_kernel(Params p) {
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch(const Params& p, int b, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.sq + kBQ - 1) / kBQ, p.h, b);
-  flash_fwd_kernel<T, DH><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<DH><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -417,11 +407,10 @@ cudaError_t launch_mma(const Params& p, int b, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_dh(const Params& p, int b, int dh, cudaStream_t stream) {
   switch (dh) {
-    case 64: return launch<T, 64>(p, b, stream);
-    case 128: return launch<T, 128>(p, b, stream);
+    case 64: return launch<64>(p, b, stream);
+    case 128: return launch<128>(p, b, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -435,7 +424,8 @@ cudaError_t launch_mma_dh(const Params& p, int b, int dh, cudaStream_t stream) {
 }
 
 // The tensor-core path loads 16-byte pieces of q/k/v rows and stores
-// 4-byte pairs of out: it needs every row start 16-byte aligned.
+// 4-byte pairs of out: it needs every row start 16-byte aligned (the
+// wrapper copies bf16 input that is not).
 bool mma_aligned(const Params& p) {
   const auto a16 = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
   const int64_t strides[] = {p.q_sb, p.q_sh, p.q_ss, p.kv_sb, p.kv_sh, p.kv_ss, p.o_sb, p.o_sh, p.o_ss};
@@ -446,8 +436,8 @@ bool mma_aligned(const Params& p) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. Strides are in elements; the last axis
-// (Dh) is contiguous. window < 0 means no window.
+// dtype: 0 float32, 1 bfloat16 (rows on 16 bytes). Strides are in
+// elements; the last axis (Dh) is contiguous. window < 0 means no window.
 extern "C" int warp_flash_attention(
     const void* q, const void* k, const void* v, void* o, int b, int h, int hkv, int sq,
     int skv, int dh, long long q_sb, long long q_sh, long long q_ss, long long kv_sb,
@@ -462,10 +452,10 @@ extern "C" int warp_flash_attention(
                  1.f / sqrtf(static_cast<float>(dh))};
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return static_cast<int>(launch_dh<float>(p, b, dh, s));
+    case 0: return static_cast<int>(launch_dh(p, b, dh, s));
     case 1:
-      return static_cast<int>(mma_aligned(p) ? launch_mma_dh(p, b, dh, s)
-                                             : launch_dh<__nv_bfloat16>(p, b, dh, s));
+      if (!mma_aligned(p)) return static_cast<int>(cudaErrorMisalignedAddress);
+      return static_cast<int>(launch_mma_dh(p, b, dh, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -7,7 +7,9 @@
 ``repro/kernels/flash_attention.py::flash_attention_kernel_call``. The
 kernel reads strided inputs (the last axis contiguous), so a [B, S, H, Dh]
 tensor passes as its ``transpose(1, 2)`` view without a copy, and the
-output keeps q's strides.
+output keeps q's strides. bf16 runs on the tensor cores, which load rows in
+16-byte pieces: a bf16 input whose rows do not start on 16 bytes is copied
+first.
 """
 
 from __future__ import annotations
@@ -29,20 +31,20 @@ def flash_attention(
     *,
     causal: bool = True,
     window: int | None = None,
-    tq: int = 128,
-    tk: int = 128,
 ) -> torch.Tensor:
     """q [B, H, Sq, Dh], k/v [B, Hkv, Skv, Dh] -> [B, H, Sq, Dh] in
     ``q.dtype`` (see ``ref.flash_attention`` for the function)."""
-    kw = dict(causal=causal, window=window, tq=tq, tk=tk)
     if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, **kw)
-    return flash_attention_cuda(q, k, v, **kw)
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)
 
 
-def flash_attention_cuda(q, k, v, *, causal=True, window=None, tq=128, tk=128):
-    """The CUDA kernel. ``tq``/``tk`` name the TPU kernel's tiles and do
-    not change the function; the kernel tiles 64 rows by 64 keys."""
+def _rows_on_16_bytes(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
+def flash_attention_cuda(q, k, v, *, causal=True, window=None):
+    """The CUDA kernel (64-row by 64-key tiles)."""
     dev = _build.cuda_device(q)
     b, h, sq, dh = q.shape
     if q.dtype not in _DTYPES:
@@ -61,6 +63,12 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, tq=128, tk=128):
         raise ValueError("v must have the shape and strides of k")
     if q.stride(-1) != 1 or k.stride(-1) != 1:
         raise ValueError("q, k and v need a contiguous last (head_dim) axis")
+    if q.dtype == torch.bfloat16:
+        dense = dict(memory_format=torch.contiguous_format)
+        if not _rows_on_16_bytes(q):
+            q = q.clone(**dense)
+        if not (_rows_on_16_bytes(k) and _rows_on_16_bytes(v)):  # k and v share strides
+            k, v = k.clone(**dense), v.clone(**dense)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

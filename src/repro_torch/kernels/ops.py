@@ -234,9 +234,9 @@ def flash_attention(
     if skv_p != skv:
         k = F.pad(k, (0, 0, 0, 0, 0, skv_p - skv))
         v = F.pad(v, (0, 0, 0, 0, 0, skv_p - skv))
-    fn = _flash_kernel if use_kernel else ref.flash_attention
-    out = fn(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, window=window, tq=tq, tk=tk,
-    )
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    if use_kernel:
+        out = _flash_kernel(*args, causal=causal, window=window)
+    else:
+        out = ref.flash_attention(*args, causal=causal, window=window, tk=tk)
     return out.transpose(1, 2)[:, :sq]

@@ -180,7 +180,6 @@ def flash_attention(
     *,
     causal: bool = True,
     window: int | None = None,
-    tq: int = 128,
     tk: int = 128,
 ) -> torch.Tensor:
     """q [B, H, Sq, Dh], k/v [B, Hkv, Skv, Dh] (Hkv | H; head h reads kv
@@ -190,8 +189,7 @@ def flash_attention(
     scores scaled by 1/sqrt(Dh), masked to -1e30 where ``rel = q_pos -
     k_pos`` breaks ``rel >= 0`` (causal) or ``rel < window``, running
     (max, sum, acc) in float32, ``acc / max(sum, 1e-30)``. Positions are
-    absolute indices into the arrays. ``tq`` is the TPU's query tile; it
-    does not change the function and is not used here."""
+    absolute indices into the arrays."""
     b, h, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     rep = h // hkv
