@@ -38,6 +38,21 @@ built on the card from ``--seed`` (the index build itself is not ported):
      per layer, and the logits at every step; tokens are identical or
      first differ at a reported near-tie of the reference's top-2 logits.
      ``--lm-seeds N`` repeats these checks on N weight seeds.
+  6. recsys serving (``recsys``) at full width: the embedding-bag kernel
+     against its plain version per element within
+     ``ref.embedding_bag_error_bound`` at the path's shapes (int32 and
+     int64 ids, zero weights, ids outside [0, V), an unaligned table
+     view), two planted faults the limit must reject, and the kernel timed
+     beside its plain version and ``F.embedding_bag``; then
+     two-tower-retrieval (``repro_torch/configs/two_tower_retrieval.py``:
+     user table 5M x 256, item table 2M x 256, tower MLP 1024-512-256;
+     random weights from ``--seed``) through ``serve_step`` at serve_p99
+     (512 users), serve_bulk (262,144) and retrieval_cand (one user
+     against 1M candidates made by ``item_embed`` on the card) at executor
+     "kernel" (two bag launches per serve step) and "reference", outputs
+     within 1e-5 and the top-100 candidates identical up to a reported
+     swap inside a tie; DIN, xDeepFM and SASRec at serve_p99 (their
+     retrieval_cand shapes do not fit on one card).
 
 Top-k doc ids must be identical. A swap is allowed only between scores
 tied within what the kernels' measured error allows (``tie_tolerance``),
@@ -96,6 +111,10 @@ KERNEL_INFO = {
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:85",
     ),
+    "embedding_bag": (
+        "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "src/repro/kernels/embedding_bag.py:53",
+    ),
 }
 TOL = 1e-4  # kernel vs plain version, and scores across executors
 
@@ -123,6 +142,18 @@ LM_LOGITS_TOL = 0.125
 # one-ulp differences in a layer's attention flip bf16 roundings in every
 # later layer, and the difference grows with depth (to ~2^-6 at layer 23).
 LM_KV_TOL = 2.0 ** -5
+
+# Recsys phase: two-tower-retrieval at full width (serve_p99, serve_bulk,
+# retrieval_cand); DIN, xDeepFM and SASRec at serve_p99. Embedding-bag
+# kernel vs its plain version per element within
+# ref.embedding_bag_error_bound; two-tower outputs (u, v, scores) across
+# executors within RECSYS_TT_TOL abs (they are L2-normalised, ~1/16 an
+# element); DIN and xDeepFM logits within RECSYS_LOGIT_TOL * max(1, |ref|).
+RECSYS_TT_TOL = 1e-5
+RECSYS_LOGIT_TOL = 1e-4
+RECSYS_TOPK = 100
+RECSYS_CAND_CHUNK = 262_144  # candidate embeddings made per item_embed call
+RECSYS_P99_STEPS = 50  # timed serve_p99 steps per executor
 
 
 def log(msg: str) -> None:
@@ -242,17 +273,18 @@ def tie_tolerance(kernel_err: float, scores) -> float:
     return 2.0 * (ARCH["query_maxlen"] * kernel_err + float(np.spacing(np.float32(top))))
 
 
-def topk_swaps(what: str, ids_a, s_a, ids_b, s_b, kernel_err: float) -> int:
+def topk_swaps(what: str, ids_a, s_a, ids_b, s_b, kernel_err: float, *, tol=TOL, tie=None) -> int:
     """Positions where two top-k lists name different docs. Raises unless
-    the scores agree within ``TOL`` position by position and every such
-    position lies in a run of scores tied within ``tie_tolerance`` that
-    also holds the other list's doc there (or, at the k-th place, whose
-    score is tied with it)."""
+    the scores agree within ``tol`` position by position and every such
+    position lies in a run of scores tied within ``tie`` (by default
+    ``tie_tolerance``) that also holds the other list's doc there (or, at
+    the k-th place, whose score is tied with it)."""
     ids_a, ids_b = np.asarray(ids_a), np.asarray(ids_b)
     s_a, s_b = np.asarray(s_a), np.asarray(s_b)
-    tie = tie_tolerance(kernel_err, s_a)
-    if not np.allclose(s_a, s_b, rtol=TOL, atol=TOL):
-        fail(f"{what}: scores differ by more than {TOL}")
+    if tie is None:
+        tie = tie_tolerance(kernel_err, s_a)
+    if not np.allclose(s_a, s_b, rtol=tol, atol=tol):
+        fail(f"{what}: scores differ by more than {tol}")
     diff = np.flatnonzero(ids_a != ids_b)
     for ids_x, s_x, ids_y, s_y in ((ids_a, s_a, ids_b, s_b), (ids_b, s_b, ids_a, s_a)):
         for i in diff:
@@ -992,6 +1024,406 @@ def profile_lm(torch, model, prompt, steps: int = 4):
     log(f"[profile] lm decode, {steps} steps of batch {b} from position {s}: {traced(decode)}")
 
 
+# ---------------------------------------------------------------------------
+# recsys: the embedding-bag kernel and the four recsys models
+# ---------------------------------------------------------------------------
+
+
+def recsys_batch(torch, cfg, shape, g, dev) -> dict:
+    """The batch ``RecsysFamily.input_specs`` names for ``cfg`` at
+    ``shape``, on the card: ids uniform over the vocabulary (as hashed ids
+    are), masks with 1..width valid slots (a prefix; SASRec's a suffix, so
+    its last position is real)."""
+    from repro_torch.models import DINConfig, SASRecConfig, TwoTowerConfig
+
+    b, nc, retrieval = shape.batch, shape.n_candidates, shape.kind == "retrieval"
+
+    def ids(vocab, *dims):
+        return torch.randint(0, vocab, dims, generator=g, device=dev)
+
+    def mask(rows, width, suffix=False):
+        n = torch.randint(1, width + 1, (rows, 1), generator=g, device=dev)
+        pos = torch.arange(width, device=dev)
+        return (pos >= width - n if suffix else pos < n).float()
+
+    if isinstance(cfg, TwoTowerConfig):
+        out = {"user_ids": ids(cfg.user_vocab, b, cfg.user_fields),
+               "user_mask": mask(b, cfg.user_fields)}
+        if not retrieval:
+            out["item_ids"] = ids(cfg.item_vocab, b, cfg.item_fields)
+            out["item_mask"] = mask(b, cfg.item_fields)
+        return out
+    if isinstance(cfg, SASRecConfig):
+        out = {"seq_ids": ids(cfg.item_vocab, b, cfg.seq_len),
+               "seq_mask": mask(b, cfg.seq_len, suffix=True)}
+        out["cand_ids" if retrieval else "target_ids"] = ids(cfg.item_vocab, nc if retrieval else b)
+        return out
+    if isinstance(cfg, DINConfig):
+        rows = 1 if retrieval else b
+        return {"target_ids": ids(cfg.item_vocab, nc if retrieval else b),
+                "hist_ids": ids(cfg.item_vocab, rows, cfg.seq_len),
+                "hist_mask": mask(rows, cfg.seq_len)}
+    return {"field_ids": ids(cfg.vocab, nc if retrieval else b, cfg.n_fields)}
+
+
+def bag_check(torch, what, table, idx, w) -> dict:
+    """The embedding-bag kernel against its plain version on the same
+    inputs, element by element within ``ref.embedding_bag_error_bound``;
+    returns max abs err and the largest share of its limit an element
+    used."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+
+    got = embedding_bag_cuda(table, idx, w)
+    want = ref.embedding_bag_bags(table, idx, w)
+    limit = ref.embedding_bag_error_bound(table, idx, w)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        fail(f"embedding_bag {what}: output {tuple(got.shape)} is not finite of shape {tuple(want.shape)}")
+    diff = (got - want).abs()
+    if not bool((diff <= limit).all()):
+        fail(f"embedding_bag {what}: an element differs from the plain version by "
+             f"{float((diff - limit).max())} beyond its limit")
+    return {"max_abs_err": float(diff.max()), "share_of_limit": float((diff / limit).max())}
+
+
+def phase_bag(torch, dev, tt_params, din_table, xdeepfm_linear, flush) -> dict:
+    """The embedding-bag kernel against its plain version at the recsys
+    path's shapes (the two-tower towers at serve_bulk and serve_p99 on the
+    full-size tables, DIN's interest and xDeepFM's linear term at
+    serve_p99), with int32 and int64 ids, zero weights, ids outside [0, V)
+    (which must give exactly the in-range-only sum) and a table view whose
+    rows are not on 16 bytes; then two planted faults the limit must
+    reject (on the user tower's shape with weights in [0, 1), since the
+    path's 0/1 mask hides a squared weight), and the kernel timed at the user tower's serve_bulk shape
+    beside its plain version and ``F.embedding_bag``. Returns the kernels
+    row."""
+    from repro_torch.configs import RECSYS_SHAPES
+    from repro_torch.configs.two_tower_retrieval import CONFIG as TT
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    bulk, p99 = RECSYS_SHAPES["serve_bulk"].batch, RECSYS_SHAPES["serve_p99"].batch
+    user, item = tt_params["user_table"], tt_params["item_table"]
+
+    def bags(table, s, l, dtype=torch.int64, zeros=0.2):
+        idx = torch.randint(0, table.shape[0], (s, l), generator=g, device=dev).to(dtype)
+        w = torch.rand(s, l, generator=g, device=dev)
+        return idx, torch.where(torch.rand(s, l, generator=g, device=dev) < zeros, 0.0, w)
+
+    checks = {}
+    # The timed case is the main path's own input: the user tower at
+    # serve_bulk, its mask as the weights.
+    main = recsys_batch(torch, TT, RECSYS_SHAPES["serve_bulk"], g, dev)
+    uidx, uw = main["user_ids"], main["user_mask"]
+    checks["user tower serve_bulk (path's ids and mask)"] = bag_check(torch, "user bulk", user, uidx, uw)
+    cases = {
+        "user tower serve_bulk int32": (user, *bags(user, bulk, TT.user_fields, torch.int32)),
+        "item tower serve_bulk": (item, *bags(item, bulk, TT.item_fields)),
+        "user tower serve_p99": (user, *bags(user, p99, TT.user_fields)),
+        "din interest serve_p99": (din_table, *bags(din_table, p99, 100)),
+        "xdeepfm linear serve_p99": (xdeepfm_linear, *bags(xdeepfm_linear, p99, 39, torch.int32)),
+        "zero weights": (user, bags(user, p99, 8)[0], torch.zeros(p99, 8, device=dev)),
+    }
+    wide = torch.empty(min(100_000, user.shape[0]), 257, device=dev)
+    wide[:, 1:] = user[: wide.shape[0]]
+    cases["unaligned rows (stride 257, +4 bytes)"] = (wide[:, 1:], *bags(wide, p99, 8))
+    for what, (table, idx, w) in cases.items():
+        checks[what] = bag_check(torch, what, table, idx, w)
+    if bool(embedding_bag_cuda(user, *cases["zero weights"][1:]).any()):
+        fail("embedding_bag: zero weights did not give exactly 0")
+    _, fidx, fw = cases["user tower serve_bulk int32"]
+    del wide, cases
+
+    for dtype in (torch.int32, torch.int64):
+        idx, w = bags(user, p99, 8, dtype)
+        far = torch.randint(user.shape[0], 2**31 - 1, (p99, 8), generator=g, device=dev)
+        bad = torch.rand(p99, 8, generator=g, device=dev) < 0.25
+        idx = torch.where(bad, torch.where(far % 2 == 0, far, -far), idx.long())
+        if dtype == torch.int64:
+            idx[0, :3] = torch.tensor([2**32 + 7, -(2**32) + 7, 2**62], device=dev)
+        idx = idx.to(dtype)
+        valid = (idx >= 0) & (idx < user.shape[0])
+        got = embedding_bag_cuda(user, idx, w)
+        in_range = embedding_bag_cuda(user, torch.where(valid, idx, 0), torch.where(valid, w, 0.0))
+        if not torch.equal(got, in_range):
+            fail(f"embedding_bag: {dtype} ids outside [0, V) do not give exactly the in-range sum")
+        checks[f"ids outside [0, V), {dtype}"] = bag_check(torch, f"outside {dtype}", user, idx, w)
+    log(f"[bag] kernel vs plain version per element: {json.dumps(checks)}")
+
+    # The limit must reject planted faults, written as perturbations of
+    # the plain version's output.
+    want = ref.embedding_bag_bags(user, fidx, fw)
+    limit = ref.embedding_bag_error_bound(user, fidx, fw)
+    faults = {
+        "last index of each bag dropped": ref.embedding_bag_bags(user, fidx[:, :-1], fw[:, :-1]),
+        "weight applied twice": ref.embedding_bag_bags(user, fidx, fw * fw),
+    }
+    for what, bad in faults.items():
+        excess = float(((bad - want).abs() - limit).max())
+        if not excess > 0:
+            fail(f"embedding_bag: the per-element limit does not reject a planted fault ({what})")
+        log(f"[bag] planted fault, {what}: max abs err {float((bad - want).abs().max())}, "
+            f"{excess} beyond the limit: rejected")
+    del faults, want, limit, fidx, fw
+
+    s, l, d = uidx.shape[0], uidx.shape[1], user.shape[1]
+    lib = torch.nn.functional.embedding_bag
+    lib_err = float((lib(uidx, user, per_sample_weights=uw, mode="sum")
+                     - ref.embedding_bag_bags(user, uidx, uw)).abs().max())
+    ms = time_cuda(torch, lambda: embedding_bag_cuda(user, uidx, uw), flush)
+    plain_ms = time_cuda(torch, lambda: ref.embedding_bag_bags(user, uidx, uw), flush, iters=5)
+    library_ms = time_cuda(torch, lambda: lib(uidx, user, per_sample_weights=uw, mode="sum"), flush)
+    needed = int((uw != 0).sum())  # rows a sum of the nonzero terms reads
+    nbytes = needed * d * 4 + s * l * (uidx.element_size() + 4) + s * d * 4
+    all_rows = s * l * d * 4 + s * l * (uidx.element_size() + 4) + s * d * 4
+    ops_ = 2 * needed * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S
+    row = {
+        "name": "embedding_bag",
+        "route": "cuda",
+        "source": KERNEL_INFO["embedding_bag"][0],
+        "replaces": KERNEL_INFO["embedding_bag"][1],
+        "launches": 0,
+        "max_abs_err": checks["user tower serve_bulk (path's ids and mask)"]["max_abs_err"],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+        "bytes": int(nbytes),
+    }
+    log(
+        f"[bag] timed at the user tower's serve_bulk input: S={s} L={l} D={d} V={user.shape[0]} "
+        f"int64 ids, {needed} of {s * l} weights nonzero (the mask); every row read: "
+        f"{all_rows} bytes, {all_rows / HBM_BYTES_PER_S * 1e3:.6f} ms at 3.35 TB/s; "
+        f"F.embedding_bag vs plain max abs err {lib_err}; {json.dumps(row)}"
+    )
+    return row
+
+
+def phase_recsys(torch, dev, seed: int, flush, profile: bool) -> dict:
+    """Recsys serving at full width: the embedding-bag kernel checks
+    (``phase_bag``), then two-tower-retrieval through ``serve_step`` at
+    serve_p99, serve_bulk and retrieval_cand at executor "kernel" (the
+    main path: the launch counts are read just after it) and "reference",
+    held element by element; DIN, xDeepFM and SASRec at serve_p99. Returns
+    the kernels row with the main path's launches."""
+    from repro_torch.configs import RECSYS_SHAPES, RecsysShape, din, sasrec, xdeepfm
+    from repro_torch.configs.two_tower_retrieval import CONFIG as TT
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import TwoTower, init_params, serve_step
+    from repro_torch.models.recsys import RECSYS_MODELS
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    tt_params = init_params(TT, g, device=dev)
+    others = {name: (mod.CONFIG, init_params(mod.CONFIG, g, device=dev))
+              for name, mod in (("din", din), ("xdeepfm", xdeepfm), ("sasrec", sasrec))}
+    torch.cuda.synchronize()
+    log(
+        f"[recsys] two-tower-retrieval: user table {tuple(tt_params['user_table'].shape)}, item "
+        f"table {tuple(tt_params['item_table'].shape)} f32, tower MLP {TT.tower_mlp}; "
+        f"{sum(p.numel() for p in tt_params.values())} parameters; din, xdeepfm, sasrec "
+        f"{[sum(p.numel() for p in ps.values()) for _, ps in others.values()]}; all made on the "
+        f"card in {time.perf_counter() - t0:.3f}s; {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated"
+    )
+    row = phase_bag(torch, dev, tt_params, others["din"][1]["table"],
+                    others["xdeepfm"][1]["linear"], flush)
+
+    models = {ex: TwoTower.from_params(TT, tt_params, executor=ex) for ex in ("kernel", "reference")}
+    batches = {
+        name: recsys_batch(torch, TT, RECSYS_SHAPES[name], g, dev) for name in ("serve_p99", "serve_bulk")
+    }
+    n_cand = RECSYS_SHAPES["retrieval_cand"].n_candidates
+    cand = recsys_batch(torch, TT, RecsysShape("serve", n_cand), g, dev)  # the candidates' items
+    query = recsys_batch(torch, TT, RECSYS_SHAPES["retrieval_cand"], g, dev)
+
+    def serve(model, name):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = serve_step(model, RECSYS_SHAPES[name])(batches[name])
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def candidates(model):
+        """Candidate embeddings [1M, 256], item_embed in chunks."""
+        return torch.cat([
+            model.item_embed(cand["item_ids"][i:i + RECSYS_CAND_CHUNK],
+                             cand["item_mask"][i:i + RECSYS_CAND_CHUNK])
+            for i in range(0, n_cand, RECSYS_CAND_CHUNK)
+        ])
+
+    def retrieve(model, cand_emb):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        scores = serve_step(model, RECSYS_SHAPES["retrieval_cand"])(query | {"cand_emb": cand_emb})
+        top = torch.topk(scores[0], RECSYS_TOPK)
+        torch.cuda.synchronize()
+        return scores, top, time.perf_counter() - t
+
+    n_calls = -(-n_cand // RECSYS_CAND_CHUNK)
+    # Bag launches of one executor's drive below: a serve step launches
+    # one per tower, an item_embed and a retrieval one each.
+    path_launches = 2 * (1 + RECSYS_P99_STEPS + 1 + 3) + n_calls + 1 + 10
+    stats, outs, counts = {}, {}, {}
+    for ex, model in models.items():
+        serve(model, "serve_p99")  # warm
+        retrieve(model, torch.zeros(RECSYS_TOPK, TT.tower_mlp[-1], device=dev))
+        reset_launches()  # the path starts here
+        out_p99, _ = serve(model, "serve_p99")
+        step_launches = LAUNCHES["embedding_bag"]
+        p99_times = [serve(model, "serve_p99")[1] for _ in range(RECSYS_P99_STEPS)]
+        out_bulk, _ = serve(model, "serve_bulk")
+        bulk_times = [serve(model, "serve_bulk")[1] for _ in range(3)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cand_emb = candidates(model)
+        torch.cuda.synchronize()
+        cand_s = time.perf_counter() - t
+        scores, top, _ = retrieve(model, cand_emb)
+        ret_times = [retrieve(model, cand_emb)[2] for _ in range(10)]
+        counts[ex] = dict(LAUNCHES)  # read right after the path's run
+        u, v = {}, {}
+        for name, batch in batches.items():
+            u[name] = model.user_embed(batch["user_ids"], batch["user_mask"])
+            v[name] = model.item_embed(batch["item_ids"], batch["item_mask"])
+        outs[ex] = {"serve_p99": out_p99, "serve_bulk": out_bulk, "u": u, "v": v,
+                    "cand_emb": cand_emb, "scores": scores, "top": top}
+        stats[ex] = {
+            "serve_p99_ms": percentiles_ms(p99_times),
+            "serve_bulk_users_per_s": float(RECSYS_SHAPES["serve_bulk"].batch / np.median(bulk_times)),
+            "candidates_1m_ms": cand_s * 1e3,
+            "retrieval_cand_ms": percentiles_ms(ret_times),
+            "bag_launches_per_serve_step": step_launches,
+            "bag_launches": counts[ex]["embedding_bag"],
+        }
+        log(f"[recsys] two-tower {ex} executor: {json.dumps(stats[ex])}")
+    if stats["kernel"]["bag_launches_per_serve_step"] != 2 or counts["kernel"]["embedding_bag"] != path_launches:
+        fail(f"recsys: {stats['kernel']['bag_launches_per_serve_step']} bag launches per kernel serve "
+             f"step (expected 2, one per tower), {counts['kernel']['embedding_bag']} over the path "
+             f"(expected {path_launches})")
+    if any(counts["reference"].values()):
+        fail(f"recsys: the reference executor launched a kernel: {counts['reference']}")
+
+    kern, refr = outs["kernel"], outs["reference"]
+    errs = {}
+    for key in ("serve_p99", "serve_bulk"):
+        errs[f"scores {key}"] = float((kern[key] - refr[key]).abs().max())
+        errs[f"u {key}"] = float((kern["u"][key] - refr["u"][key]).abs().max())
+        errs[f"v {key}"] = float((kern["v"][key] - refr["v"][key]).abs().max())
+        for t in (kern[key], kern["u"][key], kern["v"][key]):
+            if not bool(torch.isfinite(t).all()):
+                fail(f"recsys: two-tower {key} outputs are not finite")
+    errs["candidate embeddings"] = float((kern["cand_emb"] - refr["cand_emb"]).abs().max())
+    errs["retrieval scores"] = float((kern["scores"] - refr["scores"]).abs().max())
+    log(f"[recsys] two-tower kernel vs reference, max abs diff: {json.dumps(errs)} (limit {RECSYS_TT_TOL})")
+    for key, err in errs.items():
+        if not err <= RECSYS_TT_TOL:
+            fail(f"recsys: two-tower {key} differ across executors by {err} > {RECSYS_TT_TOL}")
+    norms = kern["u"]["serve_bulk"].norm(dim=-1)
+    if not bool(((norms - 1).abs() < 1e-4).all()):
+        fail("recsys: two-tower user embeddings are not unit vectors")
+    if tuple(kern["scores"].shape) != (1, RECSYS_SHAPES["retrieval_cand"].n_candidates):
+        fail(f"recsys: retrieval scores of shape {tuple(kern['scores'].shape)}")
+    swaps = topk_swaps(
+        "two-tower retrieval_cand top-100, kernel vs reference",
+        kern["top"].indices.cpu().numpy(), kern["top"].values.cpu().numpy(),
+        refr["top"].indices.cpu().numpy(), refr["top"].values.cpu().numpy(),
+        0.0, tol=RECSYS_TT_TOL, tie=2 * RECSYS_TT_TOL,
+    )
+    log(f"[recsys] retrieval_cand top-{RECSYS_TOPK} of {RECSYS_SHAPES['retrieval_cand'].n_candidates} "
+        f"candidates: {swaps} places swapped within a tie of {2 * RECSYS_TT_TOL}; scores "
+        f"{float(kern['top'].values[-1])}..{float(kern['top'].values[0])}")
+    if profile:
+        profile_recsys(torch, models["kernel"], batches)
+    del models, outs, kern, refr, batches, cand, tt_params
+
+    # DIN, xDeepFM, SASRec at full width, serve_p99 only (retrieval_cand does
+    # not fit: DIN's 1M broadcast histories are a [1M, 100, 72] f32 feature
+    # tensor, 28.8 GB, before the attention MLP; xDeepFM's CIN at 1M rows is
+    # hundreds of GB).
+    shape = RECSYS_SHAPES["serve_p99"]
+    for name, (cfg, params) in others.items():
+        batch = recsys_batch(torch, cfg, shape, g, dev)
+        res, launched, lat = {}, {}, {}
+        for ex in ("kernel", "reference"):
+            model = RECSYS_MODELS[type(cfg)].from_params(cfg, params, executor=ex)
+            step = serve_step(model, shape)
+            step(batch)  # warm
+            reset_launches()  # this model's path
+            res[ex] = step(batch)
+            torch.cuda.synchronize()
+            launched[ex] = LAUNCHES["embedding_bag"]
+            times = []
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step(batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            lat[ex] = percentiles_ms(times)
+        got, want = res["kernel"], res["reference"]
+        if tuple(got.shape) != (shape.batch,) or not bool(torch.isfinite(got).all()):
+            fail(f"recsys {name}: outputs of shape {tuple(got.shape)} are not finite of shape [{shape.batch}]")
+        err = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+        expect = 0 if name == "sasrec" else 1
+        if launched != {"kernel": expect, "reference": 0}:
+            fail(f"recsys {name}: bag launches per serve step {launched}, expected {expect} at the kernel executor")
+        if name != "sasrec" and not err <= RECSYS_LOGIT_TOL:
+            fail(f"recsys {name}: logits differ across executors by {err} of max(1, |ref|) > {RECSYS_LOGIT_TOL}")
+        log(f"[recsys] {name} serve_p99: kernel vs reference max |diff| / max(1, |ref|) {err}, "
+            f"outputs {float(want.abs().max())} at most; bag launches per step {launched}; step "
+            f"latency (ms) kernel {json.dumps(lat['kernel'])} reference {json.dumps(lat['reference'])}")
+    row["launches"] = counts["kernel"]["embedding_bag"]
+    log(f"[recsys] phase took {time.perf_counter() - t0:.1f}s")
+    return row
+
+
+def profile_recsys(torch, model, batches):
+    """One kernel-executor two-tower serve step per shape under
+    ``torch.profiler``: wall time, device busy share, the bag kernel's time
+    and launches, the top device kernels and host ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import RECSYS_SHAPES
+    from repro_torch.models import serve_step
+
+    step = serve_step(model, RECSYS_SHAPES["serve_p99"])
+    for name, batch in batches.items():
+        step(batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.key_averages()
+        dev_k = sorted(
+            ((getattr(e, "self_device_time_total", 0), e.count, e.key) for e in events
+             if str(e.device_type).endswith("CUDA")),
+            reverse=True,
+        )
+        host = sorted(
+            ((e.self_cpu_time_total, e.key) for e in events if str(e.device_type).endswith("CPU")),
+            reverse=True,
+        )
+        busy = sum(t for t, _, _ in dev_k)
+        bag = [(t, c) for t, c, k in dev_k if "embedding_bag_kernel" in k]
+        launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+        log(
+            f"[profile] two-tower {name} serve step (kernel executor): {wall_us:.1f} us wall, device "
+            f"kernels {busy:.1f} us ({busy / wall_us:.1%} busy), {launches} kernel launches; bag "
+            f"kernel {sum(t for t, _ in bag):.1f} us in {sum(c for _, c in bag)} launches; top kernels: "
+            + "; ".join(f"{k[:48]} x{c} {t:.1f}us" for t, c, k in dev_k[:5])
+            + " | top host ops (self CPU): "
+            + "; ".join(f"{k[:32]} {t:.1f}us" for t, k in host[:5])
+        )
+
+
 def run(torch, dev, args) -> list:
     """All phases on ``dev``; returns the kernels rows (raises on any
     failed check)."""
@@ -1025,10 +1457,12 @@ def run(torch, dev, args) -> list:
     del retriever, index, plan_ragged, queries, qmask
 
     flash = phase_flash(torch, dev, flush)
-    del flush
     seeds = [args.seed + 3 + i for i in range(args.lm_seeds)]
     flash["launches"] = phase_lm(torch, dev, seeds, args.profile)
-    return kernels + [flash]
+    torch.cuda.empty_cache()  # the LM's weights and caches are gone
+
+    bag = phase_recsys(torch, dev, args.seed + 4, flush, args.profile)
+    return kernels + [flash, bag]
 
 
 def main() -> int:
@@ -1036,8 +1470,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
         "--profile", action="store_true",
-        help="profile where a retrieve's time goes (after the retrieve phase) "
-        "and where an LM prefill's time goes (after the lm phase)",
+        help="profile where a retrieve's time goes (after the retrieve phase), "
+        "where an LM prefill's time goes (after the lm phase) and where a two-tower "
+        "serve step's time goes (in the recsys phase)",
     )
     ap.add_argument(
         "--lm-seeds", type=int, default=1,

@@ -1,2 +1,7 @@
 """Model configurations of the PyTorch port (its own copies of the JAX
-package's ``repro/configs``)."""
+package's ``repro/configs``): qwen2-0.5b, the four recsys models
+(two-tower-retrieval, din, xdeepfm, sasrec) and the recsys shapes."""
+
+from repro_torch.configs.families import RECSYS_SHAPES, RECSYS_SHAPES_REDUCED, RecsysShape
+
+__all__ = ["RECSYS_SHAPES", "RECSYS_SHAPES_REDUCED", "RecsysShape"]

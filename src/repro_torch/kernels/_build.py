@@ -54,6 +54,9 @@ KERNELS = {
         "warp_flash_attention",
         [_P, _P, _P, _P, *[_I] * 6, *[_L] * 9, _I, _I, _I, _P],
     ),
+    "embedding_bag": (
+        "warp_embedding_bag", [_P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _P],
+    ),
 }
 
 # Kernel launches per wrapper since the last reset: each wrapper adds one

@@ -1,5 +1,5 @@
-"""Dispatch of the scoring stage and of flash attention: CUDA kernel or
-plain version.
+"""Dispatch of the scoring stage, flash attention and the embedding bag:
+CUDA kernel or plain version.
 
 Counterpart of ``repro/kernels/ops.py``. ``use_kernel=True`` (the resolved
 ``executor="kernel"``) goes through the kernel wrappers, which launch the
@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decompress_score import selective_sum as _selective_sum_kernel
+from repro_torch.kernels.embedding_bag import embedding_bag as _embedding_bag_kernel
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 from repro_torch.kernels.fused_gather_score import (
     DEFAULT_RAGGED_TILE_C,
@@ -37,6 +38,7 @@ __all__ = [
     "ragged_selective_sum",
     "ragged_fused_gather_selective_sum",
     "flash_attention",
+    "embedding_bag",
     "resolve_tile_c",
     "resolve_tile_choice",
     "validate_tile_c",
@@ -240,3 +242,43 @@ def flash_attention(
     else:
         out = ref.flash_attention(*args, causal=causal, window=window, tk=tk)
     return out.transpose(1, 2)[:, :sq]
+
+
+def embedding_bag(
+    table: torch.Tensor,
+    indices: torch.Tensor | None = None,
+    segment_ids: torch.Tensor | None = None,
+    *,
+    num_segments: int | None = None,
+    weights: torch.Tensor | None = None,
+    use_kernel: bool = False,
+    bag_indices: torch.Tensor | None = None,
+    bag_weights: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """EmbeddingBag(sum), in the JAX dispatch's two call forms:
+
+    - flat: (table, indices [N], segment_ids [N], num_segments) ->
+      ``ref.embedding_bag`` (gather + ``index_add_``), as JAX runs it
+      outside any kernel;
+    - padded: (table, bag_indices [S, L], bag_weights [S, L]) -> [S, D].
+      ``use_kernel=True`` runs the embedding-bag kernel (an index outside
+      [0, V) contributes 0, as in the TPU kernel); one launch takes any S,
+      L and V, so nothing is padded. ``use_kernel=False`` is JAX's dense
+      path: ``jnp.take``'s rows (NaN for an index outside [-V, V), a
+      negative one in range wraps) times the weights, summed over L.
+    """
+    if bag_indices is not None:
+        if bag_weights is None:
+            raise ValueError("the padded form needs bag_weights beside bag_indices")
+        if use_kernel:
+            return _embedding_bag_kernel(
+                table, bag_indices.contiguous(), bag_weights.to(torch.float32).contiguous()
+            )
+        s, l = bag_indices.shape
+        rows = ref.take(table, bag_indices.reshape(-1)).reshape(s, l, -1)
+        return torch.sum(rows * bag_weights.unsqueeze(-1), dim=1)
+    if indices is None or segment_ids is None or num_segments is None:
+        raise ValueError("the flat form needs indices, segment_ids and num_segments")
+    return ref.embedding_bag(
+        table, indices, segment_ids, num_segments=num_segments, weights=weights
+    )

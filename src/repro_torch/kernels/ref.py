@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the scoring kernels: the semantics contract.
 
-Counterparts of ``repro/kernels/ref.py`` (and, for ``flash_attention``,
-of the function ``repro/kernels/flash_attention.py`` computes). Every CUDA
+Counterparts of ``repro/kernels/ref.py`` (and, for ``flash_attention`` and
+``embedding_bag_bags``, of the functions ``repro/kernels/flash_attention.py``
+and ``repro/kernels/embedding_bag.py`` compute). Every CUDA
 kernel in this package is held against the function here of the same
 name; the CPU tests hold these against the JAX references. They gather
 and materialize — they are the contract, not the fast path.
@@ -29,6 +30,10 @@ __all__ = [
     "fused_gather_score",
     "ragged_fused_gather_score",
     "flash_attention",
+    "take",
+    "embedding_bag_bags",
+    "embedding_bag_error_bound",
+    "embedding_bag",
 ]
 
 # Dimensions scored per gather step; bounds the gathered intermediate at
@@ -223,3 +228,74 @@ def flash_attention(
         acc = acc * a_prev.unsqueeze(-1) + acc_blk * a_blk.unsqueeze(-1)
     out = acc / l.clamp_min(1e-30).unsqueeze(-1)
     return out.reshape(b, h, sq, dh).to(q.dtype)
+
+
+def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, idx, axis=0)`` in its default fill mode: an index
+    in [-V, 0) wraps to ``idx + V``; one outside [-V, V) gives a row of
+    NaN. -> [*idx.shape, *table.shape[1:]]."""
+    v = table.shape[0]
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + v, idx)
+    valid = (idx >= 0) & (idx < v)
+    rows = table[idx.clamp(0, max(v - 1, 0))]
+    return rows.masked_fill_(~valid.reshape(*valid.shape, *[1] * (table.dim() - 1)), math.nan)
+
+
+def _bag_terms(table, bag_indices, bag_weights):
+    """(rows [S, L] clamped into the table, weights [S, L] float32 set to 0
+    where the index lies outside [0, V))."""
+    v = table.shape[0]
+    idx = bag_indices.long()
+    w = torch.where((idx >= 0) & (idx < v), bag_weights.float(), 0.0)
+    return idx.clamp(0, max(v - 1, 0)), w
+
+
+def embedding_bag_bags(
+    table: torch.Tensor, bag_indices: torch.Tensor, bag_weights: torch.Tensor
+) -> torch.Tensor:
+    """table f32[V, D], bag_indices int[S, L], bag_weights f32[S, L] ->
+    f32[S, D], out[s] = sum_l w[s, l] * table[idx[s, l]], summed in index
+    order. As in the TPU kernel, an index outside [0, V) (negative ones
+    included) contributes exactly 0: the index is clamped into the table
+    and its weight masked to 0, so nothing reads out of range."""
+    rows, w = _bag_terms(table, bag_indices, bag_weights)
+    out = torch.zeros((rows.shape[0], table.shape[1]), dtype=torch.float32, device=table.device)
+    for j in range(rows.shape[1]):
+        out.addcmul_(table[rows[:, j]].float(), w[:, j : j + 1])
+    return out
+
+
+def embedding_bag_error_bound(
+    table: torch.Tensor, bag_indices: torch.Tensor, bag_weights: torch.Tensor
+) -> torch.Tensor:
+    """f32[S, D]: how far two float32 sums of one bag's terms, taken in
+    different orders (or with and without fused multiply-adds), may lie
+    apart per element: (L + 1) * 2^-24 * sum_l |w_l| * |table[idx_l]| +
+    1e-7, over the indices in [0, V)."""
+    rows, w = _bag_terms(table, bag_indices, bag_weights)
+    out = torch.zeros((rows.shape[0], table.shape[1]), dtype=torch.float32, device=table.device)
+    for j in range(rows.shape[1]):
+        out.addcmul_(table[rows[:, j]].float().abs(), w[:, j : j + 1].abs())
+    return out.mul_((rows.shape[1] + 1) * 2.0**-24).add_(1e-7)
+
+
+def embedding_bag(
+    table: torch.Tensor,
+    indices: torch.Tensor,
+    segment_ids: torch.Tensor,
+    *,
+    num_segments: int,
+    weights: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """EmbeddingBag(sum), flat form: out[s] = sum_{i: seg[i] == s} w[i] *
+    table[idx[i]] -> [num_segments, D]. Segment ids need not be sorted; one
+    outside [0, num_segments) is dropped, as ``jax.ops.segment_sum`` drops
+    it. Rows are gathered with ``take``'s semantics."""
+    rows = take(table, indices)
+    if weights is not None:
+        rows = rows * weights.unsqueeze(-1)
+    seg = segment_ids.long()
+    keep = (seg >= 0) & (seg < num_segments)
+    out = torch.zeros((num_segments, *table.shape[1:]), dtype=rows.dtype, device=table.device)
+    return out.index_add_(0, seg[keep], rows[keep])

@@ -1,9 +1,12 @@
-"""Weights for the port's ``TransformerLM``: carried across from the JAX
-package's parameter pytree, or drawn anew from a ``torch.Generator``.
+"""Weights for the port's models: carried across from the JAX package's
+parameter pytree, or drawn anew from a ``torch.Generator``.
 
-Both return a state dict in the module's names (see ``TransformerLM``),
-for ``TransformerLM.from_params``. Dense weights are stored [d_out, d_in]
-(``nn.Linear``'s layout), the transpose of the JAX [d_in, d_out].
+Both dispatch on the config's type (``TransformerConfig`` or one of the
+four recsys configs) and return a state dict in the module's names (see
+``TransformerLM`` and ``models/recsys.py``), for the model's
+``from_params``. Dense weights are stored [d_out, d_in] (``nn.Linear``'s
+layout), the transpose of the JAX [d_in, d_out]; embedding tables and
+xDeepFM's CIN matrices keep the JAX layout.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import resolve_device
+from repro_torch.models.recsys import DINConfig, SASRecConfig, TwoTowerConfig, XDeepFMConfig
 from repro_torch.models.transformer import TransformerConfig
 
 __all__ = ["params_from_jax", "init_params"]
@@ -23,18 +27,55 @@ _DENSE = ("wq", "wk", "wv", "wo")
 _FFN = ("gate", "up", "down")
 
 
-def params_from_jax(tree, cfg: TransformerConfig, *, device=None, dtype=torch.float32) -> dict:
-    """The JAX ``TransformerLM.init`` pytree (arrays as numpy or anything
-    ``np.asarray`` takes: stacked ``layers`` with a leading L axis, dense
-    ``w`` [d_in, d_out] and ``b``, norm ``scale``, ``embed``, optional
-    ``lm_head``) -> the port's state dict on ``device`` in ``dtype``.
-    ``device=None`` is the card."""
+def params_from_jax(tree, cfg, *, device=None, dtype=torch.float32) -> dict:
+    """The JAX ``init`` pytree of ``cfg``'s model (arrays as numpy or
+    anything ``np.asarray`` takes) -> the port's state dict on ``device`` in
+    ``dtype``. ``device=None`` is the card."""
     dev = resolve_device(device)
 
     def t(a, transpose=False):
         a = np.asarray(a, dtype=np.float32)
         return torch.from_numpy(np.array(a.T if transpose else a)).to(dev, dtype)
 
+    if isinstance(cfg, TransformerConfig):
+        return _lm_from_jax(tree, cfg, t)
+
+    def dense(prefix, p):
+        out = {f"{prefix}.weight": t(p["w"], transpose=True)}
+        if "b" in p:
+            out[f"{prefix}.bias"] = t(p["b"])
+        return out
+
+    def mlp(prefix, layers):
+        return {k: v for i, p in enumerate(layers) for k, v in dense(f"{prefix}.{i}", p).items()}
+
+    if isinstance(cfg, TwoTowerConfig):
+        return {
+            "user_table": t(tree["user_table"]), "item_table": t(tree["item_table"]),
+            **mlp("user_mlp", tree["user_mlp"]), **mlp("item_mlp", tree["item_mlp"]),
+        }
+    if isinstance(cfg, SASRecConfig):
+        out = {"item_table": t(tree["item_table"]), "pos_table": t(tree["pos_table"])}
+        for i, blk in enumerate(tree["blocks"]):
+            for name in ("wq", "wk", "wv", "wo", "ff1", "ff2"):
+                out.update(dense(f"blocks.{i}.{name}", blk[name]))
+            out[f"blocks.{i}.ln1"], out[f"blocks.{i}.ln2"] = t(blk["ln1"]), t(blk["ln2"])
+        return out
+    if isinstance(cfg, XDeepFMConfig):
+        return {
+            "table": t(tree["table"]), "linear": t(tree["linear"]),
+            **{f"cin.{i}": t(w) for i, w in enumerate(tree["cin"])},
+            **mlp("mlp", tree["mlp"]), **dense("cin_out", tree["cin_out"]),
+        }
+    if isinstance(cfg, DINConfig):
+        return {"table": t(tree["table"]), **mlp("attn", tree["attn"]), **mlp("mlp", tree["mlp"])}
+    raise TypeError(f"no port of a model with config {type(cfg).__name__}")
+
+
+def _lm_from_jax(tree, cfg: TransformerConfig, t) -> dict:
+    """The JAX ``TransformerLM.init`` pytree (stacked ``layers`` with a
+    leading L axis, dense ``w`` [d_in, d_out] and ``b``, norm ``scale``,
+    ``embed``, optional ``lm_head``), each array converted by ``t``."""
     lay = tree["layers"]
     out = {"embed": t(tree["embed"]), "final_norm.scale": t(tree["final_norm"]["scale"])}
     if "lm_head" in tree:
@@ -54,17 +95,83 @@ def params_from_jax(tree, cfg: TransformerConfig, *, device=None, dtype=torch.fl
 
 
 def init_params(
-    cfg: TransformerConfig, generator: torch.Generator | None = None, *, device=None,
-    dtype=torch.float32,
+    cfg, generator: torch.Generator | None = None, *, device=None, dtype=torch.float32,
 ) -> dict:
-    """Random weights with ``TransformerLM.init``'s distributions: dense
-    weights normal * 1/sqrt(d_in), biases 0, norm scales 1, the embedding
-    normal * 1/sqrt(d_model). Drawn in float32 from ``generator`` (one on
-    ``device``; seed 0 when None), stored in ``dtype``. ``device=None`` is
-    the card."""
+    """Random weights for ``cfg``'s model with its JAX ``init``'s
+    distributions, drawn in float32 from ``generator`` (one on ``device``;
+    seed 0 when None), stored in ``dtype``. ``device=None`` is the card."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+    if isinstance(cfg, TransformerConfig):
+        return _lm_init(cfg, generator, dev, dtype)
+    return _recsys_init(cfg, generator, dev, dtype)
+
+
+def _recsys_init(cfg, generator, dev, dtype) -> dict:
+    """Tables normal * 1/sqrt(D), dense weights normal * 1/sqrt(d_in) with
+    zero biases, xDeepFM's CIN matrices normal * 1/sqrt(H_prev * F),
+    SASRec's layer-norm scales 1 (``repro/models/recsys.py``'s ``init``)."""
+
+    def normal(rows, cols, fan):
+        w = torch.randn(rows, cols, generator=generator, device=dev)
+        return w.mul_(1.0 / math.sqrt(fan)).to(dtype)
+
+    def dense(prefix, d_in, d_out, bias=True):
+        out = {f"{prefix}.weight": normal(d_out, d_in, d_in)}
+        if bias:
+            out[f"{prefix}.bias"] = torch.zeros(d_out, dtype=dtype, device=dev)
+        return out
+
+    def mlp(prefix, dims):
+        out = {}
+        for i in range(len(dims) - 1):
+            out.update(dense(f"{prefix}.{i}", dims[i], dims[i + 1]))
+        return out
+
+    if isinstance(cfg, TwoTowerConfig):
+        d = cfg.embed_dim
+        return {
+            "user_table": normal(cfg.user_vocab, d, d),
+            "item_table": normal(cfg.item_vocab, d, d),
+            **mlp("user_mlp", (d,) + cfg.tower_mlp), **mlp("item_mlp", (d,) + cfg.tower_mlp),
+        }
+    if isinstance(cfg, SASRecConfig):
+        d = cfg.embed_dim
+        out = {"item_table": normal(cfg.item_vocab, d, d), "pos_table": normal(cfg.seq_len, d, d)}
+        for i in range(cfg.n_blocks):
+            pre = f"blocks.{i}."
+            for name in ("wq", "wk", "wv", "wo"):
+                out.update(dense(pre + name, d, d, bias=False))
+            out.update(dense(pre + "ff1", d, d))
+            out.update(dense(pre + "ff2", d, d))
+            out[pre + "ln1"] = torch.ones(d, dtype=dtype, device=dev)
+            out[pre + "ln2"] = torch.ones(d, dtype=dtype, device=dev)
+        return out
+    if isinstance(cfg, XDeepFMConfig):
+        f, d = cfg.n_fields, cfg.embed_dim
+        out = {"table": normal(cfg.vocab, d, d), "linear": normal(cfg.vocab, 1, 1)}
+        h_prev = f
+        for i, h in enumerate(cfg.cin_layers):
+            out[f"cin.{i}"] = normal(h, h_prev * f, h_prev * f)
+            h_prev = h
+        out.update(mlp("mlp", (f * d,) + cfg.mlp + (1,)))
+        out.update(dense("cin_out", sum(cfg.cin_layers), 1))
+        return out
+    if isinstance(cfg, DINConfig):
+        d = cfg.embed_dim
+        return {
+            "table": normal(cfg.item_vocab, d, d),
+            **mlp("attn", (4 * d,) + cfg.attn_mlp + (1,)),
+            **mlp("mlp", (3 * d,) + cfg.mlp + (1,)),
+        }
+    raise TypeError(f"no port of a model with config {type(cfg).__name__}")
+
+
+def _lm_init(cfg: TransformerConfig, generator, dev, dtype) -> dict:
+    """Random weights with ``TransformerLM.init``'s distributions: dense
+    weights normal * 1/sqrt(d_in), biases 0, norm scales 1, the embedding
+    normal * 1/sqrt(d_model)."""
     dh, d = cfg.resolved_head_dim, cfg.d_model
 
     def normal(d_out, d_in):

@@ -31,9 +31,29 @@ __all__ = [
     "RMSNorm",
     "Dense",
     "SwiGLU",
+    "EXECUTORS",
+    "resolve_executor",
 ]
 
 _MASKED = -1e30
+EXECUTORS = ("auto", "kernel", "reference")
+
+
+def resolve_executor(executor: str, device: torch.device, kernel: str) -> str:
+    """Concretize a model's ``executor`` for the device its weights are on:
+    "auto" is "kernel" on CUDA and "reference" elsewhere; "kernel" off
+    CUDA raises (``kernel`` names what it would run)."""
+    if executor not in EXECUTORS:
+        raise ValueError(f"executor={executor!r} not in {EXECUTORS}")
+    on_cuda = device.type == "cuda"
+    if executor == "auto":
+        return "kernel" if on_cuda else "reference"
+    if executor == "kernel" and not on_cuda:
+        raise ValueError(
+            f"executor='kernel' runs {kernel} and needs the model on a CUDA device "
+            f"(it is on {device}); use executor='reference' or 'auto' on the CPU"
+        )
+    return executor
 
 
 # ---------------------------------------------------------------- RMSNorm

@@ -35,9 +35,7 @@ from repro_torch.core.types import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
-__all__ = ["TransformerConfig", "TransformerLM", "KVCache", "EXECUTORS"]
-
-EXECUTORS = ("auto", "kernel", "reference")
+__all__ = ["TransformerConfig", "TransformerLM", "KVCache"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,20 +165,7 @@ class TransformerLM(nn.Module):
         return model
 
     def _resolve_executor(self) -> None:
-        """Concretize ``executor`` for the device the parameters are on:
-        "auto" is "kernel" on CUDA and "reference" elsewhere; "kernel" off
-        CUDA raises."""
-        if self.executor not in EXECUTORS:
-            raise ValueError(f"executor={self.executor!r} not in {EXECUTORS}")
-        on_cuda = self.embed.device.type == "cuda"
-        if self.executor == "auto":
-            self.executor = "kernel" if on_cuda else "reference"
-        elif self.executor == "kernel" and not on_cuda:
-            raise ValueError(
-                f"executor='kernel' runs the CUDA flash kernel and needs the model "
-                f"on a CUDA device (it is on {self.embed.device}); use "
-                "executor='reference' or 'auto' on the CPU"
-            )
+        self.executor = L.resolve_executor(self.executor, self.embed.device, "the CUDA flash kernel")
 
     @property
     def device(self) -> torch.device:

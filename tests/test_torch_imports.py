@@ -1,8 +1,9 @@
 """The port stands alone and runs on the card unless asked otherwise:
 no JAX and no ``repro`` import anywhere in ``src/repro_torch`` (the
-retrieval slice and the LM slice: models, configs, generation, the flash
-kernel) or ``chip_smoke.py``; entry points refuse to fall back to the CPU;
-the kernel executor refuses a CPU index."""
+retrieval slice, the LM slice: models, configs, generation, the flash
+kernel, and the recsys slice: models, configs, the embedding-bag kernel)
+or ``chip_smoke.py``; entry points refuse to fall back to the CPU; the
+kernel executor refuses a CPU index and CPU recsys weights."""
 
 import ast
 import os
@@ -50,6 +51,13 @@ def test_port_imports_neither_jax_nor_repro():
         "src/repro_torch/configs/qwen2_0_5b.py",
         "src/repro_torch/serving/generate.py",
         "src/repro_torch/kernels/flash_attention.py",
+        "src/repro_torch/models/recsys.py",
+        "src/repro_torch/configs/families.py",
+        "src/repro_torch/configs/two_tower_retrieval.py",
+        "src/repro_torch/configs/din.py",
+        "src/repro_torch/configs/xdeepfm.py",
+        "src/repro_torch/configs/sasrec.py",
+        "src/repro_torch/kernels/embedding_bag.py",
     } <= names
     bad = [
         f"{os.path.relpath(f, ROOT)}: import {m}"
@@ -65,7 +73,9 @@ def test_importing_the_port_loads_no_jax():
         "import sys; import repro_torch.core, repro_torch.serving, "
         "repro_torch.store, repro_torch.kernels.ops, repro_torch.data, "
         "repro_torch.models, repro_torch.configs.qwen2_0_5b, "
-        "repro_torch.kernels.flash_attention; "
+        "repro_torch.kernels.flash_attention, repro_torch.kernels.embedding_bag, "
+        "repro_torch.configs.two_tower_retrieval, repro_torch.configs.din, "
+        "repro_torch.configs.xdeepfm, repro_torch.configs.sasrec; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )
@@ -112,3 +122,24 @@ def test_index_moves_between_devices_unchanged():
         for f in ("packed_codes", "token_doc_ids", "centroids")
     )
     assert idx.nbytes() == again.nbytes() and idx.device.type == "cpu"
+
+
+def test_recsys_init_params_defaults_to_cuda_and_raises_without_it(no_cuda):
+    from repro_torch.configs import two_tower_retrieval
+    from repro_torch.models import init_params
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(two_tower_retrieval.REDUCED)
+
+
+@pytest.mark.parametrize("name", ["two_tower_retrieval", "din", "xdeepfm", "sasrec"])
+def test_recsys_kernel_executor_refuses_cpu_weights(name):
+    import importlib
+
+    from repro_torch.models import init_params
+    from repro_torch.models.recsys import RECSYS_MODELS
+
+    cfg = importlib.import_module(f"repro_torch.configs.{name}").REDUCED
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(ValueError, match="executor='kernel'"):
+        RECSYS_MODELS[type(cfg)].from_params(cfg, params, executor="kernel")

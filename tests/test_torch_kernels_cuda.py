@@ -4,8 +4,13 @@ the last row, padding tiles, dims that are not a multiple of the word
 size) at nbits 2/4/8; invalid slots exactly 0; tolerance 1e-4 (float32
 sums in another order). Flash attention over causal and window masks,
 padded S, Dh 64 and 128, float32 and bf16, H != Hkv: 1e-4 at float32,
-2e-2 at bf16 output (one rounding of values of magnitude up to ~4). Marked ``cuda``: each test skips itself without a
-card. This file imports no JAX, so it runs where JAX is not installed:
+2e-2 at bf16 output (one rounding of values of magnitude up to ~4). The
+embedding bag at D 1, 18, 256 and 257, int32 and int64 ids, an unaligned
+table view, ids outside [0, V) and empty bag sets, per element within
+``ref.embedding_bag_error_bound`` ((L + 1) * 2^-24 * sum |w| |row| + 1e-7,
+float32 sums in another order); a two-tower forward at REDUCED, kernel vs
+reference executor, within 1e-5. Marked ``cuda``: each test skips itself
+without a card. This file imports no JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
@@ -24,6 +29,7 @@ from repro_torch.core import worklist as wl
 from repro_torch.kernels import LAUNCHES, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decompress_score import selective_sum_cuda
+from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.fused_gather_score import (
     fused_gather_score_cuda,
@@ -311,3 +317,127 @@ def test_lm_generate_kernel_executor_on_card(card):
                 lg, cache = models["reference"].decode_step(want[:, t].long(), cache)
             top2 = torch.topk(lg[row].float(), 2).values
             assert float(top2[0] - top2[1]) <= 0.125
+
+
+def _bag_inputs(card, seed, *, v=5000, d=64, s=300, l=13, idx_dtype=torch.int32, bad=0.0):
+    """A table [V, D] and bags of L ids (a share ``bad`` of them outside
+    [0, V), negative and >= V), weights with some zeros, on the card."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    table = torch.randn(v, d, generator=g, device=card)
+    idx = torch.randint(0, v, (s, l), generator=g, device=card)
+    if bad:
+        pick = torch.rand(s, l, generator=g, device=card) < bad
+        far = torch.randint(v, 2 * v, (s, l), generator=g, device=card)
+        idx = torch.where(pick, torch.where(idx % 2 == 0, far, -1 - idx), idx)
+    w = torch.rand(s, l, generator=g, device=card)
+    w = torch.where(torch.rand(s, l, generator=g, device=card) < 0.2, 0.0, w)
+    return table, idx.to(idx_dtype).contiguous(), w
+
+
+def _assert_bag_close(table, idx, w, got):
+    want = tref.embedding_bag_bags(table, idx, w)
+    limit = tref.embedding_bag_error_bound(table, idx, w)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    excess = float(((got - want).abs() - limit).max())
+    assert excess <= 0, f"an element differs from the plain version by {excess} beyond its limit"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("d", [1, 18, 256, 257])
+def test_embedding_bag_kernel_on_card(card, idx_dtype, d):
+    table, idx, w = _bag_inputs(card, d, d=d, idx_dtype=idx_dtype, bad=0.1)
+    before = LAUNCHES["embedding_bag"]
+    got = embedding_bag_cuda(table, idx, w)
+    torch.cuda.synchronize()
+    assert LAUNCHES["embedding_bag"] == before + 1
+    _assert_bag_close(table, idx, w, got)
+
+
+@pytest.mark.cuda
+def test_embedding_bag_out_of_range_ids_add_exactly_zero_on_card(card):
+    table, idx, w = _bag_inputs(card, 3, idx_dtype=torch.int64, bad=0.3)
+    idx[0, :4] = torch.tensor([2**32 + 5, -(2**32) + 5, 2**62, -1], device=card)
+    valid = (idx >= 0) & (idx < table.shape[0])
+    got = embedding_bag_cuda(table, idx, w)
+    in_range = embedding_bag_cuda(
+        table, torch.where(valid, idx, 0), torch.where(valid, w, 0.0).contiguous()
+    )
+    assert torch.equal(got, in_range)  # fmaf(0, row, acc) == acc
+    _assert_bag_close(table, idx, w, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 256])
+def test_embedding_bag_unaligned_table_view_on_card(card, d):
+    table, idx, w = _bag_inputs(card, 5, d=d)
+    wide = torch.zeros(table.shape[0], d + 1, device=card)
+    wide[:, 1:] = table
+    shifted = torch.zeros(table.numel() + 1, device=card)
+    shifted[1:] = table.reshape(-1)
+    for view in (wide[:, 1:], shifted[1:].view(table.shape)):
+        assert view.data_ptr() % 16 != 0
+        got = embedding_bag_cuda(view, idx, w)
+        _assert_bag_close(table, idx, w, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,l", [(0, 8), (16, 0)])
+def test_embedding_bag_empty_bags_on_card(card, s, l):
+    table = torch.randn(100, 32, device=card)
+    before = LAUNCHES["embedding_bag"]
+    out = ops.embedding_bag(
+        table, bag_indices=torch.zeros((s, l), dtype=torch.int64, device=card),
+        bag_weights=torch.ones(s, l, device=card), use_kernel=True,
+    )
+    assert tuple(out.shape) == (s, 32) and not bool(out.any())
+    assert LAUNCHES["embedding_bag"] == before
+
+
+@pytest.mark.cuda
+def test_embedding_bag_kernel_rejects_what_it_does_not_take(card):
+    table, idx, w = _bag_inputs(card, 9)
+    with pytest.raises(ValueError, match="float32"):
+        embedding_bag_cuda(table.double(), idx, w)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        embedding_bag_cuda(table, idx.short(), w)
+    with pytest.raises(ValueError, match="contiguous columns"):
+        embedding_bag_cuda(table.t().contiguous().t(), idx, w)
+
+
+@pytest.mark.cuda
+def test_two_tower_kernel_executor_on_card(card):
+    """Two-tower at REDUCED: the serve step and retrieval scores of the
+    kernel and reference executors within 1e-5, two embedding-bag launches
+    per serve step (one per tower) and none at the reference."""
+    from repro_torch.configs import RECSYS_SHAPES_REDUCED
+    from repro_torch.configs.two_tower_retrieval import REDUCED as cfg
+    from repro_torch.models import TwoTower, init_params, serve_step
+
+    params = init_params(cfg, torch.Generator(device=card).manual_seed(1), device=card)
+    models = {ex: TwoTower.from_params(cfg, params, executor=ex) for ex in ("kernel", "reference")}
+    assert TwoTower.from_params(cfg, params).executor == "kernel"
+    g = torch.Generator(device=card).manual_seed(2)
+    b = RECSYS_SHAPES_REDUCED["serve_bulk"].batch
+    batch = {}
+    for side, fields, vocab in (("user", cfg.user_fields, cfg.user_vocab),
+                                ("item", cfg.item_fields, cfg.item_vocab)):
+        batch[f"{side}_ids"] = torch.randint(0, vocab, (b, fields), generator=g, device=card)
+        n = torch.randint(1, fields + 1, (b, 1), generator=g, device=card)
+        batch[f"{side}_mask"] = (torch.arange(fields, device=card) < n).float()
+    out, launches = {}, {}
+    for ex, m in models.items():
+        before = LAUNCHES["embedding_bag"]
+        out[ex] = serve_step(m, RECSYS_SHAPES_REDUCED["serve_bulk"])(batch)
+        torch.cuda.synchronize()
+        launches[ex] = LAUNCHES["embedding_bag"] - before
+    assert launches == {"kernel": 2, "reference": 0}
+    torch.testing.assert_close(out["kernel"], out["reference"], rtol=1e-5, atol=1e-5)
+    cand = models["reference"].item_embed(batch["item_ids"], batch["item_mask"])
+    scores = {
+        ex: serve_step(m, RECSYS_SHAPES_REDUCED["retrieval_cand"])(
+            {"user_ids": batch["user_ids"][:1], "user_mask": batch["user_mask"][:1], "cand_emb": cand}
+        )
+        for ex, m in models.items()
+    }
+    torch.testing.assert_close(scores["kernel"], scores["reference"], rtol=1e-5, atol=1e-5)
