@@ -30,9 +30,12 @@ built on the card from ``--seed`` (the index build itself is not ported):
      ``--seed``): the flash-attention kernel against its plain version at
      the prefill's shapes (and padded, windowed, non-causal and Dh 128
      ones), element by element, and planted faults the bf16 rule must
-     reject; then ``repro_torch.serving.generate`` on a 4 x 2048-token
-     prompt for 32 greedy tokens at executor "kernel" and "reference",
-     with exactly one flash launch per layer per kernel ``generate``.
+     reject; the kernel timed beside SDPA at the prefill's shape and the
+     Dh 128 one, each in the contiguous layout and the model's own; then
+     ``repro_torch.serving.generate`` on a 4 x 2048-token prompt for 32
+     greedy tokens at executor "kernel" and "reference", with exactly one
+     flash launch per layer per kernel ``generate``, and each executor's
+     prefill tokens/s and profiled attention share of device time.
      Fed the same tokens (the reference's), the two executors must agree:
      the kernel at each layer's own attention inputs, the prefill KV cache
      per layer, and the logits at every step; tokens are identical or
@@ -305,12 +308,51 @@ def topk_swaps(what: str, ids_a, s_a, ids_b, s_b, kernel_err: float, *, tol=TOL,
 # ---------------------------------------------------------------------------
 
 
+def kernel_name(mangled: str) -> str:
+    """``name<N>`` of an Itanium-mangled kernel symbol (``name`` alone
+    where it has no integer template argument; the symbol where it does
+    not parse)."""
+    names, i = [], mangled.find("N") + 1
+    while 0 < i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        names.append(mangled[j : j + n])
+        i = j + n
+    if not names:
+        return mangled
+    arg = mangled[i:].split("E", 1)[0]
+    return names[-1] + (f"<{arg[3:]}>" if arg.startswith("ILi") else "")
+
+
+def ptxas_report(log_path) -> list:
+    """One line per kernel of an ``nvcc -Xptxas=-v`` log: its registers,
+    stack and spills; and every warning or performance notice ptxas gave
+    (a ``wgmma`` it had to serialize, say)."""
+    lines, name, spill = [], None, ""
+    with open(log_path) as f:
+        for line in f:
+            line = line.strip()
+            if "Compiling entry function" in line:
+                name = kernel_name(line.split("'")[1])
+            elif "spill" in line and name:
+                spill = line
+            elif "registers" in line and name:
+                lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+                name = None
+            elif "warning" in line.lower() or "Performance Loss" in line:
+                lines.append(line)
+    return lines
+
+
 def phase_kernels(torch, index, plan_ragged, flush):
     """Each kernel against its plain version at the main path's shapes."""
     from repro_torch.core import warpselect
     from repro_torch.core import worklist as wl
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.decompress_score import selective_sum_cuda
+    from repro_torch.kernels.flash_attention import TILE_K, bf16_smem_bytes
     from repro_torch.kernels.fused_gather_score import (
         fused_gather_score_cuda,
         ragged_fused_gather_score_cuda,
@@ -320,10 +362,10 @@ def phase_kernels(torch, index, plan_ragged, flush):
     paths = _build.build_all()
     log(f"[kernels] built {len(paths)} libraries in {time.perf_counter() - t0:.1f}s")
     for name, path in paths.items():
-        with open(path.with_name(f"{name}.log")) as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    log(f"[ptxas] {name}: {line.strip()}")
+        for line in ptxas_report(path.with_name(f"{name}.log")):
+            log(f"[ptxas] {name}: {line}")
+    log("[ptxas] flash_attention: flash_fwd_wgmma_kernel dynamic shared memory per block: "
+        + ", ".join(f"Dh {dh} {bf16_smem_bytes(dh)} bytes" for dh in TILE_K))
 
     dev = index.device
     q, _ = make_queries(torch, index, 1, seed=12345, lo=32, hi=32)
@@ -687,7 +729,8 @@ def phase_flash(torch, dev, flush):
     S to the tile), element by element; then the bf16 rule is shown to
     reject a planted fault (one kv tile's values zeroed), and the kernel is
     timed at the prefill's shape beside the plain version and
-    ``scaled_dot_product_attention``. Returns the kernels row."""
+    ``scaled_dot_product_attention``, and beside SDPA in the model's layout
+    and at the dh128 case. Returns the kernels row."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
@@ -741,15 +784,41 @@ def phase_flash(torch, dev, flush):
         f"max {float(want.float().abs().max())}")
     del planted, faults, v_bad
 
-    _, b, h, hkv, s, dh, _, _ = FLASH_CASES[0]
-    q, k, v = (
-        torch.randn(b, n, s, dh, generator=g, device=dev).to(torch.bfloat16)
-        for n in (h, hkv, hkv)
-    )
+    # Timed beside SDPA at the prefill's shape and the dh128 case, bf16,
+    # causal: in the contiguous [B, H, S, Dh] layout, and in the model's own
+    # (the transposed views of [B, S, H, Dh] that ops.flash_attention passes).
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms = time_cuda(torch, lambda: flash_attention_cuda(q, k, v, causal=True), flush)
+    timed = {}
+    for name, b, h, hkv, s, dh, _, _ in (FLASH_CASES[0], FLASH_CASES[-1]):
+        ops_ = 4 * b * h * s * s * dh * 0.5  # the causal half
+        for layout in ("contiguous", "model"):
+            if layout == "contiguous":
+                q, k, v = (
+                    torch.randn(b, n, s, dh, generator=g, device=dev).to(torch.bfloat16)
+                    for n in (h, hkv, hkv)
+                )
+            else:
+                q, k, v = (
+                    torch.randn(b, s, n, dh, generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+                    for n in (h, hkv, hkv)
+                )
+            t = {
+                "ms": time_cuda(torch, lambda: flash_attention_cuda(q, k, v, causal=True), flush),
+                "sdpa_ms": time_cuda(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), flush),
+                "bound_ms": ops_ / BF16_OPS_PER_S * 1e3,
+            }
+            t["ratio_to_sdpa"] = t["ms"] / t["sdpa_ms"]
+            t["share_of_bound"] = t["bound_ms"] / t["ms"]
+            timed[f"{name}/{layout}"] = t
+            if name == "qwen2" and layout == "contiguous":
+                main = (q, k, v, t)
+    log(f"[flash] bf16 causal, kernel beside SDPA (ms, ratio, share of the operations bound): "
+        f"{json.dumps(timed)}")
+
+    q, k, v, t = main
+    b, h, s, dh = q.shape
     plain_ms = time_cuda(torch, lambda: ref.flash_attention(q, k, v, causal=True), flush, iters=5)
-    library_ms = time_cuda(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), flush)
+    ms, library_ms = t["ms"], t["sdpa_ms"]
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())  # q, k, v read; out written
     ops_ = 4 * b * h * s * s * dh * 0.5  # the causal half
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / BF16_OPS_PER_S
@@ -768,7 +837,7 @@ def phase_flash(torch, dev, flush):
         "bytes": int(nbytes),
     }
     log(
-        f"[flash] timed at B={b} H={h} Hkv={hkv} S={s} Dh={dh} bf16 causal: "
+        f"[flash] timed at B={b} H={h} Hkv={k.shape[1]} S={s} Dh={dh} bf16 causal: "
         f"{json.dumps(row)}"
     )
     return row
@@ -860,6 +929,49 @@ def lm_rates(torch, model, prompt, runs: int = 3) -> dict:
         dec.append(b * (LM_NEW - 1) / (t2 - t1))
     return {"prefill_tokens_per_s_p50": float(np.median(pre)),
             "decode_tokens_per_s_p50": float(np.median(dec))}
+
+
+def prefill_attention_share(torch, model, prompt) -> dict:
+    """One prefill under ``torch.profiler`` with every ``ops.flash_attention``
+    call inside a ``record_function`` range: the summed time of the device
+    kernels, and the device time of attention with its share of it (the
+    ranges slow the host, so no wall time or busy share is read here:
+    ``--profile`` gives those). Attention's time is the kernels the
+    profiler ties to the range (the plain version's at executor
+    "reference"; the padding copies at "kernel") plus the flash kernel,
+    taken by name: it launches through its library's own CUDA runtime,
+    which the profiler does not tie to the range."""
+    from unittest import mock
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import KVCache
+
+    flash, span = ops.flash_attention, "prefill_attention"
+
+    def ranged(*a, **kw):
+        with record_function(span):
+            return flash(*a, **kw)
+
+    b, s = prompt.shape
+    cache = KVCache.empty(model.cfg, b, s + LM_NEW, device=prompt.device)
+    with mock.patch.object(ops, "flash_attention", ranged):
+        model.prefill(prompt, cache)  # warm; the returned cache is dropped
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.prefill(prompt, cache)
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = sum(getattr(e, "self_device_time_total", 0) for e in events
+                 if str(e.device_type).endswith("CUDA") and e.key != span)
+    ranged_us = sum(e.device_time_total for e in events
+                    if e.key == span and not str(e.device_type).endswith("CUDA"))
+    kernel_us = sum(getattr(e, "self_device_time_total", 0) for e in events
+                    if str(e.device_type).endswith("CUDA") and "flash_fwd" in e.key)
+    attn = ranged_us + kernel_us
+    return {"device_us": device, "flash_kernel_us": kernel_us, "attention_device_us": attn,
+            "attention_share": attn / device if device else None}
 
 
 def check_lm(par: dict, got, want, seed: int) -> None:
@@ -962,7 +1074,8 @@ def phase_lm(torch, dev, seeds, profile: bool) -> int:
         check_lm(par, got, want, seed)
         if first:
             for ex, model in models.items():
-                log(f"[lm] {ex} executor: {json.dumps(lm_rates(torch, model, prompt))}")
+                log(f"[lm] {ex} executor: {json.dumps(lm_rates(torch, model, prompt))}; profiled "
+                    f"prefill: {json.dumps(prefill_attention_share(torch, model, prompt))}")
             if profile:
                 profile_lm(torch, models["kernel"], prompt)
         del params, models, par

@@ -11,10 +11,13 @@
 // Bound on the H100: operations at the shapes of a prefill. At qwen2-0.5b
 // width (B 4, H 14, Hkv 2, S 2048, Dh 64, bf16) the causal half costs
 // 4*B*H*S*S*Dh/2 = 30.1 GFLOP (30 us at the 989 TFLOP/s bf16 tensor-core
-// peak) against 33.6 MB of q, k, v and out (10 us at 3.35 TB/s).
+// peak) against 33.6 MB of q, k, v and out (10 us at 3.35 TB/s). The
+// softmax is a second bound of the same size: the causal half takes
+// B*H*S*S/2 = 117M exponentials, and the SFU issues 16 ex2 per SM per
+// clock (about 4.2e12/s on 132 SMs at ~1.98 GHz), about 28 us.
 //
-// Two paths, one per dtype. bf16 inputs run on the tensor cores
-// (flash_fwd_mma_kernel, below); float32 inputs run the FMA kernel
+// Two paths, one per dtype. bf16 inputs run on Hopper's tensor cores
+// (flash_fwd_wgmma_kernel, below); float32 inputs run the FMA kernel
 // described next.
 //
 // Design. One block of 256 threads per (q-block of 64 rows, head, batch).
@@ -30,6 +33,7 @@
 // key, so when every real row sees its diagonal (Sq <= Skv, window >= 1)
 // the block skips kv tiles the causal or window mask hides from all its
 // rows: the result is the same. Keys past Skv do not exist (weight 0).
+#include <cuda.h>  // CUtensorMap and its enums only: libcuda is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -53,7 +57,7 @@ struct Params {
   int64_t q_sb, q_sh, q_ss;    // element strides of q (batch, head, row)
   int64_t kv_sb, kv_sh, kv_ss; // of k and v (identical)
   int64_t o_sb, o_sh, o_ss;    // of out
-  int h, hkv, sq, skv;
+  int b, h, hkv, sq, skv;
   int causal, window;          // window < 0: none
   int skip;                    // 1: every real row sees its diagonal
   float scale;
@@ -197,191 +201,440 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 
 
 // ---------------------------------------------------------------------------
-// bf16 inputs: tensor cores through mma.sync (m16n8k16, f32 accumulate).
+// bf16 inputs: wgmma on both products, k/v through a TMA ring.
 //
-// Four warps per block, 16 query rows each (64 per block), k/v tiles of 64
-// keys. q.k products of bf16 values are exact in float32 and summed in
-// float32, as the float32 path does. The probabilities, float32, enter the
-// p.v product as two bf16 terms p_hi + p_lo (p_lo the rounding error of
-// p_hi), so p keeps about 16 bits rather than bf16's 8: the product costs
-// two mma per step instead of one and stays within ~1e-5 of float32.
-// The running (max, sum, acc) of a lane's two rows stay in float32
-// registers; masks and tile skipping are those of the float32 path.
-constexpr int kWarps = 4;
+// A block owns 128 query rows of one (batch, head) and runs three
+// warpgroups. Warpgroup 0 is the producer: one thread loads the block's q
+// tile once, then streams the k and v tiles it visits through a ring of
+// kStages stages in shared memory with TMA (cp.async.bulk.tensor; one 4-D
+// tensor map per operand over (Dh, S, H, B), built on the host at each
+// call from the caller's strides), each arrival signalled on an mbarrier;
+// rows past Sq or Skv arrive as zeros. TMA is the only copy mechanism.
+// Warpgroups 1 and 2 consume, 64 query rows each:
+//   - S = q.k^T is a chain of wgmma with both operands in shared memory
+//     (K-major, 128-byte swizzle, as TMA wrote them: a Dh-64 bf16 row is
+//     one 128-byte atom, a Dh-128 row two);
+//   - the online softmax runs on the float32 accumulator in registers;
+//   - O += P.V is a chain of wgmma with P in registers (the score
+//     accumulator's layout is the A-fragment layout, so P never goes
+//     through shared memory) and V read MN-major from the ring.
+// setmaxnreg hands the producer's registers (down to 24) to the consumers
+// (up to 240).
+//
+// Precision: q.k in float32. P enters the p.v product as two bf16 terms
+// p_hi + p_lo (p_lo the rounding error of p_hi), two wgmma into one
+// accumulator, so p keeps about 16 bits and the output stays within ~1e-5
+// of float32; that costs 1.5x the tensor work of a single bf16 p.
+//
+// Softmax in base 2: scores are scaled by log2(e)/sqrt(Dh) in one multiply
+// and exponentiated with ex2.approx; masked scores are -1e30 as on the TPU
+// (keys past Skv -inf). The mask is applied only on the kv tiles where a
+// row of the block can meet a hidden key (tile_range): the window's edge,
+// the diagonal, and the last tile when Skv is not a multiple of the tile.
+// Interior tiles skip the test. Blocks start heaviest first: under the
+// causal mask the last q-blocks, which visit the most tiles, take the
+// lowest block indices. ref.flash_schedule is the Python twin of
+// tile_range and of the block order.
+constexpr int kWBQ = 128;              // query rows per block: two consumer warpgroups
+constexpr int kWThreads = 3 * 128;     // producer warpgroup + two consumers
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// d += a . b for a 16x16 (row) and b 16x8 (col) bf16 tile.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int DH>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * 3 * kBQ * (DH + 8);
-}
-
-// Copies rows [r0, r0 + 64) of a [rows, DH] bf16 matrix with row stride ss
-// into shared memory (pitch DH + 8) in 16-byte pieces; rows >= n are 0.
-template <int DH>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int64_t ss, int r0, int n) {
-  constexpr int kPitch = DH + 8, kPieces = DH / 8;
-  for (int i = threadIdx.x; i < kBQ * kPieces; i += kWarps * 32) {
-    const int r = i / kPieces, c = (i % kPieces) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n) val = *reinterpret_cast<const uint4*>(src + (r0 + r) * ss + c);
-    *reinterpret_cast<uint4*>(dst + r * kPitch + c) = val;
-  }
-}
+template <int DH> struct WTile;       // keys per kv tile and ring stages by head size
+template <> struct WTile<64> { static constexpr int kBK = 128, kStages = 2; };
+template <> struct WTile<128> { static constexpr int kBK = 64, kStages = 2; };
 
 template <int DH>
-__global__ void __launch_bounds__(kWarps * 32) flash_fwd_mma_kernel(Params p) {
-  constexpr int kPitch = DH + 8;  // 4-byte words per row = 4 (mod 32): conflict-free
-  constexpr int kNT = kBK / 8;    // 8-key column tiles of a score tile
-  constexpr int kDT = DH / 8;     // 8-wide column tiles of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + kBQ * kPitch;
-  __nv_bfloat16* v_s = k_s + kBK * kPitch;
+constexpr size_t wgmma_smem_bytes() {  // 1024 bytes of alignment slack, q, the ring, the barriers
+  return 1024 + 2 * DH * (kWBQ + 2 * WTile<DH>::kStages * WTile<DH>::kBK) + 8 * (1 + 3 * WTile<DH>::kStages);
+}
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;  // mma fragment row group, thread in group
-  const int q0 = blockIdx.x * kBQ, hh = blockIdx.y, bb = blockIdx.z;
-  const int hk = hh / (p.h / p.hkv);
-  const auto* qg = static_cast<const __nv_bfloat16*>(p.q) + bb * p.q_sb + hh * p.q_sh;
-  const auto* kg = static_cast<const __nv_bfloat16*>(p.k) + bb * p.kv_sb + hk * p.kv_sh;
-  const auto* vg = static_cast<const __nv_bfloat16*>(p.v) + bb * p.kv_sb + hk * p.kv_sh;
-  auto* og = static_cast<__nv_bfloat16*>(p.o) + bb * p.o_sb + hh * p.o_sh;
+// The kv tiles [t_lo, t_hi] the q-block of rows [q0, q0 + bq) visits, and
+// those that need the mask: t < m_lo (a key the window hides from some of
+// its rows) and t >= m_hi (a key after some row under the causal mask, or
+// at or past Skv). Python twin: ref.flash_schedule.
+struct TileRange {
+  int t_lo, t_hi, m_lo, m_hi;
+};
 
-  load_tile<DH>(q_s, qg, p.q_ss, q0, p.sq);
-  __syncthreads();
-  const int lr = warp * 16 + g;  // this lane's rows in the block: lr, lr + 8
-  uint32_t qa[DH / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const __nv_bfloat16* base = q_s + kk * 16 + tig * 2;
-    qa[kk][0] = ld32(base + lr * kPitch);
-    qa[kk][1] = ld32(base + (lr + 8) * kPitch);
-    qa[kk][2] = ld32(base + lr * kPitch + 8);
-    qa[kk][3] = ld32(base + (lr + 8) * kPitch + 8);
-  }
-
-  int t_lo = 0, t_hi = (p.skv - 1) / kBK;
+__device__ __forceinline__ TileRange tile_range(const Params& p, int q0, int bq, int bk) {
+  const int q_last = min(q0 + bq, p.sq) - 1, nt = (p.skv + bk - 1) / bk;
+  TileRange r{0, nt - 1, 0, p.skv % bk ? p.skv / bk : nt};
   if (p.skip) {
-    const int q_last = min(q0 + kBQ, p.sq) - 1;
-    if (p.window >= 0) t_lo = max(0, q0 - p.window + 1) / kBK;
-    if (p.causal) t_hi = min(t_hi, q_last / kBK);
+    if (p.window >= 0) r.t_lo = max(0, q0 - p.window + 1) / bk;
+    if (p.causal) r.t_hi = min(r.t_hi, q_last / bk);
   }
+  if (p.window >= 0 && q_last >= p.window) r.m_lo = (q_last - p.window) / bk + 1;
+  if (p.causal) r.m_hi = min(r.m_hi, (q0 + 1) / bk);
+  return r;
+}
 
-  const int rows[2] = {q0 + lr, q0 + lr + 8};
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this lane's share
-  float o[kDT][4];
-#pragma unroll
-  for (int j = 0; j < kDT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
 
-  for (int t = t_lo; t <= t_hi; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // every warp is done with the previous k/v tile
-    load_tile<DH>(k_s, kg, p.kv_ss, k0, p.skv);
-    load_tile<DH>(v_s, vg, p.kv_ss, k0, p.skv);
-    __syncthreads();
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
 
-    float s[kNT][4];
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const __nv_bfloat16* kb = k_s + (j * 8 + g) * kPitch + kk * 16 + tig * 2;
-        mma_bf16(s[j], qa[kk], ld32(kb), ld32(kb + 8));
-      }
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+}
 
-    // Element (j, e) of a lane is row rows[e / 2], key k0 + j*8 + tig*2 + e%2.
-    float mx[2] = {-INFINITY, -INFINITY};
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Waits until the barrier's phase of this parity completes. A wait that
+// cannot end (a fault in the ring's bookkeeping) traps after about ten
+// seconds, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > 20000000000LL) __trap();
+}
+
+// Copies the box at coordinates (c0, c1, c2, c3) of a tensor map into
+// shared memory at dst and signals the bytes on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
+
+// Keeps the compiler from reading an accumulator before the wait that
+// completes it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = k0 + j * 8 + tig * 2 + (e & 1);
-        const int rel = rows[e >> 1] - c;
-        const bool masked = (p.causal && rel < 0) || (p.window >= 0 && rel >= p.window);
-        s[j][e] = c >= p.skv ? -INFINITY : masked ? kMasked : s[j][e] * p.scale;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);  // finite: the tile holds a key < Skv
-      alpha[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha[i];
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma descriptor of a shared-memory tile written by TMA with the 128-byte
+// swizzle: 1024-byte aligned atoms of 8 rows x 128 bytes. sbo: bytes
+// between 8-row groups; lbo: between 64-column atoms of an MN-major
+// operand (unused for K-major ones).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((saddr >> 4) & 0x3FFF) | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+// Accumulator layout of a warpgroup's [64 x N] float32 tile: warp w holds
+// rows 16w + lane/4 and 16w + lane/4 + 8; d[4j + e] is column
+// 8j + 2(lane % 4) + e % 2 of the first row (e < 2) or of the second.
+
+// d[64 x 64] (+)= a . b, a [64 x 16] and b [16 x 64] both read from shared memory
+// (K-major, descriptors da and db); accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 128] (+)= a . b, as wgmma_ss_n64.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] += a . b, a [64 x 16] bf16 in registers (four .b32 per thread,
+// the accumulator layout of one 16-column step of a score tile), b [16 x 64]
+// read MN-major from shared memory (descriptor db).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+// d[64 x 128] += a . b, as wgmma_rs_n64.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, accumulate);
+  else wgmma_ss_n128(d, da, db, accumulate);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two float32 values as bf16 pairs: hi = bf16(x), lo = bf16(x - hi).
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kWThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, Params p) {
+  constexpr int kBK = WTile<DH>::kBK, kStages = WTile<DH>::kStages;
+  constexpr int kAtoms = DH / 64;  // 128-byte (64-column) atoms of a row
+  constexpr uint32_t kQAtom = kWBQ * 128, kKVAtom = kBK * 128;  // bytes of one atom column of a tile
+  constexpr uint32_t kQBytes = kAtoms * kQAtom, kKVBytes = kAtoms * kKVAtom;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;  // atoms on 1024 bytes
+  const uint32_t k_s = q_s + kQBytes;                          // stage st at + st * kKVBytes
+  const uint32_t v_s = k_s + kStages * kKVBytes;
+  const uint32_t q_full = v_s + kStages * kKVBytes;            // then k_full, v_full, empty per stage
+  const auto k_full = [=](int st) { return q_full + 8 * (1 + st); };
+  const auto v_full = [=](int st) { return q_full + 8 * (1 + kStages + st); };
+  const auto empty = [=](int st) { return q_full + 8 * (1 + 2 * kStages + st); };
+
+  // q-block-major order, heaviest first: under the causal mask the last
+  // q-blocks visit the most tiles; otherwise the first ones do.
+  const int heads = p.h * p.b, n_qb = (p.sq + kWBQ - 1) / kWBQ;
+  const int i = blockIdx.x / heads, hh = blockIdx.x % heads % p.h, bb = blockIdx.x % heads / p.h;
+  const int q0 = (p.causal ? n_qb - 1 - i : i) * kWBQ, hk = hh / (p.h / p.hkv);
+  const TileRange tr = tile_range(p, q0, kWBQ, kBK);
+  const int n_tiles = tr.t_hi - tr.t_lo + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(empty(st), 2 * 4);  // one arrival per consumer warp
     }
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - m[e >> 1]);
-        l[e >> 1] += s[j][e];
-      }
-#pragma unroll
-    for (int j = 0; j < kDT; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      uint32_t hi[4], lo[4];
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {  // a-fragment f: tile 2ks + f/2, elements 2(f%2), +1
-        const float x0 = s[2 * ks + (f >> 1)][2 * (f & 1)];
-        const float x1 = s[2 * ks + (f >> 1)][2 * (f & 1) + 1];
-        const __nv_bfloat16 h0 = __float2bfloat16(x0), h1 = __float2bfloat16(x1);
-        hi[f] = pack_bf16(h0, h1);
-        lo[f] = pack_bf16(__float2bfloat16(x0 - __bfloat162float(h0)),
-                          __float2bfloat16(x1 - __bfloat162float(h1)));
-      }
-      const __nv_bfloat16* vr = v_s + (ks * 16 + tig * 2) * kPitch + g;
-#pragma unroll
-      for (int j = 0; j < kDT; ++j) {
-        const __nv_bfloat16* vb = vr + j * 8;
-        const uint32_t b0 = pack_bf16(vb[0], vb[kPitch]);
-        const uint32_t b1 = pack_bf16(vb[8 * kPitch], vb[9 * kPitch]);
-        mma_bf16(o[j], hi, b0, b1);
-        mma_bf16(o[j], lo, b0, b1);
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
 
+  if (threadIdx.x < 128) {  // producer
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, kQBytes);
+      for (int a = 0; a < kAtoms; ++a) tma_load(q_s + a * kQAtom, tm_q, q_full, a * 64, q0, hh, bb);
+      int st = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int k0 = (tr.t_lo + it) * kBK;
+        mbar_wait(empty(st), phase ^ 1);  // the first round finds every stage free
+        mbar_expect_tx(k_full(st), kKVBytes);
+        for (int a = 0; a < kAtoms; ++a)
+          tma_load(k_s + st * kKVBytes + a * kKVAtom, tm_k, k_full(st), a * 64, k0, hk, bb);
+        mbar_expect_tx(v_full(st), kKVBytes);
+        for (int a = 0; a < kAtoms; ++a)
+          tma_load(v_s + st * kKVBytes + a * kKVAtom, tm_v, v_full(st), a * 64, k0, hk, bb);
+        if (++st == kStages) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {  // consumers
+    regs_inc<kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+    const int row0 = q0 + cw * 64 + warp * 16 + lane / 4;  // this thread's rows: row0, row0 + 8
+    const int col = 2 * (lane % 4);                       // and columns 8j + col, + 1
+    const float c = p.scale * kLog2e;
+    const uint32_t q_wg = q_s + cw * 64 * 128;            // this warpgroup's 64 rows of q
+
+    float s[kBK / 2], o[DH / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    if (rows[i] >= p.sq) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* orow = og + static_cast<int64_t>(rows[i]) * p.o_ss + tig * 2;
+    for (int j = 0; j < kBK / 2; ++j) s[j] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kDT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
-          __floats2bfloat162_rn(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+    for (int j = 0; j < DH / 2; ++j) o[j] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's share of its rows
+
+    mbar_wait(q_full, 0);
+    int st = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int t = tr.t_lo + it, k0 = t * kBK;
+      const uint32_t k_st = k_s + st * kKVBytes, v_st = v_s + st * kKVBytes;
+
+      mbar_wait(k_full(st), phase);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {  // 16 columns of Dh a step: 32 bytes into an atom
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss<kBK>(s, sw128_desc(q_wg + (kk / 4) * kQAtom + off, 16, 1024),
+                      sw128_desc(k_st + (kk / 4) * kKVAtom + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      if (t < tr.m_lo || t >= tr.m_hi) {
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + col + (e & 1), rel = row0 + 8 * (e >> 1) - key;
+            const bool masked = (p.causal && rel < 0) || (p.window >= 0 && rel >= p.window);
+            float& x = s[4 * j + e];
+            x = key >= p.skv ? -INFINITY : masked ? kMasked : x * c;
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kBK / 2; ++j) s[j] *= c;
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        alpha[r] = ex2(m[r] - mx);  // 0 on the first tile; mx >= -1e30: the tile holds a key < Skv
+        m[r] = mx;
+        l[r] *= alpha[r];
+      }
+      uint32_t hi[kBK / 16][4], lo[kBK / 16][4];
+#pragma unroll
+      for (int j = 0; j < kBK / 2; ++j) {
+        s[j] = ex2(s[j] - m[(j >> 1) & 1]);
+        l[(j >> 1) & 1] += s[j];
+      }
+#pragma unroll
+      for (int ks = 0; ks < kBK / 16; ++ks)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) split_bf16(s[8 * ks + 2 * f], s[8 * ks + 2 * f + 1], hi[ks][f], lo[ks][f]);
+#pragma unroll
+      for (int j = 0; j < DH / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+
+      mbar_wait(v_full(st), phase);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kBK / 16; ++ks) {  // 16 keys a step: two 8-row groups of V
+        const uint64_t db = sw128_desc(v_st + ks * 16 * 128, kKVAtom, 1024);
+        wgmma_rs<DH>(o, hi[ks], db);
+        wgmma_rs<DH>(o, lo[ks], db);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));  // this warp is done with the stage
+      if (++st == kStages) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+
+    auto* og = static_cast<__nv_bfloat16*>(p.o) + bb * p.o_sb + hh * p.o_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int row = row0 + 8 * r;
+      if (row >= p.sq) continue;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* orow = og + static_cast<int64_t>(row) * p.o_ss + col;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
   }
 }
 
@@ -396,17 +649,6 @@ cudaError_t launch(const Params& p, int b, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int DH>
-cudaError_t launch_mma(const Params& p, int b, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.sq + kBQ - 1) / kBQ, p.h, b);
-  flash_fwd_mma_kernel<DH><<<grid, kWarps * 32, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 cudaError_t launch_dh(const Params& p, int b, int dh, cudaStream_t stream) {
   switch (dh) {
     case 64: return launch<64>(p, b, stream);
@@ -415,18 +657,88 @@ cudaError_t launch_dh(const Params& p, int b, int dh, cudaStream_t stream) {
   }
 }
 
-cudaError_t launch_mma_dh(const Params& p, int b, int dh, cudaStream_t stream) {
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime, so the
+// library keeps its plain C interface and links no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(ptr)
+                                                                       : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D tensor map over (Dh, S, H, B) of a bf16 tensor with element
+// strides (sb, sh, ss) and a contiguous Dh, read in boxes of 64 columns x
+// `rows` rows with the 128-byte swizzle; coordinates past S read as 0.
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int dh, int s, int h, int b, int64_t sb, int64_t sh,
+                       int64_t ss, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2, static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+                            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Once per head size: the kernel's shared memory, and a check that it was
+// launched with the registers setmaxnreg redistributes (it would wait
+// forever for registers the block does not hold).
+template <int DH>
+cudaError_t prepare_wgmma() {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, flash_fwd_wgmma_kernel<DH>);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs * kWThreads < 128 * kProducerRegs + 256 * kConsumerRegs) return cudaErrorInvalidConfiguration;
+  return cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(wgmma_smem_bytes<DH>()));
+}
+
+template <int DH>
+cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
+  static const cudaError_t ready = prepare_wgmma<DH>();
+  if (ready != cudaSuccess) return ready;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = tensor_map(&mq, p.q, DH, p.sq, p.h, p.b, p.q_sb, p.q_sh, p.q_ss, kWBQ);
+  if (err == cudaSuccess)
+    err = tensor_map(&mk, p.k, DH, p.skv, p.hkv, p.b, p.kv_sb, p.kv_sh, p.kv_ss, WTile<DH>::kBK);
+  if (err == cudaSuccess)
+    err = tensor_map(&mv, p.v, DH, p.skv, p.hkv, p.b, p.kv_sb, p.kv_sh, p.kv_ss, WTile<DH>::kBK);
+  if (err != cudaSuccess) return err;
+  const int blocks = (p.sq + kWBQ - 1) / kWBQ * p.h * p.b;
+  flash_fwd_wgmma_kernel<DH><<<blocks, kWThreads, wgmma_smem_bytes<DH>(), stream>>>(mq, mk, mv, p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wgmma_dh(const Params& p, int dh, cudaStream_t stream) {
   switch (dh) {
-    case 64: return launch_mma<64>(p, b, stream);
-    case 128: return launch_mma<128>(p, b, stream);
+    case 64: return launch_wgmma<64>(p, stream);
+    case 128: return launch_wgmma<128>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The tensor-core path loads 16-byte pieces of q/k/v rows and stores
-// 4-byte pairs of out: it needs every row start 16-byte aligned (the
-// wrapper copies bf16 input that is not).
-bool mma_aligned(const Params& p) {
+// TMA reads from 16-byte aligned bases at strides that are multiples of 16
+// bytes, and the output is stored in 4-byte pairs: every row start must be
+// 16-byte aligned (the wrapper copies bf16 input that is not).
+bool rows_on_16_bytes(const Params& p) {
   const auto a16 = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
   const int64_t strides[] = {p.q_sb, p.q_sh, p.q_ss, p.kv_sb, p.kv_sh, p.kv_ss, p.o_sb, p.o_sh, p.o_ss};
   for (const int64_t st : strides)
@@ -448,14 +760,14 @@ extern "C" int warp_flash_attention(
   // Skipping is exact when every real row has a valid key: its diagonal.
   const int skip = sq <= skv && window != 0;
   const Params p{q, k, v, o, q_sb, q_sh, q_ss, kv_sb, kv_sh, kv_ss, o_sb, o_sh, o_ss,
-                 h, hkv, sq, skv, causal, window < 0 ? -1 : window, skip,
+                 b, h, hkv, sq, skv, causal, window < 0 ? -1 : window, skip,
                  1.f / sqrtf(static_cast<float>(dh))};
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return static_cast<int>(launch_dh(p, b, dh, s));
     case 1:
-      if (!mma_aligned(p)) return static_cast<int>(cudaErrorMisalignedAddress);
-      return static_cast<int>(launch_mma_dh(p, b, dh, s));
+      if (!rows_on_16_bytes(p)) return static_cast<int>(cudaErrorMisalignedAddress);
+      return static_cast<int>(launch_wgmma_dh(p, dh, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -7,9 +7,12 @@
 ``repro/kernels/flash_attention.py::flash_attention_kernel_call``. The
 kernel reads strided inputs (the last axis contiguous), so a [B, S, H, Dh]
 tensor passes as its ``transpose(1, 2)`` view without a copy, and the
-output keeps q's strides. bf16 runs on the tensor cores, which load rows in
-16-byte pieces: a bf16 input whose rows do not start on 16 bytes is copied
-first.
+output keeps q's strides. bf16 runs on Hopper's tensor cores (wgmma) fed
+by TMA, which reads from 16-byte aligned rows at strides of whole 16-byte
+units: a bf16 input whose rows do not start on 16 bytes is copied first.
+Its schedule (which kv tiles each 128-row q-block visits, which of them
+need the mask, and the block order) has a plain twin in
+``ref.flash_schedule``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,11 @@ from repro_torch.kernels import _build, ref
 __all__ = ["flash_attention", "flash_attention_cuda"]
 
 HEAD_DIMS = (64, 128)  # the head sizes the kernel is compiled for
+# The bf16 kernel's tiles, as csrc/flash_attention.cu sets them: query rows
+# per block, and keys per kv tile and stages of the k/v ring by head size.
+BLOCK_Q = 128
+TILE_K = {64: 128, 128: 64}
+STAGES = {64: 2, 128: 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -40,11 +48,20 @@ def flash_attention(
 
 
 def _rows_on_16_bytes(t: torch.Tensor) -> bool:
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 and s > 0 for s in t.stride()[:3])
+
+
+def bf16_smem_bytes(dh: int) -> int:
+    """Dynamic shared memory of one block of the bf16 kernel: 1024 bytes of
+    alignment slack, the q tile, the k/v ring and its barriers."""
+    bk, st = TILE_K[dh], STAGES[dh]
+    return 1024 + 2 * dh * (BLOCK_Q + 2 * st * bk) + 8 * (1 + 3 * st)
 
 
 def flash_attention_cuda(q, k, v, *, causal=True, window=None):
-    """The CUDA kernel (64-row by 64-key tiles)."""
+    """The CUDA kernel: float32 in 64-row by 64-key tiles on FMA units,
+    bf16 in 128-row blocks over a ring of ``TILE_K[Dh]``-key tiles on the
+    tensor cores."""
     dev = _build.cuda_device(q)
     b, h, sq, dh = q.shape
     if q.dtype not in _DTYPES:

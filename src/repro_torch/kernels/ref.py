@@ -30,6 +30,8 @@ __all__ = [
     "fused_gather_score",
     "ragged_fused_gather_score",
     "flash_attention",
+    "flash_schedule",
+    "flash_attention_tiled",
     "take",
     "embedding_bag_bags",
     "embedding_bag_error_bound",
@@ -228,6 +230,93 @@ def flash_attention(
         acc = acc * a_prev.unsqueeze(-1) + acc_blk * a_blk.unsqueeze(-1)
     out = acc / l.clamp_min(1e-30).unsqueeze(-1)
     return out.reshape(b, h, sq, dh).to(q.dtype)
+
+
+def flash_schedule(
+    sq: int, skv: int, *, causal: bool, window: int | None, bq: int, bk: int
+) -> list[tuple[int, int, int, int, int]]:
+    """The bf16 flash kernel's schedule (``tile_range`` and the block order
+    of ``csrc/flash_attention.cu``): for each q-block of ``bq`` rows, in the
+    order the kernel starts them, ``(qb, t_lo, t_hi, m_lo, m_hi)``. The
+    block visits kv tiles ``t_lo..t_hi`` of ``bk`` keys and applies the
+    mask on tile t only where ``t < m_lo`` (a key the window hides from one
+    of its rows) or ``t >= m_hi`` (a key after one of its rows under the
+    causal mask, or at or past Skv).
+
+    Tiles are skipped only when every row has a valid key (Sq <= Skv and
+    window != 0); otherwise a block visits every tile, since a row with no
+    valid key averages v over all of them. Blocks start heaviest first:
+    the last q-blocks first under the causal mask, the first ones
+    otherwise."""
+    w = -1 if window is None else max(int(window), 0)
+    nqb, nt = -(-sq // bq), -(-skv // bk)
+    skip = sq <= skv and w != 0
+    out = []
+    for qb in (range(nqb - 1, -1, -1) if causal else range(nqb)):
+        q0 = qb * bq
+        q_last = min(q0 + bq, sq) - 1
+        t_lo, t_hi = 0, nt - 1
+        if skip:
+            if w >= 0:
+                t_lo = max(0, q0 - w + 1) // bk
+            if causal:
+                t_hi = min(t_hi, q_last // bk)
+        m_lo = (q_last - w) // bk + 1 if 0 <= w <= q_last else 0
+        m_hi = skv // bk if skv % bk else nt
+        if causal:
+            m_hi = min(m_hi, (q0 + 1) // bk)
+        out.append((qb, t_lo, t_hi, m_lo, m_hi))
+    return out
+
+
+def flash_attention_tiled(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    bq: int,
+    bk: int,
+) -> torch.Tensor:
+    """The bf16 flash kernel's algorithm, plainly: each q-block visits the
+    kv tiles ``flash_schedule`` gives it and masks only the flagged ones
+    (-1e30, keys past Skv dropped), with the recurrence in base 2 (scores
+    scaled by log2(e)/sqrt(Dh), ``exp2``). Same shapes and function as
+    ``flash_attention``; float32 sums."""
+    b, h, sq, dh = q.shape
+    rep = h // k.shape[1]
+    skv = k.shape[2]
+    c = math.log2(math.e) / math.sqrt(dh)
+    kf, vf = (t.float().repeat_interleave(rep, dim=1) for t in (k, v))
+    out = torch.empty(b, h, sq, dh, dtype=torch.float32, device=q.device)
+    for qb, t_lo, t_hi, m_lo, m_hi in flash_schedule(
+        sq, skv, causal=causal, window=window, bq=bq, bk=bk
+    ):
+        rows = torch.arange(qb * bq, min(qb * bq + bq, sq), device=q.device)
+        qf = q[:, :, rows].float()
+        m = torch.full((b, h, rows.numel()), -math.inf, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(b, h, rows.numel(), dh, device=q.device)
+        for t in range(t_lo, t_hi + 1):
+            keys = torch.arange(t * bk, min(t * bk + bk, skv), device=q.device)
+            s = (qf @ kf[:, :, keys].transpose(-1, -2)) * c
+            if t < m_lo or t >= m_hi:
+                rel = rows.unsqueeze(-1) - keys
+                mask = torch.ones_like(rel, dtype=torch.bool)
+                if causal:
+                    mask &= rel >= 0
+                if window is not None:
+                    mask &= rel < max(int(window), 0)
+                s = torch.where(mask, s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new.unsqueeze(-1))
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha.unsqueeze(-1) + p @ vf[:, :, keys]
+            m = m_new
+        out[:, :, rows] = acc / l.clamp_min(1e-30).unsqueeze(-1)
+    return out.to(q.dtype)
 
 
 def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -2,9 +2,12 @@
 on the card: edge shapes (an index smaller than one tile, runs ending at
 the last row, padding tiles, dims that are not a multiple of the word
 size) at nbits 2/4/8; invalid slots exactly 0; tolerance 1e-4 (float32
-sums in another order). Flash attention over causal and window masks,
-padded S, Dh 64 and 128, float32 and bf16, H != Hkv: 1e-4 at float32,
-2e-2 at bf16 output (one rounding of values of magnitude up to ~4). The
+sums in another order). Flash attention over causal and window masks
+(windows 1 to 512), S from 1 to 1000 (the bf16 kernel's 128-row blocks
+partly empty), Sq != Skv, Dh 64 and 128, float32 and bf16, GQA ratios 1
+to 7, contiguous and transposed [B, S, H, Dh] views: 1e-4 at float32, and
+at bf16 each element within one bf16 ulp of the larger output plus 1e-5
+(both are one rounding of float32 values far closer than an ulp). The
 embedding bag at D 1, 18, 256 and 257, int32 and int64 ids, an unaligned
 table view, ids outside [0, V) and empty bag sets, per element within
 ``ref.embedding_bag_error_bound`` ((L + 1) * 2^-24 * sum |w| |row| + 1e-7,
@@ -195,6 +198,15 @@ FLASH_CASES = [
     (2, 128, 4, 4, 64, False, None),
     (1, 256, 8, 2, 128, False, 64),  # window without causality
     (1, 1000, 14, 2, 64, True, 512),
+    # The bf16 kernel's 128-row blocks partly empty, windows at and around
+    # its tiles, GQA ratios 1, 4 and 7, Dh 128.
+    (1, 1, 4, 4, 64, True, None),
+    (1, 65, 4, 1, 64, True, None),
+    (1, 127, 7, 1, 64, True, 17),
+    (1, 129, 4, 4, 128, True, 1),
+    (1, 1000, 7, 1, 128, True, 128),
+    (1, 1000, 4, 1, 64, True, 129),
+    (2, 129, 4, 1, 64, False, 17),
 ]
 
 
@@ -232,6 +244,40 @@ def test_flash_attention_kernel_on_card(card, dtype, b, s, h, hkv, dh, causal, w
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention"] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
+    _assert_flash_close(got, tref.flash_attention(q, k, v, causal=causal, window=window))
+
+
+FLASH_EDGE_CASES = [
+    # b, sq, skv, h, hkv, dh, causal, window, layout: "model" passes the
+    # transposed views of [B, S, H, Dh] tensors, as ops.flash_attention does
+    (1, 65, 300, 4, 1, 64, False, None, "contiguous"),  # Sq < Skv without causality
+    (1, 127, 1000, 7, 1, 128, False, None, "contiguous"),
+    (1, 1, 129, 4, 4, 64, False, 17, "contiguous"),
+    (1, 300, 129, 4, 2, 64, True, None, "contiguous"),  # Sq > Skv: no tile skipped
+    (2, 1000, 1000, 14, 2, 64, True, None, "model"),
+    (1, 129, 129, 8, 2, 128, True, 128, "model"),
+    (1, 65, 300, 7, 1, 64, False, None, "model"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,hkv,dh,causal,window,layout", FLASH_EDGE_CASES)
+def test_flash_attention_kernel_edges_on_card(card, dtype, b, sq, skv, h, hkv, dh, causal, window, layout):
+    g = torch.Generator().manual_seed(sq + skv + dh)
+    shapes = ((b, h, sq, dh), (b, hkv, skv, dh), (b, hkv, skv, dh))
+    if layout == "model":
+        q, k, v = (
+            torch.randn(n, m, hh, d, generator=g).to(device=card, dtype=dtype).transpose(1, 2)
+            for n, hh, m, d in shapes
+        )
+    else:
+        q, k, v = (torch.randn(*shape, generator=g).to(device=card, dtype=dtype) for shape in shapes)
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape and got.stride() == q.stride()
     _assert_flash_close(got, tref.flash_attention(q, k, v, causal=causal, window=window))
 
 
