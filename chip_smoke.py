@@ -120,6 +120,16 @@ KERNEL_INFO = {
     ),
 }
 TOL = 1e-4  # kernel vs plain version, and scores across executors
+# The scoring kernels' times in the design before the one-thread-per-row
+# rewrite of selective_sum and fused_gather_score (half a warp per row,
+# one block per probe; ragged unchanged), at this script's kernel-phase
+# shapes on an H100 80GB HBM3 at 700 W, L2 flushed, median of 25
+# (PERF.md, section 6): printed beside each new time.
+EARLIER_MS = {
+    "selective_sum": 0.11699,
+    "fused_gather_score": 0.07168,
+    "ragged_fused_gather_score": 0.03581,
+}
 
 # LM phase: qwen2-0.5b generation. The prompt is 4 x 2048 random token ids.
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
@@ -346,8 +356,55 @@ def ptxas_report(log_path) -> list:
     return lines
 
 
+def lookup_wavefronts(nbits: int, layout: str, trials: int = 20000, seed: int = 0) -> float:
+    """Mean shared-memory wavefronts of one warp-wide v-table lookup at
+    D 128 over random codes (a bank serves one 32-bit word per wavefront;
+    lanes reading one word share it). ``layout`` "row": one row per lane,
+    all lanes at one dim d, word d * 2^b + code (csrc/score_rows.cuh).
+    "half_warp" (the earlier design, nbits 4): 16 lanes per row, lane w at
+    dim 8w + s of its row, word (8w + s) * 16 + code."""
+    rng = np.random.default_rng(seed)
+    nb = 1 << nbits
+    codes = rng.integers(0, nb, (trials, 32))
+    if layout == "row":
+        words = rng.integers(0, 128, (trials, 1)) * nb + codes
+    else:
+        s = rng.integers(0, 8, (trials, 1))
+        words = (8 * (np.arange(32) % 16) + s) * nb + codes
+    words = np.sort(words, axis=1)
+    first = np.ones_like(words, dtype=bool)
+    first[:, 1:] = words[:, 1:] != words[:, :-1]  # each distinct word once
+    per_bank = np.zeros((trials, 32), np.int64)
+    np.add.at(per_bank, (np.nonzero(first)[0], (words % 32)[first]), 1)
+    return float(per_bank.max(axis=1).mean())
+
+
+def code_view(torch, codes, offset: int):
+    """A copy of ``codes`` as a contiguous view ``offset`` bytes into a
+    larger buffer (an unaligned base for offsets that are not 16-byte
+    multiples)."""
+    buf = torch.empty(codes.numel() + offset, dtype=torch.uint8, device=codes.device)
+    view = buf[offset:].view(codes.shape)
+    view.copy_(codes)
+    return view
+
+
+def check_scores(got, want, invalid=None):
+    """(max abs err vs the plain version, the rule it breaks or None): every
+    slot within TOL of the plain version, and the invalid ones exactly 0."""
+    err = float((got - want).abs().max())
+    if not err <= TOL:
+        return err, f"max abs err {err} vs its plain version > {TOL}"
+    if invalid is not None and bool((got[invalid] != 0).any()):
+        return err, "an invalid slot is not exactly 0"
+    return err, None
+
+
 def phase_kernels(torch, index, plan_ragged, flush):
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the main path's shapes;
+    selective_sum and the dense fused kernel also on skewed probe sizes,
+    unaligned code views and the batched Q = 128, with two planted faults
+    that the checks must reject."""
     from repro_torch.core import warpselect
     from repro_torch.core import worklist as wl
     from repro_torch.kernels import _build, ref
@@ -368,17 +425,30 @@ def phase_kernels(torch, index, plan_ragged, flush):
         + ", ".join(f"Dh {dh} {bf16_smem_bytes(dh)} bytes" for dh in TILE_K))
 
     dev = index.device
-    q, _ = make_queries(torch, index, 1, seed=12345, lo=32, hi=32)
-    q = q[0]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
     cfg = plan_ragged.config
-    sel = warpselect.warp_select(
-        q, index.centroids, index.cluster_sizes, nprobe=cfg.nprobe,
-        t_prime=cfg.t_prime, k_impute=cfg.k_impute,
-    )
-    starts = index.cluster_offsets[sel.probe_cids].int().contiguous()
-    sizes = sel.probe_sizes.int().contiguous()
-    pscore = sel.probe_scores.float().contiguous()
-    v = (q.unsqueeze(-1) * index.bucket_weights).contiguous()
+
+    def probes(n_queries, seed):
+        """starts, sizes, probe scores and v-tables of ``n_queries`` queries
+        of 32 active tokens, flattened to [32 * n_queries, ...]."""
+        q, _ = make_queries(torch, index, n_queries, seed=seed, lo=32, hi=32)
+        q = q.reshape(-1, q.shape[-1])
+        sel = warpselect.warp_select(
+            q, index.centroids, index.cluster_sizes, nprobe=cfg.nprobe,
+            t_prime=cfg.t_prime, k_impute=cfg.k_impute,
+        )
+        return (
+            index.cluster_offsets[sel.probe_cids].int().contiguous(),
+            sel.probe_sizes.int().contiguous(),
+            sel.probe_scores.float().contiguous(),
+            (q.unsqueeze(-1) * index.bucket_weights).contiguous(),
+        )
+
+    starts, sizes, pscore, v = probes(1, 12345)
     qm, p = starts.shape
     d, nbits, cap, pb = index.dim, index.nbits, index.cap, index.packed_codes.shape[1]
     nb = 1 << nbits
@@ -386,10 +456,10 @@ def phase_kernels(torch, index, plan_ragged, flush):
     vbytes = qm * d * nb * 4
     out = []
 
-    def record(name, got, want, k_fn, p_fn, nbytes, ops):
-        err = float((got - want).abs().max())
-        if not err <= TOL:
-            fail(f"{name}: max abs err {err} vs its plain version > {TOL}")
+    def record(name, got, want, k_fn, p_fn, nbytes, ops, invalid=None, lookups=None):
+        err, broken = check_scores(got, want, invalid)
+        if broken:
+            fail(f"{name}: {broken}")
         ms = time_cuda(torch, k_fn, flush)
         plain_ms = time_cuda(torch, p_fn, flush, iters=5)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
@@ -408,12 +478,39 @@ def phase_kernels(torch, index, plan_ragged, flush):
             "bytes": int(nbytes),
         }
         log(f"[kernels] {json.dumps(row)}")
+        # Beside the row, not in it: the earlier design's time and, where
+        # the v-table lookups are a second floor, their time at one
+        # conflict-free wavefront (32 lookups) per SM per clock.
+        extra = {"earlier_ms": EARLIER_MS[name]}
+        if lookups is not None:
+            extra["lookup_floor_ms"] = lookups / (32 * n_sm * clock_hz) * 1e3
+        log(f"[kernels] {name}: {json.dumps(extra)} beside bound_ms {row['bound_ms']:.5f} "
+            f"({row['bound_by']}), ms {ms:.5f}; {n_sm} SMs at {clock_hz / 1e9:.3f} GHz max")
         out.append(row)
+
+    def case(name, got, want, invalid=None):
+        err, broken = check_scores(got, want, invalid)
+        if broken:
+            fail(f"{name}: {broken}")
+        log(f"[kernels] {name}: max abs err {err} vs its plain version")
+
+    def report_plan(name, *args):
+        plan = _build.launch_plan(name, *args)
+        warps = plan["threads"] // 32
+        per_sm = plan["resident_blocks"] / n_sm
+        # kStages - 1 = 2 chunks of 32 rows per warp load while one is scored
+        in_flight = per_sm * warps * 2 * 32 * pb
+        log(f"[kernels] {name} launch: {json.dumps(plan)}; {per_sm:g} blocks per SM, "
+            f"{in_flight / 1024:.0f} KiB of code rows in flight per SM")
 
     # 1. selective_sum over the gathered [Q, P * cap, PB] candidate codes.
     lane = torch.arange(cap, device=dev)
-    pos = (starts.long().unsqueeze(-1) + lane).clamp(0, index.n_tokens - 1)
-    gathered = index.packed_codes[pos].reshape(qm, p * cap, pb).contiguous()
+
+    def gather(st, q_):
+        pos = (st.long().unsqueeze(-1) + lane).clamp(0, index.n_tokens - 1)
+        return index.packed_codes[pos].reshape(q_, p * cap, pb).contiguous()
+
+    gathered = gather(starts, qm)
     kw = dict(nbits=nbits, dim=d)
     got = selective_sum_cuda(gathered, v, **kw)
     want = ref.selective_sum(gathered, v, **kw)
@@ -422,7 +519,13 @@ def phase_kernels(torch, index, plan_ragged, flush):
         lambda: selective_sum_cuda(gathered, v, **kw),
         lambda: ref.selective_sum(gathered, v, **kw),
         gathered.numel() + vbytes + 4 * qm * p * cap, qm * p * cap * d,
+        lookups=qm * p * cap * d,
     )
+    report_plan("selective_sum", gathered.data_ptr(), qm, p * cap, pb, d, nbits)
+    for offset in (1, 16):
+        view = code_view(torch, gathered, offset)
+        case(f"selective_sum, code view at +{offset} bytes", selective_sum_cuda(view, v, **kw), want)
+        del view
     del gathered
 
     # 2. fused dense grid [Q, P, cap].
@@ -431,14 +534,107 @@ def phase_kernels(torch, index, plan_ragged, flush):
     got = fused_gather_score_cuda(*args2, **kw2)
     want = ref.fused_gather_score(*args2, **kw2)
     invalid = lane >= sizes.long().unsqueeze(-1)
-    if bool((got[invalid] != 0).any()):
-        fail("fused_gather_score: an invalid slot is not exactly 0")
     record(
         "fused_gather_score", got, want,
         lambda: fused_gather_score_cuda(*args2, **kw2),
         lambda: ref.fused_gather_score(*args2, **kw2),
         rows * pb + qm * p * 12 + vbytes + 4 * qm * p * cap, rows * d,
+        invalid=invalid, lookups=rows * d,
     )
+    report_plan("fused_gather_score", index.packed_codes.data_ptr(), qm, p, cap, pb, d, nbits)
+
+    # Planted faults the checks must reject: one code nibble flipped in one
+    # probed row (the dim whose table entries lie furthest apart), and one
+    # tail slot left holding its probe's score.
+    q0, p0 = 0, int(torch.argmax(sizes[0]))
+    r0 = int(starts[q0, p0])
+    per_byte = 8 // nbits
+    codes0 = (index.packed_codes[r0].long().unsqueeze(-1) >> (torch.arange(per_byte, device=dev) * nbits)) & (nb - 1)
+    codes0 = codes0.reshape(-1)[:d]
+    top = 1 << (nbits - 1)
+    delta = (v[q0, torch.arange(d, device=dev), codes0 ^ top] - v[q0, torch.arange(d, device=dev), codes0]).abs()
+    dim0 = int(torch.argmax(delta))
+    byte0, flip = dim0 // per_byte, top << ((dim0 % per_byte) * nbits)
+    saved = index.packed_codes[r0, byte0].clone()
+    index.packed_codes[r0, byte0] ^= flip
+    bad = fused_gather_score_cuda(*args2, **kw2)
+    index.packed_codes[r0, byte0] = saved
+    bad_tail = got.clone()
+    slot = torch.nonzero(invalid)[0]
+    bad_tail[tuple(slot)] = pscore[slot[0], slot[1]]
+    for what, planted in (
+        (f"code nibble of dim {dim0} flipped in row {r0} (|delta v| {float(delta[dim0]):.4g})", bad),
+        (f"tail slot {tuple(slot.tolist())} left at its probe score", bad_tail),
+    ):
+        err, broken = check_scores(planted, want, invalid)
+        if broken is None:
+            fail(f"fused_gather_score: the checks do not reject a planted fault ({what})")
+        log(f"[kernels] planted fault, {what}: {broken}: rejected")
+    del bad, bad_tail
+
+    # Skewed sizes at the path's width: one probe per token at cap, one
+    # past cap (clamped), the rest 1 and 0; runs kept inside the index.
+    g = torch.Generator(device=dev)
+    g.manual_seed(99)
+    sk = torch.randint(0, 2, (qm, p), generator=g, device=dev, dtype=torch.int32)
+    sk[torch.arange(qm, device=dev), torch.randint(0, p, (qm,), generator=g, device=dev)] = cap
+    sk[0, -1] = cap + 517
+    sk_starts = starts.clamp(max=index.n_tokens - cap).contiguous()
+    args_sk = (index.packed_codes, sk_starts, sk, pscore, v)
+    case(
+        "fused_gather_score, skewed sizes (one probe at cap per token)",
+        fused_gather_score_cuda(*args_sk, **kw2), ref.fused_gather_score(*args_sk, **kw2),
+        lane >= sk.long().clamp(max=cap).unsqueeze(-1),
+    )
+    for offset in (1, 16):
+        view = code_view(torch, index.packed_codes, offset)
+        case(
+            f"fused_gather_score, code view at +{offset} bytes",
+            fused_gather_score_cuda(view, *args2[1:], **kw2), want, invalid,
+        )
+        del view
+
+    # The batched retrieve's Q = 128 (4 queries of 32 tokens): fewer blocks
+    # per token, the same grid size.
+    st4, sz4, ps4, v4 = probes(4, 54321)
+    gathered = gather(st4, st4.shape[0])
+    case(
+        "selective_sum, Q 128", selective_sum_cuda(gathered, v4, **kw),
+        ref.selective_sum(gathered, v4, **kw),
+    )
+    ms = time_cuda(torch, lambda: selective_sum_cuda(gathered, v4, **kw), flush)
+    log(f"[kernels] selective_sum, Q 128: {ms:.5f} ms")
+    report_plan("selective_sum", gathered.data_ptr(), st4.shape[0], p * cap, pb, d, nbits)
+    del gathered
+    args4 = (index.packed_codes, st4, sz4, ps4, v4)
+    case(
+        "fused_gather_score, Q 128", fused_gather_score_cuda(*args4, **kw2),
+        ref.fused_gather_score(*args4, **kw2), lane >= sz4.long().unsqueeze(-1),
+    )
+    ms = time_cuda(torch, lambda: fused_gather_score_cuda(*args4, **kw2), flush)
+    log(f"[kernels] fused_gather_score, Q 128: {ms:.5f} ms ({int(sz4.sum())} probed rows)")
+    report_plan("fused_gather_score", index.packed_codes.data_ptr(), st4.shape[0], p, cap, pb, d, nbits)
+
+    # selective_sum at the other code widths (D 128, random codes and
+    # tables), beside each width's floors and lookup wavefronts.
+    for b in (2, 4, 8):
+        pbb = d * b // 8
+        packed = torch.randint(0, 256, (qm, p * cap, pbb), generator=g, device=dev, dtype=torch.uint8)
+        vb = torch.randn(qm, d, 1 << b, generator=g, device=dev)
+        kwb = dict(nbits=b, dim=d)
+        case(f"selective_sum, nbits {b}", selective_sum_cuda(packed, vb, **kwb),
+             ref.selective_sum(packed, vb, **kwb))
+        ms = time_cuda(torch, lambda: selective_sum_cuda(packed, vb, **kwb), flush)
+        lookups = qm * p * cap * d
+        log(
+            f"[kernels] selective_sum, nbits {b}: {ms:.5f} ms; bytes bound "
+            f"{(packed.numel() + vb.numel() * 4 + 4 * qm * p * cap) / HBM_BYTES_PER_S * 1e3:.5f} ms, "
+            f"lookup floor {lookups / (32 * n_sm * clock_hz) * 1e3:.5f} ms at one wavefront; "
+            f"{lookup_wavefronts(b, 'row'):.3f} wavefronts per lookup (numpy count over random codes)"
+        )
+        del packed, vb
+    log(f"[kernels] the earlier half-warp-per-row layout at nbits 4: "
+        f"{lookup_wavefronts(4, 'half_warp'):.3f} wavefronts per lookup (numpy count)")
 
     # 3. ragged worklist at the rung the adaptive plan picks for this query.
     tile = cfg.tile_c
@@ -450,14 +646,13 @@ def phase_kernels(torch, index, plan_ragged, flush):
     got = ragged_fused_gather_score_cuda(*args3, **kw3)
     want = ref.ragged_fused_gather_score(*args3, **kw3)
     slot_invalid = (torch.arange(tile, device=dev) >= work.nvalid.long().unsqueeze(-1)).reshape(-1)
-    if bool((got[slot_invalid] != 0).any()):
-        fail("ragged_fused_gather_score: an invalid slot is not exactly 0")
     w = work.row0.numel()
     record(
         "ragged_fused_gather_score", got, want,
         lambda: ragged_fused_gather_score_cuda(*args3, **kw3),
         lambda: ref.ragged_fused_gather_score(*args3, **kw3),
         int(work.nvalid.sum()) * pb + w * 16 + vbytes + 4 * w * tile, int(work.nvalid.sum()) * d,
+        invalid=slot_invalid,
     )
     log(
         f"[kernels] shapes: Q={qm} P={p} cap={cap} D={d} nbits={nbits} "
@@ -663,10 +858,12 @@ def phase_profile(torch, retriever, queries, qmask, n: int = 5):
         launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
         top_k = "; ".join(f"{k[:40]} {t / n:.1f}us" for t, k in kernels[:6])
         top_h = "; ".join(f"{k[:32]} {t / n:.1f}us" for t, k in host[:6])
+        scoring = KERNEL_OF[(gather, layout)]
+        score_us = sum(t for t, k in kernels if f"::{scoring}_kernel<" in k)
         log(
             f"[profile] {gather}/{layout}/kernel: {wall_us / n:.1f} us wall per retrieve, "
             f"device kernels {busy / n:.1f} us ({busy / wall_us:.1%} busy), "
-            f"{launches / n:.0f} kernel launches; top kernels "
+            f"{launches / n:.0f} kernel launches; {scoring} {score_us / n:.1f} us; top kernels "
             f"per retrieve: {top_k} | top host ops (self CPU): {top_h}"
         )
 

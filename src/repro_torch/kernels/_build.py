@@ -26,7 +26,8 @@ import torch
 
 __all__ = [
     "LAUNCHES", "reset_launches", "library", "build_all", "check",
-    "stream_ptr", "require", "require_codec", "cuda_device",
+    "stream_ptr", "require", "require_codec", "require_ring", "cuda_device",
+    "launch_plan",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -57,6 +58,13 @@ KERNELS = {
     "embedding_bag": (
         "warp_embedding_bag", [_P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _P],
     ),
+}
+
+# What a kernel library reports of the launch it would make, without
+# making it (see launch_plan): (symbol, argtypes).
+PLANS = {
+    "selective_sum": ("warp_selective_sum_plan", [_P, _I, _I, _I, _I, _I, _P]),
+    "fused_gather_score": ("warp_fused_gather_score_plan", [_P, *[_I] * 6, _P]),
 }
 
 # Kernel launches per wrapper since the last reset: each wrapper adds one
@@ -140,6 +148,10 @@ def library(name: str) -> ctypes.CDLL:
                 fn = getattr(dll, symbol)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                if n in PLANS:
+                    plan_symbol, plan_argtypes = PLANS[n]
+                    getattr(dll, plan_symbol).argtypes = plan_argtypes
+                    getattr(dll, plan_symbol).restype = ctypes.c_int
                 dll.warp_error_string.argtypes = [ctypes.c_int]
                 dll.warp_error_string.restype = ctypes.c_char_p
                 _LIBS[n] = dll
@@ -188,6 +200,35 @@ def require_codec(dim: int, nbits: int, pb: int) -> None:
             f"the v-table f32[{dim}, {1 << nbits}] exceeds one block's "
             f"{SMEM_MAX} bytes of shared memory"
         )
+
+
+def ring_row_stride(pb: int) -> int:
+    """Shared-memory bytes per staged code row of the selective-sum and
+    dense fused kernels (``score_rows::row_stride``): PB rounded up to an
+    odd number of 16-byte units."""
+    return 16 * (-(-pb // 16) | 1)
+
+
+def require_ring(dim: int, nbits: int, pb: int, extra: int = 0) -> None:
+    """The selective-sum and dense fused kernels hold the v-table (on a
+    256-byte boundary), ``extra`` bytes and at least one warp's ring of 3
+    chunks of 32 staged rows in one block's shared memory."""
+    need = 256 + dim * (1 << nbits) * 4 + extra + 3 * 32 * ring_row_stride(pb)
+    if need > SMEM_MAX:
+        raise ValueError(
+            f"the v-table f32[{dim}, {1 << nbits}] and one warp's staged rows "
+            f"({need} bytes) exceed one block's {SMEM_MAX} bytes of shared memory"
+        )
+
+
+def launch_plan(name: str, *args) -> dict:
+    """The launch kernel ``name`` (a key of ``PLANS``) would make for these
+    arguments: threads and dynamic shared memory per block, blocks resident
+    on the card at once, blocks per query token."""
+    buf = (ctypes.c_int * 4)()
+    symbol = PLANS[name][0]
+    check(name, getattr(library(name), symbol)(*args, buf))
+    return dict(zip(("threads", "smem_bytes", "resident_blocks", "blocks_per_token"), buf))
 
 
 def cuda_device(t: torch.Tensor) -> torch.device:

@@ -5,7 +5,7 @@
 // fused_gather_score_kernel_call (Pallas bodies _fused_kernel and
 // _fused_kernel_db, shared _unpack_score): for each query token q and probe
 // p, slot c of the output is pscore[q, p] + sum_d v[q, d, code_d] of code row
-// starts[q, p] + c when c < sizes[q, p], and exactly 0 otherwise.
+// starts[q, p] + c when c < min(sizes[q, p], cap), and exactly 0 otherwise.
 // codes u8[N, PB] (the resident index, never gathered), starts/sizes
 // i32[Q, P], pscore f32[Q, P], v f32[Q, D, 2^b] -> out f32[Q, P, cap].
 //
@@ -14,65 +14,191 @@
 // at warp-xtr width and the mean cluster size) and the dense output is
 // written once (4*Q*P*cap = 4.2 MB, mostly the zero tail of the grid).
 //
-// Design: one block per (q, p), looping over the cluster's rows with the
-// shared scoring routine (score_row.cuh); the block zero-fills the slots
-// past the cluster's size. The TPU kernel clamps its fetch to
-// n_tokens - tile_c and rolls the tile back into place; here each row is
-// loaded only when it is valid (masked load), so no clamp, roll, minimum
-// index size or cap == 0 special case exists. Rows outside [0, n_tokens)
-// — which a well-formed CSR never yields — are treated as invalid.
-#include "score_row.cuh"
+// Design. Cluster sizes are skewed (log-normal, clamped at cap), so one
+// block per (q, p) lasts as long as the largest cluster while most SMs
+// idle. Instead each query token's probed rows are flattened, in probe
+// order, into 0 .. T_q - 1 (T_q = sum_p min(sizes[q, p], cap); pre[p] the
+// prefix sums) and split into S equal ranges, one block each, S from the
+// number of blocks the card holds at once; flat row f belongs to the probe
+// p with pre[p] <= f < pre[p + 1], slot c = f - pre[p]. The zero tails
+// (slots c >= min(size, cap)) are flattened the same way, tail slot z of
+// probe p at p * cap - pre[p] + (c - min(size, cap)), and split into S
+// equal ranges too, written with 16-byte stores. Python twin of the split
+// and both maps: ref.score_split. Rows are scored as in selective_sum.cu
+// (score_rows.cuh: one thread per row, conflict-free lookups, a cp.async
+// ring per warp). Rows outside [0, n_tokens), which a well-formed CSR never
+// yields, are not loaded and their slots are 0.
+#include "score_rows.cuh"
 
 namespace {
 
-template <int NBITS>
-__global__ void __launch_bounds__(warp::kThreads)
+using score_rows::WarpRing;
+
+// Largest p in [0, n) with key(p) <= x, for a non-decreasing key and
+// key(0) <= x.
+template <class Key>
+__device__ __forceinline__ int last_at_most(int n, long long x, Key key) {
+  int a = 0, b = n - 1;
+  while (a < b) {
+    const int m = (a + b + 1) >> 1;
+    if (key(m) <= x) {
+      a = m;
+    } else {
+      b = m - 1;
+    }
+  }
+  return a;
+}
+
+// Block-cooperative zero fill of a[0, n): 16-byte stores between a scalar
+// head and tail.
+__device__ __forceinline__ void zero_fill(float* a, long long n) {
+  long long head = ((16 - (reinterpret_cast<uintptr_t>(a) & 15)) & 15) >> 2;
+  if (head > n) head = n;
+  for (long long t = threadIdx.x; t < head; t += blockDim.x) a[t] = 0.f;
+  float4* b = reinterpret_cast<float4*>(a + head);
+  const long long n4 = (n - head) >> 2;
+  for (long long t = threadIdx.x; t < n4; t += blockDim.x) b[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (long long t = head + 4 * n4 + threadIdx.x; t < n; t += blockDim.x) a[t] = 0.f;
+}
+
+template <int NBITS, bool VEC16>
+__global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
     fused_gather_score_kernel(const uint8_t* __restrict__ codes,
                               const int* __restrict__ starts, const int* __restrict__ sizes,
                               const float* __restrict__ pscore, const float* __restrict__ v,
                               float* __restrict__ out, int n_tokens, int n_probes, int cap,
-                              int pb, int dim, bool vec4) {
-  extern __shared__ float v_s[];
-  const int p = blockIdx.x;
+                              int pb, int dim) {
+  extern __shared__ __align__(16) uint8_t smem[];
   const int q = blockIdx.y;
-  const int qp = q * n_probes + p;
-  const int start = starts[qp];
-  const int size = min(sizes[qp], cap);
-  const float ps = pscore[qp];
-  float* o = out + static_cast<size_t>(qp) * cap;
-
-  for (int c = max(size, 0) + threadIdx.x; c < cap; c += blockDim.x) o[c] = 0.f;
-  if (size <= 0) return;  // uniform across the block: an empty probe
-
   const int nb = 1 << NBITS;
-  warp::load_vtable(v_s, v + static_cast<size_t>(q) * dim * nb, dim * nb);
+  const int warps = blockDim.x >> 5;
+  float* v_s = score_rows::vtable_at(smem, score_rows::ring_bytes(warps, pb));
+  int* pre = reinterpret_cast<int*>(v_s + dim * nb);  // [n_probes + 1]
+  int* st = pre + n_probes + 1;                          // [n_probes]
+  float* ps = reinterpret_cast<float*>(st + n_probes);   // [n_probes]
+  float* o = out + static_cast<size_t>(q) * n_probes * cap;
+
+  // Everything the block needs from the probe arrays and the v-table, in
+  // one round trip: the table by cp.async, starts, probe scores and the
+  // clamped sizes by plain loads.
+  score_rows::load_vtable(v_s, v + static_cast<size_t>(q) * dim * nb, dim * nb);
+  for (int p = threadIdx.x; p < n_probes; p += blockDim.x) {
+    const size_t qp = static_cast<size_t>(q) * n_probes + p;
+    pre[p + 1] = min(max(sizes[qp], 0), cap);
+    st[p] = starts[qp];
+    ps[p] = pscore[qp];
+  }
+  if (threadIdx.x == 0) pre[0] = 0;
+  __syncthreads();
+  // pre[p] = sum of the clamped sizes before probe p (warp 0, an inclusive
+  // shuffle scan per 32 probes, in place).
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int carry = 0;
+    for (int p0 = 0; p0 < n_probes; p0 += 32) {
+      const int p = p0 + lane;
+      int x = p < n_probes ? pre[p + 1] : 0;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(score_rows::kFull, x, off);
+        if (lane >= off) x += y;
+      }
+      if (p < n_probes) pre[p + 1] = carry + x;
+      carry += __shfl_sync(score_rows::kFull, x, 31);
+    }
+  }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int half = lane >> 4;
-  const int lane_g = lane & (warp::kGroup - 1);
-  for (int c0 = (threadIdx.x >> 5) * 2; c0 < size; c0 += warp::kRowsPerStep) {
-    const int c = c0 + half;
-    const long long row = static_cast<long long>(start) + c;
-    const bool ok = c < size && row >= 0 && row < n_tokens;
-    const float s = warp::score_row<NBITS>(
-        ok ? codes + static_cast<size_t>(row) * pb : nullptr, pb, vec4, v_s, lane_g);
-    if (c < size && lane_g == 0) o[c] = ok ? s + ps : 0.f;
+  const long long total = pre[n_probes];
+  const long long s = blockIdx.x, n_blocks = gridDim.x;
+  const long long lo = total * s / n_blocks, hi = total * (s + 1) / n_blocks;
+  auto probe_of = [&](long long f) {
+    return last_at_most(n_probes, f, [&](int p) { return static_cast<long long>(pre[p]); });
+  };
+  auto row_of = [&](long long f) -> const uint8_t* {
+    const int p = probe_of(f);
+    const long long row = static_cast<long long>(st[p]) + (f - pre[p]);
+    return row >= 0 && row < n_tokens ? codes + static_cast<size_t>(row) * pb : nullptr;
+  };
+  WarpRing<VEC16> ring(smem, lo, hi, pb);
+  for (int i = 0; i < score_rows::kStages - 1; ++i) ring.issue(i, row_of);
+
+  // This block's share of the zero tails, while its first rows load.
+  const long long tails = static_cast<long long>(n_probes) * cap - total;
+  long long z = tails * s / n_blocks;
+  const long long z1 = tails * (s + 1) / n_blocks;
+  auto tail_start = [&](int p) { return static_cast<long long>(p) * cap - pre[p]; };
+  for (int p = z < z1 ? last_at_most(n_probes, z, tail_start) : n_probes; z < z1 && p < n_probes;
+       ++p) {
+    const int m = pre[p + 1] - pre[p];
+    const long long t0 = tail_start(p);
+    const long long end = min(z1, t0 + (cap - m));
+    if (end > z) {
+      zero_fill(o + static_cast<size_t>(p) * cap + m + (z - t0), end - z);
+      z = end;
+    }
   }
+  score_rows::cp_async_wait<score_rows::kStages - 1>();  // the v-table's group
+  __syncthreads();
+
+  ring.template run<NBITS>(v_s, row_of, [&](long long f, float score) {
+    const int p = probe_of(f);
+    const long long c = f - pre[p];
+    const long long row = static_cast<long long>(st[p]) + c;
+    o[static_cast<size_t>(p) * cap + c] = row >= 0 && row < n_tokens ? score + ps[p] : 0.f;
+  });
 }
 
-template <int NBITS>
+template <int NBITS, bool VEC16>
 cudaError_t launch(const uint8_t* codes, const int* starts, const int* sizes,
                    const float* pscore, const float* v, float* out, int n_tokens, int q,
-                   int p, int cap, int pb, int dim, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(dim) * (1 << NBITS) * sizeof(float);
-  cudaError_t err = warp::allow_smem(fused_gather_score_kernel<NBITS>, smem);
+                   int p, int cap, int pb, int dim, cudaStream_t stream, int* plan) {
+  const size_t fixed = score_rows::kVtableAlign +
+                       static_cast<size_t>(dim) * (1 << NBITS) * sizeof(float) +
+                       (3 * static_cast<size_t>(p) + 1) * sizeof(int);
+  const int warps = score_rows::warps_that_fit(fixed, pb);
+  if (warps == 0) return cudaErrorInvalidValue;
+  const size_t smem = score_rows::ring_bytes(warps, pb) + fixed;
+  auto kernel = fused_gather_score_kernel<NBITS, VEC16>;
+  cudaError_t err = score_rows::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p, q);
-  fused_gather_score_kernel<NBITS><<<grid, warp::kThreads, smem, stream>>>(
-      codes, starts, sizes, pscore, v, out, n_tokens, p, cap, pb, dim,
-      warp::aligned4(codes, pb));
+  const int threads = warps * 32;
+  const int resident =
+      score_rows::resident_blocks(reinterpret_cast<const void*>(kernel), threads, smem);
+  const int s = score_rows::blocks_per_token(q, resident);
+  if (plan != nullptr) {  // the launch's shape, for reports; nothing runs
+    plan[0] = threads;
+    plan[1] = static_cast<int>(smem);
+    plan[2] = resident;
+    plan[3] = s;
+    return cudaSuccess;
+  }
+  kernel<<<dim3(s, q), threads, smem, stream>>>(codes, starts, sizes, pscore, v, out,
+                                                n_tokens, p, cap, pb, dim);
   return cudaGetLastError();
+}
+
+int dispatch(const void* codes, const void* starts, const void* sizes, const void* pscore,
+             const void* v, void* out, int n_tokens, int q, int p, int cap, int pb, int dim,
+             int nbits, void* stream, int* plan) {
+  const auto* c = static_cast<const uint8_t*>(codes);
+  const auto* st = static_cast<const int*>(starts);
+  const auto* sz = static_cast<const int*>(sizes);
+  const auto* ps = static_cast<const float*>(pscore);
+  const auto* vv = static_cast<const float*>(v);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool vec16 = score_rows::aligned16(codes, pb);
+  switch (nbits * 2 + (vec16 ? 1 : 0)) {
+    case 4: return launch<2, false>(c, st, sz, ps, vv, o, n_tokens, q, p, cap, pb, dim, s, plan);
+    case 5: return launch<2, true>(c, st, sz, ps, vv, o, n_tokens, q, p, cap, pb, dim, s, plan);
+    case 8: return launch<4, false>(c, st, sz, ps, vv, o, n_tokens, q, p, cap, pb, dim, s, plan);
+    case 9: return launch<4, true>(c, st, sz, ps, vv, o, n_tokens, q, p, cap, pb, dim, s, plan);
+    case 16: return launch<8, false>(c, st, sz, ps, vv, o, n_tokens, q, p, cap, pb, dim, s, plan);
+    case 17: return launch<8, true>(c, st, sz, ps, vv, o, n_tokens, q, p, cap, pb, dim, s, plan);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -81,17 +207,15 @@ extern "C" int warp_fused_gather_score(const void* codes, const void* starts,
                                        const void* sizes, const void* pscore, const void* v,
                                        void* out, int n_tokens, int q, int p, int cap, int pb,
                                        int dim, int nbits, void* stream) {
-  const auto* c = static_cast<const uint8_t*>(codes);
-  const auto* st = static_cast<const int*>(starts);
-  const auto* sz = static_cast<const int*>(sizes);
-  const auto* ps = static_cast<const float*>(pscore);
-  const auto* vv = static_cast<const float*>(v);
-  auto* o = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (nbits) {
-    case 2: return launch<2>(c, st, sz, ps, vv, o, n_tokens, q, p, cap, pb, dim, s);
-    case 4: return launch<4>(c, st, sz, ps, vv, o, n_tokens, q, p, cap, pb, dim, s);
-    case 8: return launch<8>(c, st, sz, ps, vv, o, n_tokens, q, p, cap, pb, dim, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch(codes, starts, sizes, pscore, v, out, n_tokens, q, p, cap, pb, dim, nbits,
+                  stream, nullptr);
+}
+
+// The launch warp_fused_gather_score would make for these arguments,
+// without making it: plan = {threads per block, dynamic shared memory per
+// block, blocks resident on the card, blocks per query token}.
+extern "C" int warp_fused_gather_score_plan(const void* codes, int q, int p, int cap, int pb,
+                                            int dim, int nbits, int* plan) {
+  return dispatch(codes, nullptr, nullptr, nullptr, nullptr, nullptr, 0, q, p, cap, pb, dim,
+                  nbits, nullptr, plan);
 }

@@ -6,74 +6,107 @@
 //
 // Bound on the H100: bytes. Every code byte is read once and every score
 // written once: Q*N*PB + 4*Q*N bytes (Q = 32, N = nprobe*cap = 32768,
-// PB = 64: 67.1 MB + 4.2 MB, about 21 us at 3.35 TB/s). The arithmetic is
-// one shared-memory load and one add per dimension, far below the card's
-// rate for that traffic.
+// PB = 64: 67.1 MB + 4.2 MB, about 21 us at 3.35 TB/s). Beside it sits a
+// second floor, the shared-memory lookups: Q*N*D = 134M of them, one
+// warp-wide LDS per 32, ~16 us at one LDS per SM clock and 1.98 GHz; the
+// card issues them nearer one per two clocks (PERF.md).
 //
-// Design: one block per (query token q, block of 512 rows). The block
-// copies q's v-table into shared memory once (8 KiB at D = 128, b = 4,
-// read from L2 after the first block of q) and then streams its rows:
-// half-warps read each 64-byte row with 32-bit loads, contiguous across
-// the half-warp, so loads coalesce. The TPU kernel's select-accumulate over
-// the 2^b buckets is replaced by the shared-memory gather (score_row.cuh).
-#include "score_row.cuh"
+// Design (score_rows.cuh): one thread per row, so the v-table lookups of a
+// warp are conflict-free at nbits <= 4; rows staged through a per-warp
+// cp.async ring, kStages chunks of 32 rows in flight per warp. Each query
+// token's N rows split into S equal ranges, one block each, S from the
+// number of blocks the card holds at once (one wave at Q = 32 and at the
+// batched Q = 128). A block copies its token's v-table into shared memory
+// once (cp.async), alongside its first chunks.
+#include "score_rows.cuh"
 
 namespace {
 
-constexpr int kRowsPerBlock = 512;
+using score_rows::WarpRing;
 
-template <int NBITS>
-__global__ void __launch_bounds__(warp::kThreads)
+template <int NBITS, bool VEC16>
+__global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
     selective_sum_kernel(const uint8_t* __restrict__ packed, const float* __restrict__ v,
-                         float* __restrict__ out, int n, int pb, int dim, bool vec4) {
-  extern __shared__ float v_s[];
+                         float* __restrict__ out, int n, int pb, int dim) {
+  extern __shared__ __align__(16) uint8_t smem[];
   const int q = blockIdx.y;
   const int nb = 1 << NBITS;
-  warp::load_vtable(v_s, v + static_cast<size_t>(q) * dim * nb, dim * nb);
-  __syncthreads();
+  const int blocks = gridDim.x;
+  const long long lo = static_cast<long long>(n) * blockIdx.x / blocks;
+  const long long hi = static_cast<long long>(n) * (blockIdx.x + 1) / blocks;
+  if (lo >= hi) return;  // uniform across the block
 
-  const int lane = threadIdx.x & 31;
-  const int half = lane >> 4;
-  const int lane_g = lane & (warp::kGroup - 1);
-  const int r0 = blockIdx.x * kRowsPerBlock;
-  const int r_end = min(n, r0 + kRowsPerBlock);
   const uint8_t* base = packed + static_cast<size_t>(q) * n * pb;
   float* o = out + static_cast<size_t>(q) * n;
-  // The loop bound is uniform across each warp, so every lane reaches the
-  // shuffles in score_row together.
-  for (int c0 = r0 + (threadIdx.x >> 5) * 2; c0 < r_end; c0 += warp::kRowsPerStep) {
-    const int r = c0 + half;
-    const bool ok = r < r_end;
-    const float s = warp::score_row<NBITS>(
-        ok ? base + static_cast<size_t>(r) * pb : nullptr, pb, vec4, v_s, lane_g);
-    if (ok && lane_g == 0) o[r] = s;
-  }
+  const int warps = blockDim.x >> 5;
+  float* v_s = score_rows::vtable_at(smem, score_rows::ring_bytes(warps, pb));
+  WarpRing<VEC16> ring(smem, lo, hi, pb);
+  auto row_of = [&](long long f) { return base + static_cast<size_t>(f) * pb; };
+
+  score_rows::load_vtable(v_s, v + static_cast<size_t>(q) * dim * nb, dim * nb);
+  for (int i = 0; i < score_rows::kStages - 1; ++i) ring.issue(i, row_of);
+  score_rows::cp_async_wait<score_rows::kStages - 1>();  // the v-table's group
+  __syncthreads();
+  ring.template run<NBITS>(v_s, row_of, [&](long long f, float s) { o[f] = s; });
 }
 
-template <int NBITS>
-cudaError_t launch(const uint8_t* packed, const float* v, float* out, int q, int n,
-                   int pb, int dim, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(dim) * (1 << NBITS) * sizeof(float);
-  cudaError_t err = warp::allow_smem(selective_sum_kernel<NBITS>, smem);
+template <int NBITS, bool VEC16>
+cudaError_t launch(const uint8_t* packed, const float* v, float* out, int q, int n, int pb,
+                   int dim, cudaStream_t stream, int* plan) {
+  const size_t vbytes =
+      score_rows::kVtableAlign + static_cast<size_t>(dim) * (1 << NBITS) * sizeof(float);
+  const int warps = score_rows::warps_that_fit(vbytes, pb);
+  if (warps == 0) return cudaErrorInvalidValue;
+  const size_t smem = score_rows::ring_bytes(warps, pb) + vbytes;
+  auto kernel = selective_sum_kernel<NBITS, VEC16>;
+  cudaError_t err = score_rows::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, q);
-  selective_sum_kernel<NBITS><<<grid, warp::kThreads, smem, stream>>>(
-      packed, v, out, n, pb, dim, warp::aligned4(packed, pb));
+  const int threads = warps * 32;
+  const int resident =
+      score_rows::resident_blocks(reinterpret_cast<const void*>(kernel), threads, smem);
+  const long long chunks = (static_cast<long long>(n) + score_rows::kChunk - 1) / score_rows::kChunk;
+  int s = score_rows::blocks_per_token(q, resident);
+  if (s > chunks) s = static_cast<int>(chunks);
+  if (plan != nullptr) {  // the launch's shape, for reports; nothing runs
+    plan[0] = threads;
+    plan[1] = static_cast<int>(smem);
+    plan[2] = resident;
+    plan[3] = s;
+    return cudaSuccess;
+  }
+  kernel<<<dim3(s, q), threads, smem, stream>>>(packed, v, out, n, pb, dim);
   return cudaGetLastError();
+}
+
+int dispatch(const void* packed, const void* v, void* out, int q, int n, int pb, int dim,
+             int nbits, void* stream, int* plan) {
+  const auto* p = static_cast<const uint8_t*>(packed);
+  const auto* vv = static_cast<const float*>(v);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool vec16 = score_rows::aligned16(packed, pb);
+  switch (nbits * 2 + (vec16 ? 1 : 0)) {
+    case 4: return launch<2, false>(p, vv, o, q, n, pb, dim, s, plan);
+    case 5: return launch<2, true>(p, vv, o, q, n, pb, dim, s, plan);
+    case 8: return launch<4, false>(p, vv, o, q, n, pb, dim, s, plan);
+    case 9: return launch<4, true>(p, vv, o, q, n, pb, dim, s, plan);
+    case 16: return launch<8, false>(p, vv, o, q, n, pb, dim, s, plan);
+    case 17: return launch<8, true>(p, vv, o, q, n, pb, dim, s, plan);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 extern "C" int warp_selective_sum(const void* packed, const void* v, void* out, int q,
                                   int n, int pb, int dim, int nbits, void* stream) {
-  const auto* p = static_cast<const uint8_t*>(packed);
-  const auto* vv = static_cast<const float*>(v);
-  auto* o = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (nbits) {
-    case 2: return launch<2>(p, vv, o, q, n, pb, dim, s);
-    case 4: return launch<4>(p, vv, o, q, n, pb, dim, s);
-    case 8: return launch<8>(p, vv, o, q, n, pb, dim, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch(packed, v, out, q, n, pb, dim, nbits, stream, nullptr);
+}
+
+// The launch warp_selective_sum would make for these arguments, without
+// making it: plan = {threads per block, dynamic shared memory per block,
+// blocks resident on the card, blocks per query token}.
+extern "C" int warp_selective_sum_plan(const void* packed, int q, int n, int pb, int dim,
+                                       int nbits, int* plan) {
+  return dispatch(packed, nullptr, nullptr, q, n, pb, dim, nbits, nullptr, plan);
 }

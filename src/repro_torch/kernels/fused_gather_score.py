@@ -58,6 +58,7 @@ def fused_gather_score_cuda(packed_codes, starts, sizes, probe_scores, v, *, nbi
     n, pb = packed_codes.shape
     qm, p = starts.shape
     _build.require_codec(dim, nbits, pb)
+    _build.require_ring(dim, nbits, pb, extra=4 * (3 * p + 1))
     _build.require(packed_codes, "packed_codes", torch.uint8, dev)
     _build.require(starts, "starts", torch.int32, dev)
     _build.require(sizes, "sizes", torch.int32, dev, (qm, p))

@@ -28,6 +28,9 @@ __all__ = [
     "ragged_selective_sum",
     "ragged_selective_sum_lut",
     "fused_gather_score",
+    "score_blocks_per_token",
+    "score_split",
+    "fused_gather_score_split",
     "ragged_fused_gather_score",
     "flash_attention",
     "flash_schedule",
@@ -151,6 +154,90 @@ def fused_gather_score(
         gathered.reshape(qm, p * cap, -1), v, nbits=nbits, dim=dim
     ).reshape(qm, p, cap)
     return torch.where(valid, scores + probe_scores.float().unsqueeze(-1), 0.0)
+
+
+ROWS_PER_CHUNK = 32  # rows a warp of the scoring kernels takes per step
+
+
+def score_blocks_per_token(n_q: int, resident: int, rows: int | None = None) -> int:
+    """Blocks per query token of ``csrc/selective_sum.cu`` and
+    ``csrc/fused_gather_score.cu`` (``score_rows::blocks_per_token``): as
+    many as fill the card's ``resident`` blocks in one wave, at least 1;
+    selective_sum also takes no more than its ``rows`` make chunks of 32."""
+    s = max(1, resident // max(n_q, 1))
+    if rows is not None:
+        s = min(s, -(-rows // ROWS_PER_CHUNK))
+    return s
+
+
+def score_split(
+    sizes: torch.Tensor, cap: int, blocks: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The work split of ``csrc/fused_gather_score.cu``: which block scores
+    which slot of the [Q, P, cap] grid and which zeroes it.
+
+    Token q's probed rows are flattened in probe order: with m[p] =
+    min(max(sizes[q, p], 0), cap) and pre[p] its prefix sums, flat row f
+    is slot c = f - pre[p] of the probe p with pre[p] <= f < pre[p + 1]
+    (the largest p with pre[p] <= f). The T = pre[P] rows split into
+    ``blocks`` ranges, block s taking [T*s // blocks, T*(s+1) // blocks).
+    The zero tails flatten alike: tail slot z of probe p starts at
+    p * cap - pre[p] and is slot m[p] + z - (p * cap - pre[p]); the P*cap
+    - T of them split into ``blocks`` ranges the same way.
+
+    Returns (scored, zeroed), int64 [*, 4] rows of (q, s, p, c)."""
+    qm, p = sizes.shape
+    m = sizes.long().clamp(0, cap)
+    pre = torch.zeros((qm, p + 1), dtype=torch.long)
+    pre[:, 1:] = m.cumsum(1)
+    parts: tuple[list, list] = ([], [])
+    for q in range(qm):
+        total = int(pre[q, p])
+        tail_start = torch.arange(p) * cap - pre[q, :p]
+        for kind, n, key, slot in (
+            (0, total, pre[q, :p], lambda f, pp: f - pre[q, pp]),
+            (1, p * cap - total, tail_start, lambda z, pp: m[q, pp] + z - tail_start[pp]),
+        ):
+            f = torch.arange(n)
+            bounds = torch.tensor([n * s // blocks for s in range(blocks + 1)])
+            blk = torch.searchsorted(bounds, f, right=True) - 1
+            pp = torch.searchsorted(key, f, right=True) - 1
+            parts[kind].append(torch.stack([torch.full_like(f, q), blk, pp, slot(f, pp)], 1))
+    return tuple(
+        torch.cat(x) if x else torch.zeros((0, 4), dtype=torch.long) for x in parts
+    )
+
+
+def fused_gather_score_split(
+    packed_codes: torch.Tensor,
+    starts: torch.Tensor,
+    sizes: torch.Tensor,
+    probe_scores: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    nbits: int,
+    dim: int,
+    cap: int,
+    blocks: int,
+) -> torch.Tensor:
+    """``fused_gather_score`` computed the way ``csrc/fused_gather_score.cu``
+    splits it (``score_split``): each block's flat rows scored, each
+    block's tail slots zeroed, every other slot left NaN. A row outside
+    [0, n_tokens) scores 0, as in the kernel."""
+    qm, p = starts.shape
+    n = packed_codes.shape[0]
+    scored, zeroed = score_split(sizes.cpu(), cap, blocks)
+    scored, zeroed = scored.to(packed_codes.device), zeroed.to(packed_codes.device)
+    out = torch.full((qm, p, cap), math.nan, dtype=torch.float32, device=packed_codes.device)
+    q, pp, c = scored[:, 0], scored[:, 2], scored[:, 3]
+    row = starts.long()[q, pp] + c
+    ok = (row >= 0) & (row < n)
+    s = ragged_selective_sum(
+        packed_codes[row.clamp(0, max(n - 1, 0))], q, v, nbits=nbits, dim=dim
+    )
+    out[q, pp, c] = torch.where(ok, s + probe_scores.float()[q, pp], 0.0)
+    out[zeroed[:, 0], zeroed[:, 2], zeroed[:, 3]] = 0.0
+    return out
 
 
 def ragged_fused_gather_score(

@@ -2,7 +2,11 @@
 on the card: edge shapes (an index smaller than one tile, runs ending at
 the last row, padding tiles, dims that are not a multiple of the word
 size) at nbits 2/4/8; invalid slots exactly 0; tolerance 1e-4 (float32
-sums in another order). Flash attention over causal and window masks
+sums in another order). selective_sum and the dense fused kernel also at
+D 20 and 96, code views offset by 1, 4 and 16 bytes, Q 128, skewed probe
+sizes (one at cap 1024 beside sizes 0 and 1, one past cap), exactly one
+launch per call, and each token's blocks as ``ref.score_blocks_per_token``
+says. Flash attention over causal and window masks
 (windows 1 to 512), S from 1 to 1000 (the bf16 kernel's 128-row blocks
 partly empty), Sq != Skv, Dh 64 and 128, float32 and bf16, GQA ratios 1
 to 7, contiguous and transposed [B, S, H, Dh] views: 1e-4 at float32, and
@@ -29,7 +33,7 @@ import torch
 
 from repro_torch.core import Retriever, WarpSearchConfig
 from repro_torch.core import worklist as wl
-from repro_torch.kernels import LAUNCHES, ops
+from repro_torch.kernels import LAUNCHES, _build, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decompress_score import selective_sum_cuda
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
@@ -487,3 +491,113 @@ def test_two_tower_kernel_executor_on_card(card):
         for ex, m in models.items()
     }
     torch.testing.assert_close(scores["kernel"], scores["reference"], rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# selective_sum and the dense fused kernel: one thread per row, a cp.async
+# ring per warp, each token's rows split over several blocks
+# ---------------------------------------------------------------------------
+
+# name, nbits, dim, byte offset of the code view: D 20 rows are not a
+# multiple of 4 (or 16) bytes; an offset of 1 takes the byte-copy path, 16
+# the 16-byte path on a shifted base.
+SCORE_CASES = [
+    ("d128", 4, 128, 0),
+    ("d128_b2", 2, 128, 0),
+    ("d128_b8", 8, 128, 0),
+    ("d20_b2", 2, 20, 0),
+    ("d20_b4", 4, 20, 0),
+    ("d20_b8", 8, 20, 0),
+    ("off1", 4, 128, 1),
+    ("off16", 4, 128, 16),
+    ("d96_off4", 4, 96, 4),
+]
+
+
+def _code_view(card, codes, offset):
+    """The codes on the card as a contiguous view ``offset`` bytes into a
+    larger buffer."""
+    flat = np.ascontiguousarray(codes).reshape(-1)
+    buf = torch.zeros(flat.size + offset, dtype=torch.uint8, device=card)
+    buf[offset:] = _t(flat).to(card)
+    view = buf[offset:].view(codes.shape)
+    assert view.data_ptr() % 16 == offset % 16 and view.is_contiguous()
+    return view
+
+
+def _skewed_sizes(rng, q, p, cap):
+    """Probes of size 0 and 1, one at cap per token, one past cap."""
+    sizes = rng.integers(0, 2, (q, p)).astype(np.int32)
+    sizes[np.arange(q), rng.integers(0, p, q)] = cap
+    sizes[0, -1] = cap + 517  # clamped to cap
+    return sizes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [3, 128])
+@pytest.mark.parametrize("name,nbits,dim,offset", SCORE_CASES)
+def test_selective_sum_rows_on_card(card, q, name, nbits, dim, offset):
+    """N not a multiple of a warp's 32 rows nor of a block's range; one
+    launch per call; the launch splits each token's rows as the twin says."""
+    rng = np.random.default_rng(sum(map(ord, name)) + q)
+    n, pb = 32 * 37 + 5, dim * nbits // 8
+    packed = _code_view(card, rng.integers(0, 256, (q, n, pb), dtype=np.uint8), offset)
+    v = _t(rng.standard_normal((q, dim, 1 << nbits)).astype(np.float32)).to(card)
+    before = LAUNCHES["selective_sum"]
+    got = selective_sum_cuda(packed, v, nbits=nbits, dim=dim)
+    torch.cuda.synchronize()
+    assert LAUNCHES["selective_sum"] == before + 1
+    torch.testing.assert_close(got, tref.selective_sum(packed, v, nbits=nbits, dim=dim), **CARD_TOL)
+    plan = _build.launch_plan("selective_sum", packed.data_ptr(), q, n, pb, dim, nbits)
+    assert plan["blocks_per_token"] == tref.score_blocks_per_token(
+        q, plan["resident_blocks"], rows=n
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [4, 128])
+@pytest.mark.parametrize("name,nbits,dim,offset", SCORE_CASES)
+def test_fused_gather_score_skewed_on_card(card, q, name, nbits, dim, offset):
+    """One probe per token at cap 1024 beside probes of size 1 and 0, one
+    past cap; runs ending at the last row; exactly one launch; invalid
+    slots exactly 0."""
+    rng = np.random.default_rng(sum(map(ord, name)) + 7 * q)
+    p, cap, n_tokens = (32, 1024, 9000) if q == 4 else (8, 1024, 3000)
+    pb = dim * nbits // 8
+    codes = _code_view(card, rng.integers(0, 256, (n_tokens, pb), dtype=np.uint8), offset)
+    sizes = _skewed_sizes(rng, q, p, cap)
+    starts = rng.integers(0, n_tokens - cap + 1, (q, p)).astype(np.int32)
+    starts[-1, 0], sizes[-1, 0] = n_tokens - cap, cap  # run ends at the last row
+    pscore = rng.standard_normal((q, p)).astype(np.float32)
+    v = rng.standard_normal((q, dim, 1 << nbits)).astype(np.float32)
+    args = (codes, *(_t(a).to(card) for a in (starts, sizes, pscore, v)))
+    before = LAUNCHES["fused_gather_score"]
+    got = fused_gather_score_cuda(*args, nbits=nbits, dim=dim, cap=cap)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_gather_score"] == before + 1
+    want = tref.fused_gather_score(*args, nbits=nbits, dim=dim, cap=cap)
+    torch.testing.assert_close(got, want, **CARD_TOL)
+    invalid = torch.arange(cap, device=card) >= args[2].long().clamp(max=cap).unsqueeze(-1)
+    assert bool((got[invalid] == 0).all())
+    plan = _build.launch_plan("fused_gather_score", codes.data_ptr(), q, p, cap, pb, dim, nbits)
+    assert plan["blocks_per_token"] == tref.score_blocks_per_token(q, plan["resident_blocks"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["empty", "tiny"])
+def test_fused_gather_score_sparse_tokens_on_card(card, kind):
+    """Tokens whose probes are all empty (every block only writes zeros) or
+    hold fewer rows than the token has blocks."""
+    rng = np.random.default_rng(5)
+    q, p, cap, n_tokens = 6, 5, 40, 200
+    codes = _t(rng.integers(0, 256, (n_tokens, 64), dtype=np.uint8)).to(card)
+    sizes = rng.integers(0, 3, (q, p)).astype(np.int32) * (kind == "tiny")
+    starts = rng.integers(0, n_tokens - cap, (q, p)).astype(np.int32)
+    pscore = rng.standard_normal((q, p)).astype(np.float32)
+    v = rng.standard_normal((q, 128, 16)).astype(np.float32)
+    args = (codes, *(_t(a).to(card) for a in (starts, sizes, pscore, v)))
+    got = fused_gather_score_cuda(*args, nbits=4, dim=128, cap=cap)
+    torch.cuda.synchronize()
+    want = tref.fused_gather_score(*args, nbits=4, dim=128, cap=cap)
+    torch.testing.assert_close(got, want, **CARD_TOL)
+    assert bool((got[torch.arange(cap, device=card) >= args[2].long().unsqueeze(-1)] == 0).all())
