@@ -12,7 +12,10 @@ built on the card from ``--seed`` (the index build itself is not ported):
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
      one process per source, in parallel) and hold each kernel against
      its plain PyTorch version at the main path's shapes, with timings and
-     the bytes bound;
+     the bytes bound; the three scoring kernels also on code views at +1
+     and +16 bytes, Q 128 and D 256 at nbits 8, the dense and ragged ones
+     on skewed probe sizes and against two planted faults each that the
+     checks must reject;
   2. retrieve through ``Retriever.plan(...).retrieve`` / ``retrieve_batch``
      for (materialize, dense), (fused, dense), (fused, ragged) and
      (materialize, ragged), each at executor "kernel" and "reference",
@@ -69,8 +72,10 @@ and ``{"ok": true, "device": {...}}``. It exits non-zero without a card.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -120,15 +125,15 @@ KERNEL_INFO = {
     ),
 }
 TOL = 1e-4  # kernel vs plain version, and scores across executors
-# The scoring kernels' times in the design before the one-thread-per-row
-# rewrite of selective_sum and fused_gather_score (half a warp per row,
-# one block per probe; ragged unchanged), at this script's kernel-phase
-# shapes on an H100 80GB HBM3 at 700 W, L2 flushed, median of 25
-# (PERF.md, section 6): printed beside each new time.
+# The scoring kernels' times before the ragged kernel's move onto
+# score_rows.cuh and the v-table chunks (the ragged kernel then still at
+# half a warp per row, one block per 4 tiles), at this script's
+# kernel-phase shapes on an H100 80GB HBM3 at 700 W, L2 flushed, median of
+# 25 (PERF.md, section 6): printed beside each new time.
 EARLIER_MS = {
-    "selective_sum": 0.11699,
-    "fused_gather_score": 0.07168,
-    "ragged_fused_gather_score": 0.03581,
+    "selective_sum": 0.04963,
+    "fused_gather_score": 0.02099,
+    "ragged_fused_gather_score": 0.03558,
 }
 
 # LM phase: qwen2-0.5b generation. The prompt is 4 x 2048 random token ids.
@@ -319,9 +324,9 @@ def topk_swaps(what: str, ids_a, s_a, ids_b, s_b, kernel_err: float, *, tol=TOL,
 
 
 def kernel_name(mangled: str) -> str:
-    """``name<N>`` of an Itanium-mangled kernel symbol (``name`` alone
-    where it has no integer template argument; the symbol where it does
-    not parse)."""
+    """``name<4, true, false>`` of an Itanium-mangled kernel symbol, with
+    its integer and bool template arguments (``name`` alone where it has
+    none; the symbol where it does not parse)."""
     names, i = [], mangled.find("N") + 1
     while 0 < i < len(mangled) and mangled[i].isdigit():
         j = i
@@ -332,8 +337,14 @@ def kernel_name(mangled: str) -> str:
         i = j + n
     if not names:
         return mangled
-    arg = mangled[i:].split("E", 1)[0]
-    return names[-1] + (f"<{arg[3:]}>" if arg.startswith("ILi") else "")
+    m = re.match(r"I((?:L[ib]\d+E)+)E", mangled[i:])
+    if not m:
+        return names[-1]
+    args = [
+        ("true" if v == "1" else "false") if t == "b" else v
+        for t, v in re.findall(r"L([ib])(\d+)E", m.group(1))
+    ]
+    return f"{names[-1]}<{', '.join(args)}>"
 
 
 def ptxas_report(log_path) -> list:
@@ -361,8 +372,9 @@ def lookup_wavefronts(nbits: int, layout: str, trials: int = 20000, seed: int = 
     D 128 over random codes (a bank serves one 32-bit word per wavefront;
     lanes reading one word share it). ``layout`` "row": one row per lane,
     all lanes at one dim d, word d * 2^b + code (csrc/score_rows.cuh).
-    "half_warp" (the earlier design, nbits 4): 16 lanes per row, lane w at
-    dim 8w + s of its row, word (8w + s) * 16 + code."""
+    "half_warp" (the ragged kernel's design before it moved onto
+    score_rows.cuh, nbits 4): 16 lanes per row, lane w at dim 8w + s of its
+    row, word (8w + s) * 16 + code."""
     rng = np.random.default_rng(seed)
     nb = 1 << nbits
     codes = rng.integers(0, nb, (trials, 32))
@@ -400,13 +412,49 @@ def check_scores(got, want, invalid=None):
     return err, None
 
 
+def kernel_probes(torch, index, cfg, n_queries: int, seed: int):
+    """starts, sizes, probe scores and v-tables of ``n_queries`` queries of
+    32 active tokens, flattened to [32 * n_queries, ...]: the scoring
+    kernels' inputs in the kernel phase."""
+    from repro_torch.core import warpselect
+
+    q, _ = make_queries(torch, index, n_queries, seed=seed, lo=32, hi=32)
+    q = q.reshape(-1, q.shape[-1])
+    sel = warpselect.warp_select(
+        q, index.centroids, index.cluster_sizes, nprobe=cfg.nprobe,
+        t_prime=cfg.t_prime, k_impute=cfg.k_impute,
+    )
+    return (
+        index.cluster_offsets[sel.probe_cids].int().contiguous(),
+        sel.probe_sizes.int().contiguous(),
+        sel.probe_scores.float().contiguous(),
+        (q.unsqueeze(-1) * index.bucket_weights).contiguous(),
+    )
+
+
+def kernel_worklist(torch, cfg, st, sz, ps, tile_c: int, b: int = 1):
+    """The worklist ``engine._ragged_block`` builds for ``b`` queries of
+    32 tokens (probe arrays [32 * b, P]) at the adaptive rung, flat, qtok
+    offset by query -> (TileWorklist, rung)."""
+    from repro_torch.core import worklist as wl
+
+    shape = (b, -1, st.shape[-1])
+    st, sz, ps = (a.reshape(shape) for a in (st, sz, ps))
+    tiles = wl.probe_tile_counts(sz.cpu().numpy(), tile_c)
+    rung = wl.pick_bucket(cfg.worklist_buckets, wl.needed_worklist_tiles(tiles))
+    work = wl.build_tile_worklist(st, sz, ps, tile_c=tile_c, tiles_per_qtoken=rung)
+    qtok = work.qtok + (torch.arange(b, device=st.device) * st.shape[1]).unsqueeze(-1).int()
+    flat = tuple(a.reshape(-1).contiguous() for a in (work.row0, work.nvalid, qtok, work.pscore))
+    return wl.TileWorklist(*flat), rung
+
+
 def phase_kernels(torch, index, plan_ragged, flush):
     """Each kernel against its plain version at the main path's shapes;
-    selective_sum and the dense fused kernel also on skewed probe sizes,
-    unaligned code views and the batched Q = 128, with two planted faults
-    that the checks must reject."""
-    from repro_torch.core import warpselect
-    from repro_torch.core import worklist as wl
+    the three scoring kernels also on unaligned code views, the batched
+    Q = 128 and D 256 at nbits 8 (a v-table walked in chunks of
+    dimensions); the dense and ragged kernels also on skewed probe sizes,
+    with two planted faults each that the checks must reject; the ragged
+    kernel also at tile_c 8, 16 and 64."""
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.decompress_score import selective_sum_cuda
     from repro_torch.kernels.flash_attention import TILE_K, bf16_smem_bytes
@@ -432,22 +480,7 @@ def phase_kernels(torch, index, plan_ragged, flush):
     ).stdout.split()[0])
     cfg = plan_ragged.config
 
-    def probes(n_queries, seed):
-        """starts, sizes, probe scores and v-tables of ``n_queries`` queries
-        of 32 active tokens, flattened to [32 * n_queries, ...]."""
-        q, _ = make_queries(torch, index, n_queries, seed=seed, lo=32, hi=32)
-        q = q.reshape(-1, q.shape[-1])
-        sel = warpselect.warp_select(
-            q, index.centroids, index.cluster_sizes, nprobe=cfg.nprobe,
-            t_prime=cfg.t_prime, k_impute=cfg.k_impute,
-        )
-        return (
-            index.cluster_offsets[sel.probe_cids].int().contiguous(),
-            sel.probe_sizes.int().contiguous(),
-            sel.probe_scores.float().contiguous(),
-            (q.unsqueeze(-1) * index.bucket_weights).contiguous(),
-        )
-
+    probes = functools.partial(kernel_probes, torch, index, cfg)
     starts, sizes, pscore, v = probes(1, 12345)
     qm, p = starts.shape
     d, nbits, cap, pb = index.dim, index.nbits, index.cap, index.packed_codes.shape[1]
@@ -633,31 +666,135 @@ def phase_kernels(torch, index, plan_ragged, flush):
             f"{lookup_wavefronts(b, 'row'):.3f} wavefronts per lookup (numpy count over random codes)"
         )
         del packed, vb
-    log(f"[kernels] the earlier half-warp-per-row layout at nbits 4: "
+    log(f"[kernels] the ragged kernel's earlier layout (half a warp per row) at nbits 4: "
         f"{lookup_wavefronts(4, 'half_warp'):.3f} wavefronts per lookup (numpy count)")
 
     # 3. ragged worklist at the rung the adaptive plan picks for this query.
     tile = cfg.tile_c
-    tiles = wl.probe_tile_counts(sizes.cpu().numpy(), tile)
-    bucket = wl.pick_bucket(cfg.worklist_buckets, wl.needed_worklist_tiles(tiles))
-    work = wl.build_tile_worklist(starts, sizes, pscore, tile_c=tile, tiles_per_qtoken=bucket)
-    args3 = tuple(a.contiguous() for a in (index.packed_codes, *work, v))
+
+    worklist = functools.partial(kernel_worklist, torch, cfg)
+
+    def slots_invalid(work, tile_c):
+        return (torch.arange(tile_c, device=dev) >= work.nvalid.long().unsqueeze(-1)).reshape(-1)
+
+    work, bucket = worklist(starts, sizes, pscore, tile)
+    args3 = (index.packed_codes, *work, v)
     kw3 = dict(nbits=nbits, dim=d, tile_c=tile)
     got = ragged_fused_gather_score_cuda(*args3, **kw3)
     want = ref.ragged_fused_gather_score(*args3, **kw3)
-    slot_invalid = (torch.arange(tile, device=dev) >= work.nvalid.long().unsqueeze(-1)).reshape(-1)
+    slot_invalid = slots_invalid(work, tile)
     w = work.row0.numel()
+    valid_rows = int(work.nvalid.sum())
     record(
         "ragged_fused_gather_score", got, want,
         lambda: ragged_fused_gather_score_cuda(*args3, **kw3),
         lambda: ref.ragged_fused_gather_score(*args3, **kw3),
-        int(work.nvalid.sum()) * pb + w * 16 + vbytes + 4 * w * tile, int(work.nvalid.sum()) * d,
-        invalid=slot_invalid,
+        valid_rows * pb + w * 16 + vbytes + 4 * w * tile, valid_rows * d,
+        invalid=slot_invalid, lookups=valid_rows * d,
     )
+    report_plan("ragged_fused_gather_score", index.packed_codes.data_ptr(), w, pb, d, nbits)
     log(
         f"[kernels] shapes: Q={qm} P={p} cap={cap} D={d} nbits={nbits} "
-        f"probed_rows={rows} ragged tile_c={tile} rung={bucket} W={w}"
+        f"probed_rows={rows} ragged tile_c={tile} rung={bucket} W={w} "
+        f"padding tiles {int((work.nvalid == 0).sum())}"
     )
+
+    # Planted faults the checks must reject: one code nibble flipped in a
+    # row of the first tile, and one padding slot left holding a score.
+    r0 = int(work.row0[0])
+    codes0 = (index.packed_codes[r0].long().unsqueeze(-1) >> (torch.arange(per_byte, device=dev) * nbits)) & (nb - 1)
+    codes0 = codes0.reshape(-1)[:d]
+    qt0 = int(work.qtok[0])
+    delta = (v[qt0, torch.arange(d, device=dev), codes0 ^ top] - v[qt0, torch.arange(d, device=dev), codes0]).abs()
+    dim0 = int(torch.argmax(delta))
+    byte0, flip = dim0 // per_byte, top << ((dim0 % per_byte) * nbits)
+    saved = index.packed_codes[r0, byte0].clone()
+    index.packed_codes[r0, byte0] ^= flip
+    bad = ragged_fused_gather_score_cuda(*args3, **kw3)
+    index.packed_codes[r0, byte0] = saved
+    bad_pad = got.clone()
+    pads = torch.nonzero(work.nvalid == 0).flatten()  # else a tail slot
+    pad = int(pads[0]) * tile if pads.numel() else int(torch.nonzero(slot_invalid)[0])
+    bad_pad[pad] = work.pscore[0]
+    for what, planted in (
+        (f"code nibble of dim {dim0} flipped in row {r0} (|delta v| {float(delta[dim0]):.4g})", bad),
+        (f"padding slot {pad} left at a probe score", bad_pad),
+    ):
+        err, broken = check_scores(planted, want, slot_invalid)
+        if broken is None:
+            fail(f"ragged_fused_gather_score: the checks do not reject a planted fault ({what})")
+        log(f"[kernels] planted fault, {what}: {broken}: rejected")
+    del bad, bad_pad
+
+    # Skewed sizes (one probe at cap per token, the rest 1 and 0), code
+    # views at +1 and +16 bytes, the other tile sizes, and the batched
+    # retrieve's Q = 128 (padding between the queries' worklists).
+    sk_work, _ = worklist(sk_starts, sk.clamp(max=cap), pscore, tile)
+    args_sk = (index.packed_codes, *sk_work, v)
+    case(
+        "ragged_fused_gather_score, skewed sizes (one probe at cap per token)",
+        ragged_fused_gather_score_cuda(*args_sk, **kw3), ref.ragged_fused_gather_score(*args_sk, **kw3),
+        slots_invalid(sk_work, tile),
+    )
+    for offset in (1, 16):
+        view = code_view(torch, index.packed_codes, offset)
+        case(
+            f"ragged_fused_gather_score, code view at +{offset} bytes",
+            ragged_fused_gather_score_cuda(view, *args3[1:], **kw3), want, slot_invalid,
+        )
+        del view
+    for tile_c in (8, 16, 64):
+        work_t, _ = worklist(starts, sizes, pscore, tile_c)
+        args_t = (index.packed_codes, *work_t, v)
+        kw_t = dict(nbits=nbits, dim=d, tile_c=tile_c)
+        case(
+            f"ragged_fused_gather_score, tile_c {tile_c}",
+            ragged_fused_gather_score_cuda(*args_t, **kw_t), ref.ragged_fused_gather_score(*args_t, **kw_t),
+            slots_invalid(work_t, tile_c),
+        )
+    work4, bucket4 = worklist(st4, sz4, ps4, tile, b=4)
+    args34 = (index.packed_codes, *work4, v4)
+    case(
+        "ragged_fused_gather_score, Q 128", ragged_fused_gather_score_cuda(*args34, **kw3),
+        ref.ragged_fused_gather_score(*args34, **kw3), slots_invalid(work4, tile),
+    )
+    ms = time_cuda(torch, lambda: ragged_fused_gather_score_cuda(*args34, **kw3), flush)
+    log(f"[kernels] ragged_fused_gather_score, Q 128: {ms:.5f} ms ({int(work4.nvalid.sum())} "
+        f"valid rows, W={work4.row0.numel()}, rung {bucket4})")
+    report_plan("ragged_fused_gather_score", index.packed_codes.data_ptr(), work4.row0.numel(), pb, d, nbits)
+
+    # A v-table wider than one block's shared memory (D 256, nbits 8: 256
+    # KiB): all three kernels walk it in chunks of dimensions.
+    dw, bw = 256, 8
+    n_w = 200_000
+    codes_w = torch.randint(0, 256, (n_w, dw), generator=g, device=dev, dtype=torch.uint8)
+    v_w = torch.randn(qm, dw, 1 << bw, generator=g, device=dev)
+    kww = dict(nbits=bw, dim=dw)
+    packed_w = torch.randint(0, 256, (qm, 4096, dw), generator=g, device=dev, dtype=torch.uint8)
+    case("selective_sum, D 256 nbits 8", selective_sum_cuda(packed_w, v_w, **kww),
+         ref.selective_sum(packed_w, v_w, **kww))
+    st_w = torch.randint(0, n_w - cap, (qm, 8), generator=g, device=dev, dtype=torch.int32)
+    sz_w, ps_w = sizes[:, :8].contiguous(), pscore[:, :8].contiguous()
+    args_w = (codes_w, st_w, sz_w, ps_w, v_w)
+    case(
+        "fused_gather_score, D 256 nbits 8", fused_gather_score_cuda(*args_w, **kww, cap=cap),
+        ref.fused_gather_score(*args_w, **kww, cap=cap), lane >= sz_w.long().unsqueeze(-1),
+    )
+    work_w, _ = worklist(st_w, sz_w, ps_w, tile)
+    args3w = (codes_w, *work_w, v_w)
+    case(
+        "ragged_fused_gather_score, D 256 nbits 8",
+        ragged_fused_gather_score_cuda(*args3w, **kww, tile_c=tile),
+        ref.ragged_fused_gather_score(*args3w, **kww, tile_c=tile), slots_invalid(work_w, tile),
+    )
+    for name, plan in (
+        ("selective_sum", _build.launch_plan("selective_sum", packed_w.data_ptr(), qm, 4096, dw, dw, bw)),
+        ("fused_gather_score", _build.launch_plan("fused_gather_score", codes_w.data_ptr(), qm, 8, cap, dw, dw, bw)),
+        ("ragged_fused_gather_score", _build.launch_plan(
+            "ragged_fused_gather_score", codes_w.data_ptr(), work_w.row0.numel(), dw, dw, bw)),
+    ):
+        log(f"[kernels] {name} launch at D 256 nbits 8: {json.dumps(plan)}")
+    del codes_w, packed_w, v_w
     return out
 
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -26,7 +27,7 @@ import torch
 
 __all__ = [
     "LAUNCHES", "reset_launches", "library", "build_all", "check",
-    "stream_ptr", "require", "require_codec", "require_ring", "cuda_device",
+    "stream_ptr", "require", "require_codec", "vtable_chunk", "cuda_device",
     "launch_plan",
 ]
 
@@ -61,10 +62,16 @@ KERNELS = {
 }
 
 # What a kernel library reports of the launch it would make, without
-# making it (see launch_plan): (symbol, argtypes).
+# making it (see launch_plan): (symbol, argtypes, the plan's fields).
+_SCORE_PLAN = ("threads", "smem_bytes", "resident_blocks", "blocks_per_token", "dims_per_chunk")
 PLANS = {
-    "selective_sum": ("warp_selective_sum_plan", [_P, _I, _I, _I, _I, _I, _P]),
-    "fused_gather_score": ("warp_fused_gather_score_plan", [_P, *[_I] * 6, _P]),
+    "selective_sum": ("warp_selective_sum_plan", [_P, _I, _I, _I, _I, _I, _P], _SCORE_PLAN),
+    "fused_gather_score": ("warp_fused_gather_score_plan", [_P, *[_I] * 6, _P], _SCORE_PLAN),
+    "ragged_fused_gather_score": (
+        "warp_ragged_fused_gather_score_plan", [_P, *[_I] * 4, _P],
+        ("threads", "smem_bytes", "resident_blocks", "blocks", "tiles_per_block",
+         "dims_per_chunk"),
+    ),
 }
 
 # Kernel launches per wrapper since the last reset: each wrapper adds one
@@ -149,7 +156,7 @@ def library(name: str) -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
                 if n in PLANS:
-                    plan_symbol, plan_argtypes = PLANS[n]
+                    plan_symbol, plan_argtypes, _ = PLANS[n]
                     getattr(dll, plan_symbol).argtypes = plan_argtypes
                     getattr(dll, plan_symbol).restype = ctypes.c_int
                 dll.warp_error_string.argtypes = [ctypes.c_int]
@@ -186,8 +193,8 @@ def require(t: torch.Tensor, what: str, dtype: torch.dtype, device, shape=None) 
 
 
 def require_codec(dim: int, nbits: int, pb: int) -> None:
-    """The kernels take nbits in {2, 4, 8}, rows of exactly D*b/8 bytes,
-    and a v-table that fits one block's shared memory."""
+    """The kernels take nbits in {2, 4, 8} and rows of exactly D*b/8
+    bytes: any D whose codes fill whole bytes."""
     if nbits not in (2, 4, 8):
         raise ValueError(f"nbits={nbits} not in (2, 4, 8)")
     if dim % (8 // nbits) or pb != dim * nbits // 8:
@@ -195,40 +202,54 @@ def require_codec(dim: int, nbits: int, pb: int) -> None:
             f"dim={dim} at nbits={nbits} does not fill whole packed bytes "
             f"(row of {pb} bytes): the kernels index codes byte-wise"
         )
-    if dim * (1 << nbits) * 4 > SMEM_MAX:
-        raise ValueError(
-            f"the v-table f32[{dim}, {1 << nbits}] exceeds one block's "
-            f"{SMEM_MAX} bytes of shared memory"
-        )
 
 
 def ring_row_stride(pb: int) -> int:
-    """Shared-memory bytes per staged code row of the selective-sum and
-    dense fused kernels (``score_rows::row_stride``): PB rounded up to an
-    odd number of 16-byte units."""
+    """Shared-memory bytes per staged code row of the scoring kernels
+    (``score_rows::row_stride``): PB rounded up to an odd number of
+    16-byte units."""
     return 16 * (-(-pb // 16) | 1)
 
 
-def require_ring(dim: int, nbits: int, pb: int, extra: int = 0) -> None:
-    """The selective-sum and dense fused kernels hold the v-table (on a
-    256-byte boundary), ``extra`` bytes and at least one warp's ring of 3
-    chunks of 32 staged rows in one block's shared memory."""
-    need = 256 + dim * (1 << nbits) * 4 + extra + 3 * 32 * ring_row_stride(pb)
-    if need > SMEM_MAX:
-        raise ValueError(
-            f"the v-table f32[{dim}, {1 << nbits}] and one warp's staged rows "
-            f"({need} bytes) exceed one block's {SMEM_MAX} bytes of shared memory"
-        )
+def _vtable_fits(dc: int, nbits: int, other: int) -> bool:
+    # score_rows::vtable_bytes (the 256-byte slack and dc dims of table),
+    # `other` bytes and one warp's ring of 3 chunks of 32 rows of dc dims.
+    table = 256 + dc * (1 << nbits) * 4
+    return other + table + 3 * 32 * ring_row_stride(dc * nbits // 8) <= SMEM_MAX
+
+
+def vtable_chunk(dim: int, nbits: int, other: int = 0) -> int:
+    """Dimensions per v-table chunk of the scoring kernels
+    (``score_rows::dims_per_chunk``): all D where the whole table (on a
+    256-byte boundary), ``other`` bytes and one warp's ring of staged rows
+    fit one block's shared memory; else the fewest chunks of whole
+    128 / b-dim units (16 bytes of a row) that fit, each but the last of the
+    returned size. Raises where not even one unit fits beside ``other``."""
+    if _vtable_fits(dim, nbits, other):
+        return dim
+    unit = 128 // nbits
+    for n in itertools.count(2):
+        per = -(-dim // n)  # ceil(dim / n) dims ...
+        dc = -(-per // unit) * unit  # ... up to a whole unit
+        if _vtable_fits(dc, nbits, other):
+            return dc
+        if dc <= unit:
+            raise ValueError(
+                f"{other} bytes of per-block arrays leave no room in one block's "
+                f"{SMEM_MAX} bytes of shared memory for {unit} dims of the v-table "
+                f"f32[{dim}, {1 << nbits}] and one warp's staged rows"
+            )
 
 
 def launch_plan(name: str, *args) -> dict:
     """The launch kernel ``name`` (a key of ``PLANS``) would make for these
     arguments: threads and dynamic shared memory per block, blocks resident
-    on the card at once, blocks per query token."""
-    buf = (ctypes.c_int * 4)()
-    symbol = PLANS[name][0]
+    on the card at once, the split (blocks per query token, or the ragged
+    kernel's blocks and tiles per block) and the v-table dims per chunk."""
+    symbol, _, fields = PLANS[name]
+    buf = (ctypes.c_int * len(fields))()
     check(name, getattr(library(name), symbol)(*args, buf))
-    return dict(zip(("threads", "smem_bytes", "resident_blocks", "blocks_per_token"), buf))
+    return dict(zip(fields, buf))
 
 
 def cuda_device(t: torch.Tensor) -> torch.device:

@@ -26,63 +26,37 @@
 // equal ranges too, written with 16-byte stores. Python twin of the split
 // and both maps: ref.score_split. Rows are scored as in selective_sum.cu
 // (score_rows.cuh: one thread per row, conflict-free lookups, a cp.async
-// ring per warp). Rows outside [0, n_tokens), which a well-formed CSR never
+// ring per warp; the v-table in chunks of dimensions where it is too wide
+// for one block). Rows outside [0, n_tokens), which a well-formed CSR never
 // yields, are not loaded and their slots are 0.
 #include "score_rows.cuh"
 
 namespace {
 
-using score_rows::WarpRing;
+using score_rows::last_at_most;
 
-// Largest p in [0, n) with key(p) <= x, for a non-decreasing key and
-// key(0) <= x.
-template <class Key>
-__device__ __forceinline__ int last_at_most(int n, long long x, Key key) {
-  int a = 0, b = n - 1;
-  while (a < b) {
-    const int m = (a + b + 1) >> 1;
-    if (key(m) <= x) {
-      a = m;
-    } else {
-      b = m - 1;
-    }
-  }
-  return a;
-}
-
-// Block-cooperative zero fill of a[0, n): 16-byte stores between a scalar
-// head and tail.
-__device__ __forceinline__ void zero_fill(float* a, long long n) {
-  long long head = ((16 - (reinterpret_cast<uintptr_t>(a) & 15)) & 15) >> 2;
-  if (head > n) head = n;
-  for (long long t = threadIdx.x; t < head; t += blockDim.x) a[t] = 0.f;
-  float4* b = reinterpret_cast<float4*>(a + head);
-  const long long n4 = (n - head) >> 2;
-  for (long long t = threadIdx.x; t < n4; t += blockDim.x) b[t] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (long long t = head + 4 * n4 + threadIdx.x; t < n; t += blockDim.x) a[t] = 0.f;
-}
-
-template <int NBITS, bool VEC16>
+template <int NBITS, bool VEC16, bool CHUNKED>
 __global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
     fused_gather_score_kernel(const uint8_t* __restrict__ codes,
                               const int* __restrict__ starts, const int* __restrict__ sizes,
                               const float* __restrict__ pscore, const float* __restrict__ v,
                               float* __restrict__ out, int n_tokens, int n_probes, int cap,
-                              int pb, int dim) {
+                              int pb, int dim, int dc) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int q = blockIdx.y;
   const int nb = 1 << NBITS;
   const int warps = blockDim.x >> 5;
-  float* v_s = score_rows::vtable_at(smem, score_rows::ring_bytes(warps, pb));
-  int* pre = reinterpret_cast<int*>(v_s + dim * nb);  // [n_probes + 1]
+  float* v_s = score_rows::vtable_at(smem, score_rows::ring_bytes(warps, dc * NBITS / 8));
+  int* pre = reinterpret_cast<int*>(v_s + dc * nb);    // [n_probes + 1]
   int* st = pre + n_probes + 1;                          // [n_probes]
   float* ps = reinterpret_cast<float*>(st + n_probes);   // [n_probes]
   float* o = out + static_cast<size_t>(q) * n_probes * cap;
+  const float* v_tok = v + static_cast<size_t>(q) * dim * nb;
 
-  // Everything the block needs from the probe arrays and the v-table, in
-  // one round trip: the table by cp.async, starts, probe scores and the
-  // clamped sizes by plain loads.
-  score_rows::load_vtable(v_s, v + static_cast<size_t>(q) * dim * nb, dim * nb);
+  // Everything the block needs from the probe arrays and the v-table (its
+  // first chunk), in one round trip: the table by cp.async, starts, probe
+  // scores and the clamped sizes by plain loads.
+  score_rows::load_vtable(v_s, v_tok, dc * nb);
   for (int p = threadIdx.x; p < n_probes; p += blockDim.x) {
     const size_t qp = static_cast<size_t>(q) * n_probes + p;
     pre[p + 1] = min(max(sizes[qp], 0), cap);
@@ -91,23 +65,8 @@ __global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
   }
   if (threadIdx.x == 0) pre[0] = 0;
   __syncthreads();
-  // pre[p] = sum of the clamped sizes before probe p (warp 0, an inclusive
-  // shuffle scan per 32 probes, in place).
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    int carry = 0;
-    for (int p0 = 0; p0 < n_probes; p0 += 32) {
-      const int p = p0 + lane;
-      int x = p < n_probes ? pre[p + 1] : 0;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(score_rows::kFull, x, off);
-        if (lane >= off) x += y;
-      }
-      if (p < n_probes) pre[p + 1] = carry + x;
-      carry += __shfl_sync(score_rows::kFull, x, 31);
-    }
-  }
+  // pre[p] = sum of the clamped sizes before probe p.
+  score_rows::warp0_prefix_sum(pre + 1, n_probes);
   __syncthreads();
 
   const long long total = pre[n_probes];
@@ -121,46 +80,50 @@ __global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
     const long long row = static_cast<long long>(st[p]) + (f - pre[p]);
     return row >= 0 && row < n_tokens ? codes + static_cast<size_t>(row) * pb : nullptr;
   };
-  WarpRing<VEC16> ring(smem, lo, hi, pb);
-  for (int i = 0; i < score_rows::kStages - 1; ++i) ring.issue(i, row_of);
-
   // This block's share of the zero tails, while its first rows load.
-  const long long tails = static_cast<long long>(n_probes) * cap - total;
-  long long z = tails * s / n_blocks;
-  const long long z1 = tails * (s + 1) / n_blocks;
-  auto tail_start = [&](int p) { return static_cast<long long>(p) * cap - pre[p]; };
-  for (int p = z < z1 ? last_at_most(n_probes, z, tail_start) : n_probes; z < z1 && p < n_probes;
-       ++p) {
-    const int m = pre[p + 1] - pre[p];
-    const long long t0 = tail_start(p);
-    const long long end = min(z1, t0 + (cap - m));
-    if (end > z) {
-      zero_fill(o + static_cast<size_t>(p) * cap + m + (z - t0), end - z);
-      z = end;
+  auto zero_tails = [&] {
+    const long long tails = static_cast<long long>(n_probes) * cap - total;
+    long long z = tails * s / n_blocks;
+    const long long z1 = tails * (s + 1) / n_blocks;
+    auto tail_start = [&](int p) { return static_cast<long long>(p) * cap - pre[p]; };
+    for (int p = z < z1 ? last_at_most(n_probes, z, tail_start) : n_probes;
+         z < z1 && p < n_probes; ++p) {
+      const int m = pre[p + 1] - pre[p];
+      const long long t0 = tail_start(p);
+      const long long end = min(z1, t0 + (cap - m));
+      if (end > z) {
+        score_rows::zero_fill(o + static_cast<size_t>(p) * cap + m + (z - t0), end - z);
+        z = end;
+      }
     }
-  }
-  score_rows::cp_async_wait<score_rows::kStages - 1>();  // the v-table's group
-  __syncthreads();
-
-  ring.template run<NBITS>(v_s, row_of, [&](long long f, float score) {
-    const int p = probe_of(f);
-    const long long c = f - pre[p];
-    const long long row = static_cast<long long>(st[p]) + c;
-    o[static_cast<size_t>(p) * cap + c] = row >= 0 && row < n_tokens ? score + ps[p] : 0.f;
-  });
+  };
+  score_rows::score_range<NBITS, VEC16, CHUNKED>(
+      smem, v_s, v_tok, lo, hi, pb, dim, dc, true, false, row_of, zero_tails,
+      [&](long long f, float score, bool first) {
+        const int p = probe_of(f);
+        const long long c = f - pre[p];
+        const long long row = static_cast<long long>(st[p]) + c;
+        float* slot = o + static_cast<size_t>(p) * cap + c;
+        if (row >= 0 && row < n_tokens) {
+          *slot = first ? score + ps[p] : *slot + score;
+        } else if (first) {
+          *slot = 0.f;
+        }
+      });
 }
 
 template <int NBITS, bool VEC16>
 cudaError_t launch(const uint8_t* codes, const int* starts, const int* sizes,
                    const float* pscore, const float* v, float* out, int n_tokens, int q,
                    int p, int cap, int pb, int dim, cudaStream_t stream, int* plan) {
-  const size_t fixed = score_rows::kVtableAlign +
-                       static_cast<size_t>(dim) * (1 << NBITS) * sizeof(float) +
-                       (3 * static_cast<size_t>(p) + 1) * sizeof(int);
-  const int warps = score_rows::warps_that_fit(fixed, pb);
-  if (warps == 0) return cudaErrorInvalidValue;
-  const size_t smem = score_rows::ring_bytes(warps, pb) + fixed;
-  auto kernel = fused_gather_score_kernel<NBITS, VEC16>;
+  const size_t probes = (3 * static_cast<size_t>(p) + 1) * sizeof(int);
+  const int dc = score_rows::dims_per_chunk(dim, NBITS, probes);
+  if (dc == 0) return cudaErrorInvalidValue;
+  const size_t fixed = probes + score_rows::vtable_bytes(dc, NBITS);
+  const int warps = score_rows::warps_that_fit(fixed, dc * NBITS / 8);
+  const size_t smem = score_rows::ring_bytes(warps, dc * NBITS / 8) + fixed;
+  auto kernel = fused_gather_score_kernel<NBITS, VEC16, false>;
+  if (dc < dim) kernel = fused_gather_score_kernel<NBITS, VEC16, true>;
   cudaError_t err = score_rows::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int threads = warps * 32;
@@ -172,10 +135,11 @@ cudaError_t launch(const uint8_t* codes, const int* starts, const int* sizes,
     plan[1] = static_cast<int>(smem);
     plan[2] = resident;
     plan[3] = s;
+    plan[4] = dc;
     return cudaSuccess;
   }
   kernel<<<dim3(s, q), threads, smem, stream>>>(codes, starts, sizes, pscore, v, out,
-                                                n_tokens, p, cap, pb, dim);
+                                                n_tokens, p, cap, pb, dim, dc);
   return cudaGetLastError();
 }
 
@@ -213,7 +177,8 @@ extern "C" int warp_fused_gather_score(const void* codes, const void* starts,
 
 // The launch warp_fused_gather_score would make for these arguments,
 // without making it: plan = {threads per block, dynamic shared memory per
-// block, blocks resident on the card, blocks per query token}.
+// block, blocks resident on the card, blocks per query token, v-table dims
+// per chunk}.
 extern "C" int warp_fused_gather_score_plan(const void* codes, int q, int p, int cap, int pb,
                                             int dim, int nbits, int* plan) {
   return dispatch(codes, nullptr, nullptr, nullptr, nullptr, nullptr, 0, q, p, cap, pb, dim,

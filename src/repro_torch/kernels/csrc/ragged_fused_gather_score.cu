@@ -1,5 +1,6 @@
 // Fused gather + selective sum over a ragged tile worklist
-// (gather="fused", layout="ragged" — the serving path).
+// (gather="fused", layout="ragged" — the serving path; gather="materialize"
+// passes the gathered copy of the worklist's rows with row0 = w * tile_c).
 //
 // Replaces: repro/kernels/fused_gather_score.py,
 // ragged_fused_gather_score_kernel_call (Pallas bodies _ragged_kernel and
@@ -13,21 +14,58 @@
 // times PB: about 12 MB per 32-token query at warp-xtr width and the mean
 // cluster size) and the flat output written once (4*W*tile_c bytes).
 //
-// Design: one block per kTilesPerBlock consecutive worklist tiles. Tiles are
-// query-token-major, so a block's tiles almost always share one query token:
-// the block reloads its shared-memory v-table only when qtok changes.
-// A padding tile returns early after writing its zeros — it fetches no codes
-// and loads no table — so work follows the real tile count, not the static
-// worklist bound. Rows are loaded only for valid slots (masked loads
-// replace the TPU kernel's clamp to n_tokens - tile_c and its roll).
-#include "score_row.cuh"
+// Design. Rows are scored as in the other two kernels (score_rows.cuh: one
+// thread per row, conflict-free lookups, a cp.async ring of 3 chunks of 32
+// rows per warp; the v-table in chunks of dimensions where it is too wide
+// for one block). The grid is S blocks, S from the blocks the card holds at
+// once (ragged_blocks); block s takes the equal contiguous tile range
+// [W*s/S, W*(s+1)/S) (at most kMaxTiles tiles). In one round trip it loads
+// its tiles' nvalid, row0, qtok and pscore into shared memory, counts a
+// tile's valid slots m = min(max(nvalid, 0), tile_c) (0 where qtok lies
+// outside [0, Q)) and prefix-sums them: its valid rows are flat rows
+// 0 .. T - 1, flat row f in the tile t with pre[t] <= f < pre[t + 1], slot
+// f - pre[t]. A chunk of 32 rows may span tiles. Tiles are query-token-
+// major, so a block's range almost always lies within one token: the block
+// walks runs of tiles of one qtok (tiles without valid rows join any run)
+// and loads each run's v-table once, by cp.async beside the run's first
+// chunks of rows. The invalid slots and padding tiles are zeroed with
+// 16-byte stores while the first rows load. Python twin of the split, the
+// runs and the flat -> (tile, slot) map: ref.ragged_split. Rows outside
+// [0, n_tokens), which a well-formed worklist never yields, are not loaded
+// and their slots are 0.
+#include "score_rows.cuh"
 
 namespace {
 
-constexpr int kTilesPerBlock = 4;
+using score_rows::last_at_most;
 
-template <int NBITS>
-__global__ void __launch_bounds__(warp::kThreads)
+constexpr int kMaxTiles = 128;  // tiles per block at most: bounds its shared memory
+
+// Bytes of a block's tile arrays: pre [kMaxTiles + 1], row0, qtok, pscore.
+constexpr size_t kTileBytes = (4 * static_cast<size_t>(kMaxTiles) + 1) * sizeof(int);
+
+// Blocks of the launch: one per kTilesPerBlock tiles, but no fewer than the
+// card holds at once (one wave) and no more than kOversubscribe times that;
+// at least enough that no block takes more than kMaxTiles tiles, at most
+// one per tile (Python twin: ref.ragged_blocks). Past one wave the card's
+// block scheduler gives the slots that ranges of padding tiles free at once
+// to further blocks: two waves measured faster where one would give a block
+// ~83 tiles, slower where it gives ~21 (scripts/bench_ragged_split.py).
+constexpr int kTilesPerBlock = 32;
+constexpr int kOversubscribe = 2;
+
+inline int ragged_blocks(int n_tiles, int resident) {
+  const int most = kOversubscribe * resident;
+  const int need = (n_tiles + kMaxTiles - 1) / kMaxTiles;
+  int s = (n_tiles + kTilesPerBlock - 1) / kTilesPerBlock;
+  s = s < resident ? resident : (s > most ? most : s);
+  s = s < need ? need : s;
+  s = s > n_tiles ? n_tiles : s;
+  return s > 0 ? s : 1;
+}
+
+template <int NBITS, bool VEC16, bool CHUNKED>
+__global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
     ragged_fused_gather_score_kernel(const uint8_t* __restrict__ codes,
                                      const int* __restrict__ row0,
                                      const int* __restrict__ nvalid,
@@ -35,57 +73,148 @@ __global__ void __launch_bounds__(warp::kThreads)
                                      const float* __restrict__ pscore,
                                      const float* __restrict__ v, float* __restrict__ out,
                                      int n_tokens, int n_tiles, int tile_c, int n_q, int pb,
-                                     int dim, bool vec4) {
-  extern __shared__ float v_s[];
+                                     int dim, int dc) {
+  extern __shared__ __align__(16) uint8_t smem[];
   const int nb = 1 << NBITS;
-  const int lane = threadIdx.x & 31;
-  const int half = lane >> 4;
-  const int lane_g = lane & (warp::kGroup - 1);
-  const int w0 = blockIdx.x * kTilesPerBlock;
-  const int w1 = min(n_tiles, w0 + kTilesPerBlock);
-  int cur_q = -1;
-  for (int w = w0; w < w1; ++w) {
-    float* o = out + static_cast<size_t>(w) * tile_c;
-    const int nv = min(nvalid[w], tile_c);
-    const int qt = qtok[w];
-    // nv and qt are the same for every thread, so these branches and the
-    // barriers inside them are block-uniform.
-    if (nv <= 0 || qt < 0 || qt >= n_q) {
-      for (int c = threadIdx.x; c < tile_c; c += blockDim.x) o[c] = 0.f;
-      continue;
-    }
-    if (qt != cur_q) {
-      __syncthreads();  // every thread is done with the previous table
-      warp::load_vtable(v_s, v + static_cast<size_t>(qt) * dim * nb, dim * nb);
-      __syncthreads();
-      cur_q = qt;
-    }
-    const int r0 = row0[w];
-    const float ps = pscore[w];
-    for (int c0 = (threadIdx.x >> 5) * 2; c0 < tile_c; c0 += warp::kRowsPerStep) {
-      const int c = c0 + half;
-      const long long row = static_cast<long long>(r0) + c;
-      const bool ok = c < nv && row >= 0 && row < n_tokens;
-      const float s = warp::score_row<NBITS>(
-          ok ? codes + static_cast<size_t>(row) * pb : nullptr, pb, vec4, v_s, lane_g);
-      if (c < tile_c && lane_g == 0) o[c] = ok ? s + ps : 0.f;
-    }
+  const int warps = blockDim.x >> 5;
+  const long long t0 = static_cast<long long>(n_tiles) * blockIdx.x / gridDim.x;
+  const int nt =
+      static_cast<int>(static_cast<long long>(n_tiles) * (blockIdx.x + 1) / gridDim.x - t0);
+  float* v_s = score_rows::vtable_at(smem, score_rows::ring_bytes(warps, dc * NBITS / 8));
+  int* pre = reinterpret_cast<int*>(v_s + dc * nb);  // [nt + 1]
+  int* r0 = pre + kMaxTiles + 1;                        // [nt]
+  int* qt = r0 + kMaxTiles;                             // [nt]
+  float* ps = reinterpret_cast<float*>(qt + kMaxTiles); // [nt]
+  float* o = out + t0 * tile_c;
+
+  // The block's tiles, in one round trip.
+  for (int t = threadIdx.x; t < nt; t += blockDim.x) {
+    const long long w = t0 + t;
+    const int q = qtok[w];
+    pre[t + 1] = q >= 0 && q < n_q ? min(max(nvalid[w], 0), tile_c) : 0;
+    r0[t] = row0[w];
+    qt[t] = q;
+    ps[t] = pscore[w];
   }
+  if (threadIdx.x == 0) pre[0] = 0;
+  __syncthreads();
+  score_rows::warp0_prefix_sum(pre + 1, nt);
+  __syncthreads();
+
+  // Invalid slots, padding tiles merged with the tail before them.
+  auto zero_invalid = [&] {
+    for (int t = 0; t < nt;) {
+      const int m = pre[t + 1] - pre[t];
+      int e = t + 1;
+      if (m < tile_c) {
+        while (e < nt && pre[e + 1] == pre[e]) ++e;
+        score_rows::zero_fill(o + static_cast<size_t>(t) * tile_c + m,
+                              static_cast<long long>(e - t) * tile_c - m);
+      }
+      t = e;
+    }
+  };
+  auto tile_of = [&](long long f) {
+    return last_at_most(nt, f, [&](int t) { return static_cast<long long>(pre[t]); });
+  };
+  auto row_of = [&](long long f) -> const uint8_t* {
+    const int t = tile_of(f);
+    const long long row = static_cast<long long>(r0[t]) + (f - pre[t]);
+    return row >= 0 && row < n_tokens ? codes + static_cast<size_t>(row) * pb : nullptr;
+  };
+  auto store = [&](long long f, float score, bool first) {
+    const int t = tile_of(f);
+    const long long c = f - pre[t];
+    const long long row = static_cast<long long>(r0[t]) + c;
+    float* slot = o + static_cast<size_t>(t) * tile_c + c;
+    if (row >= 0 && row < n_tokens) {
+      *slot = first ? score + ps[t] : *slot + score;
+    } else if (first) {
+      *slot = 0.f;
+    }
+  };
+
+  // Runs of one query token over the tiles with valid rows; every thread
+  // walks the same shared arrays, so the loop and its barriers are uniform.
+  bool scored = false;
+  for (int ta = 0;;) {
+    while (ta < nt && pre[ta + 1] == pre[ta]) ++ta;
+    if (ta == nt) break;
+    const int q = qt[ta];
+    int tb = ta + 1;
+    while (tb < nt && (pre[tb + 1] == pre[tb] || qt[tb] == q)) ++tb;
+    score_rows::score_range<NBITS, VEC16, CHUNKED>(
+        smem, v_s, v + static_cast<size_t>(q) * dim * nb, pre[ta], pre[tb], pb, dim, dc,
+        false, scored, row_of,
+        [&] {
+          if (!scored) zero_invalid();
+        },
+        store);
+    scored = true;
+    ta = tb;
+  }
+  if (!scored) zero_invalid();
 }
 
-template <int NBITS>
-cudaError_t launch(const uint8_t* codes, const int* row0, const int* nvalid,
-                   const int* qtok, const float* pscore, const float* v, float* out,
-                   int n_tokens, int n_tiles, int tile_c, int n_q, int pb, int dim,
-                   cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(dim) * (1 << NBITS) * sizeof(float);
-  cudaError_t err = warp::allow_smem(ragged_fused_gather_score_kernel<NBITS>, smem);
+template <int NBITS, bool VEC16>
+cudaError_t launch(const uint8_t* codes, const int* row0, const int* nvalid, const int* qtok,
+                   const float* pscore, const float* v, float* out, int n_tokens, int n_tiles,
+                   int tile_c, int n_q, int pb, int dim, cudaStream_t stream, int* plan) {
+  const int dc = score_rows::dims_per_chunk(dim, NBITS, kTileBytes);
+  if (dc == 0) return cudaErrorInvalidValue;
+  const size_t fixed = kTileBytes + score_rows::vtable_bytes(dc, NBITS);
+  const int warps = score_rows::warps_that_fit(fixed, dc * NBITS / 8);
+  const size_t smem = score_rows::ring_bytes(warps, dc * NBITS / 8) + fixed;
+  auto kernel = ragged_fused_gather_score_kernel<NBITS, VEC16, false>;
+  if (dc < dim) kernel = ragged_fused_gather_score_kernel<NBITS, VEC16, true>;
+  cudaError_t err = score_rows::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (n_tiles + kTilesPerBlock - 1) / kTilesPerBlock;
-  ragged_fused_gather_score_kernel<NBITS><<<blocks, warp::kThreads, smem, stream>>>(
-      codes, row0, nvalid, qtok, pscore, v, out, n_tokens, n_tiles, tile_c, n_q, pb, dim,
-      warp::aligned4(codes, pb));
+  const int threads = warps * 32;
+  const int resident =
+      score_rows::resident_blocks(reinterpret_cast<const void*>(kernel), threads, smem);
+  const int s = ragged_blocks(n_tiles, resident);
+  if (plan != nullptr) {  // the launch's shape, for reports; nothing runs
+    plan[0] = threads;
+    plan[1] = static_cast<int>(smem);
+    plan[2] = resident;
+    plan[3] = s;
+    plan[4] = (n_tiles + s - 1) / s;
+    plan[5] = dc;
+    return cudaSuccess;
+  }
+  kernel<<<s, threads, smem, stream>>>(codes, row0, nvalid, qtok, pscore, v, out, n_tokens,
+                                       n_tiles, tile_c, n_q, pb, dim, dc);
   return cudaGetLastError();
+}
+
+int dispatch(const void* codes, const void* row0, const void* nvalid, const void* qtok,
+             const void* pscore, const void* v, void* out, int n_tokens, int n_tiles,
+             int tile_c, int n_q, int pb, int dim, int nbits, void* stream, int* plan) {
+  const auto* c = static_cast<const uint8_t*>(codes);
+  const auto* r = static_cast<const int*>(row0);
+  const auto* nv = static_cast<const int*>(nvalid);
+  const auto* qt = static_cast<const int*>(qtok);
+  const auto* ps = static_cast<const float*>(pscore);
+  const auto* vv = static_cast<const float*>(v);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool vec16 = score_rows::aligned16(codes, pb);
+  switch (nbits * 2 + (vec16 ? 1 : 0)) {
+    case 4:
+      return launch<2, false>(c, r, nv, qt, ps, vv, o, n_tokens, n_tiles, tile_c, n_q, pb, dim, s, plan);
+    case 5:
+      return launch<2, true>(c, r, nv, qt, ps, vv, o, n_tokens, n_tiles, tile_c, n_q, pb, dim, s, plan);
+    case 8:
+      return launch<4, false>(c, r, nv, qt, ps, vv, o, n_tokens, n_tiles, tile_c, n_q, pb, dim, s, plan);
+    case 9:
+      return launch<4, true>(c, r, nv, qt, ps, vv, o, n_tokens, n_tiles, tile_c, n_q, pb, dim, s, plan);
+    case 16:
+      return launch<8, false>(c, r, nv, qt, ps, vv, o, n_tokens, n_tiles, tile_c, n_q, pb, dim, s, plan);
+    case 17:
+      return launch<8, true>(c, r, nv, qt, ps, vv, o, n_tokens, n_tiles, tile_c, n_q, pb, dim, s, plan);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -95,18 +224,16 @@ extern "C" int warp_ragged_fused_gather_score(const void* codes, const void* row
                                               const void* pscore, const void* v, void* out,
                                               int n_tokens, int n_tiles, int tile_c, int n_q,
                                               int pb, int dim, int nbits, void* stream) {
-  const auto* c = static_cast<const uint8_t*>(codes);
-  const auto* r = static_cast<const int*>(row0);
-  const auto* nv = static_cast<const int*>(nvalid);
-  const auto* qt = static_cast<const int*>(qtok);
-  const auto* ps = static_cast<const float*>(pscore);
-  const auto* vv = static_cast<const float*>(v);
-  auto* o = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (nbits) {
-    case 2: return launch<2>(c, r, nv, qt, ps, vv, o, n_tokens, n_tiles, tile_c, n_q, pb, dim, s);
-    case 4: return launch<4>(c, r, nv, qt, ps, vv, o, n_tokens, n_tiles, tile_c, n_q, pb, dim, s);
-    case 8: return launch<8>(c, r, nv, qt, ps, vv, o, n_tokens, n_tiles, tile_c, n_q, pb, dim, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch(codes, row0, nvalid, qtok, pscore, v, out, n_tokens, n_tiles, tile_c, n_q, pb,
+                  dim, nbits, stream, nullptr);
+}
+
+// The launch warp_ragged_fused_gather_score would make for these
+// arguments, without making it: plan = {threads per block, dynamic shared
+// memory per block, blocks resident on the card, blocks of the launch,
+// tiles per block at most, v-table dims per chunk}.
+extern "C" int warp_ragged_fused_gather_score_plan(const void* codes, int n_tiles, int pb,
+                                                   int dim, int nbits, int* plan) {
+  return dispatch(codes, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, n_tiles, 8, 1,
+                  pb, dim, nbits, nullptr, plan);
 }

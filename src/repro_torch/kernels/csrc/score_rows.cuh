@@ -1,6 +1,7 @@
-// Shared row-scoring machinery of the selective-sum and dense fused-gather
-// kernels (sm_90a): one thread per packed code row, rows staged through a
-// per-warp cp.async ring in shared memory.
+// Shared row-scoring machinery of the three WARP scoring kernels
+// (selective sum, dense and ragged fused gather; sm_90a): one thread per
+// packed code row, rows staged through a per-warp cp.async ring in shared
+// memory, the v-table in shared memory whole or in chunks of dimensions.
 //
 // A token's packed code row holds D codes of b bits; dimension d lives in
 // byte d / (8/b) at bit (d % (8/b)) * b. The row's score is
@@ -15,10 +16,9 @@
 // b <= 4 those are at most 16 distinct words in 16 distinct banks
 // ((d * 2^b + code) mod 32 differs for distinct codes) and lanes with equal
 // codes read one word by broadcast: one wavefront per lookup instruction,
-// the least there is. (The per-row half-warp design of score_row.cuh put
-// word w of a row on lane w, dims 8w + s: bank (16 s + code) mod 32 for
-// every lane, 32 rows' codes in 16 banks, ~4.6 wavefronts per lookup at
-// b = 4.) At b = 8 the 256 entries of a dimension cover every bank 8 times
+// the least there is. (A layout of 16 lanes per row, word w of the row on
+// lane w, dims 8w + s, puts every lane at bank (16 s + code) mod 32: 32
+// rows' codes in 16 banks, ~4.6 wavefronts per lookup at b = 4.) At b = 8 the 256 entries of a dimension cover every bank 8 times
 // and 32 random codes need ~3.15 wavefronts per lookup (a count over random
 // codes; chip_smoke.py prints it beside the nbits-8 timing): no layout of a
 // 256-entry table serves 32 random lanes in one. At b <= 4 a lookup's
@@ -39,6 +39,16 @@
 // shared-memory wavefront of an LDS.128) land in 8 distinct 4-bank groups.
 // Rows that are not 16-byte aligned (PB % 16 != 0 or an unaligned code
 // pointer) take the same path with byte copies instead of cp.async.
+//
+// Wide v-tables. The whole table (D * 2^b floats: 128 KiB at D 128, b = 8)
+// sits beside at least one warp's ring wherever it fits. Where it does not
+// (b = 8 from D 208), score_range walks the dimensions in chunks of dc dims:
+// each chunk's table slice is loaded in turn and the ring stages only the
+// rows' bytes of those dims, so each code byte is still read once; the
+// first chunk writes a row's partial sum and later ones add to it (the same
+// thread owns a row in every chunk). dc is a multiple of 128 / b dims (16
+// bytes of a row), so a 16-byte aligned row stays aligned slice by slice
+// (dims_per_chunk; Python twin: _build.vtable_chunk).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,6 +58,7 @@
 namespace score_rows {
 
 constexpr int kMaxWarps = 8;  // warps per block, fewer where shared memory is short
+constexpr size_t kSmemMax = 232448;  // dynamic shared memory one block may use on sm_90
 constexpr int kStages = 3;    // chunks of 32 rows per warp in the ring
 constexpr int kChunk = 32;    // rows per chunk: one per lane
 constexpr unsigned kFull = 0xffffffffu;
@@ -282,13 +293,120 @@ struct WarpRing {
   }
 };
 
+// Largest p in [0, n) with key(p) <= x, for a non-decreasing key and
+// key(0) <= x.
+template <class Key>
+__device__ __forceinline__ int last_at_most(int n, long long x, Key key) {
+  int a = 0, b = n - 1;
+  while (a < b) {
+    const int m = (a + b + 1) >> 1;
+    if (key(m) <= x) {
+      a = m;
+    } else {
+      b = m - 1;
+    }
+  }
+  return a;
+}
+
+// Block-cooperative zero fill of a[0, n): 16-byte stores between a scalar
+// head and tail.
+__device__ __forceinline__ void zero_fill(float* a, long long n) {
+  long long head = ((16 - (reinterpret_cast<uintptr_t>(a) & 15)) & 15) >> 2;
+  if (head > n) head = n;
+  for (long long t = threadIdx.x; t < head; t += blockDim.x) a[t] = 0.f;
+  float4* b = reinterpret_cast<float4*>(a + head);
+  const long long n4 = (n - head) >> 2;
+  for (long long t = threadIdx.x; t < n4; t += blockDim.x) b[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (long long t = head + 4 * n4 + threadIdx.x; t < n; t += blockDim.x) a[t] = 0.f;
+}
+
+// In-place inclusive prefix sum of x[0, n) by warp 0 (a shuffle scan per 32
+// entries); the caller puts barriers before and after.
+__device__ __forceinline__ void warp0_prefix_sum(int* x, int n) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  int carry = 0;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int i = i0 + lane;
+    int y = i < n ? x[i] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int z = __shfl_up_sync(kFull, y, off);
+      if (lane >= off) y += z;
+    }
+    if (i < n) x[i] = carry + y;
+    carry += __shfl_sync(kFull, y, 31);
+  }
+}
+
+// Score the block's flat rows [lo, hi) against one query token's v-table
+// v_tok (f32[dim][2^b] in device memory), dc dims at a time (CHUNKED; else
+// dc == dim and all of this folds to one pass). row_of(f) gives flat row
+// f's code row (PB bytes) or nullptr for a row not to load. Each chunk:
+// a barrier where shared memory was in use before (`after_other`, or a
+// chunk before it), the table slice by cp.async (the first one skipped
+// where the caller issued it already: `preloaded`), kStages - 1 chunks of
+// rows issued, then `overlap()` on the first chunk only, then the ring.
+// store(f, score, first) gets each row's partial sum over the chunk's dims,
+// `first` on the first chunk.
+template <int NBITS, bool VEC16, bool CHUNKED, class RowOf, class Overlap, class Store>
+__device__ __forceinline__ void score_range(uint8_t* smem, float* v_s, const float* v_tok,
+                                            long long lo, long long hi, int pb, int dim,
+                                            int dc, bool preloaded, bool after_other,
+                                            RowOf row_of, Overlap overlap, Store store) {
+  constexpr int NB = 1 << NBITS;
+  const int n_chunks = CHUNKED ? (dim + dc - 1) / dc : 1;
+  for (int k = 0; k < n_chunks; ++k) {
+    const int d0 = CHUNKED ? k * dc : 0;
+    const int nd = CHUNKED ? min(dc, dim - d0) : dim;
+    const int b0 = d0 * NBITS / 8;
+    if (k > 0 || after_other) __syncthreads();  // every warp is done with shared memory
+    if (k > 0 || !preloaded) load_vtable(v_s, v_tok + static_cast<size_t>(d0) * NB, nd * NB);
+    auto slice = [&](long long f) -> const uint8_t* {
+      const uint8_t* r = row_of(f);
+      return CHUNKED && r != nullptr ? r + b0 : r;
+    };
+    WarpRing<VEC16> ring(smem, lo, hi, CHUNKED ? nd * NBITS / 8 : pb);
+    for (int i = 0; i < kStages - 1; ++i) ring.issue(i, slice);
+    if (k == 0) overlap();
+    cp_async_wait<kStages - 1>();  // the table slice's group
+    __syncthreads();
+    ring.template run<NBITS>(v_s, slice, [&](long long f, float s) { store(f, s, k == 0); });
+  }
+}
+
 // The most warps per block (8, 4, 2, 1) whose ring fits beside `fixed`
 // bytes of other shared memory; 0 if not even one warp's does.
-inline int warps_that_fit(size_t fixed, int pb, size_t smem_max = 232448) {
+inline int warps_that_fit(size_t fixed, int pb, size_t smem_max = kSmemMax) {
   for (int w = kMaxWarps; w >= 1; w >>= 1) {
     if (fixed + ring_bytes(w, pb) <= smem_max) return w;
   }
   return 0;
+}
+
+// Shared-memory bytes of a v-table slice of dc dims on its 256-byte
+// boundary (the slack included).
+inline size_t vtable_bytes(int dc, int nbits) {
+  return kVtableAlign + static_cast<size_t>(dc) * (1 << nbits) * sizeof(float);
+}
+
+// Dimensions per v-table chunk (see "Wide v-tables" above): all D where
+// the whole table, `other` bytes and one warp's ring of whole rows fit one
+// block; else the fewest chunks of whole 128 / b-dim units that fit, each
+// chunk but the last dc dims; 0 where not even one unit fits (`other` too
+// large). Python twin: _build.vtable_chunk.
+inline int dims_per_chunk(int dim, int nbits, size_t other) {
+  auto fits = [&](int dc) {
+    return other + vtable_bytes(dc, nbits) + ring_bytes(1, dc * nbits / 8) <= kSmemMax;
+  };
+  if (fits(dim)) return dim;
+  const int unit = 128 / nbits;
+  for (int n = 2;; ++n) {
+    const int dc = ((dim + n - 1) / n + unit - 1) / unit * unit;
+    if (fits(dc)) return dc;
+    if (dc <= unit) return 0;
+  }
 }
 
 // Blocks of `kernel` resident on the whole card at this block size and

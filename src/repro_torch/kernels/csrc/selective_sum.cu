@@ -17,17 +17,16 @@
 // token's N rows split into S equal ranges, one block each, S from the
 // number of blocks the card holds at once (one wave at Q = 32 and at the
 // batched Q = 128). A block copies its token's v-table into shared memory
-// once (cp.async), alongside its first chunks.
+// once (cp.async), alongside its first chunks; a table too wide for one
+// block (nbits 8 from D 208) is walked in chunks of dimensions (CHUNKED).
 #include "score_rows.cuh"
 
 namespace {
 
-using score_rows::WarpRing;
-
-template <int NBITS, bool VEC16>
+template <int NBITS, bool VEC16, bool CHUNKED>
 __global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
     selective_sum_kernel(const uint8_t* __restrict__ packed, const float* __restrict__ v,
-                         float* __restrict__ out, int n, int pb, int dim) {
+                         float* __restrict__ out, int n, int pb, int dim, int dc) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int q = blockIdx.y;
   const int nb = 1 << NBITS;
@@ -39,26 +38,23 @@ __global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
   const uint8_t* base = packed + static_cast<size_t>(q) * n * pb;
   float* o = out + static_cast<size_t>(q) * n;
   const int warps = blockDim.x >> 5;
-  float* v_s = score_rows::vtable_at(smem, score_rows::ring_bytes(warps, pb));
-  WarpRing<VEC16> ring(smem, lo, hi, pb);
+  float* v_s = score_rows::vtable_at(smem, score_rows::ring_bytes(warps, dc * NBITS / 8));
   auto row_of = [&](long long f) { return base + static_cast<size_t>(f) * pb; };
-
-  score_rows::load_vtable(v_s, v + static_cast<size_t>(q) * dim * nb, dim * nb);
-  for (int i = 0; i < score_rows::kStages - 1; ++i) ring.issue(i, row_of);
-  score_rows::cp_async_wait<score_rows::kStages - 1>();  // the v-table's group
-  __syncthreads();
-  ring.template run<NBITS>(v_s, row_of, [&](long long f, float s) { o[f] = s; });
+  score_rows::score_range<NBITS, VEC16, CHUNKED>(
+      smem, v_s, v + static_cast<size_t>(q) * dim * nb, lo, hi, pb, dim, dc, false, false,
+      row_of, [] {}, [&](long long f, float s, bool first) { o[f] = first ? s : o[f] + s; });
 }
 
 template <int NBITS, bool VEC16>
 cudaError_t launch(const uint8_t* packed, const float* v, float* out, int q, int n, int pb,
                    int dim, cudaStream_t stream, int* plan) {
-  const size_t vbytes =
-      score_rows::kVtableAlign + static_cast<size_t>(dim) * (1 << NBITS) * sizeof(float);
-  const int warps = score_rows::warps_that_fit(vbytes, pb);
-  if (warps == 0) return cudaErrorInvalidValue;
-  const size_t smem = score_rows::ring_bytes(warps, pb) + vbytes;
-  auto kernel = selective_sum_kernel<NBITS, VEC16>;
+  const int dc = score_rows::dims_per_chunk(dim, NBITS, 0);
+  if (dc == 0) return cudaErrorInvalidValue;
+  const size_t vbytes = score_rows::vtable_bytes(dc, NBITS);
+  const int warps = score_rows::warps_that_fit(vbytes, dc * NBITS / 8);
+  const size_t smem = score_rows::ring_bytes(warps, dc * NBITS / 8) + vbytes;
+  auto kernel = selective_sum_kernel<NBITS, VEC16, false>;
+  if (dc < dim) kernel = selective_sum_kernel<NBITS, VEC16, true>;
   cudaError_t err = score_rows::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int threads = warps * 32;
@@ -72,9 +68,10 @@ cudaError_t launch(const uint8_t* packed, const float* v, float* out, int q, int
     plan[1] = static_cast<int>(smem);
     plan[2] = resident;
     plan[3] = s;
+    plan[4] = dc;
     return cudaSuccess;
   }
-  kernel<<<dim3(s, q), threads, smem, stream>>>(packed, v, out, n, pb, dim);
+  kernel<<<dim3(s, q), threads, smem, stream>>>(packed, v, out, n, pb, dim, dc);
   return cudaGetLastError();
 }
 
@@ -105,7 +102,8 @@ extern "C" int warp_selective_sum(const void* packed, const void* v, void* out, 
 
 // The launch warp_selective_sum would make for these arguments, without
 // making it: plan = {threads per block, dynamic shared memory per block,
-// blocks resident on the card, blocks per query token}.
+// blocks resident on the card, blocks per query token, v-table dims per
+// chunk}.
 extern "C" int warp_selective_sum_plan(const void* packed, int q, int n, int pb, int dim,
                                        int nbits, int* plan) {
   return dispatch(packed, nullptr, nullptr, q, n, pb, dim, nbits, nullptr, plan);

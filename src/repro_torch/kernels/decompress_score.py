@@ -30,7 +30,7 @@ def selective_sum_cuda(
     dev = _build.cuda_device(packed)
     q, n, pb = packed.shape
     _build.require_codec(dim, nbits, pb)
-    _build.require_ring(dim, nbits, pb)
+    _build.vtable_chunk(dim, nbits)
     _build.require(packed, "packed", torch.uint8, dev)
     _build.require(v, "v", torch.float32, dev, (q, dim, 1 << nbits))
     out = torch.empty((q, n), dtype=torch.float32, device=dev)

@@ -58,7 +58,7 @@ def fused_gather_score_cuda(packed_codes, starts, sizes, probe_scores, v, *, nbi
     n, pb = packed_codes.shape
     qm, p = starts.shape
     _build.require_codec(dim, nbits, pb)
-    _build.require_ring(dim, nbits, pb, extra=4 * (3 * p + 1))
+    _build.vtable_chunk(dim, nbits, 4 * (3 * p + 1))
     _build.require(packed_codes, "packed_codes", torch.uint8, dev)
     _build.require(starts, "starts", torch.int32, dev)
     _build.require(sizes, "sizes", torch.int32, dev, (qm, p))
@@ -107,11 +107,13 @@ def ragged_fused_gather_score_cuda(
 ):
     dev = _build.cuda_device(packed_codes)
     n, pb = packed_codes.shape
-    (w,) = row0.shape
+    w = nvalid.shape[0]
     qm = v.shape[0]
     _build.require_codec(dim, nbits, pb)
+    # A block's tile arrays (pre, row0, qtok, pscore) sit beside the table.
+    _build.vtable_chunk(dim, nbits, 4 * (4 * ref.RAGGED_MAX_TILES + 1))
     _build.require(packed_codes, "packed_codes", torch.uint8, dev)
-    _build.require(row0, "row0", torch.int32, dev)
+    _build.require(row0, "row0", torch.int32, dev, (w,))
     _build.require(nvalid, "nvalid", torch.int32, dev, (w,))
     _build.require(qtok, "qtok", torch.int32, dev, (w,))
     _build.require(pscore, "pscore", torch.float32, dev, (w,))

@@ -32,6 +32,9 @@ __all__ = [
     "score_split",
     "fused_gather_score_split",
     "ragged_fused_gather_score",
+    "ragged_blocks",
+    "ragged_split",
+    "ragged_fused_gather_score_split",
     "flash_attention",
     "flash_schedule",
     "flash_attention_tiled",
@@ -265,6 +268,127 @@ def ragged_fused_gather_score(
     scores = ragged_selective_sum(gathered, qtok_slot, v, nbits=nbits, dim=dim)
     scores = scores + per_slot(pscore.float(), tile_c)
     return torch.where(valid, scores, 0.0)
+
+
+RAGGED_MAX_TILES = 128  # tiles one block of the ragged kernel takes at most
+RAGGED_TILES_PER_BLOCK = 32  # its blocks: one per this many tiles ...
+RAGGED_OVERSUBSCRIBE = 2  # ... up to this many per block the card holds at once
+
+
+def ragged_blocks(n_tiles: int, resident: int) -> int:
+    """Blocks of ``csrc/ragged_fused_gather_score.cu``'s launch
+    (``ragged_blocks`` there): one per ``RAGGED_TILES_PER_BLOCK`` tiles,
+    but no fewer than the card's ``resident`` blocks and no more than
+    ``RAGGED_OVERSUBSCRIBE`` times them; at least enough that no block
+    takes more than ``RAGGED_MAX_TILES`` tiles, at most one per tile, at
+    least 1."""
+    s = -(-n_tiles // RAGGED_TILES_PER_BLOCK)
+    s = max(resident, min(s, RAGGED_OVERSUBSCRIBE * resident))
+    s = max(s, -(-n_tiles // RAGGED_MAX_TILES))
+    return max(1, min(s, n_tiles))
+
+
+def ragged_split(
+    nvalid: torch.Tensor, qtok: torch.Tensor, *, n_q: int, tile_c: int, blocks: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The work split of ``csrc/ragged_fused_gather_score.cu``: which block
+    scores which slot of the flat [W * tile_c] output, under which v-table
+    load, and which block zeroes it.
+
+    Block s takes tiles [W*s // blocks, W*(s+1) // blocks). A tile's valid
+    slots are m = min(max(nvalid, 0), tile_c), or 0 where qtok lies outside
+    [0, n_q); with pre[t] their prefix sums over the block's tiles, flat row
+    f is slot f - pre[t] of the tile t with pre[t] <= f < pre[t + 1] (the
+    largest t with pre[t] <= f). The block walks runs: from the next tile
+    with valid slots, the tiles that follow while each has none or the same
+    qtok; one v-table load each. Every slot c >= m of its tiles it zeroes.
+
+    Returns (scored [*, 4] rows of (s, w, c, run), zeroed [*, 3] rows of
+    (s, w, c), runs [*, 4] rows of (s, first tile, end tile, qtok)), int64,
+    the runs in the order the blocks walk them."""
+    w_all = nvalid.numel()
+    qt = qtok.long().cpu()
+    m = torch.where((qt >= 0) & (qt < n_q), nvalid.long().cpu().clamp(0, tile_c), 0)
+    scored, zeroed, runs = [], [], []
+    lane = torch.arange(tile_c)
+    for s in range(blocks):
+        t0, t1 = w_all * s // blocks, w_all * (s + 1) // blocks
+        mm = m[t0:t1]
+        pre = torch.zeros(t1 - t0 + 1, dtype=torch.long)
+        pre[1:] = mm.cumsum(0)
+        ml, ql = mm.tolist(), qt[t0:t1].tolist()
+        ta, nt = 0, t1 - t0
+        while True:
+            while ta < nt and ml[ta] == 0:
+                ta += 1
+            if ta == nt:
+                break
+            tb = ta + 1
+            while tb < nt and (ml[tb] == 0 or ql[tb] == ql[ta]):
+                tb += 1
+            f = torch.arange(int(pre[ta]), int(pre[tb]))
+            t = torch.searchsorted(pre[:nt], f, right=True) - 1
+            scored.append(torch.stack(
+                [torch.full_like(f, s), t0 + t, f - pre[t], torch.full_like(f, len(runs))], 1
+            ))
+            runs.append((s, t0 + ta, t0 + tb, ql[ta]))
+            ta = tb
+        tt, cc = torch.nonzero(lane >= mm.unsqueeze(-1), as_tuple=True)
+        zeroed.append(torch.stack([torch.full_like(tt, s), t0 + tt, cc], 1))
+    empty = torch.zeros((0, 4), dtype=torch.long)
+    return (
+        torch.cat(scored) if scored else empty,
+        torch.cat(zeroed) if zeroed else empty[:, :3],
+        torch.tensor(runs, dtype=torch.long).reshape(-1, 4),
+    )
+
+
+def ragged_fused_gather_score_split(
+    packed_codes: torch.Tensor,
+    row0: torch.Tensor,
+    nvalid: torch.Tensor,
+    qtok: torch.Tensor,
+    pscore: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    nbits: int,
+    dim: int,
+    tile_c: int,
+    blocks: int,
+    dims_per_chunk: int | None = None,
+) -> torch.Tensor:
+    """``ragged_fused_gather_score`` computed the way
+    ``csrc/ragged_fused_gather_score.cu`` splits it (``ragged_split``):
+    each run's rows scored against its token's v-table ``dims_per_chunk``
+    dims at a time (all D by default), the first chunk writing partial sum
+    plus pscore and later ones adding; each block's invalid slots zeroed;
+    every other slot left NaN. A row outside [0, n_tokens) scores 0, as in
+    the kernel."""
+    n = packed_codes.shape[0]
+    dev = packed_codes.device
+    scored, zeroed, _ = ragged_split(
+        nvalid, qtok, n_q=v.shape[0], tile_c=tile_c, blocks=blocks
+    )
+    w, c = scored[:, 1].to(dev), scored[:, 2].to(dev)
+    out = torch.full((nvalid.numel() * tile_c,), math.nan, dtype=torch.float32, device=dev)
+    row = row0.long()[w] + c
+    ok = (row >= 0) & (row < n)
+    rows = packed_codes[row.clamp(0, max(n - 1, 0))]
+    q = qtok.long()[w]
+    slot = w * tile_c + c
+    dc, per_byte = dims_per_chunk or dim, 8 // nbits
+    for d0 in range(0, dim, dc):
+        nd = min(dc, dim - d0)
+        part = ragged_selective_sum(
+            rows[:, d0 // per_byte : (d0 + nd) // per_byte], q, v[:, d0 : d0 + nd],
+            nbits=nbits, dim=nd,
+        )
+        if d0 == 0:
+            out[slot] = torch.where(ok, part + pscore.float()[w], 0.0)
+        else:
+            out[slot] = torch.where(ok, out[slot] + part, out[slot])
+    out[zeroed[:, 1].to(dev) * tile_c + zeroed[:, 2].to(dev)] = 0.0
+    return out
 
 
 def flash_attention(

@@ -2,14 +2,20 @@
 on the card: edge shapes (an index smaller than one tile, runs ending at
 the last row, padding tiles, dims that are not a multiple of the word
 size) at nbits 2/4/8; invalid slots exactly 0; tolerance 1e-4 (float32
-sums in another order). selective_sum and the dense fused kernel also at
-D 20 and 96, code views offset by 1, 4 and 16 bytes, Q 128, skewed probe
-sizes (one at cap 1024 beside sizes 0 and 1, one past cap), exactly one
-launch per call, and each token's blocks as ``ref.score_blocks_per_token``
-says. Flash attention over causal and window masks
-(windows 1 to 512), S from 1 to 1000 (the bf16 kernel's 128-row blocks
-partly empty), Sq != Skv, Dh 64 and 128, float32 and bf16, GQA ratios 1
-to 7, contiguous and transposed [B, S, H, Dh] views: 1e-4 at float32, and
+sums in another order). The three scoring kernels also at D 20 and 96,
+code views offset by 1, 4 and 16 bytes, Q 128, skewed probe sizes (one at
+cap 1024 beside sizes 0 and 1, one past cap), exactly one launch per call,
+and their launch as the Python twins say (blocks per token,
+``ref.score_blocks_per_token``; the ragged kernel's blocks,
+``ref.ragged_blocks``; the v-table chunk, ``_build.vtable_chunk``); the
+ragged kernel at tile_c 8 to 64, on batched worklists, the materialize
+route's gathered copy, all-padding worklists, unsorted and out-of-range
+qtok; all three at nbits 8 with v-tables wider than one block's shared
+memory (D 224 to 520, walked in chunks of dimensions). Flash attention
+over causal and window masks (windows 1 to 512), S from 1 to 1000 (the
+bf16 kernel's 128-row blocks partly empty), Sq != Skv, Dh 64 and 128,
+float32 and bf16, GQA ratios 1 to 7, contiguous and transposed
+[B, S, H, Dh] views: 1e-4 at float32, and
 at bf16 each element within one bf16 ulp of the larger output plus 1e-5
 (both are one rounding of float32 values far closer than an ulp). The
 embedding bag at D 1, 18, 256 and 257, int32 and int64 ids, an unaligned
@@ -601,3 +607,175 @@ def test_fused_gather_score_sparse_tokens_on_card(card, kind):
     want = tref.fused_gather_score(*args, nbits=4, dim=128, cap=cap)
     torch.testing.assert_close(got, want, **CARD_TOL)
     assert bool((got[torch.arange(cap, device=card) >= args[2].long().unsqueeze(-1)] == 0).all())
+
+
+# ---------------------------------------------------------------------------
+# the ragged worklist kernel on score_rows.cuh: tiles split in equal ranges
+# over the card's resident blocks, one v-table load per run of a query token
+# ---------------------------------------------------------------------------
+
+
+def _ragged_worklist(rng, b, n, p, cap, tile, n_tokens, slack=5):
+    """A worklist as ``engine._ragged_block`` builds it for ``b`` batch
+    elements of ``n`` query tokens: skewed probe sizes (0, 1, in between
+    and cap; runs kept inside the index), each element's padding tiles
+    after its real ones, qtok offset by element -> (row0, nvalid, qtok,
+    pscore) flat int32/float32 [b * W]."""
+    sizes = rng.integers(0, cap + 1, (b, n, p)).astype(np.int32)
+    sizes[rng.random((b, n, p)) < 0.3] = 1
+    sizes[rng.random((b, n, p)) < 0.1] = 0
+    sizes[:, :, 0] = cap
+    starts = rng.integers(0, n_tokens - cap + 1, (b, n, p)).astype(np.int32)
+    pscore = rng.standard_normal((b, n, p)).astype(np.float32)
+    bound = wl.needed_worklist_tiles(wl.probe_tile_counts(sizes, tile), amortized=False) + slack
+    work = wl.build_tile_worklist(
+        _t(starts), _t(sizes), _t(pscore), tile_c=tile, tiles_per_qtoken=bound
+    )
+    qtok = work.qtok + (torch.arange(b) * n).unsqueeze(-1).int()
+    return tuple(a.reshape(-1).contiguous() for a in (work.row0, work.nvalid, qtok, work.pscore))
+
+
+def _check_ragged(card, codes, work, v, *, nbits, dim, tile):
+    """One launch, the plain version within 1e-4, invalid slots exactly 0,
+    the launch's blocks and v-table chunk as the twins say."""
+    args = (codes, *(a.to(card) for a in work), v)
+    before = LAUNCHES["ragged_fused_gather_score"]
+    got = ragged_fused_gather_score_cuda(*args, nbits=nbits, dim=dim, tile_c=tile)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ragged_fused_gather_score"] == before + 1
+    want = tref.ragged_fused_gather_score(*args, nbits=nbits, dim=dim, tile_c=tile)
+    torch.testing.assert_close(got, want, **CARD_TOL)
+    invalid = (torch.arange(tile, device=card) >= args[2].long().unsqueeze(-1)).reshape(-1)
+    assert bool((got[invalid] == 0).all())
+    w = work[0].numel()
+    plan = _build.launch_plan(
+        "ragged_fused_gather_score", codes.data_ptr(), w, codes.shape[1], dim, nbits
+    )
+    assert plan["blocks"] == tref.ragged_blocks(w, plan["resident_blocks"])
+    assert plan["tiles_per_block"] <= tref.RAGGED_MAX_TILES
+    assert plan["dims_per_chunk"] == _build.vtable_chunk(dim, nbits, 4 * (4 * tref.RAGGED_MAX_TILES + 1))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 16, 32, 64])
+@pytest.mark.parametrize("name,nbits,dim,offset", SCORE_CASES)
+def test_ragged_rows_on_card(card, tile, name, nbits, dim, offset):
+    """Skewed clusters cut into tiles of 8 to 64 rows, padding tiles, code
+    views at +1, +4 and +16 bytes, D 20 and 96."""
+    rng = np.random.default_rng(sum(map(ord, name)) + tile)
+    n_tokens, pb = 6000, dim * nbits // 8
+    codes = _code_view(card, rng.integers(0, 256, (n_tokens, pb), dtype=np.uint8), offset)
+    work = _ragged_worklist(rng, 1, 6, 9, 700, tile, n_tokens)
+    v = _t(rng.standard_normal((6, dim, 1 << nbits)).astype(np.float32)).to(card)
+    _check_ragged(card, codes, work, v, nbits=nbits, dim=dim, tile=tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [2, 4, 8])
+def test_ragged_batched_q128_on_card(card, nbits):
+    """retrieve_batch's shape: 4 elements of 32 query tokens in one
+    worklist, each element's padding between it and the next."""
+    rng = np.random.default_rng(128 + nbits)
+    n_tokens, dim = 40000, 128
+    codes = _t(rng.integers(0, 256, (n_tokens, dim * nbits // 8), dtype=np.uint8)).to(card)
+    work = _ragged_worklist(rng, 4, 32, 16, 1024, 32, n_tokens)
+    v = _t(rng.standard_normal((128, dim, 1 << nbits)).astype(np.float32)).to(card)
+    _check_ragged(card, codes, work, v, nbits=nbits, dim=dim, tile=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 32])
+def test_ragged_materialize_form_on_card(card, tile):
+    """The materialize route: a gathered copy of the worklist's rows,
+    row0 = w * tile_c."""
+    rng = np.random.default_rng(tile)
+    n_tokens, dim = 5000, 128
+    codes = _t(rng.integers(0, 256, (n_tokens, 64), dtype=np.uint8)).to(card)
+    row0, nvalid, qtok, pscore = _ragged_worklist(rng, 2, 8, 7, 300, tile, n_tokens)
+    work = wl.TileWorklist(row0.to(card), nvalid.to(card), qtok.to(card), pscore.to(card))
+    pos, _ = wl.worklist_slot_positions(work, tile_c=tile, n_tokens=n_tokens)
+    gathered = codes[pos].contiguous()
+    flat_row0 = torch.arange(row0.numel(), dtype=torch.int32) * tile
+    v = _t(rng.standard_normal((16, dim, 16)).astype(np.float32)).to(card)
+    got = _check_ragged(card, gathered, (flat_row0, nvalid, qtok, pscore), v, nbits=4, dim=dim, tile=tile)
+    direct = ragged_fused_gather_score_cuda(
+        codes, *(a.to(card) for a in (row0, nvalid, qtok, pscore)), v, nbits=4, dim=dim, tile_c=tile
+    )
+    torch.testing.assert_close(got, direct, **CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 37, 5000])
+def test_ragged_all_padding_on_card(card, w):
+    """A worklist of padding tiles only: every slot exactly 0."""
+    codes = torch.randint(0, 256, (100, 64), dtype=torch.uint8, device=card)
+    zeros = torch.zeros(w, dtype=torch.int32)
+    work = (zeros, zeros, zeros, torch.zeros(w))
+    v = torch.randn(3, 128, 16, device=card)
+    got = _check_ragged(card, codes, work, v, nbits=4, dim=128, tile=32)
+    assert not bool(got.any())
+
+
+@pytest.mark.cuda
+def test_ragged_unsorted_qtok_and_edges_on_card(card):
+    """qtok in any order and outside [0, Q) (those tiles give zeros), nvalid
+    past tile_c and negative, rows outside the index (their slots 0)."""
+    rng = np.random.default_rng(3)
+    n_tokens, w, tile = 3000, 900, 16
+    codes = _t(rng.integers(0, 256, (n_tokens, 64), dtype=np.uint8)).to(card)
+    row0 = rng.integers(0, n_tokens - tile, w).astype(np.int32)
+    nvalid = rng.integers(-3, tile + 5, w).astype(np.int32)
+    qtok = rng.integers(-2, 9, w).astype(np.int32)
+    row0[:3] = (-5, n_tokens - 4, n_tokens + 10)
+    nvalid[:3] = tile
+    qtok[:3] = 0
+    pscore = rng.standard_normal(w).astype(np.float32)
+    v = _t(rng.standard_normal((7, 128, 16)).astype(np.float32)).to(card)
+    args = (codes, *(_t(a).to(card) for a in (row0, nvalid, qtok, pscore)), v)
+    got = ragged_fused_gather_score_cuda(*args, nbits=4, dim=128, tile_c=tile).cpu()
+    want = tref.ragged_fused_gather_score_split(
+        *(a.cpu() for a in args), nbits=4, dim=128, tile_c=tile, blocks=7
+    )
+    torch.testing.assert_close(got, want, **CARD_TOL)
+    out = got.reshape(w, tile)
+    assert bool((out[0, :5] == 0).all()) and bool((out[0, 5:] != 0).all())
+    assert bool((out[1, 4:] == 0).all()) and bool((out[2] == 0).all())
+    dead = (qtok < 0) | (qtok >= 7) | (nvalid <= 0)
+    assert bool((out[torch.from_numpy(dead)] == 0).all())
+
+
+# ---------------------------------------------------------------------------
+# v-tables wider than one block's shared memory (nbits 8 from D 208): the
+# three scoring kernels walk the dimensions in chunks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,offset", [(256, 0), (256, 1), (224, 16), (520, 0)])
+def test_wide_vtable_all_three_kernels_on_card(card, dim, offset):
+    nbits, q, cap, p = 8, 3, 200, 6
+    rng = np.random.default_rng(dim + offset)
+    n_tokens, pb = 3000, dim
+    codes = _code_view(card, rng.integers(0, 256, (n_tokens, pb), dtype=np.uint8), offset)
+    v = _t(rng.standard_normal((q, dim, 256)).astype(np.float32)).to(card)
+    dc = _build.vtable_chunk(dim, nbits)
+    assert dc < dim
+
+    packed = _code_view(card, rng.integers(0, 256, (q, 1037, pb), dtype=np.uint8), offset)
+    got = selective_sum_cuda(packed, v, nbits=nbits, dim=dim)
+    torch.testing.assert_close(got, tref.selective_sum(packed, v, nbits=nbits, dim=dim), **CARD_TOL)
+    plan = _build.launch_plan("selective_sum", packed.data_ptr(), q, 1037, pb, dim, nbits)
+    assert plan["dims_per_chunk"] == dc
+
+    sizes = _skewed_sizes(rng, q, p, cap)
+    starts = rng.integers(0, n_tokens - cap + 1, (q, p)).astype(np.int32)
+    pscore = rng.standard_normal((q, p)).astype(np.float32)
+    args = (codes, *(_t(a).to(card) for a in (starts, sizes, pscore)), v)
+    got = fused_gather_score_cuda(*args, nbits=nbits, dim=dim, cap=cap)
+    torch.testing.assert_close(got, tref.fused_gather_score(*args, nbits=nbits, dim=dim, cap=cap), **CARD_TOL)
+    plan = _build.launch_plan("fused_gather_score", codes.data_ptr(), q, p, cap, pb, dim, nbits)
+    assert plan["dims_per_chunk"] == _build.vtable_chunk(dim, nbits, 4 * (3 * p + 1))
+
+    work = _ragged_worklist(rng, 1, q, p, cap, 32, n_tokens)
+    _check_ragged(card, codes, work, v, nbits=nbits, dim=dim, tile=32)

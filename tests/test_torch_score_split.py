@@ -182,26 +182,46 @@ def test_score_blocks_per_token(n_q, resident, rows, want):
 
 
 @pytest.mark.parametrize(
-    "dim,nbits,extra,fits",
+    "dim,nbits,extra,chunks",
     [
-        (128, 4, 0, True),  # the path: 8 KiB of table
-        (128, 8, 4 * (3 * 32 + 1), True),  # 128 KiB of table beside one warp's ring
-        (200, 8, 0, True),
-        (224, 8, 0, False),  # the table fits a block (require_codec), the ring does not
-        (220, 8, 4 * (3 * 4096 + 1), False),  # and the probe arrays of 4096 probes
+        (128, 4, 0, 1),  # the path: 8 KiB of table
+        (128, 8, 4 * (3 * 32 + 1), 1),  # 128 KiB of table beside one warp's ring
+        (200, 8, 0, 1),
+        (224, 8, 0, 2),  # the table fits a block alone, not beside one warp's ring
+        (220, 8, 4 * (3 * 4096 + 1), 2),  # nor beside the probe arrays of 4096 probes
+        (256, 8, 0, 2),
+        (256, 8, 4 * (4 * 128 + 1), 2),  # the ragged kernel's tile arrays
+        (1000, 8, 0, 6),
     ],
 )
-def test_require_ring(dim, nbits, extra, fits):
-    """The selective-sum and dense fused wrappers refuse, before any launch,
-    a v-table that leaves no room in one block's shared memory for one
-    warp's ring of staged rows."""
+def test_require_ring(dim, nbits, extra, chunks):
+    """The scoring kernels' v-table chunk (_build.vtable_chunk, the twin of
+    score_rows::dims_per_chunk): the whole table where it, ``extra`` bytes
+    and one warp's ring of staged rows fit one block's shared memory, else
+    the fewest chunks of whole 16-byte row pieces that do. One chunk at D
+    128 (the path's code is unchanged there), two or more from D 208 at
+    nbits 8; every chunk fits and one fewer would not."""
     from repro_torch.kernels import _build
 
     pb = dim * nbits // 8
     _build.require_codec(dim, nbits, pb)
-    if fits:
-        _build.require_ring(dim, nbits, pb, extra)
-    else:
-        with pytest.raises(ValueError, match="staged rows"):
-            _build.require_ring(dim, nbits, pb, extra)
+    dc = _build.vtable_chunk(dim, nbits, extra)
+    assert -(-dim // dc) == chunks
+    unit = 128 // nbits
+    assert dc == dim or dc % unit == 0
+    assert _build._vtable_fits(dc, nbits, extra)
+    if chunks > 1:
+        per = -(-dim // (chunks - 1))
+        smaller = -(-per // unit) * unit  # the chunk one fewer chunks would take
+        assert not _build._vtable_fits(smaller, nbits, extra)
     assert _build.ring_row_stride(pb) % 32 == 16  # an odd number of 16-byte units
+
+
+def test_vtable_chunk_refuses_what_cannot_fit():
+    """Only per-block arrays that leave no room for one 16-byte unit of the
+    table beside one warp's ring are refused (a probe count no path uses)."""
+    from repro_torch.kernels import _build
+
+    with pytest.raises(ValueError, match="staged rows"):
+        _build.vtable_chunk(128, 8, 4 * (3 * 18000 + 1))
+    assert _build.vtable_chunk(128, 4, 4 * (3 * 18500 + 1)) == 64  # nbits 4 chunks too
