@@ -6,8 +6,9 @@
 Drives the port's retrieval path at warp-xtr width on a synthetic index of
 LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
 ``search_lifestyle``: 23.71M tokens, 119,461 docs, 2^17 centroids, cap
-1024; D = 128, nbits = 4, 32 query tokens, nprobe 32, k 100, k_impute 64),
-built on the card from ``--seed`` (the index build itself is not ported):
+1024; D = 128, nbits = 4, 32 query tokens, nprobe 32, k 100, k_impute 64;
+``repro_torch/configs/warp_xtr.py``), synthesised on the card from
+``--seed`` (phase 5 builds a smaller index from embeddings):
 
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
      one process per source, in parallel) and hold each kernel against
@@ -27,7 +28,20 @@ built on the card from ``--seed`` (the index build itself is not ported):
      ``plan.retrieve``;
   4. match the committed fixture (``tests/data/torch_fixture``, expected
      results written by the JAX package) on the card;
-  5. LM generation (``lm``) at qwen2-0.5b full width and depth
+  5. the index build (``build``): a corpus at Lifestyle's mean document
+     length (1,320 docs, ~262,000 tokens, D 128, zipf_like's topic skew)
+     built on the card by ``build_index_to_store`` at
+     ``IndexBuildConfig(nbits=4)`` defaults (2^13 centroids), each pass
+     timed beside its fp32 bound; the store's CSR invariants and
+     ``verify_store``; passes 2-3 again at another chunk_size and one
+     Lloyd step twice, bit-identical; 128 queries retrieved from the
+     store at the four configs x both executors (the scoring kernels'
+     launches counted), WARP at the kernel executor held to
+     ``plaid_style_search`` (implicit = explicit decompression), and
+     nRecall@100 / success@5 of WARP, XTR and PLAID against exact MaxSim;
+     then one assignment chunk of 4,096 tokens timed against Lifestyle's
+     2^17 centroids, with the full build's assignment time it implies;
+  6. LM generation (``lm``) at qwen2-0.5b full width and depth
      (``repro_torch/configs/qwen2_0_5b.py``: 24 layers, d 896, 14 heads,
      2 kv heads, head_dim 64, vocab 151,936; random bf16 weights from
      ``--seed``): the flash-attention kernel against its plain version at
@@ -44,7 +58,7 @@ built on the card from ``--seed`` (the index build itself is not ported):
      per layer, and the logits at every step; tokens are identical or
      first differ at a reported near-tie of the reference's top-2 logits.
      ``--lm-seeds N`` repeats these checks on N weight seeds.
-  6. recsys serving (``recsys``) at full width: the embedding-bag kernel
+  7. recsys serving (``recsys``) at full width: the embedding-bag kernel
      against its plain version per element within
      ``ref.embedding_bag_error_bound`` at the path's shapes (int32 and
      int64 ids, zero weights, ids outside [0, V), an unaligned table
@@ -72,12 +86,15 @@ and ``{"ok": true, "device": {...}}``. It exits non-zero without a card.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import functools
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -85,13 +102,20 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.configs import warp_xtr  # noqa: E402  (fails outside a checkout of the repo)
+from repro_torch.configs.warp_family import WARP_SHAPES  # noqa: E402
+
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12  # dense tensor cores
 
-ARCH = dict(dim=128, nbits=4, query_maxlen=32, nprobe=32, k=100, k_impute=64)
-GEOMETRY = dict(n_tokens=23_710_000, n_docs=119_461, n_centroids=1 << 17, cap=1024)
+ARCH = dataclasses.asdict(warp_xtr.CONFIG)
+_LIFESTYLE = WARP_SHAPES["search_lifestyle"]
+GEOMETRY = dict(
+    n_tokens=_LIFESTYLE.n_tokens, n_docs=_LIFESTYLE.n_docs,
+    n_centroids=_LIFESTYLE.n_centroids, cap=_LIFESTYLE.cap,
+)
 CONFIGS = (
     ("materialize", "dense"), ("fused", "dense"), ("fused", "ragged"), ("materialize", "ragged"),
 )
@@ -172,6 +196,20 @@ RECSYS_LOGIT_TOL = 1e-4
 RECSYS_TOPK = 100
 RECSYS_CAND_CHUNK = 262_144  # candidate embeddings made per item_embed call
 RECSYS_P99_STEPS = 50  # timed serve_p99 steps per executor
+
+# Build phase: a corpus at Lifestyle's mean document length (23,710,000
+# tokens / 119,461 docs), D 128, with zipf_like's topic settings
+# (benchmarks/common.py: heavy-tailed cluster sizes), built at
+# IndexBuildConfig(nbits=4) defaults: 2^13 centroids and a 32,768-token
+# k-means sample.
+BUILD_DOCS = 1300  # ~258,000 tokens: at most 2^18, so the centroid rule gives 2^13
+BUILD_DOC_LEN = round(_LIFESTYLE.n_tokens / _LIFESTYLE.n_docs)
+BUILD_TOPICS = dict(topic_skew=1.6, n_topics=256, topic_strength=4.0)
+BUILD_QUERIES = 128
+BUILD_CHUNK_AGAIN = 12_345  # chunk_size of the passes' second run
+XTR_K_PRIME = 4000  # bench_latency.py's k' for xtr_reference
+WIDE_NPROBE = 256  # WARP's recall is also printed at this nprobe
+LIFESTYLE_CHUNK = 4096  # tokens of the timed assignment chunk at 2^17 centroids
 
 
 def log(msg: str) -> None:
@@ -1025,6 +1063,319 @@ def phase_fixture(torch, dev):
                 np.testing.assert_allclose(sc[i], case["scores"][i], rtol=TOL, atol=TOL)
                 n += 1
     log(f"[fixture] {n} (query, config, executor) results match the JAX expected ids")
+
+
+@contextlib.contextmanager
+def timed_passes(torch, times: dict):
+    """Time the build's passes (each ended by a synchronize) into ``times``
+    while the block runs, by wrapping the functions the builder calls."""
+    from repro_torch.core import kmeans, quantization
+    from repro_torch.store import builder
+
+    targets = (
+        (builder, "sample_indices", "sample"), (builder, "gather_sample", "sample"),
+        (kmeans, "spherical_kmeans", "kmeans"), (builder, "assign_pass", "assign"),
+        (quantization, "compute_buckets", "buckets"), (builder, "scatter_pass", "scatter"),
+    )
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
+
+    def timed(fn, label):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[label] = times.get(label, 0.0) + time.perf_counter() - t0
+            return out
+
+        return run
+
+    try:
+        for (mod, name, label), (_, _, fn) in zip(targets, saved):
+            setattr(mod, name, timed(fn, label))
+        yield times
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def check_build_determinism(torch, corpus, index, cfg, dev) -> None:
+    """Passes 2-3 again from the same centroids at another chunk_size give
+    the same arrays; one Lloyd step run twice gives the same bits."""
+    from repro_torch.core import kmeans
+    from repro_torch.store import array_chunks, builder
+
+    n = corpus.n_tokens
+    normed = builder.normalized_chunks(
+        array_chunks(corpus.emb, corpus.token_doc_ids, BUILD_CHUNK_AGAIN), dev
+    )
+    packed = np.empty(tuple(index.packed_codes.shape), np.uint8)
+    docs = np.empty(n, np.int32)
+    got = builder.encode_corpus(
+        normed, index.centroids, cfg.nbits, n,
+        assign_out=np.empty(n, np.int32), packed_out=packed, docs_out=docs,
+    )
+    got.update(packed_codes=packed, token_doc_ids=docs)
+    for name, arr in got.items():
+        if not np.array_equal(arr, getattr(index, name).cpu().numpy()):
+            fail(f"build: {name} at chunk_size {BUILD_CHUNK_AGAIN} differs from the build's")
+    gen = torch.Generator().manual_seed(cfg.seed)
+    idx = builder.sample_indices(n, index.n_centroids, cfg, gen)
+    pts = kmeans.l2_normalize(torch.from_numpy(corpus.emb[idx]).to(dev))
+    reseed = torch.randint(0, pts.shape[0], (index.n_centroids,), generator=gen)
+    first = kmeans.lloyd_step(pts, index.centroids, reseed)
+    if not torch.equal(first, kmeans.lloyd_step(pts, index.centroids, reseed)):
+        fail("build: one Lloyd step run twice on the card gave other centroids")
+    log(
+        f"[build] passes 2-3 at chunk_size {BUILD_CHUNK_AGAIN} give the same centroids, CSR, "
+        f"cutoffs, weights, codes and doc ids; a Lloyd step over {pts.shape[0]} points x "
+        f"{index.n_centroids} centroids gives the same bits twice"
+    )
+
+
+def check_index_invariants(torch, index, path) -> None:
+    from repro_torch.store import verify_store
+
+    offs = index.cluster_offsets.long()
+    sizes = index.cluster_sizes.long()
+    if not torch.equal(offs[1:] - offs[:-1], sizes) or int(offs[0]) != 0:
+        fail("build: cluster_offsets do not step by cluster_sizes")
+    if int(offs[-1]) != index.n_tokens or index.cap != int(sizes.max()):
+        fail("build: the CSR does not cover the tokens, or cap is not the largest cluster")
+    err = float((index.centroids.norm(dim=1) - 1).abs().max())
+    if not err <= 1e-4:
+        fail(f"build: a centroid's norm is {err} off 1")
+    report = verify_store(path, full=True)
+    log(
+        f"[build] invariants hold: offsets step by sizes, cap {index.cap} = largest cluster, "
+        f"centroid norms within {err:.3g} of 1; verify_store(full=True) {json.dumps(report)}"
+    )
+
+
+def n_recall(got, gold, k: int = 100, gold_k: int = 10) -> float:
+    """nRecall@k (benchmarks/bench_quality.py): the share of the exact
+    MaxSim top-``gold_k`` found in the top-``k``."""
+    return len(set(got[:k].tolist()) & set(gold[:gold_k].tolist())) / gold_k
+
+
+def profile_build(torch, label: str, fn) -> None:
+    """One call of ``fn`` under ``torch.profiler``: wall time, device busy
+    share, the top device kernels and host ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    dev_k = sorted(
+        ((getattr(e, "self_device_time_total", 0), e.count, e.key) for e in events
+         if str(e.device_type).endswith("CUDA")),
+        reverse=True,
+    )
+    host = sorted(
+        ((e.self_cpu_time_total, e.key) for e in events if str(e.device_type).endswith("CPU")),
+        reverse=True,
+    )
+    busy = sum(t for t, _, _ in dev_k)
+    log(
+        f"[profile] build {label}: {wall_us:.1f} us wall, device kernels {busy:.1f} us "
+        f"({busy / wall_us:.1%} busy); top kernels: "
+        + "; ".join(f"{k[:48]} x{c} {t:.1f}us" for t, c, k in dev_k[:6])
+        + " | top host ops (self CPU): " + "; ".join(f"{k[:32]} {t:.1f}us" for t, k in host[:6])
+    )
+
+
+def phase_build(torch, dev, seed: int, kernel_err: float, profile: bool = False) -> None:
+    """Build a store on the card from a synthetic corpus at Lifestyle's
+    document length (``build_index_to_store``, IndexBuildConfig(nbits=4)
+    defaults), check its invariants and determinism, retrieve from it at
+    the four configs x both executors, hold WARP to ``plaid_style_search``
+    (implicit = explicit decompression), print nRecall@100 and success@5
+    of WARP, XTR and PLAID against exact MaxSim, and time one assignment
+    chunk at Lifestyle's 2^17 centroids."""
+    from repro_torch.core import (
+        IndexBuildConfig, Retriever, WarpSearchConfig, kmeans, maxsim_bruteforce,
+        plaid_style_search, xtr_reference,
+    )
+    from repro_torch.data import make_corpus
+    from repro_torch.data import make_queries as corpus_queries
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.store import array_chunks, build_index_to_store
+
+    t0 = time.perf_counter()
+    corpus = make_corpus(
+        BUILD_DOCS, ARCH["dim"], mean_doc_len=BUILD_DOC_LEN, seed=seed, **BUILD_TOPICS
+    )
+    cfg = IndexBuildConfig(nbits=ARCH["nbits"])
+    n, d = corpus.n_tokens, ARCH["dim"]
+    c = cfg.resolved_n_centroids(n)
+    log(
+        f"[build] corpus: {corpus.n_docs} docs, {n} tokens (mean {n / corpus.n_docs:.1f}), "
+        f"D {d}, made in {time.perf_counter() - t0:.1f}s; {c} centroids"
+    )
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "store")
+        times: dict = {}
+        with timed_passes(torch, times):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            index = build_index_to_store(
+                array_chunks(corpus.emb, corpus.token_doc_ids, cfg.chunk_size), path,
+                corpus.n_docs, cfg, n_tokens=n, dim=d, device=dev,
+            )
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        sample_n = int(min(n, max(4 * c, cfg.sample_factor * 4 * n ** 0.5)))
+        ops = {"kmeans": cfg.kmeans_iters * 2 * sample_n * c * d, "assign": 2 * n * c * d}
+        rows = []
+        for name in ("sample", "kmeans", "assign", "buckets", "scatter"):
+            row = f"{name} {times[name] * 1e3:.3f} ms"
+            if name in ops:
+                row += (f" ({ops[name]:.4g} FLOP, fp32 bound {ops[name] / F32_OPS_PER_S * 1e3:.3f} ms, "
+                        f"{ops[name] / times[name] / 1e12:.3f} TFLOP/s)")
+            if name in ("assign", "scatter"):
+                row += f" {n / times[name]:.1f} tokens/s"
+            rows.append(row)
+        log(
+            f"[build] build_index_to_store in {total * 1e3:.3f} ms ({n / total:.1f} tokens/s; "
+            f"store writes and the reload {(total - sum(times.values())) * 1e3:.3f} ms): "
+            + "; ".join(rows)
+        )
+        sizes = index.cluster_sizes.float()
+        log(
+            f"[build] index: {index.n_centroids} clusters, mean {float(sizes.mean()):.1f}, "
+            f"max {index.cap}, {int((sizes == 0).sum())} empty; {index.nbytes() / 1e6:.3f} MB"
+        )
+        check_index_invariants(torch, index, path)
+        check_build_determinism(torch, corpus, index, cfg, dev)
+        if profile:
+            from repro_torch.store import builder
+
+            gen = torch.Generator().manual_seed(cfg.seed)
+            pts = kmeans.l2_normalize(
+                torch.from_numpy(corpus.emb[builder.sample_indices(n, c, cfg, gen)]).to(dev)
+            )
+            reseed = torch.randint(0, pts.shape[0], (c,), generator=gen)
+            profile_build(torch, "one Lloyd step", lambda: kmeans.lloyd_step(
+                pts, index.centroids, reseed))
+            normed = builder.normalized_chunks(
+                array_chunks(corpus.emb, corpus.token_doc_ids, cfg.chunk_size), dev
+            )
+            profile_build(torch, "assign pass", lambda: builder.assign_pass(
+                normed, index.centroids, np.empty(n, np.int32), n))
+            del pts
+        retriever = Retriever.from_store(path, device=dev)
+    del index
+
+    q, qmask, rel = corpus_queries(
+        corpus, n_queries=BUILD_QUERIES, query_maxlen=ARCH["query_maxlen"],
+        tokens_per_query=(8, 32), seed=seed + 1,
+    )
+    base = dict(nprobe=ARCH["nprobe"], k=ARCH["k"], k_impute=ARCH["k_impute"])
+    results, swaps = {}, 0
+    reset_launches()
+    for gather, layout in CONFIGS:
+        for executor in ("kernel", "reference"):
+            plan = retriever.plan(WarpSearchConfig(
+                gather=gather, layout=layout, executor=executor, **base
+            ))
+            before = dict(LAUNCHES)
+            out = [plan.retrieve(q[i], qmask[i]) for i in range(BUILD_QUERIES)]
+            results[(gather, layout, executor)] = [
+                (r.doc_ids.cpu().numpy(), r.scores.cpu().numpy()) for r in out
+            ]
+            launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            kname = KERNEL_OF[(gather, layout)]
+            if executor == "kernel" and launched[kname] <= 0:
+                fail(f"build: {gather}/{layout} on the built index never launched {kname}")
+            if executor == "reference" and any(launched.values()):
+                fail(f"build: {gather}/{layout}/reference launched a kernel")
+            log(f"[build] retrieve {gather}/{layout}/{executor}: {BUILD_QUERIES} queries, "
+                f"launches {launched}")
+    for gather, layout in CONFIGS:
+        for i in range(BUILD_QUERIES):
+            swaps += topk_swaps(
+                f"build {gather}/{layout} kernel vs reference, query {i}",
+                *results[(gather, layout, "kernel")][i],
+                *results[(gather, layout, "reference")][i], kernel_err,
+            )
+
+    emb = torch.from_numpy(corpus.emb).to(dev)
+    tdi = torch.from_numpy(corpus.token_doc_ids).to(dev)
+    k_prime = min(n, XTR_K_PRIME)
+    scores = {"warp": [], "xtr": [], "plaid": []}
+    golds, plaid_swaps = [], 0
+    cfg_plaid = WarpSearchConfig(**base)
+    for i in range(BUILD_QUERIES):
+        gold = maxsim_bruteforce(q[i], qmask[i], emb, tdi, n_docs=corpus.n_docs, k=10, device=dev)
+        plaid = plaid_style_search(retriever.index, q[i], qmask[i], cfg_plaid, device=dev)
+        p_ids, p_sc = plaid.doc_ids.cpu().numpy(), plaid.scores.cpu().numpy()
+        for gather, layout in CONFIGS:
+            plaid_swaps += topk_swaps(
+                f"build {gather}/{layout} kernel vs plaid_style_search, query {i}",
+                *results[(gather, layout, "kernel")][i], p_ids, p_sc, kernel_err,
+            )
+        xtr = xtr_reference(q[i], qmask[i], emb, tdi, k_prime=k_prime, k=ARCH["k"], device=dev)
+        gold_ids = gold.doc_ids.cpu().numpy()
+        golds.append(gold_ids)
+        for name, ids in (
+            ("warp", results[("fused", "ragged", "kernel")][i][0]),
+            ("xtr", xtr.doc_ids.cpu().numpy()), ("plaid", p_ids),
+        ):
+            scores[name].append((n_recall(ids, gold_ids), float(rel[i] in ids[:5].tolist())))
+    wide = retriever.plan(WarpSearchConfig(
+        nprobe=WIDE_NPROBE, k=ARCH["k"], k_impute=WIDE_NPROBE, gather="fused", layout="ragged",
+        executor="kernel",
+    ))
+    scores["warp_nprobe256"] = []
+    for i in range(BUILD_QUERIES):
+        ids = wide.retrieve(q[i], qmask[i]).doc_ids.cpu().numpy()
+        scores["warp_nprobe256"].append((n_recall(ids, golds[i]), float(rel[i] in ids[:5].tolist())))
+    quality = {
+        name: {"nRecall@100": float(np.mean([r for r, _ in v])),
+               "success@5": float(np.mean([s for _, s in v]))}
+        for name, v in scores.items()
+    }
+    log(
+        f"[build] kernel vs reference on the built index: {swaps} places swapped within a tie "
+        f"over {BUILD_QUERIES * len(CONFIGS)} (query, config) pairs; WARP (kernel) vs "
+        f"plaid_style_search: {plaid_swaps} places swapped, scores within {TOL}"
+    )
+    log(
+        f"[build] quality over {BUILD_QUERIES} queries (8-32 tokens) against exact MaxSim's "
+        f"top 10 (nRecall@100) and each query's relevant doc (success@5), nprobe "
+        f"{ARCH['nprobe']} (and WARP at {WIDE_NPROBE}), xtr k' {k_prime}: {json.dumps(quality)}"
+    )
+    del retriever, emb, tdi
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lc = _LIFESTYLE.n_centroids
+    cent = kmeans.l2_normalize(torch.randn(lc, d, generator=g, device=dev))
+    pts = kmeans.l2_normalize(torch.randn(LIFESTYLE_CHUNK, d, generator=g, device=dev))
+    times = []
+    for _ in range(6):
+        s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s_ev.record()
+        kmeans.assign_clusters(pts, cent)
+        e_ev.record()
+        e_ev.synchronize()
+        times.append(s_ev.elapsed_time(e_ev) / 1e3)
+    t = float(np.median(times[1:]))
+    flop = 2 * LIFESTYLE_CHUNK * lc * d
+    ls_n = _LIFESTYLE.n_tokens
+    ls_sample = int(min(ls_n, max(4 * lc, cfg.sample_factor * 4 * ls_n ** 0.5)))
+    rate = flop / t
+    log(
+        f"[build] Lifestyle cost: assign_clusters of {LIFESTYLE_CHUNK} tokens x {lc} centroids "
+        f"(block {kmeans.assign_block(lc)}) {t * 1e3:.3f} ms median of 5, {flop:.4g} FLOP, "
+        f"{rate / 1e12:.3f} TFLOP/s (fp32 bound {flop / F32_OPS_PER_S * 1e3:.3f} ms); at that rate "
+        f"the {ls_n}-token assignment takes {2 * ls_n * lc * d / rate:.1f} s and k-means "
+        f"({cfg.kmeans_iters} x {ls_sample} sampled tokens) "
+        f"{cfg.kmeans_iters * 2 * ls_sample * lc * d / rate:.1f} s"
+    )
 
 
 def bf16_ulp(torch, x):
@@ -1902,6 +2253,10 @@ def run(torch, dev, args) -> list:
     phase_serve(torch, retriever, 256, args.seed + 2, kernel_err)
     phase_fixture(torch, dev)
     del retriever, index, plan_ragged, queries, qmask
+    torch.cuda.empty_cache()
+
+    phase_build(torch, dev, args.seed + 5, kernel_err, args.profile)
+    torch.cuda.empty_cache()
 
     flash = phase_flash(torch, dev, flush)
     seeds = [args.seed + 3 + i for i in range(args.lm_seeds)]
@@ -1934,8 +2289,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on a CUDA GPU only", file=sys.stderr)
         return 2
-    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(

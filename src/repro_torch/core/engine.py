@@ -48,6 +48,7 @@ __all__ = [
     "score_and_reduce",
     "select_probes",
     "finish_from_probes",
+    "gather_candidates",
 ]
 
 
@@ -139,6 +140,13 @@ def _csr_positions(index: WarpIndex, probe_cids: torch.Tensor):
     pos = starts.unsqueeze(-1) + lane
     valid = lane < sizes.unsqueeze(-1)
     return pos.clamp(0, max(0, index.n_tokens - 1)), valid
+
+
+def gather_candidates(index: WarpIndex, probe_cids: torch.Tensor):
+    """CSR gather at static capacity: probe_cids [..., P] -> (packed
+    u8[..., P, cap, PB], doc_ids i32[..., P, cap], valid bool[..., P, cap])."""
+    pos, valid = _csr_positions(index, probe_cids)
+    return index.packed_codes[pos], index.token_doc_ids[pos], valid
 
 
 def _score_block(index, q, probe_scores, probe_cids, config):

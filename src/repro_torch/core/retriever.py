@@ -1,6 +1,7 @@
 """``Retriever`` facade: plan once, retrieve many. Counterpart of
 ``repro/core/retriever.py`` for single-index (local) retrieval.
 
+  build                     index a corpus on ``device`` (None -> "cuda")
   from_index / from_store   adopt an index (a ``WarpIndex``, a JAX
                             ``WarpIndex``, or a dict of its arrays) or a
                             saved store, onto ``device`` (None -> "cuda")
@@ -27,7 +28,13 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core import worklist as wl
 from repro_torch.core.reduction import TopKResult
-from repro_torch.core.types import WarpIndex, WarpSearchConfig, resolve_device
+from repro_torch.core.index import build_index
+from repro_torch.core.types import (
+    IndexBuildConfig,
+    WarpIndex,
+    WarpSearchConfig,
+    resolve_device,
+)
 from repro_torch.kernels import ops
 
 __all__ = ["Retriever", "SearchPlan"]
@@ -193,6 +200,26 @@ class Retriever:
             )
         self.index = index
         self._plans: dict = {}
+
+    @classmethod
+    def build(
+        cls,
+        embeddings,
+        token_doc_ids,
+        n_docs: int,
+        index_cfg: IndexBuildConfig = IndexBuildConfig(),
+        *,
+        n_shards: int | None = None,
+        device=None,
+    ) -> "Retriever":
+        """Index a corpus (``core.index.build_index``) on ``device`` (None ->
+        "cuda", raising when CUDA is absent)."""
+        if n_shards is not None:
+            raise NotImplementedError(
+                "the document-sharded build is not yet ported to repro_torch "
+                "(ROADMAP queue 1, 'Sharded search'); build a single index"
+            )
+        return cls(build_index(embeddings, token_doc_ids, n_docs, index_cfg, device=device))
 
     @classmethod
     def from_index(cls, index, *, device=None) -> "Retriever":

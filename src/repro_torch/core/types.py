@@ -2,21 +2,22 @@
 
 ``WarpIndex`` holds the index arrays as torch tensors on one device (the
 counterpart of ``repro/core/types.py::WarpIndex``; the arrays play the
-role of weights). ``WarpSearchConfig`` carries the same fields, defaults
-and validation as the JAX config, so a resolved config of either package
-compares field by field with the other's.
+role of weights). ``WarpSearchConfig`` and ``IndexBuildConfig`` carry the
+same fields, defaults and validation as the JAX configs, so a resolved
+config of either package compares field by field with the other's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 from typing import Any
 
 import numpy as np
 import torch
 
-__all__ = ["WarpIndex", "WarpSearchConfig", "resolve_device"]
+__all__ = ["IndexBuildConfig", "WarpIndex", "WarpSearchConfig", "resolve_device"]
 
 GATHER_STRATEGIES = ("materialize", "fused")
 EXECUTOR_STRATEGIES = ("auto", "kernel", "reference")
@@ -229,3 +230,34 @@ def _check_choice(name: str, value: str, allowed: tuple[str, ...]) -> None:
             f"WarpSearchConfig.{name}={value!r} is not a valid strategy; "
             f"expected one of {allowed}"
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexBuildConfig:
+    """Index-construction hyperparameters (paper §4.1); the port's twin of
+    ``repro/core/types.py::IndexBuildConfig`` (same fields and defaults).
+
+    n_centroids: ``None`` -> 2^ceil(log2(16 * sqrt(n_tokens))), clamped to
+                 [8, n_tokens // 4].
+    nbits:       bits per residual dimension (2, 4 or 8).
+    kmeans_iters: Lloyd iterations of spherical k-means.
+    sample_factor: k-means runs on ~sample_factor * 4 * sqrt(n_tokens)
+                 sampled tokens (at least 4 per centroid).
+    seed:        seeds the build's ``torch.Generator``.
+    chunk_size:  token rows per streamed chunk of the out-of-core build;
+                 the index does not depend on it.
+    """
+
+    n_centroids: int | None = None
+    nbits: int = 4
+    kmeans_iters: int = 8
+    sample_factor: float = 16.0
+    seed: int = 0
+    chunk_size: int = 1 << 16
+
+    def resolved_n_centroids(self, n_tokens: int) -> int:
+        if self.n_centroids is not None:
+            return int(self.n_centroids)
+        target = 16.0 * math.sqrt(max(1, n_tokens))
+        c = 1 << max(3, math.ceil(math.log2(target)))
+        return int(max(8, min(c, max(8, n_tokens // 4))))

@@ -1,45 +1,166 @@
-"""Store reader: a saved index directory -> a device-resident ``WarpIndex``.
+"""Versioned on-disk index format: ``MANIFEST.json`` plus raw little-endian
+array binaries (``docs/store_format.md``). Counterpart of
+``repro/store/format.py``: the same writer, byte for byte, and its reader.
 
-Reads the format that ``repro/store/format.py::save_index`` writes
-(``MANIFEST.json`` plus raw little-endian array binaries, manifest
-versions 1 and 2; ``docs/store_format.md``). Arrays go mmap ->
-``torch.from_numpy`` -> device: on the CPU the tensors stay zero-copy
-views of the files; on the card the one host-to-device copy is the load.
+Reading: arrays go mmap -> ``torch.from_numpy`` -> device; on the CPU the
+tensors stay zero-copy views of the files, on the card the one
+host-to-device copy is the load. Manifest versions 1 and 2 are read.
 
-Only single-index stores are read in this slice; sharded stores and
-stores with delta segments raise a directed error.
+Only single-index stores are read and written in the port so far; sharded
+and segmented stores raise a directed error naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import shutil
 import warnings
+from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch.core.types import STATIC_FIELDS, WarpIndex, resolve_device
-from repro_torch.store.integrity import StoreCorruption, verify_head
+from repro_torch.core.types import (
+    ARRAY_FIELDS,
+    STATIC_FIELDS,
+    WarpIndex,
+    resolve_device,
+)
+from repro_torch.store.integrity import (
+    StoreCorruption,
+    array_nbytes,
+    checksum_bytes,
+    verify_head,
+)
 
-__all__ = ["StoreCorruption", "read_manifest", "load_index"]
+__all__ = [
+    "FORMAT_NAME",
+    "FORMAT_VERSION",
+    "StoreCorruption",
+    "array_nbytes",
+    "inspect_index",
+    "load_index",
+    "read_manifest",
+    "save_index",
+]
 
 FORMAT_NAME = "warp-store"
 FORMAT_VERSION = 2
 MANIFEST = "MANIFEST.json"
+ARRAY_DIR = "arrays"
 KIND_SINGLE = "warp_index"
 KIND_SHARDED = "sharded_warp_index"
 KIND_SEGMENT = "warp_delta_segment"
 
-_WARP_ARRAYS = (
-    "centroids",
-    "packed_codes",
-    "token_doc_ids",
-    "cluster_offsets",
-    "cluster_sizes",
-    "bucket_weights",
-    "bucket_cutoffs",
-)
+_SHARDED_TODO = "ROADMAP queue 1, 'Sharded search'"
+_SEGMENTED_TODO = "ROADMAP queue 1, 'Segmented indexes'"
+
+
+# ---------------------------------------------------------------------------
+# manifest + raw binary primitives
+# ---------------------------------------------------------------------------
+
+
+def _write_array(path: str, arr: np.ndarray) -> dict:
+    arr = np.ascontiguousarray(arr)
+    arr.tofile(path)
+    meta = {"dtype": arr.dtype.name, "shape": list(arr.shape)}
+    if arr.size:
+        meta["checksum"] = checksum_bytes(arr.data)
+    return meta
+
+
+def _entry(file: str, arr_like: dict, offset: int = 0) -> dict:
+    e = {"file": file, **arr_like}
+    if offset:
+        e["offset"] = int(offset)
+    return e
+
+
+def _write_manifest(path: str, manifest: dict) -> None:
+    # tmp + fsync + atomic rename: a crash mid-write leaves the old
+    # manifest or the new one, never a torn file.
+    tmp = os.path.join(path, MANIFEST + ".tmp")
+    with open(tmp, "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, os.path.join(path, MANIFEST))
+
+
+def _prepare_dir(path: str, overwrite: bool) -> None:
+    if os.path.exists(os.path.join(path, MANIFEST)):
+        if not overwrite:
+            raise FileExistsError(
+                f"{path} already holds an index (pass overwrite=True)"
+            )
+        shutil.rmtree(path)
+    os.makedirs(os.path.join(path, ARRAY_DIR), exist_ok=True)
+
+
+def _config_dict(build_config: Any) -> dict | None:
+    if build_config is None:
+        return None
+    if dataclasses.is_dataclass(build_config):
+        return dataclasses.asdict(build_config)
+    return dict(build_config)
+
+
+def _segment_dirs(path: str) -> list[str]:
+    seg_root = os.path.join(path, "segments")
+    if not os.path.isdir(seg_root):
+        return []
+    return [
+        os.path.join(seg_root, name)
+        for name in sorted(os.listdir(seg_root))
+        if os.path.exists(os.path.join(seg_root, name, MANIFEST))
+    ]
+
+
+# ---------------------------------------------------------------------------
+# save
+# ---------------------------------------------------------------------------
+
+
+def save_index(
+    index: WarpIndex, path: str, *, build_config: Any = None, overwrite: bool = False
+) -> str:
+    """Persist a single index as a store directory; returns ``path``. The
+    files are those ``repro.store.save_index`` writes for the same arrays.
+    ``build_config`` (an ``IndexBuildConfig`` or dict) goes into the
+    manifest."""
+    if hasattr(index, "n_shards"):
+        raise NotImplementedError(
+            f"saving a sharded index is not yet ported to repro_torch ({_SHARDED_TODO})"
+        )
+    if hasattr(index, "segments"):
+        raise NotImplementedError(
+            f"saving a segmented index is not yet ported to repro_torch ({_SEGMENTED_TODO})"
+        )
+    if not isinstance(index, WarpIndex):
+        raise TypeError(f"cannot save {type(index).__name__}; expected a WarpIndex")
+    _prepare_dir(path, overwrite)
+    arrays = {}
+    for name in ARRAY_FIELDS:
+        rel = f"{ARRAY_DIR}/{name}.bin"
+        meta = _write_array(os.path.join(path, rel), getattr(index, name).cpu().numpy())
+        arrays[name] = _entry(rel, meta)
+    _write_manifest(path, {
+        "format": FORMAT_NAME,
+        "version": FORMAT_VERSION,
+        "kind": KIND_SINGLE,
+        "static": {k: int(getattr(index, k)) for k in STATIC_FIELDS},
+        "arrays": arrays,
+        "build_config": _config_dict(build_config),
+    })
+    return path
+
+
+# ---------------------------------------------------------------------------
+# load
+# ---------------------------------------------------------------------------
 
 
 def read_manifest(path: str) -> dict:
@@ -95,7 +216,7 @@ def _load_single(path: str, manifest: dict, device: torch.device) -> WarpIndex:
     arrays = {
         name: _load_entry(path, entry)
         for name, entry in manifest["arrays"].items()
-        if name in _WARP_ARRAYS
+        if name in ARRAY_FIELDS
     }
     static = manifest["static"]
     return WarpIndex.from_arrays(
@@ -112,7 +233,8 @@ def load_index(path: str, *, device=None) -> WarpIndex:
     if kind == KIND_SHARDED:
         raise NotImplementedError(
             f"{path} is a sharded store; sharded search is not yet ported "
-            "to repro_torch — load it with the JAX package (repro.store)"
+            f"to repro_torch ({_SHARDED_TODO}) — load it with the JAX "
+            "package (repro.store)"
         )
     if kind == KIND_SEGMENT:
         raise ValueError(
@@ -120,14 +242,57 @@ def load_index(path: str, *, device=None) -> WarpIndex:
         )
     if kind != KIND_SINGLE:
         raise ValueError(f"{path}: unknown index kind {kind!r}")
-    seg_root = os.path.join(path, "segments")
-    if os.path.isdir(seg_root) and any(
-        os.path.exists(os.path.join(seg_root, d, MANIFEST))
-        for d in os.listdir(seg_root)
-    ):
+    if _segment_dirs(path):
         raise NotImplementedError(
             f"{path} holds delta segments; segmented stores are not yet "
-            "ported to repro_torch — compact the store first "
-            "(repro.store.compact) or serve it with the JAX package"
+            f"ported to repro_torch ({_SEGMENTED_TODO}) — compact the store "
+            "first (repro.store.compact) or serve it with the JAX package"
         )
     return _load_single(path, manifest, device)
+
+
+# ---------------------------------------------------------------------------
+# inspect
+# ---------------------------------------------------------------------------
+
+
+def inspect_index(path: str) -> dict:
+    """Measured on-disk footprint per component, from the manifests alone
+    (the paper's Table-4 split: centroids, packed residual codes, CSR
+    metadata with the codec tables, doc ids), delta segments included."""
+    manifest = read_manifest(path)
+    comp = {"centroids": 0, "packed_codes": 0, "csr_metadata": 0, "doc_ids": 0}
+
+    def tally(arrays: dict) -> None:
+        for name, entry in arrays.items():
+            nbytes = array_nbytes(entry)
+            if name in ("centroids", "packed_codes"):
+                comp[name] += nbytes
+            elif name == "token_doc_ids":
+                comp["doc_ids"] += nbytes
+            elif name != "doc_start":  # offsets, sizes, bucket tables
+                comp["csr_metadata"] += nbytes
+
+    tally(manifest["arrays"])
+    segs = []
+    for seg_dir in _segment_dirs(path):
+        seg_manifest = read_manifest(seg_dir)
+        tally(seg_manifest["arrays"])
+        segs.append({"dir": os.path.basename(seg_dir), "static": seg_manifest["static"]})
+    total = sum(comp.values())
+    out = {
+        "kind": manifest["kind"],
+        "version": manifest["version"],
+        "static": manifest["static"],
+        "components_bytes": comp,
+        "total_bytes": total,
+        "n_segments": len(segs),
+        "segments": segs,
+    }
+    if manifest["kind"] == KIND_SHARDED:
+        out["n_shards"] = manifest["n_shards"]
+    n_tokens = manifest["static"].get(
+        "n_tokens", manifest["static"].get("n_tokens_total", 0)
+    ) + sum(int(s["static"]["n_tokens"]) for s in segs)
+    out["bytes_per_token"] = total / max(1, n_tokens)
+    return out

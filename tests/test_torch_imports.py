@@ -1,9 +1,11 @@
 """The port stands alone and runs on the card unless asked otherwise:
 no JAX and no ``repro`` import anywhere in ``src/repro_torch`` (the
 retrieval slice, the LM slice: models, configs, generation, the flash
-kernel, and the recsys slice: models, configs, the embedding-bag kernel)
-or ``chip_smoke.py``; entry points refuse to fall back to the CPU; the
-kernel executor refuses a CPU index and CPU recsys weights."""
+kernel, the recsys slice: models, configs, the embedding-bag kernel, and
+the index build: k-means, the builder, the baselines, the warp-xtr
+configs, the CLI) or ``chip_smoke.py``; entry points refuse to fall back
+to the CPU; the kernel executor refuses a CPU index and CPU recsys
+weights."""
 
 import ast
 import os
@@ -14,9 +16,18 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import Retriever, WarpIndex, WarpSearchConfig
+from repro_torch.core import (
+    Retriever,
+    WarpIndex,
+    WarpSearchConfig,
+    build_index,
+    maxsim_bruteforce,
+    plaid_style_search,
+    xtr_reference,
+)
+from repro_torch.launch import build_index as build_index_cli
 from repro_torch.serving import RetrievalServer
-from repro_torch.store import load_index
+from repro_torch.store import array_chunks, build_index_to_store, load_index
 
 torch.set_num_threads(1)  # xdist runs one test process per core
 
@@ -58,6 +69,13 @@ def test_port_imports_neither_jax_nor_repro():
         "src/repro_torch/configs/xdeepfm.py",
         "src/repro_torch/configs/sasrec.py",
         "src/repro_torch/kernels/embedding_bag.py",
+        "src/repro_torch/core/kmeans.py",
+        "src/repro_torch/core/index.py",
+        "src/repro_torch/core/baselines.py",
+        "src/repro_torch/store/builder.py",
+        "src/repro_torch/configs/warp_family.py",
+        "src/repro_torch/configs/warp_xtr.py",
+        "src/repro_torch/launch/build_index.py",
     } <= names
     bad = [
         f"{os.path.relpath(f, ROOT)}: import {m}"
@@ -75,7 +93,10 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.models, repro_torch.configs.qwen2_0_5b, "
         "repro_torch.kernels.flash_attention, repro_torch.kernels.embedding_bag, "
         "repro_torch.configs.two_tower_retrieval, repro_torch.configs.din, "
-        "repro_torch.configs.xdeepfm, repro_torch.configs.sasrec; "
+        "repro_torch.configs.xdeepfm, repro_torch.configs.sasrec, "
+        "repro_torch.core.kmeans, repro_torch.core.index, repro_torch.core.baselines, "
+        "repro_torch.store.builder, repro_torch.configs.warp_family, "
+        "repro_torch.configs.warp_xtr, repro_torch.launch.build_index; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )
@@ -88,7 +109,7 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     idx = load_index(FIXTURE, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Retriever.from_index(idx)
@@ -98,6 +119,24 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         load_index(FIXTURE)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         RetrievalServer(idx)
+    emb, doc_ids = torch.randn(64, 8), torch.arange(64, dtype=torch.int32) // 4
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Retriever.build(emb, doc_ids, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_index(emb, doc_ids, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_index_to_store(array_chunks(emb, doc_ids), str(tmp_path / "s"), 16)
+    q, qmask = emb[:3], torch.ones(3, dtype=torch.bool)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        maxsim_bruteforce(q, qmask, emb, doc_ids, n_docs=16, k=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        xtr_reference(q, qmask, emb, doc_ids, k_prime=8, k=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        plaid_style_search(idx, torch.zeros(3, idx.dim))
+    for cmd in (["build", "--out", str(tmp_path / "c"), "--synth-docs", "20"],
+                ["smoke", "--index", FIXTURE]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_index_cli.main(cmd)
 
 
 def test_kernel_executor_on_a_cpu_index_raises_at_plan_time():

@@ -779,3 +779,66 @@ def test_wide_vtable_all_three_kernels_on_card(card, dim, offset):
 
     work = _ragged_worklist(rng, 1, q, p, cap, 32, n_tokens)
     _check_ragged(card, codes, work, v, nbits=nbits, dim=dim, tile=32)
+
+
+def _token_rows(assign, packed):
+    """Each token's code row of a CSR-by-cluster index whose token order
+    within a cluster is the token order (the stable sort by assignment)."""
+    rows = np.empty_like(packed)
+    rows[np.argsort(assign, kind="stable")] = packed
+    return rows
+
+
+@pytest.mark.cuda
+def test_build_on_card_matches_cpu_build(card):
+    from repro_torch.core import IndexBuildConfig, build_index, kmeans
+    from repro_torch.data import make_corpus
+    from repro_torch.store import array_chunks, build_index_chunked, builder
+
+    corpus = make_corpus(n_docs=800, mean_doc_len=20, seed=3, topic_skew=1.6, n_topics=64)
+    STATS_ROWS = -(-builder.STATS_VALUES // corpus.emb.shape[1])
+    cfg = IndexBuildConfig(n_centroids=128, nbits=4, kmeans_iters=4)
+    args = (corpus.emb, corpus.token_doc_ids, corpus.n_docs, cfg)
+    on_card, on_cpu = build_index(*args, device=card), build_index(*args, device="cpu")
+    np.testing.assert_allclose(on_card.centroids.cpu().numpy(), on_cpu.centroids.numpy(), atol=1e-5)
+    again = build_index_chunked(
+        array_chunks(corpus.emb, corpus.token_doc_ids, 997), corpus.n_docs, cfg, device=card
+    )
+    for name in ("centroids", "packed_codes", "token_doc_ids", "cluster_offsets", "bucket_cutoffs"):
+        assert torch.equal(getattr(again, name), getattr(on_card, name)), name
+
+    # The CPU's passes 2-3 from the card's centroids.
+    n, cent_card = corpus.n_tokens, on_card.centroids
+    cent = cent_card.cpu()
+    normed = builder.normalized_chunks(array_chunks(corpus.emb, corpus.token_doc_ids, 4096), "cpu")
+    assign, docs = np.empty(n, np.int32), np.empty(n, np.int32)
+    packed = np.empty((n, on_card.packed_codes.shape[1]), np.uint8)
+    small = builder.encode_corpus(
+        normed, cent, cfg.nbits, n, assign_out=assign, packed_out=packed, docs_out=docs
+    )
+    card_assign = kmeans.assign_clusters(
+        kmeans.l2_normalize(torch.from_numpy(corpus.emb).to(card)), cent_card
+    ).cpu().numpy()
+    differ = np.flatnonzero(card_assign != assign)
+    top2 = np.sort(kmeans.l2_normalize(torch.from_numpy(corpus.emb)).numpy() @ cent.numpy().T, -1)
+    assert (top2[differ, -1] - top2[differ, -2] <= 1e-6).all(), "a non-tie assignment differs"
+    print(f"build: {differ.size} of {n} assignments differ between card and CPU, each a near-tie")
+    if differ.size == 0:
+        for name, got in small.items():
+            np.testing.assert_array_equal(got, getattr(on_card, name).cpu().numpy(), err_msg=name)
+        np.testing.assert_array_equal(packed, on_card.packed_codes.cpu().numpy())
+        np.testing.assert_array_equal(docs, on_card.token_doc_ids.cpu().numpy())
+        assert int(small["cluster_sizes"].max()) == on_card.cap
+    elif differ.min() >= STATS_ROWS:  # the codec's residual sample is unaffected
+        np.testing.assert_array_equal(small["bucket_cutoffs"], on_card.bucket_cutoffs.cpu().numpy())
+        agree = card_assign == assign
+        np.testing.assert_array_equal(
+            _token_rows(card_assign, on_card.packed_codes.cpu().numpy())[agree],
+            _token_rows(assign, packed)[agree],
+        )
+
+    # A Lloyd step on the card gives the same bits twice.
+    pts = kmeans.l2_normalize(torch.from_numpy(corpus.emb[:4000]).to(card))
+    reseed = torch.randint(0, 4000, (128,), generator=torch.Generator().manual_seed(0))
+    first = kmeans.lloyd_step(pts, cent_card, reseed)
+    assert torch.equal(first, kmeans.lloyd_step(pts, cent_card, reseed))
