@@ -92,6 +92,7 @@ import functools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -136,6 +137,12 @@ KERNEL_INFO = {
         "src/repro/kernels/fused_gather_score.py:312",
     ),
     "ragged_fused_gather_score": (
+        "src/repro_torch/kernels/csrc/ragged_fused_gather_score.cu",
+        "src/repro/kernels/fused_gather_score.py:537",
+    ),
+    # One launch over every segment: the JAX op replays the same TPU kernel
+    # once per segment (repro/kernels/ops.py:388).
+    "segmented_ragged_fused_gather_score": (
         "src/repro_torch/kernels/csrc/ragged_fused_gather_score.cu",
         "src/repro/kernels/fused_gather_score.py:537",
     ),
@@ -211,9 +218,29 @@ XTR_K_PRIME = 4000  # bench_latency.py's k' for xtr_reference
 WIDE_NPROBE = 256  # WARP's recall is also printed at this nprobe
 LIFESTYLE_CHUNK = 4096  # tokens of the timed assignment chunk at 2^17 centroids
 
+# Segments phase: the retrieval phases' Lifestyle index saved to a store,
+# grown by SEG_DELTAS delta segments of SEG_DELTA_DOCS documents at
+# Lifestyle's mean length (each ~1% of the base's tokens), and
+# SEG_TOMBSTONE_FRAC of all doc ids tombstoned, half of them in the deltas.
+SEG_DELTAS = 4
+SEG_DELTA_DOCS = 1200
+SEG_TOMBSTONE_FRAC = 0.01
+SEG_QUERIES = 128
+SEG_BATCHES = 4  # retrieve_batch calls of B 4 per plan
+SEG_ALLOW_FRAC = 0.5
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@functools.lru_cache(maxsize=1)
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
 
 
 def fail(msg: str) -> None:
@@ -451,9 +478,9 @@ def check_scores(got, want, invalid=None):
 
 
 def kernel_probes(torch, index, cfg, n_queries: int, seed: int):
-    """starts, sizes, probe scores and v-tables of ``n_queries`` queries of
-    32 active tokens, flattened to [32 * n_queries, ...]: the scoring
-    kernels' inputs in the kernel phase."""
+    """starts, sizes, probe scores, v-tables and probe ids of ``n_queries``
+    queries of 32 active tokens, flattened to [32 * n_queries, ...]: the
+    scoring kernels' inputs in the kernel phase."""
     from repro_torch.core import warpselect
 
     q, _ = make_queries(torch, index, n_queries, seed=seed, lo=32, hi=32)
@@ -467,6 +494,7 @@ def kernel_probes(torch, index, cfg, n_queries: int, seed: int):
         sel.probe_sizes.int().contiguous(),
         sel.probe_scores.float().contiguous(),
         (q.unsqueeze(-1) * index.bucket_weights).contiguous(),
+        sel.probe_cids,
     )
 
 
@@ -519,7 +547,7 @@ def phase_kernels(torch, index, plan_ragged, flush):
     cfg = plan_ragged.config
 
     probes = functools.partial(kernel_probes, torch, index, cfg)
-    starts, sizes, pscore, v = probes(1, 12345)
+    starts, sizes, pscore, v, cids = probes(1, 12345)
     qm, p = starts.shape
     d, nbits, cap, pb = index.dim, index.nbits, index.cap, index.packed_codes.shape[1]
     nb = 1 << nbits
@@ -552,7 +580,7 @@ def phase_kernels(torch, index, plan_ragged, flush):
         # Beside the row, not in it: the earlier design's time and, where
         # the v-table lookups are a second floor, their time at one
         # conflict-free wavefront (32 lookups) per SM per clock.
-        extra = {"earlier_ms": EARLIER_MS[name]}
+        extra = {"earlier_ms": EARLIER_MS[name]} if name in EARLIER_MS else {}
         if lookups is not None:
             extra["lookup_floor_ms"] = lookups / (32 * n_sm * clock_hz) * 1e3
         log(f"[kernels] {name}: {json.dumps(extra)} beside bound_ms {row['bound_ms']:.5f} "
@@ -667,7 +695,7 @@ def phase_kernels(torch, index, plan_ragged, flush):
 
     # The batched retrieve's Q = 128 (4 queries of 32 tokens): fewer blocks
     # per token, the same grid size.
-    st4, sz4, ps4, v4 = probes(4, 54321)
+    st4, sz4, ps4, v4, _ = probes(4, 54321)
     gathered = gather(st4, st4.shape[0])
     case(
         "selective_sum, Q 128", selective_sum_cuda(gathered, v4, **kw),
@@ -801,6 +829,10 @@ def phase_kernels(torch, index, plan_ragged, flush):
         f"valid rows, W={work4.row0.numel()}, rung {bucket4})")
     report_plan("ragged_fused_gather_score", index.packed_codes.data_ptr(), work4.row0.numel(), pb, d, nbits)
 
+    # 4. The segmented entry: the same probes over the index cut into 5
+    # segments, one launch.
+    segmented_kernel_rows(torch, index, cfg, flush, cids, pscore, v, record, case)
+
     # A v-table wider than one block's shared memory (D 256, nbits 8: 256
     # KiB): all three kernels walk it in chunks of dimensions.
     dw, bw = 256, 8
@@ -834,6 +866,208 @@ def phase_kernels(torch, index, plan_ragged, flush):
         log(f"[kernels] {name} launch at D 256 nbits 8: {json.dumps(plan)}")
     del codes_w, packed_w, v_w
     return out
+
+# The kernel phase's segmented case: the index cut into 5 segments over the
+# same clusters. Segment 0 (the case's base) holds one row of each of the
+# first SEG_TINY clusters token 0 probes, fewer rows than a tile; segments
+# 1-4 hold the rest of every cluster in these shares.
+SEG_TINY = 20
+SEG_SHARES = (0.4, 0.25, 0.2, 0.15)
+
+
+def split_segments(torch, codes, offsets, sizes, tiny_cids):
+    """``codes`` u8[N, PB] in CSR order over clusters (``offsets``,
+    ``sizes``) cut into 1 + len(SEG_SHARES) segments over the same
+    clusters -> [(codes_s, offsets_s i32[C + 1], sizes_s i32[C], map_s
+    i64[N_s]: each row's row in ``codes``)]."""
+    dev = codes.device
+    sizes = sizes.long()
+    tiny = torch.zeros_like(sizes)
+    tiny[tiny_cids] = (sizes[tiny_cids] > 0).long()
+    rest = sizes - tiny
+    parts, left = [tiny], rest.clone()
+    for share in SEG_SHARES[:-1]:
+        part = torch.floor(rest.double() * share).long()
+        parts.append(part)
+        left -= part
+    parts.append(left)
+    out, before = [], torch.zeros_like(sizes)
+    for part in parts:
+        n_s = int(part.sum())
+        offs = torch.zeros(sizes.numel() + 1, dtype=torch.long, device=dev)
+        offs[1:] = torch.cumsum(part, 0)
+        shift = offsets[:-1].long() + before - offs[:-1]
+        row_map = torch.repeat_interleave(shift, part, output_size=n_s) + torch.arange(n_s, device=dev)
+        out.append((codes[row_map].contiguous(), offs.int(), part.int(), row_map))
+        before += part
+    return out
+
+
+def segmented_work(torch, segs, cids, pscore, nprobe: int, tile: int):
+    """The segmented ragged path's worklist over ``segs`` for probes
+    ``cids`` [Q, P] (one query): each probe expanded into its per-segment
+    runs, at the rung the adaptive plan would pick -> (row0, nvalid, seg,
+    qtok, pscore) flat, rung."""
+    from repro_torch.core import worklist as wl
+
+    qm, p = cids.shape
+    n_seg = len(segs)
+    st = torch.stack([offs.long()[cids] for _, offs, _, _ in segs], -1)
+    sz = torch.stack([part.long()[cids] for _, _, part, _ in segs], -1)
+    per_seg = np.stack([part.cpu().numpy() for _, _, part, _ in segs]).astype(np.int64)
+    bound = wl.worklist_bound_segmented(per_seg, nprobe, tile)
+    needed = wl.needed_worklist_tiles(((sz + tile - 1) // tile).sum(-1).cpu().numpy())
+    rung = wl.pick_bucket(wl.bucket_ladder(bound), needed)
+    seg_ids = torch.arange(n_seg, device=cids.device).expand(qm, p, n_seg)
+    ps = pscore.unsqueeze(-1).expand(qm, p, n_seg)
+    work = wl.build_tile_worklist(
+        st.reshape(1, qm, -1), sz.reshape(1, qm, -1), ps.reshape(1, qm, -1),
+        seg=seg_ids.reshape(1, qm, -1), tile_c=tile, tiles_per_qtoken=rung,
+    )
+    return tuple(a.reshape(-1).contiguous() for a in work), rung
+
+
+def segmented_kernel_rows(torch, index, cfg, flush, cids, pscore, v, record, case):
+    """The segmented entry of the ragged kernel against its plain version
+    (max abs err <= TOL, invalid slots exactly 0) at the kernel phase's
+    probes spread over 5 segments (one of fewer rows than a tile), on code
+    views at +1 and +16 bytes and at D 256 nbits 8; bit for bit the sum of
+    one single-array launch per segment with the other segments' tiles at
+    nvalid 0 (the JAX op's schedule) and the single-array kernel on the
+    same W over the whole index; two planted faults rejected (a segment
+    index off by one, every segment clamped by the base's row count);
+    timed beside the single-array kernel and the S-launch replay."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.fused_gather_score import (
+        ragged_fused_gather_score_cuda,
+        segment_table,
+        segmented_ragged_fused_gather_score_cuda,
+    )
+
+    dev = index.device
+    d, nbits, pb = index.dim, index.nbits, index.packed_codes.shape[1]
+    tile = cfg.tile_c
+    tiny = torch.unique(cids[0])[:SEG_TINY]
+    segs = split_segments(
+        torch, index.packed_codes, index.cluster_offsets, index.cluster_sizes, tiny
+    )
+    codes = [c for c, _, _, _ in segs]
+    if not 0 < codes[0].shape[0] < tile:
+        fail(f"segmented case: segment 0 holds {codes[0].shape[0]} rows, not fewer than a tile")
+    (row0, nvalid, seg, qtok, ps), rung = segmented_work(torch, segs, cids, pscore, cfg.nprobe, tile)
+    w, qm = row0.numel(), v.shape[0]
+    kw = dict(nbits=nbits, dim=d, tile_c=tile)
+    args = (codes, row0, nvalid, seg, qtok, ps, v)
+    invalid = (torch.arange(tile, device=dev) >= nvalid.long().unsqueeze(-1)).reshape(-1)
+
+    def replay(codes_list=codes, row0=row0, nvalid=nvalid, seg=seg, qtok=qtok, ps=ps, v=v, kw=kw):
+        out = None
+        for s, c in enumerate(codes_list):
+            if c.shape[0]:
+                o = ragged_fused_gather_score_cuda(c, row0, torch.where(seg == s, nvalid, 0), qtok, ps, v, **kw)
+                out = o if out is None else out + o
+        return out
+
+    got = segmented_ragged_fused_gather_score_cuda(*args, **kw)
+    want = ref.segmented_ragged_fused_gather_score(*args, **kw)
+    valid_rows = int(nvalid.sum())
+    vbytes = qm * d * (1 << nbits) * 4
+    record(
+        "segmented_ragged_fused_gather_score", got, want,
+        lambda: segmented_ragged_fused_gather_score_cuda(*args, **kw),
+        lambda: ref.segmented_ragged_fused_gather_score(*args, **kw),
+        valid_rows * pb + w * 20 + vbytes + 4 * w * tile + 16 * len(codes), valid_rows * d,
+        invalid=invalid, lookups=valid_rows * d,
+    )
+    if not torch.equal(got, replay()):
+        fail("segmented_ragged_fused_gather_score: differs from the S-launch replay")
+    starts = torch.tensor([0] + [c.shape[0] for c in codes[:-1]], device=dev).cumsum(0)
+    row_map = torch.cat([m for _, _, _, m in segs])
+    row0_g = torch.where(nvalid > 0, row_map[(starts[seg.long()] + row0).clamp(0, row_map.numel() - 1)], 0).int()
+    single_args = (index.packed_codes, row0_g, nvalid, qtok, ps, v)
+    if not torch.equal(got, ragged_fused_gather_score_cuda(*single_args, **kw)):
+        fail("segmented_ragged_fused_gather_score: differs from the single-array kernel on the same W")
+    log(f"[kernels] segmented_ragged_fused_gather_score: equal bit for bit to the {len(codes)}-launch "
+        f"replay and to the single-array kernel over the whole index at W={w} (rung {rung}, "
+        f"segment rows {[c.shape[0] for c in codes]}, {valid_rows} valid rows, "
+        f"{int((nvalid == 0).sum())} padding tiles)")
+    # Where a difference comes from: the entry over the index as one
+    # segment (the single-array kernel's rows, its own lookups), and the
+    # single-array kernel over the segments laid end to end (their rows'
+    # places, its lookups).
+    zeros = torch.zeros_like(seg)
+    one_args = ([index.packed_codes], row0_g, nvalid, zeros, qtok, ps, v)
+    laid = torch.cat(codes)
+    laid_args = (laid, (starts[seg.long()] + row0).int(), nvalid, qtok, ps, v)
+    ms = {
+        "segmented": time_cuda(torch, lambda: segmented_ragged_fused_gather_score_cuda(*args, **kw), flush),
+        "single_array_same_w": time_cuda(torch, lambda: ragged_fused_gather_score_cuda(*single_args, **kw), flush),
+        "segmented_one_segment": time_cuda(
+            torch, lambda: segmented_ragged_fused_gather_score_cuda(*one_args, **kw), flush),
+        "single_array_segments_laid_end_to_end": time_cuda(
+            torch, lambda: ragged_fused_gather_score_cuda(*laid_args, **kw), flush),
+        "replay": time_cuda(torch, replay, flush),
+    }
+    if not torch.equal(got, ragged_fused_gather_score_cuda(*laid_args, **kw)):
+        fail("segmented_ragged_fused_gather_score: differs from the single-array kernel over "
+             "the segments laid end to end")
+    del laid, laid_args
+    log(f"[kernels] segmented_ragged_fused_gather_score times (ms, L2 flushed, median of 25): "
+        f"{json.dumps(ms)}; {len(codes)} launches in the replay; {card()}")
+
+    # Planted faults the checks must reject.
+    off_by_one = segmented_ragged_fused_gather_score_cuda(codes, row0, nvalid, seg + 1, qtok, ps, v, **kw)
+    table = segment_table(codes, dev)
+    table[len(codes):] = codes[0].shape[0]  # every segment clamped by the base's rows
+    clamped = torch.empty_like(got)
+    lib = _build.library("ragged_fused_gather_score")
+    _build.check("ragged_fused_gather_score", lib.warp_segmented_ragged_fused_gather_score(
+        row0.data_ptr(), nvalid.data_ptr(), seg.data_ptr(), qtok.data_ptr(), ps.data_ptr(),
+        v.data_ptr(), clamped.data_ptr(), table.data_ptr(), len(codes),
+        int(all(c.data_ptr() % 16 == 0 for c in codes)), w, tile, qm, pb, d, nbits,
+        _build.stream_ptr(dev),
+    ))
+    for what, planted in (
+        ("segment index off by one", off_by_one),
+        (f"every segment clamped by the base's {codes[0].shape[0]} rows", clamped),
+    ):
+        _, broken = check_scores(planted, want, invalid)
+        if broken is None:
+            fail(f"segmented_ragged_fused_gather_score: the checks do not reject a planted fault ({what})")
+        log(f"[kernels] planted fault, {what}: {broken}: rejected")
+    del off_by_one, clamped
+
+    for offset in (1, 16):
+        views = [code_view(torch, c, offset) for c in codes]
+        case(f"segmented_ragged_fused_gather_score, code views at +{offset} bytes",
+             segmented_ragged_fused_gather_score_cuda(views, *args[1:], **kw), want, invalid)
+        del views
+    del segs, codes, row_map
+
+    # D 256 at nbits 8 (a v-table walked in chunks of dims): random codes
+    # in 5 segments of 20, 60,000, 0, 30,000 and 9,000 rows over 64 clusters.
+    g = torch.Generator(device=dev)
+    g.manual_seed(256)
+    dw, bw, cw = 256, 8, 64
+    segs_w = []
+    for n_s in (20, 60_000, 0, 30_000, 9_000):
+        part = torch.bincount(torch.randint(0, cw, (n_s,), generator=g, device=dev), minlength=cw)
+        offs = torch.zeros(cw + 1, dtype=torch.long, device=dev)
+        offs[1:] = torch.cumsum(part, 0)
+        codes_s = torch.randint(0, 256, (n_s, dw), generator=g, device=dev, dtype=torch.uint8)
+        segs_w.append((codes_s, offs.int(), part.int(), None))
+    cids_w = torch.randint(0, cw, (qm, 8), generator=g, device=dev)
+    work_w, _ = segmented_work(torch, segs_w, cids_w, pscore[:, :8], 8, tile)
+    v_w = torch.randn(qm, dw, 1 << bw, generator=g, device=dev)
+    codes_w = [c for c, _, _, _ in segs_w]
+    kww = dict(nbits=bw, dim=dw, tile_c=tile)
+    got_w = segmented_ragged_fused_gather_score_cuda(codes_w, *work_w, v_w, **kww)
+    case("segmented_ragged_fused_gather_score, D 256 nbits 8", got_w,
+         ref.segmented_ragged_fused_gather_score(codes_w, *work_w, v_w, **kww),
+         (torch.arange(tile, device=dev) >= work_w[1].long().unsqueeze(-1)).reshape(-1))
+    if not torch.equal(got_w, replay(codes_w, *work_w, v_w, kww)):
+        fail("segmented_ragged_fused_gather_score, D 256 nbits 8: differs from the S-launch replay")
+
 
 
 def percentiles_ms(seconds) -> dict:
@@ -994,6 +1228,257 @@ def phase_serve(torch, retriever, n_requests: int, seed: int, kernel_err: float)
         f"within a tie); ragged kernel launches {launched}; summary "
         f"{json.dumps(server.summary())}"
     )
+
+
+def delta_embeddings(torch, index, n_docs: int, doc_len: int, g):
+    """A delta's token embeddings: noisy copies of random base centroids
+    (as ``make_queries``), so they land in clusters queries probe, and
+    their local doc ids (``doc_len`` tokens per doc)."""
+    n = n_docs * doc_len
+    cids = torch.randint(0, index.n_centroids, (n,), generator=g, device=index.device)
+    emb = index.centroids[cids] + 0.04 * torch.randn(n, index.dim, generator=g, device=index.device)
+    return emb, np.repeat(np.arange(n_docs, dtype=np.int32), doc_len)
+
+
+def survivors(ids, keep):
+    return (ids >= 0) & keep[np.clip(ids, 0, None)]
+
+
+def phase_segments(torch, index, dev, seed: int, kernel_err: float, base_lat: dict) -> int:
+    """Segmented indexes at full Lifestyle width: the index saved with
+    ``save_index``, SEG_DELTAS deltas appended with ``add_documents`` on
+    the card, 1% of doc ids tombstoned with ``delete_documents``, loaded
+    with ``Retriever.from_store``. SEG_QUERIES queries single and batched
+    at the four configs, kernel executor against reference (doc ids
+    identical up to swaps inside ties), dense against ragged; the
+    tombstone view and a 50% allowlist return no filtered doc and equal
+    post-hoc filtering of an unfiltered plan at a larger k. ``compact``
+    with the tombstones held aside gives one index with the segmented
+    plans' doc ids; ``compact`` with them drops exactly the deleted docs'
+    rows (dropping rows shrinks cluster sizes and t', so m_i moves: its
+    agreement with the filtered segmented plans is reported, not held
+    equal). Returns the segmented kernel's launches on the main path
+    ((fused, ragged) retrieves: one each). The store is removed at the
+    end, on success and on failure."""
+    from repro_torch.core import Retriever, WarpSearchConfig
+    from repro_torch.core.docfilter import DocFilter
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.store import (
+        add_documents, compact, delete_documents, read_tombstones, save_index,
+    )
+
+    def cfg(gather, layout, executor="kernel", k=ARCH["k"]):
+        return WarpSearchConfig(
+            nprobe=ARCH["nprobe"], k=k, k_impute=ARCH["k_impute"],
+            gather=gather, layout=layout, executor=executor,
+        )
+
+    def run_plan(plan, q, m):
+        out, times = [], []
+        for i in range(q.shape[0]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = plan.retrieve(q[i], m[i])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            out.append((res.doc_ids.cpu().numpy(), res.scores.cpu().numpy()))
+        return out, times
+
+    smi = card()
+    swaps = 0
+    tmp = tempfile.mkdtemp(prefix="segments_phase_")
+    try:
+        path = os.path.join(tmp, "store")
+        t0 = time.perf_counter()
+        save_index(index, path)
+        log(f"[segments] save_index of the base in {time.perf_counter() - t0:.3f} s; {smi}")
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        for i in range(SEG_DELTAS):
+            emb, tdi = delta_embeddings(torch, index, SEG_DELTA_DOCS, BUILD_DOC_LEN, g)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            add_documents(path, emb, tdi, SEG_DELTA_DOCS, device=dev)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            log(f"[segments] add_documents delta {i}: {SEG_DELTA_DOCS} docs, {emb.shape[0]} tokens "
+                f"in {dt * 1e3:.3f} ms = {emb.shape[0] / dt:.1f} tokens/s; {smi}")
+            del emb
+        n_all = index.n_docs + SEG_DELTAS * SEG_DELTA_DOCS
+        rng = np.random.default_rng(seed)
+        n_tomb = int(round(SEG_TOMBSTONE_FRAC * n_all))
+        dead = np.concatenate([
+            rng.choice(index.n_docs, n_tomb // 2, replace=False),
+            index.n_docs + rng.choice(n_all - index.n_docs, n_tomb - n_tomb // 2, replace=False),
+        ])
+        tomb = delete_documents(path, dead.tolist())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = Retriever.from_store(path, device=dev)
+        torch.cuda.synchronize()
+        log(f"[segments] Retriever.from_store (base + {r.index.n_segments - 1} deltas, "
+            f"{r.index.n_tokens} tokens, {r.n_docs} docs, {len(tomb)} tombstoned) in "
+            f"{(time.perf_counter() - t0) * 1e3:.3f} ms; {smi}")
+        if not r.is_segmented or r.n_docs != n_all:
+            fail(f"segments: loaded {type(r.index).__name__} of {r.n_docs} docs, expected {n_all}")
+        r_t_prime = r.plan(cfg("fused", "ragged")).config.t_prime
+
+        q, qmask = make_queries(torch, index, SEG_QUERIES, seed + 1)
+        qh, mh = q.cpu().numpy(), qmask.cpu().numpy()
+        results, lat, launched = {}, {}, 0
+        for gather, layout in CONFIGS:
+            for executor in ("kernel", "reference"):
+                plan = r.plan(cfg(gather, layout, executor))
+                plan.retrieve(q[0], qmask[0])  # warm-up
+                main = (gather, layout, executor) == ("fused", "ragged", "kernel")
+                if main:
+                    reset_launches()
+                before = dict(LAUNCHES)
+                res, times = run_plan(plan, q, qmask)
+                used = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+                if main:
+                    launched = LAUNCHES["segmented_ragged_fused_gather_score"]
+                    if launched != SEG_QUERIES or used["ragged_fused_gather_score"]:
+                        fail(f"segments fused/ragged: {used} launches over {SEG_QUERIES} retrieves, "
+                             "expected one segmented launch each")
+                if executor == "reference" and any(used.values()):
+                    fail(f"segments {gather}/{layout}: the reference executor launched a kernel")
+                if executor == "kernel" and not used[KERNEL_OF[(gather, layout)]] and not main:
+                    fail(f"segments {gather}/{layout}: kernel {KERNEL_OF[(gather, layout)]} never launched")
+                results[(gather, layout, executor)] = res
+                lat[(gather, layout, executor)] = percentiles_ms(times)
+                for b in range(SEG_BATCHES):
+                    sl = slice(4 * b, 4 * b + 4)
+                    bres = plan.retrieve_batch(qh[sl], mh[sl])
+                    for j in range(4):
+                        swaps += topk_swaps(
+                            f"segments {gather}/{layout}/{executor} retrieve_batch vs retrieve, query {4 * b + j}",
+                            bres.doc_ids[j].cpu().numpy(), bres.scores[j].cpu().numpy(),
+                            *res[4 * b + j], kernel_err,
+                        )
+                log(f"[segments] {gather}/{layout}/{executor}: per-query latency (ms) "
+                    f"{json.dumps(lat[(gather, layout, executor)])} beside the base index's "
+                    f"{json.dumps(base_lat[(gather, layout, executor)])}; launches {used}; {smi}")
+        log(f"[segments] launches per (fused, ragged) retrieve: segmented_ragged_fused_gather_score "
+            f"{launched / SEG_QUERIES:g}, ragged_fused_gather_score 0; {smi}")
+        for gather, layout in CONFIGS:
+            for i in range(SEG_QUERIES):
+                swaps += topk_swaps(
+                    f"segments {gather}/{layout} kernel vs reference, query {i}",
+                    *results[(gather, layout, "kernel")][i],
+                    *results[(gather, layout, "reference")][i], kernel_err,
+                )
+                swaps += topk_swaps(
+                    f"segments {gather}/{layout} vs materialize/dense, query {i}",
+                    *results[(gather, layout, "kernel")][i],
+                    *results[("materialize", "dense", "kernel")][i], kernel_err,
+                )
+
+        # Filters: no filtered doc returned, and the filtered plan equals
+        # post-hoc filtering of an unfiltered plan at a larger k.
+        n = r.n_docs
+        allow = DocFilter.allow(rng.choice(n, int(SEG_ALLOW_FRAC * n), replace=False), n)
+        views = {"tombstones": DocFilter.tombstones(read_tombstones(path), n), "allow 50%": allow}
+        filtered = {}
+        for name, dfilter in views.items():
+            keep = dfilter.survivor_mask
+            for gather, layout in (("fused", "ragged"), ("fused", "dense")):
+                got, _ = run_plan(r.plan(cfg(gather, layout), dfilter=dfilter), q, qmask)
+                # k' doubles until every query's unfiltered top-k' holds k survivors.
+                k_wide = 2 * ARCH["k"]
+                while True:
+                    wide, _ = run_plan(r.plan(cfg(gather, layout, k=k_wide)), q, qmask)
+                    if min(int(survivors(w[0], keep).sum()) for w in wide) >= ARCH["k"]:
+                        break
+                    if k_wide >= ARCH["nprobe"] * r.index.cap:
+                        fail(f"segments {name}: fewer than k survivors in every unfiltered top-k'")
+                    k_wide *= 2
+                for i in range(SEG_QUERIES):
+                    ids = got[i][0]
+                    if not keep[ids[ids >= 0]].all():
+                        fail(f"segments {name} {gather}/{layout} query {i}: a filtered doc was returned")
+                    ok = survivors(wide[i][0], keep)
+                    swaps += topk_swaps(
+                        f"segments {name} {gather}/{layout} vs post-hoc filtering at k={k_wide}, query {i}",
+                        *got[i], wide[i][0][ok][: ARCH["k"]], wide[i][1][ok][: ARCH["k"]], kernel_err,
+                    )
+                filtered[(name, gather, layout)] = got
+            log(f"[segments] {name} ({dfilter.n_survivors} of {n} survive): no filtered doc "
+                f"returned; equal to post-hoc filtering of an unfiltered plan at k={k_wide} on "
+                "fused/ragged and fused/dense")
+
+        # Compaction. Without the tombstones it only folds the deltas in:
+        # cluster sizes, t' and m_i stay, so the single index must give the
+        # segmented plan's doc ids. With them it drops the deleted rows,
+        # which shrinks cluster sizes and t' and so moves m_i: its arrays
+        # must equal the first compaction's without the deleted docs' rows,
+        # and its agreement with the filtered segmented plan is reported.
+        del r
+        torch.cuda.empty_cache()
+        tomb_file = os.path.join(path, "tombstones.json")
+        held = os.path.join(tmp, "tombstones.json")
+        os.replace(tomb_file, held)
+        t0 = time.perf_counter()
+        compact(path)
+        log(f"[segments] compact of {SEG_DELTAS} deltas in {time.perf_counter() - t0:.3f} s; {smi}")
+        single = Retriever.from_store(path, device=dev)
+        if single.is_segmented or single.n_docs != n:
+            fail("segments: the compacted store is not one index of the same doc-id bound")
+        for gather, layout in (("fused", "ragged"), ("fused", "dense")):
+            got, _ = run_plan(single.plan(cfg(gather, layout)), q, qmask)
+            for i in range(SEG_QUERIES):
+                swaps += topk_swaps(
+                    f"segments compacted vs segmented {gather}/{layout}, query {i}",
+                    *got[i], *results[(gather, layout, "kernel")][i], kernel_err,
+                )
+        log("[segments] compacted index = segmented plans (doc ids, scores within "
+            f"{TOL}) on fused/ragged and fused/dense")
+        folded = {f: getattr(single.index, f) for f in ("packed_codes", "token_doc_ids", "cluster_offsets")}
+        del single
+        shutil.copy(held, tomb_file)
+        t0 = time.perf_counter()
+        compact(path)
+        log(f"[segments] compact dropping {len(tomb)} tombstoned docs' rows in "
+            f"{time.perf_counter() - t0:.3f} s; {smi}")
+        if os.path.exists(tomb_file):
+            fail("segments: compact left tombstones.json behind")
+        dropped = Retriever.from_store(path, device=dev)
+        keep = torch.from_numpy(views["tombstones"].survivor_mask.copy()).to(dev)
+        rows = keep[folded["token_doc_ids"].long()]
+        c = folded["cluster_offsets"].numel() - 1
+        cluster_of = torch.repeat_interleave(
+            torch.arange(c, device=dev), folded["cluster_offsets"].diff().long(),
+            output_size=rows.numel(),
+        )
+        sizes = torch.bincount(cluster_of[rows], minlength=c)
+        if not (
+            torch.equal(dropped.index.packed_codes, folded["packed_codes"][rows])
+            and torch.equal(dropped.index.token_doc_ids, folded["token_doc_ids"][rows])
+            and torch.equal(dropped.index.cluster_sizes.long(), sizes)
+        ):
+            fail("segments: the compaction with tombstones is not the deltas' compaction "
+                 "without the deleted docs' rows")
+        del folded, rows, cluster_of
+        same, overlap, max_diff = 0, 0.0, 0.0
+        for gather, layout in (("fused", "ragged"), ("fused", "dense")):
+            got, _ = run_plan(dropped.plan(cfg(gather, layout)), q, qmask)
+            want = filtered[("tombstones", gather, layout)]
+            for i in range(SEG_QUERIES):
+                ids = got[i][0]
+                if not views["tombstones"].survivor_mask[ids[ids >= 0]].all():
+                    fail(f"segments: the compacted index returned a deleted doc (query {i})")
+                same += int(np.array_equal(ids, want[i][0]))
+                overlap += len(set(ids.tolist()) & set(want[i][0].tolist())) / len(ids)
+                max_diff = max(max_diff, float(np.abs(got[i][1] - want[i][1]).max()))
+        log(f"[segments] compacted without the deleted rows ({dropped.index.n_tokens} tokens, t' "
+            f"{dropped.plan(cfg('fused', 'ragged')).config.t_prime} vs the segmented "
+            f"{r_t_prime}): no deleted doc returned; vs the tombstone-filtered segmented plans "
+            f"identical top-{ARCH['k']} on {same} of {2 * SEG_QUERIES}, mean overlap "
+            f"{overlap / (2 * SEG_QUERIES):.4f}, max score difference {max_diff:.4g}; {swaps} "
+            "places swapped within a tie over all segment comparisons")
+        return launched
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_profile(torch, retriever, queries, qmask, n: int = 5):
@@ -2245,13 +2730,17 @@ def run(torch, dev, args) -> list:
     kernels = phase_kernels(torch, index, plan_ragged, flush)
     kernel_err = max(row["max_abs_err"] for row in kernels)  # the scoring kernels
     queries, qmask = make_queries(torch, index, 128, args.seed + 1)
-    counts, _ = phase_retrieve(torch, retriever, queries, qmask, 4, kernel_err)
+    counts, lat = phase_retrieve(torch, retriever, queries, qmask, 4, kernel_err)
     for row in kernels:
         row["launches"] = counts[row["name"]]
     if args.profile:
         phase_profile(torch, retriever, queries, qmask)
     phase_serve(torch, retriever, 256, args.seed + 2, kernel_err)
     phase_fixture(torch, dev)
+    seg_launches = phase_segments(torch, index, dev, args.seed + 6, kernel_err, lat)
+    for row in kernels:
+        if row["name"] == "segmented_ragged_fused_gather_score":
+            row["launches"] = seg_launches
     del retriever, index, plan_ragged, queries, qmask
     torch.cuda.empty_cache()
 
@@ -2291,10 +2780,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    smi = card()
     log(f"[setup] torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
     t0 = time.perf_counter()
     kernels = run(torch, torch.device("cuda"), args)

@@ -15,6 +15,11 @@ probe arrays ``[B, Q, P]``. The batch shares each kernel launch (its query
 tokens are stacked to ``B * Q`` v-tables); every batch element still gets
 its own worklist and its own reduction. ``memory="scan_qtokens"`` (a
 ``lax.scan`` over query tokens in JAX) is a Python loop over tokens.
+
+A resolved doc filter (``core.docfilter.FilterView``, argument
+``dfilter``) is pushed down twice: probed clusters without a surviving
+token count size 0 (no worklist tiles; no valid slots in the dense grid),
+and the reduction masks filtered documents to -inf.
 """
 
 from __future__ import annotations
@@ -23,12 +28,14 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.docfilter import FilterView
 from repro_torch.core.reduction import TopKResult, two_stage_reduce
 from repro_torch.core.types import WarpIndex, WarpSearchConfig
 from repro_torch.core.warpselect import WarpSelectOut, warp_select
 from repro_torch.core.worklist import (
     bucket_ladder,
     build_tile_worklist,
+    filtered_probe_sizes,
     per_slot,
     worklist_bound,
     worklist_slot_positions,
@@ -131,12 +138,22 @@ def _vtable(index: WarpIndex, q: torch.Tensor) -> torch.Tensor:
     return q.unsqueeze(-1) * index.bucket_weights
 
 
-def _csr_positions(index: WarpIndex, probe_cids: torch.Tensor):
+def _live_cluster_sizes(index: WarpIndex, dfilter: FilterView | None) -> torch.Tensor:
+    """Cluster sizes with the filter's dead clusters at 0 (the pushdown)."""
+    if dfilter is None:
+        return index.cluster_sizes
+    return torch.where(dfilter.cluster_live, index.cluster_sizes, 0)
+
+
+def _csr_positions(index: WarpIndex, probe_cids: torch.Tensor, cluster_sizes=None):
     """probe_cids [..., P] -> (pos [..., P, cap] clamped into
-    [0, n_tokens), valid bool[..., P, cap])."""
+    [0, n_tokens), valid bool[..., P, cap]); valid slots by
+    ``cluster_sizes`` (default the index's)."""
+    if cluster_sizes is None:
+        cluster_sizes = index.cluster_sizes
     lane = torch.arange(index.cap, device=probe_cids.device)
     starts = index.cluster_offsets.long()[probe_cids]
-    sizes = index.cluster_sizes.long()[probe_cids]
+    sizes = cluster_sizes.long()[probe_cids]
     pos = starts.unsqueeze(-1) + lane
     valid = lane < sizes.unsqueeze(-1)
     return pos.clamp(0, max(0, index.n_tokens - 1)), valid
@@ -149,17 +166,18 @@ def gather_candidates(index: WarpIndex, probe_cids: torch.Tensor):
     return index.packed_codes[pos], index.token_doc_ids[pos], valid
 
 
-def _score_block(index, q, probe_scores, probe_cids, config):
+def _score_block(index, q, probe_scores, probe_cids, config, sizes_c):
     """Dense scoring of one block of query tokens: q [B, n, D] ->
-    (cand [B, n, P, cap], doc_ids, valid)."""
+    (cand [B, n, P, cap], doc_ids, valid); ``sizes_c`` are the cluster
+    sizes that bound the valid slots."""
     b, n, _ = q.shape
     p, cap, nb = probe_cids.shape[-1], index.cap, index.n_buckets
     v = _vtable(index, q).reshape(b * n, index.dim, nb)
-    pos, valid = _csr_positions(index, probe_cids)
+    pos, valid = _csr_positions(index, probe_cids, sizes_c)
     doc_ids = index.token_doc_ids[pos]
     if config.gather == "fused":
         cand = ops.fused_gather_selective_sum(
-            index.packed_codes, index.cluster_offsets, index.cluster_sizes,
+            index.packed_codes, index.cluster_offsets, sizes_c,
             probe_cids.reshape(b * n, p), probe_scores.reshape(b * n, p), v,
             nbits=index.nbits, dim=index.dim, cap=cap,
             use_kernel=config.wants_kernel,
@@ -174,21 +192,23 @@ def _score_block(index, q, probe_scores, probe_cids, config):
     return res + probe_scores.unsqueeze(-1), doc_ids, valid
 
 
-def score_probed_clusters(index, q, probe_scores, probe_cids, config):
+def score_probed_clusters(index, q, probe_scores, probe_cids, config, dfilter=None):
     """Implicit decompression over the probed clusters (layout="dense"):
     -> (cand_scores f32[B, Q, P, cap], doc_ids [B, Q, P, cap],
     valid bool[B, Q, P, cap]). ``memory="scan_qtokens"`` scores one query
-    token at a time, bounding the live working set by a factor of Q."""
+    token at a time, bounding the live working set by a factor of Q.
+    Clusters ``dfilter`` finds dead have no valid slot."""
+    sizes_c = _live_cluster_sizes(index, dfilter)
     if config.memory == "scan_qtokens":
         parts = [
             _score_block(
                 index, q[:, i : i + 1], probe_scores[:, i : i + 1],
-                probe_cids[:, i : i + 1], config,
+                probe_cids[:, i : i + 1], config, sizes_c,
             )
             for i in range(q.shape[1])
         ]
         return tuple(torch.cat(x, dim=1) for x in zip(*parts))
-    return _score_block(index, q, probe_scores, probe_cids, config)
+    return _score_block(index, q, probe_scores, probe_cids, config, sizes_c)
 
 
 def _ragged_block(index, q, starts, sizes, pscores, config, tile, bound):
@@ -267,23 +287,25 @@ def ragged_flat_candidates(index, q, probe_scores, probe_cids, config, probe_siz
 
 
 def score_candidates(
-    index, q, qmask, probe_scores, probe_cids, config, *, probe_sizes=None
+    index, q, qmask, probe_scores, probe_cids, config, *, probe_sizes=None, dfilter=None
 ):
     """Stage 2: the flat candidate stream ``(doc_ids, qtok, scores,
     valid)``, each [B, N]. Candidates of masked query tokens are invalid;
     on the ragged layout their probe sizes are zeroed first so they build
-    no worklist tiles."""
+    no worklist tiles, as are those of clusters ``dfilter`` finds dead."""
     b, qm = qmask.shape
     if config.layout == "ragged":
         if probe_sizes is None:
             probe_sizes = index.cluster_sizes[probe_cids]
         probe_sizes = torch.where(qmask.unsqueeze(-1), probe_sizes.long(), 0)
+        if dfilter is not None:
+            probe_sizes = filtered_probe_sizes(probe_sizes, probe_cids, dfilter.cluster_live)
         scores, doc_ids, qtok, valid = ragged_flat_candidates(
             index, q, probe_scores, probe_cids, config, probe_sizes
         )
         return doc_ids, qtok, scores, valid & torch.gather(qmask, 1, qtok)
     cand, doc_ids, valid = score_probed_clusters(
-        index, q, probe_scores, probe_cids, config
+        index, q, probe_scores, probe_cids, config, dfilter
     )
     valid = valid & qmask[:, :, None, None]
     qtok = torch.arange(qm, device=q.device)[None, :, None, None].expand_as(valid)
@@ -293,24 +315,31 @@ def score_candidates(
     )
 
 
-def reduce_candidates(index, doc_ids, qtok, scores, valid, mse, config, *, q_max):
+def reduce_candidates(
+    index, doc_ids, qtok, scores, valid, mse, config, *, q_max, dfilter=None
+):
     """Stage 3: the two-stage reduction to top-k (ragged streams pad to
-    k when the worklist bound is shorter)."""
+    k when the worklist bound is shorter); ``dfilter``'s doc mask (this
+    index's doc ids) masks filtered documents."""
     return two_stage_reduce(
         doc_ids, qtok, scores, valid, mse,
+        dfilter.doc_mask if dfilter is not None else None,
         q_max=q_max, k=config.k, impl=config.reduce_impl,
         pad_to_k=config.layout == "ragged",
     )
 
 
 def score_and_reduce(
-    index, q, qmask, probe_scores, probe_cids, mse, config, *, probe_sizes=None
+    index, q, qmask, probe_scores, probe_cids, mse, config, *, probe_sizes=None,
+    dfilter=None,
 ) -> TopKResult:
     doc_ids, qtok, scores, valid = score_candidates(
-        index, q, qmask, probe_scores, probe_cids, config, probe_sizes=probe_sizes
+        index, q, qmask, probe_scores, probe_cids, config,
+        probe_sizes=probe_sizes, dfilter=dfilter,
     )
     return reduce_candidates(
-        index, doc_ids, qtok, scores, valid, mse, config, q_max=q.shape[1]
+        index, doc_ids, qtok, scores, valid, mse, config, q_max=q.shape[1],
+        dfilter=dfilter,
     )
 
 
@@ -323,12 +352,14 @@ def select_probes(index, q, qmask, config) -> WarpSelectOut:
     )
 
 
-def finish_from_probes(index, q, qmask, sel: WarpSelectOut, config) -> TopKResult:
+def finish_from_probes(
+    index, q, qmask, sel: WarpSelectOut, config, dfilter=None
+) -> TopKResult:
     """Stages 2+3 from a WARP_SELECT output; ``select_probes`` ->
     ``finish_from_probes`` is the whole pipeline."""
     return score_and_reduce(
         index, q, qmask, sel.probe_scores, sel.probe_cids, sel.mse, config,
-        probe_sizes=sel.probe_sizes,
+        probe_sizes=sel.probe_sizes, dfilter=dfilter,
     )
 
 

@@ -52,6 +52,7 @@ def two_stage_reduce(
     scores: torch.Tensor,
     valid: torch.Tensor,
     mse: torch.Tensor,
+    doc_mask: torch.Tensor | None = None,
     *,
     q_max: int,
     k: int,
@@ -61,7 +62,10 @@ def two_stage_reduce(
     """doc_ids/qtok_ids [..., N], scores f32[..., N], valid bool[..., N],
     mse f32[..., q_max] -> TopKResult of [..., k]. ``impl`` "segment" is
     accepted and gives the same result as "scan"; ``pad_to_k`` appends
-    invalid entries when N < k instead of raising."""
+    invalid entries when N < k instead of raising. ``doc_mask``
+    (bool[n_docs], ``core/docfilter.py``) masks filtered documents'
+    totals to -inf before the top-k; surviving documents' scores do not
+    change."""
     if impl not in REDUCE_IMPLS:
         raise ValueError(f"impl={impl!r} not in {REDUCE_IMPLS}")
     n = doc_ids.shape[-1]
@@ -119,6 +123,10 @@ def two_stage_reduce(
     total = (csum - before).float().reshape(docid.shape)
     total = total + mse.float().sum(dim=-1, keepdim=True)
 
+    if doc_mask is not None:
+        # Invalid rows carry KEY_SENTINEL doc ids (doc_end is already
+        # False there): clamp for the gather.
+        doc_end = doc_end & doc_mask[docid.clamp(0, doc_mask.shape[0] - 1)]
     final = torch.where(doc_end, total, float("-inf"))
     top_scores, top_idx = topk_lower_index_first(final, k)
     top_docs = torch.where(

@@ -1,19 +1,25 @@
 """``Retriever`` facade: plan once, retrieve many. Counterpart of
-``repro/core/retriever.py`` for single-index (local) retrieval.
+``repro/core/retriever.py`` for single-device retrieval.
 
   build                     index a corpus on ``device`` (None -> "cuda")
-  from_index / from_store   adopt an index (a ``WarpIndex``, a JAX
-                            ``WarpIndex``, or a dict of its arrays) or a
-                            saved store, onto ``device`` (None -> "cuda")
-  plan(config)              validate against the index geometry, resolve
-                            every data-dependent default -> ``SearchPlan``
+  from_index / from_store   adopt an index (a ``WarpIndex``, a
+                            ``SegmentedWarpIndex``, a JAX ``WarpIndex``, or
+                            a dict of its arrays) or a saved store (with
+                            its delta segments), onto ``device``
+  plan(config, dfilter=)    validate against the index geometry, resolve
+                            every data-dependent default and the doc
+                            filter -> ``SearchPlan`` (cached per
+                            (config, filter digest))
   retrieve / retrieve_batch one query [Q, D] / a batch [B, Q, D]
 
 Ragged plans are query-adaptive as in the JAX package: WARP_SELECT runs
-once, the probe sizes come to the host (the one sync of the adaptive
-pick), and stages 2+3 run at the smallest ladder rung that fits the
-query's — or the batch's — real tile demand. There is no executor
-fallback: a kernel failure raises.
+once, its probe sizes (or, on a segmented index, its probe ids) come to
+the host (the one sync of the adaptive pick), and stages 2+3 run at the
+smallest ladder rung that fits the query's — or the batch's — real tile
+demand. On a segmented index a probed cluster costs the sum of its
+per-segment tile counts; a filtered plan counts only runs over clusters
+with a surviving token. There is no executor fallback: a kernel failure
+raises.
 """
 
 from __future__ import annotations
@@ -25,10 +31,11 @@ import json
 import numpy as np
 import torch
 
+from repro_torch.core import docfilter as df
 from repro_torch.core import engine
 from repro_torch.core import worklist as wl
-from repro_torch.core.reduction import TopKResult
 from repro_torch.core.index import build_index
+from repro_torch.core.reduction import TopKResult
 from repro_torch.core.types import (
     IndexBuildConfig,
     WarpIndex,
@@ -48,19 +55,48 @@ def _is_adaptive(cfg: WarpSearchConfig) -> bool:
     )
 
 
-class SearchPlan:
-    """A validated pipeline bound to one index and one resolved config
-    (``t_prime``/``k_impute`` concrete, ``executor`` "kernel" or
-    "reference", layout/tile/worklist fields resolved)."""
+def _segments_module():
+    from repro_torch.store import segments  # the store depends on core
 
-    def __init__(self, index: WarpIndex, config: WarpSearchConfig, geometry: dict):
+    return segments
+
+
+def _is_segmented(index) -> bool:
+    return isinstance(index, _segments_module().SegmentedWarpIndex)
+
+
+class SearchPlan:
+    """A validated pipeline bound to one index, one resolved config
+    (``t_prime``/``k_impute`` concrete, ``executor`` "kernel" or
+    "reference", layout/tile/worklist fields resolved) and, optionally,
+    one resolved doc filter (``fctx``: a ``FilterView``, or
+    ``resolve_segmented``'s triple on a segmented index)."""
+
+    def __init__(
+        self, index, config: WarpSearchConfig, geometry: dict, *, fctx=None,
+        filter_info: dict | None = None,
+    ):
         self.config = config
         self.index = index
         self.n_shards = 1
         self.backend = index.device.type
         self.index_geometry = geometry
         self.adaptive = _is_adaptive(config)
+        self.fctx = fctx
+        self.filter_info = filter_info
+        self.segmented = _is_segmented(index)
         self._tile = ops.resolve_tile_c(index.cap, config.tile_c, layout="ragged")
+        self._live = None
+        if self.segmented:
+            self._combined = index.combined_cluster_sizes()
+            if self.adaptive:
+                # Combined per-cluster tile demand over the segments.
+                tiles = (index.per_segment_cluster_sizes() + self._tile - 1) // self._tile
+                if fctx is not None:
+                    tiles = tiles * fctx[2]
+                self._cluster_tiles = tiles.sum(axis=0)
+        elif fctx is not None and self.adaptive:
+            self._live = fctx.cluster_live.cpu().numpy()
 
     # ---- inputs ----
     def _tensor(self, x, dtype) -> torch.Tensor:
@@ -109,27 +145,44 @@ class SearchPlan:
         if not self.adaptive:
             return None
         q, qmask = self._inputs(q, qmask, 1)
-        sel = engine.select_probes(self.index, q[None], qmask[None], self.config)
-        return self._pick(sel, qmask[None])
+        return self._pick(self._select(q[None], qmask[None]), qmask[None])
+
+    def _select(self, q, qmask):
+        if self.segmented:
+            return _segments_module().select_probes(
+                self.index, q, qmask, self.config, self._combined
+            )
+        return engine.select_probes(self.index, q, qmask, self.config)
 
     def _pick(self, sel, qmask) -> int:
         """Smallest rung fitting the masked probe tile demand: masked
-        tokens build no tiles (``engine.score_candidates``). Needs the
-        probe sizes on the host — the adaptive path's one sync."""
-        sizes = sel.probe_sizes.cpu().numpy()
+        tokens and (filtered plans) dead clusters build no tiles. Needs
+        the probe metadata on the host — the adaptive path's one sync."""
         m = qmask.cpu().numpy()
-        tiles = wl.probe_tile_counts(sizes, self._tile) * m[..., None]
-        needed = wl.needed_worklist_tiles(tiles, amortized=self.config.memory == "full")
+        if self.segmented:
+            # One worklist over all Q tokens: demand amortizes.
+            tiles = self._cluster_tiles[sel.probe_cids.cpu().numpy()] * m[..., None]
+            needed = wl.needed_worklist_tiles(tiles, amortized=True)
+        else:
+            sizes = sel.probe_sizes.cpu().numpy()
+            if self._live is not None:
+                sizes = wl.filtered_probe_sizes(sizes, sel.probe_cids.cpu().numpy(), self._live)
+            tiles = wl.probe_tile_counts(sizes, self._tile) * m[..., None]
+            needed = wl.needed_worklist_tiles(tiles, amortized=self.config.memory == "full")
         return wl.pick_bucket(self.config.worklist_buckets, needed)
 
     def _run(self, q, qmask, bucket: int | None = None) -> TopKResult:
         cfg = self.config
-        sel = engine.select_probes(self.index, q, qmask, cfg)
+        sel = self._select(q, qmask)
         if self.adaptive:
             if bucket is None:
                 bucket = self._pick(sel, qmask)
             cfg = dataclasses.replace(cfg, worklist_tiles=bucket, worklist_buckets=None)
-        return engine.finish_from_probes(self.index, q, qmask, sel, cfg)
+        if self.segmented:
+            return _segments_module().finish_from_probes(
+                self.index, q, qmask, sel, cfg, self.fctx
+            )
+        return engine.finish_from_probes(self.index, q, qmask, sel, cfg, dfilter=self.fctx)
 
     # ---- snapshot ----
     def describe(self) -> dict:
@@ -179,7 +232,7 @@ class SearchPlan:
             "k_impute": cfg.k_impute,
             "n_shards": self.n_shards,
             "backend": self.backend,
-            "filter": None,  # document filters are not ported
+            "filter": self.filter_info,
             **geo,
         }
 
@@ -190,15 +243,21 @@ class Retriever:
     >>> r = Retriever.from_store(path)              # on the card
     >>> plan = r.plan(WarpSearchConfig(gather="fused", layout="ragged"))
     >>> res = plan.retrieve(q, qmask)
+
+    It wraps a ``WarpIndex`` or a ``SegmentedWarpIndex`` (a frozen base
+    plus delta segments, ``repro_torch.store.segments``): the segmented
+    plan runs stage 1 once over the combined cluster sizes, then scores
+    every segment (``segments.finish_from_probes``).
     """
 
-    def __init__(self, index: WarpIndex):
-        if not isinstance(index, WarpIndex):
+    def __init__(self, index):
+        if not isinstance(index, WarpIndex) and not _is_segmented(index):
             raise TypeError(
-                f"Retriever wraps a repro_torch WarpIndex, got "
-                f"{type(index).__name__}; use Retriever.from_index"
+                f"Retriever wraps a repro_torch WarpIndex or SegmentedWarpIndex, "
+                f"got {type(index).__name__}; use Retriever.from_index"
             )
         self.index = index
+        # Keyed by (config, filter digest | None).
         self._plans: dict = {}
 
     @classmethod
@@ -225,16 +284,18 @@ class Retriever:
     def from_index(cls, index, *, device=None) -> "Retriever":
         """Adopt ``index`` on ``device`` (None -> "cuda", raising when CUDA
         is absent; pass ``device="cpu"`` for the CPU). ``index`` is a
-        ``WarpIndex`` of this package, or anything
-        ``WarpIndex.from_arrays`` takes (e.g. a JAX ``WarpIndex``)."""
+        ``WarpIndex`` or ``SegmentedWarpIndex`` of this package, or
+        anything ``WarpIndex.from_arrays`` takes (e.g. a JAX
+        ``WarpIndex``)."""
         device = resolve_device(device)
-        if isinstance(index, WarpIndex):
+        if isinstance(index, WarpIndex) or _is_segmented(index):
             return cls(index.to(device))
         return cls(WarpIndex.from_arrays(index, device=device))
 
     @classmethod
     def from_store(cls, path: str, *, device=None) -> "Retriever":
-        """Adopt a saved single-index store (``repro_torch.store``)."""
+        """Adopt a saved store (``repro_torch.store``), its delta segments
+        included."""
         from repro_torch.store import load_index
 
         return cls(load_index(path, device=device))
@@ -247,18 +308,98 @@ class Retriever:
     def n_docs(self) -> int:
         return self.index.n_docs
 
-    def plan(self, config: WarpSearchConfig = WarpSearchConfig()) -> SearchPlan:
-        """Validate and resolve ``config``; cached per config. Raises
-        ValueError on an unsatisfiable config."""
-        cached = self._plans.get(config)
+    @property
+    def is_segmented(self) -> bool:
+        return _is_segmented(self.index)
+
+    def plan(
+        self, config: WarpSearchConfig = WarpSearchConfig(), *, dfilter=None
+    ) -> SearchPlan:
+        """Validate and resolve ``config``; cached per (config, filter
+        digest). ``dfilter`` (a ``DocFilter``) restricts retrieval to its
+        surviving doc ids: resolved once here, pushed down and masked per
+        retrieve. Raises ValueError on an unsatisfiable config."""
+        if dfilter is not None and not isinstance(dfilter, df.DocFilter):
+            raise TypeError(f"dfilter must be a DocFilter, got {type(dfilter).__name__}")
+        digest = dfilter.digest if dfilter is not None else None
+        cached = self._plans.get((config, digest))
         if cached is not None:
             return cached
-        resolved = engine.resolve_config(self.index, config)
+        fctx = self._resolve_filter(dfilter)
+        resolved = self._resolve(config)
         self._validate(resolved)
-        plan = SearchPlan(self.index, resolved, self._geometry())
-        self._plans[config] = plan
-        self._plans[resolved] = plan
+        plan = SearchPlan(
+            self.index, resolved, self._geometry(), fctx=fctx,
+            filter_info=dfilter.describe() if dfilter is not None else None,
+        )
+        self._plans[(config, digest)] = plan
+        self._plans[(resolved, digest)] = plan
         return plan
+
+    def _resolve_filter(self, dfilter):
+        """A ``FilterView`` (single index) or ``resolve_segmented``'s
+        triple (segmented); None passes through."""
+        if dfilter is None:
+            return None
+        if dfilter.n_docs != self.n_docs:
+            raise ValueError(
+                f"DocFilter covers {dfilter.n_docs} docs but the index holds "
+                f"{self.n_docs}; rebuild the filter against this corpus snapshot"
+            )
+        if self.is_segmented:
+            return df.resolve_segmented(dfilter, self.index)
+        return df.resolve_local(dfilter, self.index)
+
+    def _resolve(self, config: WarpSearchConfig) -> WarpSearchConfig:
+        if self.is_segmented:
+            return self._resolve_segmented(config)
+        return engine.resolve_config(self.index, config)
+
+    def _resolve_segmented(self, config: WarpSearchConfig) -> WarpSearchConfig:
+        """``engine.resolve_config`` for base + deltas: t' from the total
+        token count, the ragged bound from the per-segment geometries
+        (``worklist_bound_segmented``: one worklist spans the segments),
+        and "auto" against the dense segmented cost ``nprobe * sum_s
+        cap_s`` slots per query token."""
+        idx = self.index
+        if idx.n_tokens == 0:
+            raise ValueError(
+                "segmented index has n_tokens == 0 — nothing to retrieve. "
+                "Build or load a non-empty index before planning a search."
+            )
+        on_cuda = idx.device.type == "cuda"
+        executor = config.resolved_executor(on_cuda)
+        if executor == "kernel" and not on_cuda:
+            raise ValueError(
+                f"executor='kernel' runs the CUDA kernels, but the index is on "
+                f"{idx.device}; load it with device='cuda', or plan "
+                "executor='reference' (or 'auto') on the CPU"
+            )
+        config = dataclasses.replace(
+            config,
+            t_prime=config.resolved_t_prime(idx.n_tokens),
+            k_impute=config.resolved_k_impute(idx.n_centroids),
+            executor=executor,
+        )
+        if config.layout == "dense":
+            config = engine.resolve_tile_fields(config, cap=idx.cap, layout="dense")
+            return dataclasses.replace(config, worklist_tiles=None, worklist_buckets=None)
+        ragged = engine.resolve_tile_fields(config, cap=idx.cap, layout="ragged")
+        tile = ragged.tile_c
+        bound = wl.worklist_bound_segmented(idx.per_segment_cluster_sizes(), config.nprobe, tile)
+        dense_slots = config.nprobe * sum(s.cap for s in idx.segments)
+        layout = config.layout
+        if layout == "auto":
+            layout = "ragged" if bound * tile < dense_slots else "dense"
+        if layout == "dense":
+            config = engine.resolve_tile_fields(config, cap=idx.cap, layout="dense")
+            return dataclasses.replace(
+                config, layout="dense", worklist_tiles=None, worklist_buckets=None
+            )
+        return dataclasses.replace(
+            ragged, layout="ragged", worklist_tiles=bound,
+            worklist_buckets=wl.bucket_ladder(bound),
+        )
 
     def _validate(self, cfg: WarpSearchConfig) -> None:
         idx = self.index
@@ -284,7 +425,7 @@ class Retriever:
 
     def _geometry(self) -> dict:
         idx = self.index
-        return {
+        geo = {
             "n_docs": idx.n_docs,
             "n_centroids": idx.n_centroids,
             "cap": idx.cap,
@@ -292,3 +433,6 @@ class Retriever:
             "dim": idx.dim,
             "n_tokens": idx.n_tokens,
         }
+        if self.is_segmented:
+            geo["n_segments"] = idx.n_segments
+        return geo

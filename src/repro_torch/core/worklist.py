@@ -8,7 +8,9 @@ the true total are padding tiles with ``nvalid == 0`` (``row0``, ``qtok``
 and ``pscore`` are 0 there). The host-side bound/ladder helpers are numpy;
 the worklist itself is built on the index's device. ``build_tile_worklist``
 takes leading batch dimensions: each batch element gets its own worklist,
-as the JAX package gets from ``vmap``.
+as the JAX package gets from ``vmap``. With ``seg`` it spans the segments
+of a segmented index (``SegmentedTileWorklist``: each tile carries its
+segment id beside its segment-local ``row0``).
 """
 
 from __future__ import annotations
@@ -20,8 +22,11 @@ import torch
 
 __all__ = [
     "TileWorklist",
+    "SegmentedTileWorklist",
     "build_tile_worklist",
     "worklist_bound",
+    "worklist_bound_segmented",
+    "filtered_probe_sizes",
     "worklist_slot_positions",
     "bucket_ladder",
     "probe_tile_counts",
@@ -40,12 +45,48 @@ class TileWorklist(NamedTuple):
     pscore: torch.Tensor  # f32[..., W] centroid probe score of the cluster
 
 
+class SegmentedTileWorklist(NamedTuple):
+    """A worklist over base + delta segments, its fields in the order the
+    segmented scoring kernel takes them."""
+
+    row0: torch.Tensor  # i32[..., W] segment-local code row of slot 0
+    nvalid: torch.Tensor  # i32[..., W]
+    seg: torch.Tensor  # i32[..., W] owning segment (0 on padding)
+    qtok: torch.Tensor  # i32[..., W]
+    pscore: torch.Tensor  # f32[..., W]
+
+
 def worklist_bound(cluster_sizes, nprobe: int, tile_c: int) -> int:
     """Static per-query-token tile bound: the sum of the ``nprobe``
     largest clusters' tile counts (at least 1)."""
     sizes = np.asarray(cluster_sizes)
     tiles = -np.sort(-((sizes.astype(np.int64) + tile_c - 1) // tile_c))
     return max(1, int(tiles[:nprobe].sum()))
+
+
+def worklist_bound_segmented(per_segment_sizes, nprobe: int, tile_c: int) -> int:
+    """Static per-query-token tile bound of a segmented index from its
+    ``[S, C]`` per-segment cluster sizes: one worklist spans every
+    segment, so a probed cluster costs ``sum_s ceil(size_s / tile_c)``
+    tiles and the bound is the top-``nprobe`` sum of those."""
+    sizes = np.asarray(per_segment_sizes, np.int64)
+    if sizes.ndim != 2:
+        raise ValueError(
+            f"per_segment_sizes must be [n_segments, n_centroids], got shape {sizes.shape}"
+        )
+    tiles = -np.sort(-((sizes + tile_c - 1) // tile_c).sum(axis=0))
+    return max(1, int(tiles[:nprobe].sum()))
+
+
+def filtered_probe_sizes(probe_sizes, probe_cids, cluster_live):
+    """Zero the probe sizes of clusters with no surviving tokens (the
+    doc filter's worklist pushdown): numpy in -> numpy out (the adaptive
+    rung's host demand), tensors in -> tensor out. ``[..., Q, P]`` sizes
+    against ``cluster_live`` bool[C]."""
+    if isinstance(probe_sizes, np.ndarray):
+        live = np.asarray(cluster_live, bool)[np.asarray(probe_cids)]
+        return np.where(live, probe_sizes, 0)
+    return torch.where(cluster_live[probe_cids], probe_sizes, 0)
 
 
 def bucket_ladder(bound: int, *, max_rungs: int = DEFAULT_BUCKET_RUNGS) -> tuple[int, ...]:
@@ -96,9 +137,12 @@ def build_tile_worklist(
     *,
     tile_c: int,
     tiles_per_qtoken: int,
-) -> TileWorklist:
+    seg: torch.Tensor | None = None,
+):
     """Flatten ``[..., Q, P]`` probes into worklists of static length
-    ``W = Q * tiles_per_qtoken`` per leading index."""
+    ``W = Q * tiles_per_qtoken`` per leading index -> ``TileWorklist``.
+    With ``seg`` ([..., Q, P] segment id of each probe run; P is then
+    nprobe * n_segments) -> ``SegmentedTileWorklist``."""
     *lead, qm, p = starts.shape
     w = qm * tiles_per_qtoken
     dev = starts.device
@@ -128,6 +172,12 @@ def build_tile_worklist(
         qtok=torch.where(used, e // p, zero).to(torch.int32),
         pscore=torch.where(used, torch.gather(flat_pscores, 1, e), 0.0),
     )
+    if seg is not None:
+        flat_seg = seg.reshape(-1, qm * p).long()
+        seg_out = torch.where(used, torch.gather(flat_seg, 1, e), zero).to(torch.int32)
+        return SegmentedTileWorklist(
+            *(a.reshape(*lead, w) for a in (out.row0, out.nvalid, seg_out, out.qtok, out.pscore))
+        )
     return TileWorklist(*(a.reshape(*lead, w) for a in out))
 
 

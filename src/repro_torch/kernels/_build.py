@@ -60,6 +60,12 @@ KERNELS = {
         "warp_embedding_bag", [_P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _P],
     ),
 }
+# Further C entry points of a kernel library: {library: {symbol: argtypes}}.
+ENTRIES = {
+    "ragged_fused_gather_score": {
+        "warp_segmented_ragged_fused_gather_score": [*[_P] * 8, *[_I] * 8, _P],
+    },
+}
 
 # What a kernel library reports of the launch it would make, without
 # making it (see launch_plan): (symbol, argtypes, the plan's fields).
@@ -75,8 +81,9 @@ PLANS = {
 }
 
 # Kernel launches per wrapper since the last reset: each wrapper adds one
-# where it launches its kernel and nowhere else.
-LAUNCHES = {name: 0 for name in KERNELS}
+# where it launches its kernel and nowhere else. The segmented ragged
+# wrapper launches the ragged library's second entry.
+LAUNCHES = {name: 0 for name in (*KERNELS, "segmented_ragged_fused_gather_score")}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -155,6 +162,9 @@ def library(name: str) -> ctypes.CDLL:
                 fn = getattr(dll, symbol)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                for extra, extra_argtypes in ENTRIES.get(n, {}).items():
+                    getattr(dll, extra).argtypes = extra_argtypes
+                    getattr(dll, extra).restype = ctypes.c_int
                 if n in PLANS:
                     plan_symbol, plan_argtypes, _ = PLANS[n]
                     getattr(dll, plan_symbol).argtypes = plan_argtypes

@@ -33,6 +33,24 @@
 // runs and the flat -> (tile, slot) map: ref.ragged_split. Rows outside
 // [0, n_tokens), which a well-formed worklist never yields, are not loaded
 // and their slots are 0.
+//
+// Segmented entry (warp_segmented_ragged_fused_gather_score): one launch
+// over a worklist that spans a base index and its delta segments, each
+// segment's codes in an allocation of its own. Replaces the JAX op
+// repro/kernels/ops.py, segmented_ragged_fused_gather_selective_sum, which
+// runs the Pallas kernel once per segment with every other segment's
+// tiles masked to nvalid = 0 and adds the outputs. Tile w's rows are
+// segment seg[w]'s: in the round trip that loads its tiles a block also
+// reads each tile's segment code base and row count from a device table
+// (int64[2 S]: S base addresses, then S row counts) into shared memory,
+// and the per-row pointer lookup reads them there instead of one array
+// and n_tokens; rows outside [0, rows of the segment) and tiles of a
+// segment outside [0, S) are not loaded and their slots are 0. Everything
+// else (the split, the runs, the v-table chunks: dims per chunk as the
+// single-array kernel's) is the single-array kernel's, so every slot's
+// sum runs in the same order as there and the output equals the S masked
+// launches' sum bit for bit. Bound: bytes, as above (seg adds 4 bytes a
+// tile).
 #include "score_rows.cuh"
 
 namespace {
@@ -43,6 +61,9 @@ constexpr int kMaxTiles = 128;  // tiles per block at most: bounds its shared me
 
 // Bytes of a block's tile arrays: pre [kMaxTiles + 1], row0, qtok, pscore.
 constexpr size_t kTileBytes = (4 * static_cast<size_t>(kMaxTiles) + 1) * sizeof(int);
+// A segmented block's further tile arrays: code base and row count of each
+// tile's segment (8 bytes to align the bases).
+constexpr size_t kSegTileBytes = kMaxTiles * (sizeof(const uint8_t*) + sizeof(int)) + 8;
 
 // Blocks of the launch: one per kTilesPerBlock tiles, but no fewer than the
 // card holds at once (one wave) and no more than kOversubscribe times that;
@@ -64,7 +85,15 @@ inline int ragged_blocks(int n_tiles, int resident) {
   return s > 0 ? s : 1;
 }
 
-template <int NBITS, bool VEC16, bool CHUNKED>
+// The segments of a segmented launch: seg i32[W] and the device table
+// int64[2 S] (code base addresses, then row counts).
+struct Segments {
+  const int* seg;
+  const long long* table;
+  int n;
+};
+
+template <int NBITS, bool VEC16, bool CHUNKED, bool SEGMENTED>
 __global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
     ragged_fused_gather_score_kernel(const uint8_t* __restrict__ codes,
                                      const int* __restrict__ row0,
@@ -73,7 +102,7 @@ __global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
                                      const float* __restrict__ pscore,
                                      const float* __restrict__ v, float* __restrict__ out,
                                      int n_tokens, int n_tiles, int tile_c, int n_q, int pb,
-                                     int dim, int dc) {
+                                     int dim, int dc, Segments segs) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int nb = 1 << NBITS;
   const int warps = blockDim.x >> 5;
@@ -85,6 +114,13 @@ __global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
   int* r0 = pre + kMaxTiles + 1;                        // [nt]
   int* qt = r0 + kMaxTiles;                             // [nt]
   float* ps = reinterpret_cast<float*>(qt + kMaxTiles); // [nt]
+  const uint8_t** sg_base = nullptr;                    // [nt] (segmented)
+  int* sg_rows = nullptr;                               // [nt] (segmented)
+  if constexpr (SEGMENTED) {
+    const uintptr_t at = (reinterpret_cast<uintptr_t>(ps + kMaxTiles) + 7) & ~uintptr_t{7};
+    sg_base = reinterpret_cast<const uint8_t**>(at);
+    sg_rows = reinterpret_cast<int*>(sg_base + kMaxTiles);
+  }
   float* o = out + t0 * tile_c;
 
   // The block's tiles, in one round trip.
@@ -95,6 +131,13 @@ __global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
     r0[t] = row0[w];
     qt[t] = q;
     ps[t] = pscore[w];
+    if constexpr (SEGMENTED) {
+      const int s = segs.seg[w];
+      const bool known = s >= 0 && s < segs.n;
+      sg_base[t] = known ? reinterpret_cast<const uint8_t*>(static_cast<uintptr_t>(segs.table[s]))
+                         : nullptr;
+      sg_rows[t] = known ? static_cast<int>(segs.table[segs.n + s]) : 0;
+    }
   }
   if (threadIdx.x == 0) pre[0] = 0;
   __syncthreads();
@@ -117,17 +160,24 @@ __global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
   auto tile_of = [&](long long f) {
     return last_at_most(nt, f, [&](int t) { return static_cast<long long>(pre[t]); });
   };
+  // Code row of slot c of tile t, or nullptr for a row not to load.
+  auto code_row = [&](int t, long long c) -> const uint8_t* {
+    const long long row = static_cast<long long>(r0[t]) + c;
+    if constexpr (SEGMENTED) {
+      return row >= 0 && row < sg_rows[t] ? sg_base[t] + static_cast<size_t>(row) * pb : nullptr;
+    } else {
+      return row >= 0 && row < n_tokens ? codes + static_cast<size_t>(row) * pb : nullptr;
+    }
+  };
   auto row_of = [&](long long f) -> const uint8_t* {
     const int t = tile_of(f);
-    const long long row = static_cast<long long>(r0[t]) + (f - pre[t]);
-    return row >= 0 && row < n_tokens ? codes + static_cast<size_t>(row) * pb : nullptr;
+    return code_row(t, f - pre[t]);
   };
   auto store = [&](long long f, float score, bool first) {
     const int t = tile_of(f);
     const long long c = f - pre[t];
-    const long long row = static_cast<long long>(r0[t]) + c;
     float* slot = o + static_cast<size_t>(t) * tile_c + c;
-    if (row >= 0 && row < n_tokens) {
+    if (code_row(t, c) != nullptr) {
       *slot = first ? score + ps[t] : *slot + score;
     } else if (first) {
       *slot = 0.f;
@@ -156,17 +206,20 @@ __global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
   if (!scored) zero_invalid();
 }
 
-template <int NBITS, bool VEC16>
+template <int NBITS, bool VEC16, bool SEGMENTED>
 cudaError_t launch(const uint8_t* codes, const int* row0, const int* nvalid, const int* qtok,
                    const float* pscore, const float* v, float* out, int n_tokens, int n_tiles,
-                   int tile_c, int n_q, int pb, int dim, cudaStream_t stream, int* plan) {
+                   int tile_c, int n_q, int pb, int dim, Segments segs, cudaStream_t stream,
+                   int* plan) {
   const int dc = score_rows::dims_per_chunk(dim, NBITS, kTileBytes);
   if (dc == 0) return cudaErrorInvalidValue;
-  const size_t fixed = kTileBytes + score_rows::vtable_bytes(dc, NBITS);
+  const size_t fixed =
+      kTileBytes + (SEGMENTED ? kSegTileBytes : 0) + score_rows::vtable_bytes(dc, NBITS);
   const int warps = score_rows::warps_that_fit(fixed, dc * NBITS / 8);
+  if (warps == 0) return cudaErrorInvalidValue;
   const size_t smem = score_rows::ring_bytes(warps, dc * NBITS / 8) + fixed;
-  auto kernel = ragged_fused_gather_score_kernel<NBITS, VEC16, false>;
-  if (dc < dim) kernel = ragged_fused_gather_score_kernel<NBITS, VEC16, true>;
+  auto kernel = ragged_fused_gather_score_kernel<NBITS, VEC16, false, SEGMENTED>;
+  if (dc < dim) kernel = ragged_fused_gather_score_kernel<NBITS, VEC16, true, SEGMENTED>;
   cudaError_t err = score_rows::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int threads = warps * 32;
@@ -183,13 +236,15 @@ cudaError_t launch(const uint8_t* codes, const int* row0, const int* nvalid, con
     return cudaSuccess;
   }
   kernel<<<s, threads, smem, stream>>>(codes, row0, nvalid, qtok, pscore, v, out, n_tokens,
-                                       n_tiles, tile_c, n_q, pb, dim, dc);
+                                       n_tiles, tile_c, n_q, pb, dim, dc, segs);
   return cudaGetLastError();
 }
 
+template <bool SEGMENTED>
 int dispatch(const void* codes, const void* row0, const void* nvalid, const void* qtok,
              const void* pscore, const void* v, void* out, int n_tokens, int n_tiles,
-             int tile_c, int n_q, int pb, int dim, int nbits, void* stream, int* plan) {
+             int tile_c, int n_q, int pb, int dim, int nbits, bool vec16, Segments segs,
+             void* stream, int* plan) {
   const auto* c = static_cast<const uint8_t*>(codes);
   const auto* r = static_cast<const int*>(row0);
   const auto* nv = static_cast<const int*>(nvalid);
@@ -198,23 +253,26 @@ int dispatch(const void* codes, const void* row0, const void* nvalid, const void
   const auto* vv = static_cast<const float*>(v);
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  const bool vec16 = score_rows::aligned16(codes, pb);
+#define WARP_RAGGED_LAUNCH(B, V)                                                                \
+  launch<B, V, SEGMENTED>(c, r, nv, qt, ps, vv, o, n_tokens, n_tiles, tile_c, n_q, pb, dim, segs, \
+                          s, plan)
   switch (nbits * 2 + (vec16 ? 1 : 0)) {
     case 4:
-      return launch<2, false>(c, r, nv, qt, ps, vv, o, n_tokens, n_tiles, tile_c, n_q, pb, dim, s, plan);
+      return WARP_RAGGED_LAUNCH(2, false);
     case 5:
-      return launch<2, true>(c, r, nv, qt, ps, vv, o, n_tokens, n_tiles, tile_c, n_q, pb, dim, s, plan);
+      return WARP_RAGGED_LAUNCH(2, true);
     case 8:
-      return launch<4, false>(c, r, nv, qt, ps, vv, o, n_tokens, n_tiles, tile_c, n_q, pb, dim, s, plan);
+      return WARP_RAGGED_LAUNCH(4, false);
     case 9:
-      return launch<4, true>(c, r, nv, qt, ps, vv, o, n_tokens, n_tiles, tile_c, n_q, pb, dim, s, plan);
+      return WARP_RAGGED_LAUNCH(4, true);
     case 16:
-      return launch<8, false>(c, r, nv, qt, ps, vv, o, n_tokens, n_tiles, tile_c, n_q, pb, dim, s, plan);
+      return WARP_RAGGED_LAUNCH(8, false);
     case 17:
-      return launch<8, true>(c, r, nv, qt, ps, vv, o, n_tokens, n_tiles, tile_c, n_q, pb, dim, s, plan);
+      return WARP_RAGGED_LAUNCH(8, true);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef WARP_RAGGED_LAUNCH
 }
 
 }  // namespace
@@ -224,8 +282,24 @@ extern "C" int warp_ragged_fused_gather_score(const void* codes, const void* row
                                               const void* pscore, const void* v, void* out,
                                               int n_tokens, int n_tiles, int tile_c, int n_q,
                                               int pb, int dim, int nbits, void* stream) {
-  return dispatch(codes, row0, nvalid, qtok, pscore, v, out, n_tokens, n_tiles, tile_c, n_q, pb,
-                  dim, nbits, stream, nullptr);
+  return dispatch<false>(codes, row0, nvalid, qtok, pscore, v, out, n_tokens, n_tiles, tile_c,
+                         n_q, pb, dim, nbits, score_rows::aligned16(codes, pb),
+                         Segments{nullptr, nullptr, 0}, stream, nullptr);
+}
+
+// One launch over a worklist spanning segments: seg i32[W] names tile w's
+// segment, seg_table int64[2 n_seg] on the device holds the segments' code
+// base addresses, then their row counts; row0 is segment-local.
+// all_aligned16: every segment's codes start on 16 bytes (the wrapper
+// knows the addresses; the table is on the device).
+extern "C" int warp_segmented_ragged_fused_gather_score(
+    const void* row0, const void* nvalid, const void* seg, const void* qtok, const void* pscore,
+    const void* v, void* out, const void* seg_table, int n_seg, int all_aligned16, int n_tiles,
+    int tile_c, int n_q, int pb, int dim, int nbits, void* stream) {
+  const Segments segs{static_cast<const int*>(seg), static_cast<const long long*>(seg_table),
+                      n_seg};
+  return dispatch<true>(nullptr, row0, nvalid, qtok, pscore, v, out, 0, n_tiles, tile_c, n_q, pb,
+                        dim, nbits, all_aligned16 != 0 && pb % 16 == 0, segs, stream, nullptr);
 }
 
 // The launch warp_ragged_fused_gather_score would make for these
@@ -234,6 +308,7 @@ extern "C" int warp_ragged_fused_gather_score(const void* codes, const void* row
 // tiles per block at most, v-table dims per chunk}.
 extern "C" int warp_ragged_fused_gather_score_plan(const void* codes, int n_tiles, int pb,
                                                    int dim, int nbits, int* plan) {
-  return dispatch(codes, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, n_tiles, 8, 1,
-                  pb, dim, nbits, nullptr, plan);
+  return dispatch<false>(codes, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, n_tiles,
+                         8, 1, pb, dim, nbits, score_rows::aligned16(codes, pb),
+                         Segments{nullptr, nullptr, 0}, nullptr, plan);
 }

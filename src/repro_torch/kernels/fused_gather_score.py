@@ -1,11 +1,13 @@
 """Fused gather–score kernel wrappers (gather="fused").
 
-``fused_gather_score`` scores the dense ``[Q, P, cap]`` probe grid and
-``ragged_fused_gather_score`` a flat tile worklist, both reading the
+``fused_gather_score`` scores the dense ``[Q, P, cap]`` probe grid,
+``ragged_fused_gather_score`` a flat tile worklist and
+``segmented_ragged_fused_gather_score`` a worklist spanning the segments
+of a segmented index (one launch over all of them), all reading the
 resident packed codes directly (no gathered copy). On a CUDA tensor each
 launches its kernel (``csrc/fused_gather_score.cu``,
-``csrc/ragged_fused_gather_score.cu``); on a CPU tensor each runs its plain
-version in ``ref``. Invalid slots come out exactly 0 either way.
+``csrc/ragged_fused_gather_score.cu`` and its segmented entry); on a CPU
+tensor each runs its plain version in ``ref``. Invalid slots come out exactly 0 either way.
 Counterpart of ``repro/kernels/fused_gather_score.py``; the TPU's DMA
 schedules (``buffering``) and measurement carve-outs (``probe``) have no
 counterpart here.
@@ -22,12 +24,17 @@ __all__ = [
     "fused_gather_score_cuda",
     "ragged_fused_gather_score",
     "ragged_fused_gather_score_cuda",
+    "segmented_ragged_fused_gather_score",
+    "segmented_ragged_fused_gather_score_cuda",
     "DEFAULT_TILE_C",
     "DEFAULT_RAGGED_TILE_C",
 ]
 
 DEFAULT_TILE_C = 128
 DEFAULT_RAGGED_TILE_C = 32
+# Shared-memory bytes of a segmented ragged block's per-tile segment code
+# bases and row counts (csrc/ragged_fused_gather_score.cu, kSegTileBytes).
+SEGMENT_TILE_BYTES = 12 * ref.RAGGED_MAX_TILES + 8
 
 
 def fused_gather_score(
@@ -129,4 +136,101 @@ def ragged_fused_gather_score_cuda(
     )
     _build.check("ragged_fused_gather_score", rc)
     _build.LAUNCHES["ragged_fused_gather_score"] += 1
+    return out
+
+
+def segmented_ragged_fused_gather_score(
+    packed_list,
+    row0: torch.Tensor,
+    nvalid: torch.Tensor,
+    seg: torch.Tensor,
+    qtok: torch.Tensor,
+    pscore: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    nbits: int,
+    dim: int,
+    tile_c: int,
+) -> torch.Tensor:
+    """packed_list: each segment's u8[N_s, PB] codes (base first);
+    row0 (segment-local)/nvalid/seg/qtok i32[W], pscore f32[W], v f32[Q,
+    D, 2^b] -> f32[W * tile_c] (slots c >= nvalid exactly 0)."""
+    if row0.device.type == "cpu":
+        return ref.segmented_ragged_fused_gather_score(
+            packed_list, row0, nvalid, seg, qtok, pscore, v,
+            nbits=nbits, dim=dim, tile_c=tile_c,
+        )
+    return segmented_ragged_fused_gather_score_cuda(
+        packed_list, row0, nvalid, seg, qtok, pscore, v, nbits=nbits, dim=dim, tile_c=tile_c
+    )
+
+
+def segment_table(packed_list, device) -> torch.Tensor:
+    """The segmented kernel's table int64[2 S] on ``device``: each
+    segment's code base address, then its row count (a new tensor)."""
+    addrs = [int(c.data_ptr()) for c in packed_list]
+    rows = [int(c.shape[0]) for c in packed_list]
+    return torch.tensor(addrs + rows, dtype=torch.int64).to(device)
+
+
+# Device tables by content (device, addresses, row counts): a retrieve
+# over the same segments copies no table to the card. An entry is valid
+# whatever happens to the memory, since it holds exactly its key.
+_TABLES: dict = {}
+_TABLES_MAX = 64
+
+
+def _cached_segment_table(packed_list, device) -> torch.Tensor:
+    key = (str(device), *(int(c.data_ptr()) for c in packed_list),
+           *(int(c.shape[0]) for c in packed_list))
+    table = _TABLES.get(key)
+    if table is None:
+        if len(_TABLES) >= _TABLES_MAX:
+            _TABLES.clear()
+        table = _TABLES[key] = segment_table(packed_list, device)
+    return table
+
+
+def segmented_ragged_fused_gather_score_cuda(
+    packed_list, row0, nvalid, seg, qtok, pscore, v, *, nbits, dim, tile_c
+):
+    dev = _build.cuda_device(row0)
+    if not packed_list:
+        raise ValueError("packed_list holds no segment")
+    pb = packed_list[0].shape[1]
+    w = nvalid.shape[0]
+    qm = v.shape[0]
+    _build.require_codec(dim, nbits, pb)
+    # The single-array kernel's v-table chunk (so sums run in its order),
+    # beside a block's further arrays of segment bases and row counts.
+    tile_bytes = 4 * (4 * ref.RAGGED_MAX_TILES + 1)
+    dc = _build.vtable_chunk(dim, nbits, tile_bytes)
+    if not _build._vtable_fits(dc, nbits, tile_bytes + SEGMENT_TILE_BYTES):
+        raise ValueError(
+            f"a v-table chunk of {dc} dims at nbits={nbits} leaves no room for a "
+            "segmented block's tile arrays"
+        )
+    for i, codes in enumerate(packed_list):
+        _build.require(codes, f"packed_list[{i}]", torch.uint8, dev)
+        if codes.dim() != 2 or codes.shape[1] != pb:
+            raise ValueError(f"packed_list[{i}] has shape {tuple(codes.shape)}, expected [N, {pb}]")
+    _build.require(row0, "row0", torch.int32, dev, (w,))
+    _build.require(nvalid, "nvalid", torch.int32, dev, (w,))
+    _build.require(seg, "seg", torch.int32, dev, (w,))
+    _build.require(qtok, "qtok", torch.int32, dev, (w,))
+    _build.require(pscore, "pscore", torch.float32, dev, (w,))
+    _build.require(v, "v", torch.float32, dev, (qm, dim, 1 << nbits))
+    out = torch.empty((w * tile_c,), dtype=torch.float32, device=dev)
+    if w == 0 or tile_c == 0:
+        return out
+    table = _cached_segment_table(packed_list, dev)
+    aligned = all(int(c.data_ptr()) % 16 == 0 for c in packed_list)
+    lib = _build.library("ragged_fused_gather_score")
+    rc = lib.warp_segmented_ragged_fused_gather_score(
+        row0.data_ptr(), nvalid.data_ptr(), seg.data_ptr(), qtok.data_ptr(),
+        pscore.data_ptr(), v.data_ptr(), out.data_ptr(), table.data_ptr(),
+        len(packed_list), int(aligned), w, tile_c, qm, pb, dim, nbits, _build.stream_ptr(dev),
+    )
+    _build.check("ragged_fused_gather_score", rc)
+    _build.LAUNCHES["segmented_ragged_fused_gather_score"] += 1
     return out

@@ -30,6 +30,7 @@ from repro_torch.kernels.fused_gather_score import (
     DEFAULT_TILE_C,
     fused_gather_score,
     ragged_fused_gather_score,
+    segmented_ragged_fused_gather_score,
 )
 
 __all__ = [
@@ -37,6 +38,7 @@ __all__ = [
     "fused_gather_selective_sum",
     "ragged_selective_sum",
     "ragged_fused_gather_selective_sum",
+    "segmented_ragged_fused_gather_selective_sum",
     "flash_attention",
     "embedding_bag",
     "resolve_tile_c",
@@ -201,6 +203,43 @@ def ragged_fused_gather_selective_sum(
     if not use_kernel:
         return ref.ragged_fused_gather_score(*args, nbits=nbits, dim=dim, tile_c=tile_c)
     return ragged_fused_gather_score(*args, nbits=nbits, dim=dim, tile_c=tile_c)
+
+
+def segmented_ragged_fused_gather_selective_sum(
+    packed_list,
+    row0: torch.Tensor,
+    nvalid: torch.Tensor,
+    seg: torch.Tensor,
+    qtok: torch.Tensor,
+    pscore: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    nbits: int,
+    dim: int,
+    tile_c: int,
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """Worklist probe + implicit decompression + scoring across the
+    segments of a segmented index: ``packed_list`` holds each segment's
+    u8[N_s, PB] codes (base first), row0 (segment-local)/nvalid/seg/qtok
+    [W], pscore [W] -> flat f32[W * tile_c] (invalid slots 0). The kernel
+    takes every segment in one launch, whatever their sizes (the JAX op
+    replays its kernel once per segment and sends segments smaller than a
+    tile to its reference)."""
+    _check_packable_dim(dim, nbits, byte_wise=use_kernel)
+    validate_tile_c(tile_c)
+    args = (
+        tuple(packed_list),
+        row0.to(torch.int32).contiguous(),
+        nvalid.to(torch.int32).contiguous(),
+        seg.to(torch.int32).contiguous(),
+        qtok.to(torch.int32).contiguous(),
+        pscore.to(torch.float32).contiguous(),
+        v.contiguous(),
+    )
+    if not use_kernel:
+        return ref.segmented_ragged_fused_gather_score(*args, nbits=nbits, dim=dim, tile_c=tile_c)
+    return segmented_ragged_fused_gather_score(*args, nbits=nbits, dim=dim, tile_c=tile_c)
 
 
 def _round_up(x: int, m: int) -> int:

@@ -32,6 +32,8 @@ __all__ = [
     "score_split",
     "fused_gather_score_split",
     "ragged_fused_gather_score",
+    "segmented_ragged_gather_codes",
+    "segmented_ragged_fused_gather_score",
     "ragged_blocks",
     "ragged_split",
     "ragged_fused_gather_score_split",
@@ -266,6 +268,54 @@ def ragged_fused_gather_score(
     gathered = packed_codes[pos]  # [W * tile_c, PB]
     qtok_slot = per_slot(qtok, tile_c)
     scores = ragged_selective_sum(gathered, qtok_slot, v, nbits=nbits, dim=dim)
+    scores = scores + per_slot(pscore.float(), tile_c)
+    return torch.where(valid, scores, 0.0)
+
+
+def segmented_ragged_gather_codes(
+    packed_list, row0: torch.Tensor, nvalid: torch.Tensor, seg: torch.Tensor, *, tile_c: int
+):
+    """A segmented worklist's code rows as one flat copy: ``packed_list``
+    holds each segment's u8[N_s, PB] codes, ``row0`` is segment-local and
+    ``seg`` names the segment. Per segment the slot positions are clamped
+    into that segment's rows (floor 0) -> (codes u8[W * tile_c, PB],
+    valid bool[W * tile_c])."""
+    w = row0.shape[0]
+    pb = packed_list[0].shape[1]
+    lane = torch.arange(tile_c, dtype=torch.long, device=row0.device)
+    pos = row0.long().unsqueeze(-1) + lane  # [W, tile_c] segment-local
+    valid = lane < nvalid.long().unsqueeze(-1)
+    gathered = torch.zeros((w, tile_c, pb), dtype=torch.uint8, device=row0.device)
+    for s, codes in enumerate(packed_list):
+        n_s = codes.shape[0]
+        if n_s == 0:
+            continue  # an empty segment owns no worklist entries
+        own = (seg == s).view(w, 1, 1)
+        gathered = torch.where(own, codes[pos.clamp(0, n_s - 1)], gathered)
+    return gathered.reshape(w * tile_c, pb), valid.reshape(-1)
+
+
+def segmented_ragged_fused_gather_score(
+    packed_list,
+    row0: torch.Tensor,
+    nvalid: torch.Tensor,
+    seg: torch.Tensor,
+    qtok: torch.Tensor,
+    pscore: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    nbits: int,
+    dim: int,
+    tile_c: int,
+) -> torch.Tensor:
+    """``ragged_fused_gather_score`` over a worklist spanning segments:
+    slot (w, c) is ``pscore[w] + sum_d v[qtok[w], d, code_d]`` of row
+    ``row0[w] + c`` of segment ``seg[w]`` when ``c < nvalid[w]`` and
+    exactly 0 otherwise -> f32[W * tile_c]."""
+    gathered, valid = segmented_ragged_gather_codes(
+        packed_list, row0, nvalid, seg, tile_c=tile_c
+    )
+    scores = ragged_selective_sum(gathered, per_slot(qtok, tile_c), v, nbits=nbits, dim=dim)
     scores = scores + per_slot(pscore.float(), tile_c)
     return torch.where(valid, scores, 0.0)
 

@@ -1,4 +1,5 @@
-"""Index store CLI of the PyTorch port: build / inspect / verify / smoke.
+"""Index store CLI of the PyTorch port: build / add / compact / inspect /
+verify / smoke.
 
   # out-of-core build on the card from .npy inputs (mmap-read, streamed)
   PYTHONPATH=src python -m repro_torch.launch.build_index build \\
@@ -7,6 +8,13 @@
   # or from the synthetic corpus generator
   PYTHONPATH=src python -m repro_torch.launch.build_index build \\
       --out idx.warpidx --synth-docs 500 --nbits 4
+
+  # append new documents as a delta segment against the frozen base
+  PYTHONPATH=src python -m repro_torch.launch.build_index add \\
+      --index idx.warpidx --synth-docs 50 --synth-seed 9
+
+  # fold delta segments (and tombstoned rows) into a fresh base
+  PYTHONPATH=src python -m repro_torch.launch.build_index compact --index idx.warpidx
 
   # manifest + measured per-component bytes
   PYTHONPATH=src python -m repro_torch.launch.build_index inspect --index idx.warpidx
@@ -17,11 +25,11 @@
   # load the store and run a small search
   PYTHONPATH=src python -m repro_torch.launch.build_index smoke --index idx.warpidx
 
-``build`` and ``smoke`` run on ``--device`` (default ``cuda``; they raise
-without CUDA unless given ``--device cpu``). The stores are those the JAX
-package's ``repro.launch.build_index`` writes and reads. Its segment
-commands (``add``, ``compact``) and the sharded build come with the
-port's segmented and sharded slices.
+``build``, ``add`` and ``smoke`` run on ``--device`` (default ``cuda``;
+they raise without CUDA unless given ``--device cpu``); ``compact`` runs
+on the host. The stores are those the JAX package's
+``repro.launch.build_index`` writes and reads, delta segments included;
+the sharded build comes with the port's sharded slice.
 """
 
 from __future__ import annotations
@@ -34,7 +42,25 @@ import numpy as np
 
 from repro_torch.core import IndexBuildConfig, Retriever, WarpSearchConfig
 from repro_torch.data import make_corpus, make_queries
-from repro_torch.store import array_chunks, build_index_to_store, inspect_index, verify_store
+from repro_torch.store import (
+    add_documents,
+    array_chunks,
+    build_index_to_store,
+    compact,
+    inspect_index,
+    verify_store,
+)
+
+
+def _add_input_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--emb", help=".npy of f32[N, D] token embeddings")
+    ap.add_argument("--doc-ids", help=".npy of i32[N] token doc ids")
+    ap.add_argument("--n-docs", type=int, default=None,
+                    help="document count (default: max(doc_ids) + 1)")
+    ap.add_argument("--synth-docs", type=int, default=None,
+                    help="generate a synthetic corpus of this many docs")
+    ap.add_argument("--synth-seed", type=int, default=0)
+    ap.add_argument("--mean-doc-len", type=int, default=20)
 
 
 def _load_input(args) -> tuple[np.ndarray, np.ndarray, int]:
@@ -66,6 +92,21 @@ def cmd_build(args) -> None:
     info = inspect_index(args.out)
     print(f"built {info['kind']} at {args.out} on {args.device or 'cuda'} in {dt:.1f}s: "
           f"{info['total_bytes'] / 2**20:.1f} MiB ({info['bytes_per_token']:.1f} B/token)")
+
+
+def cmd_add(args) -> None:
+    emb, tdi, n_docs = _load_input(args)
+    seg_dir = add_documents(args.index, emb, tdi, n_docs, device=args.device)
+    print(f"appended {n_docs} docs ({emb.shape[0]} tokens) -> {seg_dir}")
+
+
+def cmd_compact(args) -> None:
+    t0 = time.perf_counter()
+    compact(args.index)
+    info = inspect_index(args.index)
+    print(f"compacted {args.index} in {time.perf_counter() - t0:.1f}s: "
+          f"{info['static']['n_docs']} docs, {info['static']['n_tokens']} tokens, "
+          f"{info['total_bytes'] / 2**20:.1f} MiB")
 
 
 def cmd_inspect(args) -> None:
@@ -103,14 +144,7 @@ def main(argv=None) -> None:
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     b = sub.add_parser("build", help="build a new store directory")
-    b.add_argument("--emb", help=".npy of f32[N, D] token embeddings")
-    b.add_argument("--doc-ids", help=".npy of i32[N] token doc ids")
-    b.add_argument("--n-docs", type=int, default=None,
-                   help="document count (default: max(doc_ids) + 1)")
-    b.add_argument("--synth-docs", type=int, default=None,
-                   help="generate a synthetic corpus of this many docs")
-    b.add_argument("--synth-seed", type=int, default=0)
-    b.add_argument("--mean-doc-len", type=int, default=20)
+    _add_input_args(b)
     b.add_argument("--out", required=True)
     b.add_argument("--n-centroids", type=int, default=None)
     b.add_argument("--nbits", type=int, default=4, choices=(2, 4, 8))
@@ -120,6 +154,16 @@ def main(argv=None) -> None:
     b.add_argument("--overwrite", action="store_true")
     b.add_argument("--device", default=None, help="cuda (the default) or cpu")
     b.set_defaults(fn=cmd_build)
+
+    a = sub.add_parser("add", help="append documents as a delta segment")
+    _add_input_args(a)
+    a.add_argument("--index", required=True)
+    a.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    a.set_defaults(fn=cmd_add)
+
+    c = sub.add_parser("compact", help="fold delta segments into the base")
+    c.add_argument("--index", required=True)
+    c.set_defaults(fn=cmd_compact)
 
     i = sub.add_parser("inspect", help="print manifest + measured bytes")
     i.add_argument("--index", required=True)

@@ -322,8 +322,9 @@ def _finalize_store(path: str, small: dict, static: dict, build_config) -> None:
         ("token_doc_ids", {"dtype": "int32", "shape": [n_tokens]}),
     ):
         rel = f"{store_format.ARRAY_DIR}/{name}.bin"
-        # Written chunk by chunk through a memmap: stream the file back.
-        meta["checksum"] = integrity.checksum_file(os.path.join(path, rel))
+        if n_tokens:
+            # Written chunk by chunk through a memmap: stream the file back.
+            meta["checksum"] = integrity.checksum_file(os.path.join(path, rel))
         arrays[name] = store_format._entry(rel, meta)
     store_format._write_manifest(path, {
         "format": store_format.FORMAT_NAME,

@@ -6,8 +6,11 @@ Reading: arrays go mmap -> ``torch.from_numpy`` -> device; on the CPU the
 tensors stay zero-copy views of the files, on the card the one
 host-to-device copy is the load. Manifest versions 1 and 2 are read.
 
-Only single-index stores are read and written in the port so far; sharded
-and segmented stores raise a directed error naming their ROADMAP item.
+Single-index stores are read and written; a store with delta segments
+(``segments/seg_NNNNN/``, written by ``store.segments.add_documents``)
+loads as a ``SegmentedWarpIndex``. Sharded stores raise a directed error
+naming their ROADMAP item. ``compact``'s lock file and crash recovery
+(``recover_interrupted_compact``) are JAX's, step for step.
 """
 
 from __future__ import annotations
@@ -40,9 +43,13 @@ __all__ = [
     "FORMAT_VERSION",
     "StoreCorruption",
     "array_nbytes",
+    "compact_lock_path",
     "inspect_index",
+    "list_segment_dirs",
     "load_index",
+    "load_segment_arrays",
     "read_manifest",
+    "recover_interrupted_compact",
     "save_index",
 ]
 
@@ -50,12 +57,16 @@ FORMAT_NAME = "warp-store"
 FORMAT_VERSION = 2
 MANIFEST = "MANIFEST.json"
 ARRAY_DIR = "arrays"
+COMPACT_TMP_SUFFIX = ".compact-tmp"
+COMPACT_OLD_SUFFIX = ".compact-old"
+COMPACT_LOCK_SUFFIX = ".compact-lock"
 KIND_SINGLE = "warp_index"
 KIND_SHARDED = "sharded_warp_index"
 KIND_SEGMENT = "warp_delta_segment"
 
 _SHARDED_TODO = "ROADMAP queue 1, 'Sharded search'"
-_SEGMENTED_TODO = "ROADMAP queue 1, 'Segmented indexes'"
+# The arrays of a delta segment's own (centroids and codec are the base's).
+SEGMENT_ARRAYS = ("packed_codes", "token_doc_ids", "cluster_offsets", "cluster_sizes")
 
 
 # ---------------------------------------------------------------------------
@@ -108,7 +119,8 @@ def _config_dict(build_config: Any) -> dict | None:
     return dict(build_config)
 
 
-def _segment_dirs(path: str) -> list[str]:
+def list_segment_dirs(path: str) -> list[str]:
+    """Delta-segment directories of a base index, in append order."""
     seg_root = os.path.join(path, "segments")
     if not os.path.isdir(seg_root):
         return []
@@ -135,12 +147,9 @@ def save_index(
         raise NotImplementedError(
             f"saving a sharded index is not yet ported to repro_torch ({_SHARDED_TODO})"
         )
-    if hasattr(index, "segments"):
-        raise NotImplementedError(
-            f"saving a segmented index is not yet ported to repro_torch ({_SEGMENTED_TODO})"
-        )
     if not isinstance(index, WarpIndex):
-        raise TypeError(f"cannot save {type(index).__name__}; expected a WarpIndex")
+        raise TypeError(f"cannot save {type(index).__name__} (segmented "
+                        "indexes are saved via their base + delta segments)")
     _prepare_dir(path, overwrite)
     arrays = {}
     for name in ARRAY_FIELDS:
@@ -156,6 +165,64 @@ def save_index(
         "build_config": _config_dict(build_config),
     })
     return path
+
+
+# ---------------------------------------------------------------------------
+# compaction lock and crash recovery
+# ---------------------------------------------------------------------------
+
+
+def compact_lock_path(path: str) -> str:
+    return path.rstrip("/\\") + COMPACT_LOCK_SUFFIX
+
+
+def _read_lock_pid(lock_path: str) -> int:
+    try:
+        with open(lock_path) as f:
+            return int(f.read().strip() or 0)
+    except (OSError, ValueError):
+        return 0
+
+
+def _pid_alive(pid: int) -> bool:
+    if pid <= 0:
+        return False
+    try:
+        os.kill(pid, 0)
+    except OSError:
+        return False
+    return True
+
+
+def _lock_holder_alive(lock_path: str) -> bool:
+    """Whether the pid recorded in a compact lock file is still running."""
+    return _pid_alive(_read_lock_pid(lock_path))
+
+
+def recover_interrupted_compact(path: str) -> None:
+    """Repair a store whose ``compact()`` died inside the directory swap:
+    with ``path`` gone and ``.compact-tmp``/``.compact-old`` beside it,
+    promote the complete new base (its manifest is written last) or roll
+    back to the old one. A no-op while ``path`` exists, and while another
+    LIVE process holds the lock (a reader in the rename window retries)."""
+    if os.path.exists(path):
+        return
+    base = path.rstrip("/\\")
+    lock = base + COMPACT_LOCK_SUFFIX
+    if os.path.exists(lock):
+        pid = _read_lock_pid(lock)
+        if pid != os.getpid() and _pid_alive(pid):
+            return
+    tmp = base + COMPACT_TMP_SUFFIX
+    old = base + COMPACT_OLD_SUFFIX
+    if os.path.exists(os.path.join(tmp, MANIFEST)) and os.path.isdir(old):
+        os.rename(tmp, path)  # the old base went aside: finish the swap
+        shutil.rmtree(old, ignore_errors=True)
+    elif os.path.isdir(old):
+        os.rename(old, path)  # the new base is incomplete: roll back
+        shutil.rmtree(tmp, ignore_errors=True)
+    if os.path.exists(lock) and not _lock_holder_alive(lock):
+        os.remove(lock)
 
 
 # ---------------------------------------------------------------------------
@@ -224,10 +291,18 @@ def _load_single(path: str, manifest: dict, device: torch.device) -> WarpIndex:
     )
 
 
-def load_index(path: str, *, device=None) -> WarpIndex:
-    """Load a single-index store onto ``device`` (``None`` -> the card;
-    pass ``device="cpu"`` to load on the CPU)."""
+def load_index(
+    path: str, *, device=None, with_segments: bool = True, quarantine_segments: bool = False
+):
+    """Load a store onto ``device`` (``None`` -> the card; pass
+    ``device="cpu"`` to load on the CPU): a ``WarpIndex``, or a
+    ``SegmentedWarpIndex`` when ``segments/`` holds deltas and
+    ``with_segments``. ``quarantine_segments`` skips a corrupt delta
+    (recorded in ``.quarantined``) instead of raising; a corrupt base
+    always raises ``StoreCorruption``. A crash inside ``compact``'s
+    directory swap is repaired first."""
     device = resolve_device(device)
+    recover_interrupted_compact(path)
     manifest = read_manifest(path)
     kind = manifest["kind"]
     if kind == KIND_SHARDED:
@@ -242,13 +317,24 @@ def load_index(path: str, *, device=None) -> WarpIndex:
         )
     if kind != KIND_SINGLE:
         raise ValueError(f"{path}: unknown index kind {kind!r}")
-    if _segment_dirs(path):
-        raise NotImplementedError(
-            f"{path} holds delta segments; segmented stores are not yet "
-            f"ported to repro_torch ({_SEGMENTED_TODO}) — compact the store "
-            "first (repro.store.compact) or serve it with the JAX package"
-        )
-    return _load_single(path, manifest, device)
+    base = _load_single(path, manifest, device)
+    seg_dirs = list_segment_dirs(path)
+    if with_segments and seg_dirs:
+        from repro_torch.store.segments import load_segmented  # segments imports us
+
+        return load_segmented(base, seg_dirs, quarantine=quarantine_segments)
+    return base
+
+
+def load_segment_arrays(seg_dir: str) -> tuple[dict, dict]:
+    """(manifest, host arrays) of one delta-segment directory."""
+    manifest = read_manifest(seg_dir)
+    if manifest["kind"] != KIND_SEGMENT:
+        raise ValueError(f"{seg_dir}: not a delta segment")
+    arrays = {
+        name: _load_entry(seg_dir, entry) for name, entry in manifest["arrays"].items()
+    }
+    return manifest, arrays
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +361,7 @@ def inspect_index(path: str) -> dict:
 
     tally(manifest["arrays"])
     segs = []
-    for seg_dir in _segment_dirs(path):
+    for seg_dir in list_segment_dirs(path):
         seg_manifest = read_manifest(seg_dir)
         tally(seg_manifest["arrays"])
         segs.append({"dir": os.path.basename(seg_dir), "static": seg_manifest["static"]})

@@ -407,7 +407,7 @@ def test_save_refuses_sharded_and_segmented(port_index, tmp_path):
 
     with pytest.raises(NotImplementedError, match="Sharded search"):
         save_index(Sharded(), str(tmp_path / "a"))
-    with pytest.raises(NotImplementedError, match="Segmented indexes"):
+    with pytest.raises(TypeError, match="segmented indexes are saved via"):
         save_index(Segmented(), str(tmp_path / "b"))
     save_index(port_index, str(tmp_path / "c"))
     with pytest.raises(FileExistsError):

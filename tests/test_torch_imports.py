@@ -3,7 +3,8 @@ no JAX and no ``repro`` import anywhere in ``src/repro_torch`` (the
 retrieval slice, the LM slice: models, configs, generation, the flash
 kernel, the recsys slice: models, configs, the embedding-bag kernel, and
 the index build: k-means, the builder, the baselines, the warp-xtr
-configs, the CLI) or ``chip_smoke.py``; entry points refuse to fall back
+configs, the CLI, and segmented indexes: doc filters, delta segments) or
+``chip_smoke.py``; entry points refuse to fall back
 to the CPU; the kernel executor refuses a CPU index and CPU recsys
 weights."""
 
@@ -27,7 +28,7 @@ from repro_torch.core import (
 )
 from repro_torch.launch import build_index as build_index_cli
 from repro_torch.serving import RetrievalServer
-from repro_torch.store import array_chunks, build_index_to_store, load_index
+from repro_torch.store import add_documents, array_chunks, build_index_to_store, load_index
 
 torch.set_num_threads(1)  # xdist runs one test process per core
 
@@ -76,6 +77,8 @@ def test_port_imports_neither_jax_nor_repro():
         "src/repro_torch/configs/warp_family.py",
         "src/repro_torch/configs/warp_xtr.py",
         "src/repro_torch/launch/build_index.py",
+        "src/repro_torch/core/docfilter.py",
+        "src/repro_torch/store/segments.py",
     } <= names
     bad = [
         f"{os.path.relpath(f, ROOT)}: import {m}"
@@ -96,9 +99,12 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.configs.xdeepfm, repro_torch.configs.sasrec, "
         "repro_torch.core.kmeans, repro_torch.core.index, repro_torch.core.baselines, "
         "repro_torch.store.builder, repro_torch.configs.warp_family, "
-        "repro_torch.configs.warp_xtr, repro_torch.launch.build_index; "
+        "repro_torch.configs.warp_xtr, repro_torch.launch.build_index, "
+        "repro_torch.core.docfilter, repro_torch.store.segments; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
-        "assert not bad, bad"
+        "assert not bad, bad; "
+        "from repro_torch.kernels import _build; "
+        "assert not _build._LIBS, 'a kernel library was built or loaded at import'"
     )
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)
@@ -133,7 +139,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
         xtr_reference(q, qmask, emb, doc_ids, k_prime=8, k=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         plaid_style_search(idx, torch.zeros(3, idx.dim))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        add_documents(str(tmp_path / "s"), emb, doc_ids, 16)
     for cmd in (["build", "--out", str(tmp_path / "c"), "--synth-docs", "20"],
+                ["add", "--index", FIXTURE, "--synth-docs", "2"],
                 ["smoke", "--index", FIXTURE]):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_index_cli.main(cmd)

@@ -47,6 +47,7 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.fused_gather_score import (
     fused_gather_score_cuda,
     ragged_fused_gather_score_cuda,
+    segmented_ragged_fused_gather_score_cuda,
 )
 
 torch.set_num_threads(1)  # xdist runs one test process per core
@@ -842,3 +843,230 @@ def test_build_on_card_matches_cpu_build(card):
     reseed = torch.randint(0, 4000, (128,), generator=torch.Generator().manual_seed(0))
     first = kmeans.lloyd_step(pts, cent_card, reseed)
     assert torch.equal(first, kmeans.lloyd_step(pts, cent_card, reseed))
+
+
+# ---------------------------------------------------------------------------
+# the segmented entry of the ragged kernel: one launch over a worklist that
+# spans a base and its delta segments
+# ---------------------------------------------------------------------------
+
+
+def _segment_geometry(rng, n_clusters, rows):
+    """CSR geometry of a segment of ``rows`` rows over ``n_clusters``
+    clusters -> (offsets i32[C + 1], sizes i32[C])."""
+    assign = np.sort(rng.integers(0, n_clusters, rows))
+    sizes = np.bincount(assign, minlength=n_clusters).astype(np.int32)
+    return np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32), sizes
+
+
+def _segmented_worklist(rng, geoms, b, n, p, tile, slack=3):
+    """A worklist as the segmented ragged path builds it: ``b`` elements of
+    ``n`` tokens probing ``p`` clusters each, every probe expanded into its
+    per-segment runs (some zeroed, as masked tokens and dead clusters are)
+    -> (row0, nvalid, seg, qtok, pscore) flat [b * W]."""
+    n_seg, c = len(geoms), geoms[0][1].shape[0]
+    cids = rng.integers(0, c, (b, n, p))
+    starts = np.stack([off[cids] for off, _ in geoms], -1).reshape(b, n, -1)
+    sizes = np.stack([sz[cids] for _, sz in geoms], -1).reshape(b, n, -1)
+    sizes[rng.random(sizes.shape) < 0.1] = 0
+    pscore = np.repeat(rng.standard_normal((b, n, p)).astype(np.float32), n_seg, axis=-1)
+    segs = np.broadcast_to(np.arange(n_seg, dtype=np.int32), (b, n, p, n_seg)).reshape(b, n, -1)
+    bound = wl.needed_worklist_tiles(wl.probe_tile_counts(sizes, tile)) + slack
+    work = wl.build_tile_worklist(
+        _t(starts), _t(sizes), _t(pscore), seg=_t(segs), tile_c=tile, tiles_per_qtoken=bound
+    )
+    qtok = work.qtok + (torch.arange(b) * n).unsqueeze(-1).int()
+    return tuple(
+        a.reshape(-1).contiguous() for a in (work.row0, work.nvalid, work.seg, qtok, work.pscore)
+    )
+
+
+def _check_segmented(card, codes_list, work, v, *, nbits, dim, tile):
+    """One launch; the plain version within 1e-4 and invalid slots exactly
+    0; bit for bit the sum of one single-array launch per segment with the
+    other segments' tiles at nvalid 0 (the JAX op's schedule), and the
+    single-array kernel over the segments laid end to end."""
+    row0, nvalid, seg, qtok, pscore = (a.to(card) for a in work)
+    kw = dict(nbits=nbits, dim=dim, tile_c=tile)
+    before = dict(LAUNCHES)
+    got = segmented_ragged_fused_gather_score_cuda(
+        codes_list, row0, nvalid, seg, qtok, pscore, v, **kw
+    )
+    torch.cuda.synchronize()
+    assert LAUNCHES["segmented_ragged_fused_gather_score"] == before["segmented_ragged_fused_gather_score"] + 1
+    assert LAUNCHES["ragged_fused_gather_score"] == before["ragged_fused_gather_score"]
+    want = tref.segmented_ragged_fused_gather_score(
+        codes_list, row0, nvalid, seg, qtok, pscore, v, **kw
+    )
+    torch.testing.assert_close(got, want, **CARD_TOL)
+    invalid = (torch.arange(tile, device=card) >= nvalid.long().unsqueeze(-1)).reshape(-1)
+    assert bool((got[invalid] == 0).all())
+    replay = None
+    for s, codes in enumerate(codes_list):
+        if codes.shape[0] == 0:
+            continue
+        nv_s = torch.where(seg == s, nvalid, 0)
+        out_s = ragged_fused_gather_score_cuda(codes, row0, nv_s, qtok, pscore, v, **kw)
+        replay = out_s if replay is None else replay + out_s
+    assert torch.equal(got, replay)
+    starts = torch.tensor(
+        np.concatenate([[0], np.cumsum([c.shape[0] for c in codes_list])[:-1]]), device=card
+    )
+    flat = torch.cat([c.reshape(-1, c.shape[-1]) for c in codes_list])
+    single = ragged_fused_gather_score_cuda(
+        flat, (row0 + starts[seg.long()]).int(), nvalid, qtok, pscore, v, **kw
+    )
+    assert torch.equal(got, single)
+    return got
+
+
+SEGMENT_ROWS = (5000, 7, 0, 1200, 300)  # a delta smaller than a tile, an empty one
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits,dim", [(2, 128), (4, 128), (8, 128), (4, 32)])
+@pytest.mark.parametrize("tile", [8, 32])
+def test_segmented_ragged_kernel_on_card(card, nbits, dim, tile):
+    rng = np.random.default_rng(nbits * 100 + dim + tile)
+    pb = dim * nbits // 8
+    geoms = [_segment_geometry(rng, 64, n) for n in SEGMENT_ROWS]
+    codes = [_t(rng.integers(0, 256, (n, pb), dtype=np.uint8)).to(card) for n in SEGMENT_ROWS]
+    work = _segmented_worklist(rng, geoms, 2, 8, 6, tile)
+    v = _t(rng.standard_normal((16, dim, 1 << nbits)).astype(np.float32)).to(card)
+    _check_segmented(card, codes, work, v, nbits=nbits, dim=dim, tile=tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits,dim,offsets", [
+    (4, 128, (1, 16, 0, 1, 16)),  # code views at +1 and +16 bytes
+    (8, 256, (0, 0, 0, 0, 0)),  # a v-table walked in chunks of dims
+    (8, 256, (16, 1, 0, 16, 0)),
+])
+def test_segmented_ragged_views_and_wide_vtable_on_card(card, nbits, dim, offsets):
+    rng = np.random.default_rng(dim + sum(offsets))
+    pb = dim * nbits // 8
+    geoms = [_segment_geometry(rng, 32, n) for n in SEGMENT_ROWS]
+    codes = [
+        _code_view(card, rng.integers(0, 256, (n, pb), dtype=np.uint8), off)
+        if n else torch.zeros((0, pb), dtype=torch.uint8, device=card)
+        for n, off in zip(SEGMENT_ROWS, offsets)
+    ]
+    work = _segmented_worklist(rng, geoms, 1, 6, 5, 32)
+    v = _t(rng.standard_normal((6, dim, 1 << nbits)).astype(np.float32)).to(card)
+    _check_segmented(card, codes, work, v, nbits=nbits, dim=dim, tile=32)
+
+
+@pytest.mark.cuda
+def test_segmented_ragged_edges_on_card(card):
+    """Tiles of a segment outside [0, S), rows past their segment's end and
+    an all-padding worklist: those slots exactly 0; a single segment equals
+    the single-array kernel."""
+    rng = np.random.default_rng(5)
+    codes = [_t(rng.integers(0, 256, (n, 64), dtype=np.uint8)).to(card) for n in (300, 40)]
+    w, tile = 6, 16
+    row0 = torch.tensor([0, 10, 290, 30, 0, 0], dtype=torch.int32, device=card)
+    nvalid = torch.full((w,), tile, dtype=torch.int32, device=card)
+    seg = torch.tensor([0, 1, 0, 1, -1, 2], dtype=torch.int32, device=card)
+    qtok = torch.zeros(w, dtype=torch.int32, device=card)
+    pscore = torch.ones(w, device=card)
+    v = torch.randn(1, 128, 16, device=card)
+    out = segmented_ragged_fused_gather_score_cuda(
+        codes, row0, nvalid, seg, qtok, pscore, v, nbits=4, dim=128, tile_c=tile
+    ).reshape(w, tile)
+    assert bool((out[:2] != 0).all())
+    assert bool((out[2, :10] != 0).all()) and bool((out[2, 10:] == 0).all())  # rows 300.. of 300
+    assert bool((out[3, :10] != 0).all()) and bool((out[3, 10:] == 0).all())  # rows 40.. of 40
+    assert bool((out[4:] == 0).all())
+    zeros = torch.zeros(37, dtype=torch.int32, device=card)
+    pad = segmented_ragged_fused_gather_score_cuda(
+        codes, zeros, zeros, zeros, zeros, torch.zeros(37, device=card), v,
+        nbits=4, dim=128, tile_c=32,
+    )
+    assert not bool(pad.any())
+    work = _ragged_worklist(rng, 1, 4, 5, 60, 16, 300)
+    one = segmented_ragged_fused_gather_score_cuda(
+        codes[:1], work[0].to(card), work[1].to(card), torch.zeros_like(work[0]).to(card),
+        work[2].to(card), work[3].to(card), v.expand(4, -1, -1).contiguous(),
+        nbits=4, dim=128, tile_c=16,
+    )
+    single = ragged_fused_gather_score_cuda(
+        codes[0], *(a.to(card) for a in work), v.expand(4, -1, -1).contiguous(),
+        nbits=4, dim=128, tile_c=16,
+    )
+    assert torch.equal(one, single)
+
+
+@pytest.mark.cuda
+def test_segmented_wrapper_checks_its_inputs(card):
+    codes = [torch.zeros((10, 64), dtype=torch.uint8, device=card)]
+    a = torch.zeros(4, dtype=torch.int32, device=card)
+    v = torch.zeros(1, 128, 16, device=card)
+    with pytest.raises(ValueError, match="dtype"):
+        segmented_ragged_fused_gather_score_cuda(
+            codes, a, a, a.long(), a, a.float(), v, nbits=4, dim=128, tile_c=8
+        )
+    with pytest.raises(ValueError, match="packed_list\\[1\\]"):
+        segmented_ragged_fused_gather_score_cuda(
+            codes + [torch.zeros((10, 32), dtype=torch.uint8, device=card)],
+            a, a, a, a, a.float(), v, nbits=4, dim=128, tile_c=8,
+        )
+
+
+@pytest.fixture(scope="module")
+def segmented_store(tmp_path_factory):
+    """A store built, grown (a delta of 40 docs, one of 2 docs) and
+    tombstoned by the port on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from repro_torch.core import IndexBuildConfig, build_index
+    from repro_torch.data import make_corpus
+    from repro_torch.store import add_documents, delete_documents, save_index
+
+    path = str(tmp_path_factory.mktemp("seg") / "idx")
+    c1 = make_corpus(n_docs=300, mean_doc_len=14, seed=31)
+    idx = build_index(c1.emb, c1.token_doc_ids, c1.n_docs,
+                      IndexBuildConfig(n_centroids=64, nbits=4, kmeans_iters=3), device="cuda")
+    save_index(idx, path)
+    for n, seed in ((40, 32), (2, 33)):
+        c = make_corpus(n_docs=n, mean_doc_len=14, seed=seed)
+        add_documents(path, c.emb, c.token_doc_ids, c.n_docs, device="cuda")
+    return path, delete_documents(path, [3, 305, 341])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gather,layout", [
+    ("fused", "ragged"), ("materialize", "ragged"), ("fused", "dense"), ("materialize", "dense"),
+])
+@pytest.mark.parametrize("filtered", [False, True])
+def test_segmented_retrieve_kernel_vs_reference_on_card(card, segmented_store, gather, layout, filtered):
+    """Kernel and reference executors over base + 2 deltas give the same
+    doc ids; (fused, ragged) is one segmented launch per retrieve."""
+    from repro_torch.core.docfilter import DocFilter
+    from repro_torch.data import make_corpus, make_queries
+
+    path, tomb = segmented_store
+    r = Retriever.from_store(path, device=card)
+    assert r.is_segmented and r.index.n_segments == 3
+    dfilter = DocFilter.tombstones(tomb, r.n_docs) if filtered else None
+    corpus = make_corpus(n_docs=30, mean_doc_len=10, seed=7)
+    q, qmask, _ = make_queries(corpus, n_queries=4, seed=8)
+    got = {}
+    for executor in ("kernel", "reference"):
+        plan = r.plan(WarpSearchConfig(nprobe=8, k=10, gather=gather, layout=layout,
+                                       executor=executor), dfilter=dfilter)
+        before = dict(LAUNCHES)
+        res = [plan.retrieve(q[i], qmask[i]) for i in range(4)]
+        torch.cuda.synchronize()
+        launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        if executor == "reference":
+            assert not any(launched.values())
+        elif (gather, layout) == ("fused", "ragged"):
+            assert launched["segmented_ragged_fused_gather_score"] == 4
+        got[executor] = [(x.doc_ids.cpu().numpy(), x.scores.cpu().numpy()) for x in res]
+        batch = plan.retrieve_batch(q, qmask)
+        for i in range(4):
+            np.testing.assert_array_equal(batch.doc_ids[i].cpu().numpy(), got[executor][i][0])
+    for (ki, ks), (ri, rs) in zip(got["kernel"], got["reference"]):
+        np.testing.assert_array_equal(ki, ri)
+        np.testing.assert_allclose(ks, rs, rtol=1e-4, atol=1e-4)
+        assert not set(tomb) & set(ki.tolist()) or not filtered
