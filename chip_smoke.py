@@ -8,7 +8,7 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
 ``search_lifestyle``: 23.71M tokens, 119,461 docs, 2^17 centroids, cap
 1024; D = 128, nbits = 4, 32 query tokens, nprobe 32, k 100, k_impute 64;
 ``repro_torch/configs/warp_xtr.py``), synthesised on the card from
-``--seed`` (phase 5 builds a smaller index from embeddings):
+``--seed`` (phase 7 builds a smaller index from embeddings):
 
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
      one process per source, in parallel) and hold each kernel against
@@ -28,7 +28,23 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      ``plan.retrieve``;
   4. match the committed fixture (``tests/data/torch_fixture``, expected
      results written by the JAX package) on the card;
-  5. the index build (``build``): a corpus at Lifestyle's mean document
+  5. segmented indexes (``segments``): the index saved, grown by 4 delta
+     segments on the card, 1% tombstoned, served at the four configs,
+     filtered and compacted (see ``phase_segments``);
+  6. the retrieval server (``serving``): one ``RetrievalServer`` with two
+     tenants (the store of phase 5 before compaction, through the
+     segmented entry, and the in-memory index, through the ragged kernel),
+     result and rung caches, an admission gate and metrics on; 1024
+     open-loop Poisson arrivals at 0.7x the burst capacity, Zipf 1.6 over
+     64 queries, 10% with a deadline, 25% with a 50% allowlist, 1% of the
+     store's docs deleted midway; every reply held against
+     ``plan.retrieve`` of its epoch and filter, hits against misses bit for
+     bit; three injected faults (a failing reload, a quarantining reload, a
+     failing kernel call: the batch's polls raise, nothing is answered);
+     one ``maintain()``; 32 traced requests checked span by span; retrieve
+     p50 with obs off, metrics and tracing; one run of
+     ``repro_torch.launch.serve`` (see ``phase_serving``);
+  7. the index build (``build``): a corpus at Lifestyle's mean document
      length (1,320 docs, ~262,000 tokens, D 128, zipf_like's topic skew)
      built on the card by ``build_index_to_store`` at
      ``IndexBuildConfig(nbits=4)`` defaults (2^13 centroids), each pass
@@ -41,7 +57,7 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      nRecall@100 / success@5 of WARP, XTR and PLAID against exact MaxSim;
      then one assignment chunk of 4,096 tokens timed against Lifestyle's
      2^17 centroids, with the full build's assignment time it implies;
-  6. LM generation (``lm``) at qwen2-0.5b full width and depth
+  8. LM generation (``lm``) at qwen2-0.5b full width and depth
      (``repro_torch/configs/qwen2_0_5b.py``: 24 layers, d 896, 14 heads,
      2 kv heads, head_dim 64, vocab 151,936; random bf16 weights from
      ``--seed``): the flash-attention kernel against its plain version at
@@ -58,7 +74,7 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      per layer, and the logits at every step; tokens are identical or
      first differ at a reported near-tie of the reference's top-2 logits.
      ``--lm-seeds N`` repeats these checks on N weight seeds.
-  7. recsys serving (``recsys``) at full width: the embedding-bag kernel
+  9. recsys serving (``recsys``) at full width: the embedding-bag kernel
      against its plain version per element within
      ``ref.embedding_bag_error_bound`` at the path's shapes (int32 and
      int64 ids, zero weights, ids outside [0, V), an unaligned table
@@ -97,6 +113,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -228,6 +245,22 @@ SEG_TOMBSTONE_FRAC = 0.01
 SEG_QUERIES = 128
 SEG_BATCHES = 4  # retrieve_batch calls of B 4 per plan
 SEG_ALLOW_FRAC = 0.5
+
+# Serving phase: one RetrievalServer with two tenants at Lifestyle width,
+# open-loop Poisson arrivals at SERVE_LOAD x the burst capacity measured
+# first, Zipf-skewed (the serve launcher's default skew) over a pool of
+# SERVE_POOL queries; SERVE_DEADLINE_FRAC of the requests carry a deadline
+# of SERVE_DEADLINE_S, SERVE_FILTER_FRAC a 50% allowlist.
+SERVE_REQUESTS = 1024
+SERVE_POOL = 64
+SERVE_SKEW = 1.6
+SERVE_LOAD = 0.7
+SERVE_DEADLINE_FRAC = 0.10
+SERVE_DEADLINE_S = 0.010
+SERVE_FILTER_FRAC = 0.25
+SERVE_DELETE_FRAC = 0.01
+SERVE_TRACED = 32
+SERVE_OBS_QUERIES = 128
 
 
 def log(msg: str) -> None:
@@ -1244,7 +1277,9 @@ def survivors(ids, keep):
     return (ids >= 0) & keep[np.clip(ids, 0, None)]
 
 
-def phase_segments(torch, index, dev, seed: int, kernel_err: float, base_lat: dict) -> int:
+def phase_segments(
+    torch, index, dev, seed: int, kernel_err: float, base_lat: dict, keep_store: str | None = None
+) -> int:
     """Segmented indexes at full Lifestyle width: the index saved with
     ``save_index``, SEG_DELTAS deltas appended with ``add_documents`` on
     the card, 1% of doc ids tombstoned with ``delete_documents``, loaded
@@ -1258,8 +1293,10 @@ def phase_segments(torch, index, dev, seed: int, kernel_err: float, base_lat: di
     rows (dropping rows shrinks cluster sizes and t', so m_i moves: its
     agreement with the filtered segmented plans is reported, not held
     equal). Returns the segmented kernel's launches on the main path
-    ((fused, ragged) retrieves: one each). The store is removed at the
-    end, on success and on failure."""
+    ((fused, ragged) retrieves: one each). A copy of the store as grown
+    (base + deltas, before any compaction) is left at ``keep_store`` for the
+    serving phase. The store is removed at the end, on success and on
+    failure."""
     from repro_torch.core import Retriever, WarpSearchConfig
     from repro_torch.core.docfilter import DocFilter
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -1415,6 +1452,8 @@ def phase_segments(torch, index, dev, seed: int, kernel_err: float, base_lat: di
         # and its agreement with the filtered segmented plan is reported.
         del r
         torch.cuda.empty_cache()
+        if keep_store is not None:
+            shutil.copytree(path, keep_store)
         tomb_file = os.path.join(path, "tombstones.json")
         held = os.path.join(tmp, "tombstones.json")
         os.replace(tomb_file, held)
@@ -1479,6 +1518,393 @@ def phase_segments(torch, index, dev, seed: int, kernel_err: float, base_lat: di
         return launched
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def span_rows(events) -> dict:
+    """Per request id, the names of its spans in one exported Chrome trace:
+    ``submit`` (with its children), its ``queue_wait`` row, and the
+    ``batch_dispatch`` holding it (with the engine spans and ``reply``
+    nested inside, by interval containment on the dispatch's thread)."""
+    by_tid: dict = {}
+    for e in events:
+        if e["ph"] == "X":
+            by_tid.setdefault(e["tid"], []).append(e)
+    rows: dict = {}
+
+    def inside(outer, e):
+        return outer["ts"] <= e["ts"] and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"] + 1e-3
+
+    for tid, evs in by_tid.items():
+        for e in evs:
+            args = e.get("args", {})
+            if e["name"] == "submit" and "rid" in args:
+                kids = [c["name"] for c in evs if c is not e and inside(e, c)]
+                rows.setdefault(args["rid"], {})["submit"] = kids
+            elif e["name"] == "queue_wait":
+                rows.setdefault(tid, {})["queue_wait"] = e["dur"]
+            elif e["name"] == "batch_dispatch":
+                kids = [c["name"] for c in evs if c is not e and inside(e, c)]
+                for rid in args["rids"]:
+                    rows.setdefault(rid, {})["dispatch"] = kids
+    return rows
+
+
+def phase_serving(torch, index, dev, seed: int, kernel_err: float, store: str) -> dict:
+    """The whole retrieval server at Lifestyle width (``serving``): one
+    ``RetrievalServer`` (result and rung caches, an admission gate, metrics
+    on) with two tenants, both (fused, ragged) at the kernel executor: the
+    default tenant ``seg`` is ``store`` (the segments phase's base + 4
+    deltas, served through the segmented entry) and ``base`` is the
+    in-memory index (the single-array ragged kernel). SERVE_REQUESTS
+    open-loop Poisson arrivals at SERVE_LOAD x the measured burst capacity,
+    Zipf-skewed over SERVE_POOL queries, split across the tenants, some
+    with a deadline and some with a 50% allowlist; midway 1% of ``seg``'s
+    ids are deleted. Every reply is held against ``retriever.plan(cfg,
+    dfilter=effective).retrieve`` of the epoch that served it (ids equal up
+    to reported tie swaps), no deleted or filtered id may appear, cache hits
+    must equal their misses bit for bit, and both kernels must have been
+    launched. Then the fault cases (a failing ``server.reload``; a
+    ``store.segment_load`` fault quarantining a delta on reload;
+    ``engine.kernel_call`` failing a batch), one ``maintain()`` (compact +
+    reload), SERVE_TRACED traced requests exported as Chrome JSON and
+    checked span by span, retrieve p50 with obs off / metrics / tracing,
+    and one run of the serve launcher on the card. Returns the phase's
+    numbers."""
+    from repro_torch import fault, obs
+    from repro_torch.core import DocFilter, Retriever, WarpSearchConfig
+    from repro_torch.fault import FaultPlan, FaultRule, InjectedFault
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serving import (
+        PENDING, AdmissionPolicy, BatchPolicy, CompactionPolicy, DeadlineExceeded,
+        Overloaded, ResultAlreadyTaken, RetrievalServer,
+    )
+
+    smi = card()
+    t_phase = time.perf_counter()
+    cfg = WarpSearchConfig(
+        nprobe=ARCH["nprobe"], k=ARCH["k"], k_impute=ARCH["k_impute"],
+        gather="fused", layout="ragged", executor="kernel",
+    )
+    os.remove(os.path.join(store, "tombstones.json"))  # deletes come midway
+    reg = obs.enable_metrics(obs.MetricsRegistry())
+    swaps = 0
+    try:
+        t0 = time.perf_counter()
+        server = RetrievalServer(
+            Retriever.from_store(store, device=dev), cfg,
+            BatchPolicy(max_batch=8, max_wait_s=0.002),
+            admission=AdmissionPolicy(max_queue_depth=16 * 8),  # the serve launcher's
+            compaction=CompactionPolicy(max_delta_segments=0, min_interval_s=0.0),
+            store_path=store, registry=reg, cache_size=256,
+        )
+        server.add_tenant("base", Retriever.from_index(index, device=dev))
+        tenants = (None, "base")
+        names = {None: "seg", "base": "base"}
+        log(f"[serving] server up with tenants seg (base + {server.retriever.index.n_segments - 1} "
+            f"deltas, {server.retriever.n_docs} docs) and base ({index.n_docs} docs), every ladder "
+            f"rung warmed, in {time.perf_counter() - t0:.3f} s; {smi}")
+
+        q, qmask = make_queries(torch, index, SERVE_POOL, seed, lo=4, hi=32)
+        qh, mh = q.cpu().numpy(), qmask.cpu().numpy()
+        rng = np.random.default_rng(seed)
+        n_docs = {t: server._state(t).retriever.n_docs for t in tenants}
+        allow = {t: DocFilter.allow(rng.choice(n, n // 2, replace=False), n) for t, n in n_docs.items()}
+
+        # Burst capacity on cache misses: every pool query, one tenant at a
+        # time (a burst of SERVE_POOL stays under the gate's depth).
+        burst, burst_s = [], 0.0
+        for t in tenants:
+            t0 = time.perf_counter()
+            rids = [server.submit(qh[i], mh[i], tenant=t) for i in range(SERVE_POOL)]
+            server.drain()
+            burst_s += time.perf_counter() - t0
+            burst += [server.poll(rid) for rid in rids]
+        capacity = len(burst) / burst_s
+        server.result_cache.clear()
+        server._rung_cache.clear()
+
+        # Open-loop traffic.
+        rate = SERVE_LOAD * capacity
+        p = np.arange(1, SERVE_POOL + 1, dtype=np.float64) ** -SERVE_SKEW
+        p /= p.sum()
+        n = SERVE_REQUESTS
+        arrive = np.cumsum(rng.exponential(1.0 / rate, n))
+        pick = rng.choice(SERVE_POOL, n, p=p)
+        route = rng.integers(0, 2, n)
+        with_deadline = rng.random(n) < SERVE_DEADLINE_FRAC
+        with_filter = rng.random(n) < SERVE_FILTER_FRAC
+        seg_n = n_docs[None]
+        dead = np.sort(rng.choice(seg_n, int(round(SERVE_DELETE_FRAC * seg_n)), replace=False))
+        replies, lat, hit, phase_of = {}, np.full(n, np.nan), np.zeros(n, bool), {}
+        overloaded, expired = [], []
+        waiting: dict = {}
+        deleted_at = None
+
+        def collect(now):
+            for rid, i in list(waiting.items()):
+                try:
+                    out = server.poll(rid)
+                except DeadlineExceeded:
+                    expired.append(i)
+                    del waiting[rid]
+                    continue
+                if out is not PENDING:
+                    replies[i] = out
+                    lat[i] = now - arrive[i]
+                    phase_of[i] = "post" if deleted_at is not None else "pre"
+                    del waiting[rid]
+
+        reset_launches()
+        nxt = 0
+        t0 = time.perf_counter()
+        while nxt < n or waiting:
+            now = time.perf_counter() - t0
+            while nxt < n and arrive[nxt] <= now:
+                i, t = nxt, tenants[route[nxt]]
+                nxt += 1
+                try:
+                    rid = server.submit(
+                        qh[pick[i]], mh[pick[i]], tenant=t,
+                        dfilter=allow[t] if with_filter[i] else None,
+                        deadline_s=SERVE_DEADLINE_S if with_deadline[i] else None,
+                    )
+                except Overloaded:
+                    overloaded.append(i)
+                    continue
+                waiting[rid] = i
+                collect(now)
+                hit[i] = i in replies
+            if deleted_at is None and nxt >= n // 2:
+                collect(time.perf_counter() - t0)
+                server.delete_documents(dead.tolist())
+                deleted_at = nxt
+            if server.step() == 0:
+                time.sleep(1e-4)
+            collect(time.perf_counter() - t0)
+        traffic_s = time.perf_counter() - t0
+        launched = {k: LAUNCHES[k] for k in ("ragged_fused_gather_score", "segmented_ragged_fused_gather_score")}
+        if not all(launched.values()):
+            fail(f"serving: a kernel of the path was never launched: {launched}")
+
+        # Every reply against plan.retrieve of its epoch and filter.
+        dead_set = frozenset(dead.tolist())
+        tomb = DocFilter.tombstones(dead, seg_n)
+        want_cache, first_miss = {}, {}
+        for i, (scores, ids) in sorted(replies.items()):
+            t, f = tenants[route[i]], with_filter[i]
+            post = phase_of[i] == "post" and t is None
+            key = (t, int(pick[i]), bool(f), post)
+            if key not in want_cache:
+                eff = allow[t] if f else None
+                if post:
+                    eff = tomb if eff is None else eff.intersect(tomb)
+                plan = server._state(t).retriever.plan(cfg, dfilter=eff)
+                res = plan.retrieve(qh[pick[i]], mh[pick[i]])
+                want_cache[key] = (res.doc_ids.cpu().numpy(), res.scores.cpu().numpy())
+            swaps += topk_swaps(f"serving reply {i} ({names[t]}) vs plan.retrieve", ids, scores,
+                                *want_cache[key], kernel_err)
+            got = ids[ids >= 0]
+            if f and not allow[t].survivor_mask[got].all():
+                fail(f"serving reply {i}: a filtered doc was returned")
+            if post and dead_set.intersection(got.tolist()):
+                fail(f"serving reply {i}: a deleted doc was returned")
+            ck = key + (phase_of[i],)
+            if not hit[i]:
+                first_miss.setdefault(ck, (scores, ids))
+        hits = 0
+        for i in np.flatnonzero(hit):
+            t = tenants[route[i]]
+            ck = (t, int(pick[i]), bool(with_filter[i]), phase_of[i] == "post" and t is None, phase_of[i])
+            scores, ids = replies[i]
+            ms, mi = first_miss[ck]
+            if not (np.array_equal(scores, ms) and np.array_equal(ids, mi)):
+                fail(f"serving reply {i}: a cache hit differs from its miss")
+            hits += 1
+        served = len(replies)
+        if served + len(overloaded) + len(expired) != n:
+            fail(f"serving: {served} replies + {len(overloaded)} overloaded + {len(expired)} "
+                 f"expired != {n} requests")
+        pct = percentiles_ms(lat[~np.isnan(lat)])
+        summary = server.summary()
+        log(f"[serving] burst capacity {capacity:.3f} requests/s ({len(burst)} misses in "
+            f"{burst_s * 1e3:.3f} ms); {n} Poisson arrivals at {rate:.3f}/s over {traffic_s:.3f} s, "
+            f"Zipf {SERVE_SKEW} over {SERVE_POOL} queries, {int(with_deadline.sum())} with a "
+            f"{SERVE_DEADLINE_S * 1e3:g} ms deadline, {int(with_filter.sum())} with a 50% "
+            f"allowlist, {len(dead)} seg docs deleted after arrival {deleted_at}; {smi}")
+        log(f"[serving] arrival-to-reply latency (ms) {json.dumps(pct)}; cache hit rate "
+            f"{hits / max(1, served):.4f} ({hits} of {served} replies at submit); overloaded "
+            f"{len(overloaded)}, deadline-shed {len(expired)}; launches {launched}; "
+            f"{served} replies equal plan.retrieve of their epoch and filter ({swaps} places "
+            f"swapped within a tie); no deleted or filtered doc returned; every cache hit equals "
+            f"its miss bit for bit; {smi}")
+        log(f"[serving] summary {json.dumps(summary)}")
+
+        # Faults: each leaves the server serving.
+        before = (server.index_epoch, server.retriever, len(server.result_cache))
+        with fault.active(FaultPlan([FaultRule("server.reload")])):
+            try:
+                server.reload(store)
+                fail("serving: a reload under a server.reload fault succeeded")
+            except InjectedFault:
+                pass
+        if (server.index_epoch, server.retriever, len(server.result_cache)) != before:
+            fail("serving: a failed reload changed the server")
+        rid = server.submit(qh[0], mh[0], tenant="base")
+        _, ids = server.result(rid)
+        if not np.array_equal(ids, want_cache.get(("base", 0, False, False), (ids,))[0]):
+            fail("serving: after a failed reload the old epoch answers differently")
+        log(f"[serving] fault server.reload: reload raised, epoch {server.index_epoch}, "
+            "index, caches and queue untouched, still serving")
+        t0 = time.perf_counter()
+        with fault.active(FaultPlan([FaultRule("store.segment_load", at=1)])), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            server.reload(store)
+        h = server.health()
+        if h["status"] != "degraded" or h["quarantined_segments"] != ["seg_00001"]:
+            fail(f"serving: a quarantining reload left health {h}")
+        rid = server.submit(qh[1], mh[1])
+        scores, ids = server.result(rid)
+        want = server._plan_for(server._state(None), None)[0].retrieve(qh[1], mh[1])
+        swaps += topk_swaps("serving quarantined reply vs plan.retrieve", ids, scores,
+                            want.doc_ids.cpu().numpy(), want.scores.cpu().numpy(), kernel_err)
+        log(f"[serving] fault store.segment_load on reload: seg_00001 quarantined in "
+            f"{time.perf_counter() - t0:.3f} s, health {h['status']} ({h['reasons']}), serving "
+            f"epoch {server.index_epoch}")
+        before = dict(LAUNCHES)
+        server.result_cache.clear()  # three misses of one rung: one batch
+        rids = [server.submit(qh[-1], mh[-1], tenant="base") for _ in range(3)]
+        with fault.active(FaultPlan([FaultRule("engine.kernel_call", times=1000)])):
+            try:
+                server.step(force=True)
+                fail("serving: a batch dispatched under an engine.kernel_call fault")
+            except InjectedFault as e:
+                err = e
+        if len(server.scheduler):
+            fail("serving: the failed batch left requests queued")
+        for rid in rids:
+            try:
+                server.poll(rid)
+                fail("serving: a request of the failed batch was answered")
+            except InjectedFault as e:
+                if e is not err:
+                    fail("serving: a poll raised another error than the batch's")
+            try:
+                server.poll(rid)
+                fail("serving: a failed request's error was delivered twice")
+            except ResultAlreadyTaken:
+                pass
+        if LAUNCHES != before or server.health()["status"] != "degraded":
+            fail("serving: the failed batch launched a kernel or left health ok")
+        log(f"[serving] fault engine.kernel_call: step raised {type(err).__name__}, each of "
+            f"{len(rids)} polls raised it once, no reply, no launch; health "
+            f"{server.health()['reasons'][-1]!r}")
+
+        # Maintenance: one compaction of seg (deltas and deleted rows) and reload.
+        t0 = time.perf_counter()
+        if not server.maintain():
+            fail(f"serving: maintain() did not compact ({server.health()})")
+        maintain_s = time.perf_counter() - t0
+        if server.retriever.is_segmented or server.store_path != store:
+            fail("serving: after maintain() seg is not one index from its store")
+        for j in range(8):
+            for t in tenants:
+                scores, ids = server.result(server.submit(qh[j], mh[j], tenant=t))
+                want = server._plan_for(server._state(t), None)[0].retrieve(qh[j], mh[j])
+                swaps += topk_swaps(f"serving after maintain, {names[t]} query {j}", ids, scores,
+                                    want.doc_ids.cpu().numpy(), want.scores.cpu().numpy(), kernel_err)
+                if t is None and dead_set.intersection(ids.tolist()):
+                    fail("serving: the compacted seg returned a deleted doc")
+        if server.health()["status"] != "ok":  # good batches cleared the dispatch failure
+            fail(f"serving: after maintain() and good batches, health {server.health()}")
+        log(f"[serving] maintain(): compact + reload of seg in {maintain_s:.3f} s, epoch "
+            f"{server.index_epoch}, {server.retriever.index.n_tokens} tokens; 16 replies equal "
+            f"plan.retrieve; {smi}")
+
+        # Tracing: SERVE_TRACED requests, exported and checked span by span.
+        tr = obs.set_tracer(obs.Tracer(clock=server.clock))
+        server.result_cache.clear()
+        rids = [server.submit(qh[j % SERVE_POOL], mh[j % SERVE_POOL], tenant=tenants[j % 2])
+                for j in range(SERVE_TRACED)]
+        server.drain()
+        for rid in rids:
+            server.poll(rid)
+        obs.set_tracer(None)
+        trace_path = os.path.join(os.path.dirname(store), "serving_trace.json")
+        tr.export(trace_path)
+        with open(trace_path) as f:
+            rows = span_rows(json.load(f)["traceEvents"])
+        for rid in rids:
+            row = rows.get(rid, {})
+            disp = row.get("dispatch", [])
+            if not ({"admission", "rung_prepass"} <= set(row.get("submit", ()))
+                    and "queue_wait" in row and {"retrieve", "reply"} <= set(disp)
+                    and ({"warp_select", "gather_score", "reduce"} <= set(disp) or "engine" in disp)):
+                fail(f"serving: request {rid}'s span tree is incomplete: {row}")
+        stages = {
+            dict(m.labels)["stage"]: m.quantile(0.5) * 1e3 for m in reg.series("warp_stage_seconds")
+        }
+        log(f"[serving] {SERVE_TRACED} traced requests: every span tree complete (submit > "
+            f"admission, rung_prepass; queue_wait; batch_dispatch > retrieve > stages, reply); "
+            f"{len(tr.events())} events, {tr.dropped} dropped; per-stage p50 (ms) "
+            f"{json.dumps(stages)}; {smi}")
+
+        # Obs overhead on the base plan: obs off / metrics / tracing,
+        # interleaved; the three results must be the same bits.
+        plan = server._state("base").plan
+        arms = {"off": [], "metrics": [], "tracing": []}
+        for i in range(SERVE_OBS_QUERIES):
+            j = i % SERVE_POOL
+            got = []
+            for arm in arms:
+                obs.disable_all()
+                if arm != "off":
+                    obs.enable_metrics(obs.MetricsRegistry())
+                if arm == "tracing":
+                    obs.set_tracer(obs.Tracer())
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got.append(plan.retrieve(q[j], qmask[j]))
+                torch.cuda.synchronize()
+                arms[arm].append(time.perf_counter() - t0)
+            if not all(torch.equal(r.doc_ids, got[0].doc_ids) and torch.equal(r.scores, got[0].scores)
+                       for r in got[1:]):
+                fail(f"serving: query {j}'s traced or metered retrieve is not bit-identical")
+        obs.disable_all()
+        p50 = {arm: percentiles_ms(v)["p50"] for arm, v in arms.items()}
+        log(f"[serving] retrieve p50 over {SERVE_OBS_QUERIES} queries (ms): obs off "
+            f"{p50['off']:.4f}, metrics {p50['metrics']:.4f}, tracing {p50['tracing']:.4f}; "
+            f"the three bit-identical on every query; {smi}")
+
+        # The serve launcher on the card.
+        out = os.path.dirname(store)
+        lt, lm = os.path.join(out, "serve_trace.json"), os.path.join(out, "serve_metrics.prom")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = serve_cli.main([
+                "--traffic", "poisson", "--duration-s", "2", "--tenants", "2", "--layout", "ragged",
+                "--gather", "fused", "--executor", "kernel", "--trace-out", lt, "--metrics-dump", lm,
+            ])
+        with open(lt) as f:
+            lt_names = {e["name"] for e in json.load(f)["traceEvents"]}
+        with open(lm) as f:
+            lm_lines = f.read().splitlines()
+        sample = re.compile(r'^[a-z_]+(\{[a-z_]+="[^"]*"(,[a-z_]+="[^"]*")*\})? [-+0-9.e]+$')
+        if rc != 0 or not {"submit", "batch_dispatch", "gather_score", "reply"} <= lt_names or not (
+            lm_lines and all(ln.startswith("# ") or sample.match(ln) for ln in lm_lines)
+        ):
+            fail(f"serving: the serve launcher exited {rc} or wrote an invalid trace or dump")
+        log(f"[serving] launch.serve --traffic poisson --tenants 2 on the card: exit 0 in "
+            f"{time.perf_counter() - t0:.3f} s, trace of {len(lt_names)} span names, "
+            f"{len(lm_lines)} metric lines valid")
+        phase_s = time.perf_counter() - t_phase
+        log(f"[serving] phase done in {phase_s:.3f} s; {swaps} places swapped within a tie; {smi}")
+        return dict(latency_ms=pct, capacity=capacity, rate=rate, served=served, hits=hits,
+                    overloaded=len(overloaded), expired=len(expired), stages_ms=stages,
+                    obs_p50_ms=p50, maintain_s=maintain_s, phase_s=phase_s)
+    finally:
+        obs.disable_all()
+        fault.uninstall()
 
 
 def phase_profile(torch, retriever, queries, qmask, n: int = 5):
@@ -2737,10 +3163,16 @@ def run(torch, dev, args) -> list:
         phase_profile(torch, retriever, queries, qmask)
     phase_serve(torch, retriever, 256, args.seed + 2, kernel_err)
     phase_fixture(torch, dev)
-    seg_launches = phase_segments(torch, index, dev, args.seed + 6, kernel_err, lat)
-    for row in kernels:
-        if row["name"] == "segmented_ragged_fused_gather_score":
-            row["launches"] = seg_launches
+    serve_dir = tempfile.mkdtemp(prefix="serving_phase_")
+    try:
+        store = os.path.join(serve_dir, "store")
+        seg_launches = phase_segments(torch, index, dev, args.seed + 6, kernel_err, lat, store)
+        for row in kernels:
+            if row["name"] == "segmented_ragged_fused_gather_score":
+                row["launches"] = seg_launches
+        phase_serving(torch, index, dev, args.seed + 7, kernel_err, store)
+    finally:
+        shutil.rmtree(serve_dir, ignore_errors=True)
     del retriever, index, plan_ragged, queries, qmask
     torch.cuda.empty_cache()
 

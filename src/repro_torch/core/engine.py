@@ -55,6 +55,8 @@ __all__ = [
     "score_and_reduce",
     "select_probes",
     "finish_from_probes",
+    "score_from_probes",
+    "reduce_from_scored",
     "gather_candidates",
 ]
 
@@ -352,15 +354,35 @@ def select_probes(index, q, qmask, config) -> WarpSelectOut:
     )
 
 
+def score_from_probes(index, q, qmask, sel: WarpSelectOut, config, dfilter=None):
+    """Stage 2 from a WARP_SELECT output: the flat candidate stream
+    ``(doc_ids, qtok, scores, valid)``, each [B, N]."""
+    return score_candidates(
+        index, q, qmask, sel.probe_scores, sel.probe_cids, config,
+        probe_sizes=sel.probe_sizes, dfilter=dfilter,
+    )
+
+
+def reduce_from_scored(index, scored, mse, config, dfilter=None) -> TopKResult:
+    """Stage 3 from ``score_from_probes`` output; ``mse`` f32[B, Q] (its
+    trailing axis is the padded query length the reduction scatters
+    over)."""
+    doc_ids, qtok, scores, valid = scored
+    return reduce_candidates(
+        index, doc_ids, qtok, scores, valid, mse, config, q_max=mse.shape[-1],
+        dfilter=dfilter,
+    )
+
+
 def finish_from_probes(
     index, q, qmask, sel: WarpSelectOut, config, dfilter=None
 ) -> TopKResult:
     """Stages 2+3 from a WARP_SELECT output; ``select_probes`` ->
-    ``finish_from_probes`` is the whole pipeline."""
-    return score_and_reduce(
-        index, q, qmask, sel.probe_scores, sel.probe_cids, sel.mse, config,
-        probe_sizes=sel.probe_sizes, dfilter=dfilter,
-    )
+    ``finish_from_probes`` is the whole pipeline, and it is exactly
+    ``reduce_from_scored`` of ``score_from_probes`` (the traced path runs
+    the two with a fence between them)."""
+    scored = score_from_probes(index, q, qmask, sel, config, dfilter)
+    return reduce_from_scored(index, scored, sel.mse, config, dfilter)
 
 
 def _run(index, q, qmask, config) -> TopKResult:

@@ -10,6 +10,8 @@
                             every data-dependent default and the doc
                             filter -> ``SearchPlan`` (cached per
                             (config, filter digest))
+  plan_for_k(k, config)     plan with the k-ladder's defaults for a
+                            requested result depth (``K_LADDER``)
   retrieve / retrieve_batch one query [Q, D] / a batch [B, Q, D]
 
 Ragged plans are query-adaptive as in the JAX package: WARP_SELECT runs
@@ -19,7 +21,18 @@ smallest ladder rung that fits the query's — or the batch's — real tile
 demand. On a segmented index a probed cluster costs the sum of its
 per-segment tile counts; a filtered plan counts only runs over clusters
 with a surviving token. There is no executor fallback: a kernel failure
-raises.
+raises (the JAX plan's ``_activate_fallback`` is not ported).
+
+Observability (``repro_torch.obs``): disabled, a retrieve pays two
+attribute checks; with metrics on, ``warp_retrieves_total`` and
+``warp_retrieve_seconds`` per kind (after one ``torch.cuda.synchronize``
+on the card); with a tracer, single-index plans run stage by stage under
+``retrieve`` -> ``warp_select`` -> ``bucket_pick`` -> ``gather_score`` ->
+``reduce`` spans (JAX's names and attributes), fenced by
+``torch.cuda.synchronize(device)`` on the card, and the stage histograms
+``warp_stage_seconds`` record. Segmented plans trace as one ``engine``
+span. The traced result is bit-identical to the untraced one: the stages
+are the very calls ``engine.finish_from_probes`` makes.
 """
 
 from __future__ import annotations
@@ -27,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import time
 
 import numpy as np
 import torch
@@ -43,8 +57,60 @@ from repro_torch.core.types import (
     resolve_device,
 )
 from repro_torch.kernels import ops
+from repro_torch.obs import STATE as _OBS
 
-__all__ = ["Retriever", "SearchPlan"]
+__all__ = ["Retriever", "SearchPlan", "K_LADDER", "ladder_rung", "laddered_config"]
+
+
+# Per-k retrieval hyperparameter ladder (JAX ``repro/core/retriever.py``):
+# small k needs few probes; deep result lists need a wider probe set, a
+# deeper imputation scan and a larger t'. Each rung is (k upper bound
+# inclusive — None = unbounded, rung name, overrides).
+K_LADDER = (
+    (10, "small", dict(nprobe=16, k_impute=32, t_prime_scale=0.5)),
+    (100, "medium", dict(nprobe=32, k_impute=64, t_prime_scale=1.0)),
+    (None, "large", dict(nprobe=64, k_impute=128, t_prime_scale=2.0)),
+)
+
+
+def ladder_rung(k: int) -> tuple[str, dict]:
+    """(rung name, parameter overrides) for a requested result depth."""
+    for bound, name, params in K_LADDER:
+        if bound is None or k <= bound:
+            return name, params
+    raise AssertionError("unreachable: ladder has an unbounded rung")
+
+
+def laddered_config(
+    k: int,
+    config: WarpSearchConfig | None = None,
+    *,
+    n_tokens: int | None = None,
+    n_centroids: int | None = None,
+) -> WarpSearchConfig:
+    """Per-request hyperparameters from the requested ``k`` (``K_LADDER``).
+
+    A field of ``config`` that differs from the ``WarpSearchConfig``
+    default is pinned by the caller and never overridden; fields left at
+    their defaults take the ladder value for ``k``'s rung. With the index
+    geometry the ladder also concretizes ``t_prime`` (``t_prime_scale *
+    sqrt(n_tokens)``, clamped) and clamps ``nprobe`` to the centroid
+    count."""
+    base = config if config is not None else WarpSearchConfig()
+    default = WarpSearchConfig()
+    _, params = ladder_rung(int(k))
+    kw: dict = {"k": int(k)}
+    if base.nprobe == default.nprobe:
+        nprobe = int(params["nprobe"])
+        if n_centroids is not None:
+            nprobe = max(1, min(nprobe, int(n_centroids)))
+        kw["nprobe"] = nprobe
+    if base.k_impute == default.k_impute:
+        kw["k_impute"] = int(params["k_impute"])
+    if base.t_prime is None and n_tokens:
+        tp = int(params["t_prime_scale"] * (int(n_tokens) ** 0.5))
+        kw["t_prime"] = max(1, min(tp, base.t_prime_max, int(n_tokens)))
+    return dataclasses.replace(base, **kw)
 
 
 def _is_adaptive(cfg: WarpSearchConfig) -> bool:
@@ -114,14 +180,128 @@ class SearchPlan:
     def retrieve(self, q, qmask=None) -> TopKResult:
         """One query q f32[Q, D] -> (scores f32[k], doc_ids i32[k])."""
         q, qmask = self._inputs(q, qmask, 1)
-        res = self._run(q[None], qmask[None])
+        res = self._dispatch(q[None], qmask[None], "single")
         return TopKResult(res.scores[0], res.doc_ids[0])
 
     def retrieve_batch(self, q, qmask=None) -> TopKResult:
         """Query batch q f32[B, Q, D] -> TopKResult with leading batch dim;
         an adaptive plan runs the whole batch at one rung (the max)."""
         q, qmask = self._inputs(q, qmask, 2)
-        return self._run(q, qmask)
+        return self._dispatch(q, qmask, "batch")
+
+    def warmup(self) -> bool:
+        """Run the plan once per ladder rung (once on a non-adaptive plan)
+        on a dummy batch, so a kernel failure surfaces here rather than on
+        the first request, and on the card every kernel of the plan is
+        built. There is no fallback: a failure raises. Returns False (the
+        JAX plan returns whether it demoted itself to its reference
+        executor; the port never does)."""
+        geo = self.index_geometry
+        q = torch.zeros((1, 2, geo["dim"]), dtype=torch.float32, device=self.index.device)
+        qmask = torch.ones((1, 2), dtype=torch.bool, device=self.index.device)
+        for rung in self.config.worklist_buckets if self.adaptive else (None,):
+            self._run(q, qmask, bucket=rung)
+        self._fence()
+        return False
+
+    def _fence(self) -> None:
+        """Wait for the card's queued work (nothing to wait for on the CPU)."""
+        if self.index.device.type == "cuda":
+            torch.cuda.synchronize(self.index.device)
+
+    def _dispatch(self, q, qmask, kind: str, bucket: int | None = None) -> TopKResult:
+        """Observability-aware dispatch: disabled, two attribute checks
+        then ``_run``; metrics only, ``_run`` timed into
+        ``warp_retrieve_seconds`` after a fence; tracing, the stage-split
+        ``_run_traced``."""
+        if _OBS.tracer is not None:
+            return self._run_traced(q, qmask, kind, bucket)
+        if _OBS.metrics is not None:
+            t0 = time.perf_counter()
+            out = self._run(q, qmask, bucket)
+            self._fence()
+            self._obs_retrieve(_OBS.metrics, kind, time.perf_counter() - t0)
+            return out
+        return self._run(q, qmask, bucket)
+
+    @staticmethod
+    def _obs_retrieve(reg, kind: str, dt: float) -> None:
+        reg.counter(
+            "warp_retrieves_total",
+            "Retrieve dispatches through SearchPlan", kind=kind,
+        ).inc()
+        reg.histogram(
+            "warp_retrieve_seconds",
+            "End-to-end retrieve latency at the plan boundary", kind=kind,
+        ).observe(dt)
+
+    @staticmethod
+    def _obs_stage(reg, stage: str, sp) -> None:
+        # Stage histograms record only under tracing (the fences make a
+        # stage's duration meaningful), on the tracer's clock.
+        if reg is not None and sp.dur is not None:
+            reg.histogram(
+                "warp_stage_seconds",
+                "Per-stage engine latency (traced retrieves only)",
+                stage=stage,
+            ).observe(sp.dur)
+
+    def _run_traced(self, q, qmask, kind: str, bucket: int | None) -> TopKResult:
+        """Per-stage spans: warp_select -> bucket_pick -> gather_score ->
+        reduce, fenced after each stage so a span's duration is its
+        stage's. The stages are ``_run``'s own calls (``score_from_probes``
+        then ``reduce_from_scored`` is ``finish_from_probes``), so the
+        result is bit-identical. Segmented plans run ``_run`` under one
+        ``engine`` span."""
+        tr, reg = _OBS.tracer, _OBS.metrics
+        cfg = self.config
+        staged = not self.segmented
+        t0 = time.perf_counter()
+        with tr.span(
+            "retrieve", kind=kind, layout=cfg.layout, n_shards=self.n_shards,
+            staged=staged,
+        ) as root:
+            if not staged:
+                with tr.span("engine"):
+                    out = self._run(q, qmask, bucket)
+                    self._fence()
+            else:
+                with tr.span(
+                    "warp_select", nprobe=cfg.nprobe, t_prime=cfg.t_prime,
+                    k_impute=cfg.k_impute,
+                ) as sp:
+                    sel = self._select(q, qmask)
+                    self._fence()
+                self._obs_stage(reg, "warp_select", sp)
+                if bucket is None and self.adaptive:
+                    with tr.span("bucket_pick") as sp:
+                        bucket = self._pick(sel, qmask)
+                        sp.set(bucket=bucket)
+                    root.set(bucket=bucket)
+                run_cfg = self._cfg_at(bucket)
+                with tr.span(
+                    "gather_score", gather=run_cfg.gather,
+                    executor=run_cfg.executor, tile_c=run_cfg.tile_c,
+                    buffering=run_cfg.buffering,
+                    worklist_tiles=run_cfg.worklist_tiles,
+                ) as sp:
+                    scored = engine.score_from_probes(
+                        self.index, q, qmask, sel, run_cfg, dfilter=self.fctx
+                    )
+                    self._fence()
+                self._obs_stage(reg, "gather_score", sp)
+                with tr.span(
+                    "reduce", sort_n=int(scored[0].shape[-1]), k=run_cfg.k,
+                    impl=run_cfg.reduce_impl,
+                ) as sp:
+                    out = engine.reduce_from_scored(
+                        self.index, scored, sel.mse, run_cfg, dfilter=self.fctx
+                    )
+                    self._fence()
+                self._obs_stage(reg, "reduce", sp)
+        if reg is not None:
+            self._obs_retrieve(reg, kind, time.perf_counter() - t0)
+        return out
 
     def retrieve_batch_at(self, q, qmask=None, *, bucket: int) -> TopKResult:
         """Query batch at a forced ladder rung (adaptive plans only). Any
@@ -137,7 +317,7 @@ class SearchPlan:
                 f"{self.config.worklist_buckets}"
             )
         q, qmask = self._inputs(q, qmask, 2)
-        return self._run(q, qmask, bucket=bucket)
+        return self._dispatch(q, qmask, "batch_at", bucket)
 
     def adaptive_bucket(self, q, qmask=None) -> int | None:
         """The rung the adaptive dispatcher would run this single query
@@ -171,13 +351,20 @@ class SearchPlan:
             needed = wl.needed_worklist_tiles(tiles, amortized=self.config.memory == "full")
         return wl.pick_bucket(self.config.worklist_buckets, needed)
 
+    def _cfg_at(self, bucket: int | None) -> WarpSearchConfig:
+        """The run config at a ladder rung (the plan's on non-adaptive
+        plans)."""
+        if not self.adaptive:
+            return self.config
+        return dataclasses.replace(
+            self.config, worklist_tiles=bucket, worklist_buckets=None
+        )
+
     def _run(self, q, qmask, bucket: int | None = None) -> TopKResult:
-        cfg = self.config
         sel = self._select(q, qmask)
-        if self.adaptive:
-            if bucket is None:
-                bucket = self._pick(sel, qmask)
-            cfg = dataclasses.replace(cfg, worklist_tiles=bucket, worklist_buckets=None)
+        if self.adaptive and bucket is None:
+            bucket = self._pick(sel, qmask)
+        cfg = self._cfg_at(bucket)
         if self.segmented:
             return _segments_module().finish_from_probes(
                 self.index, q, qmask, sel, cfg, self.fctx
@@ -187,8 +374,8 @@ class SearchPlan:
     # ---- snapshot ----
     def describe(self) -> dict:
         """Every resolved pipeline choice (JSON-serializable), with the
-        same keys as the JAX plan's snapshot apart from its ``k_ladder``
-        (the k-ladder is not ported)."""
+        same keys as the JAX plan's snapshot; ``k_ladder`` names the
+        ``K_LADDER`` rung of the plan's k."""
         d = self._describe_core()
         d["fingerprint"] = self.fingerprint()
         return d
@@ -229,6 +416,7 @@ class SearchPlan:
             "nprobe": cfg.nprobe,
             "t_prime": cfg.t_prime,
             "k": cfg.k,
+            "k_ladder": ladder_rung(cfg.k)[0],
             "k_impute": cfg.k_impute,
             "n_shards": self.n_shards,
             "backend": self.backend,
@@ -335,6 +523,18 @@ class Retriever:
         self._plans[(config, digest)] = plan
         self._plans[(resolved, digest)] = plan
         return plan
+
+    def plan_for_k(
+        self, k: int, config: WarpSearchConfig | None = None, *, dfilter=None
+    ) -> SearchPlan:
+        """Plan with the k-ladder's defaults for result depth ``k``
+        (``laddered_config``: explicit ``config`` settings still win); the
+        rung shows as ``k_ladder`` in ``describe()``."""
+        cfg = laddered_config(
+            k, config, n_tokens=self.index.n_tokens,
+            n_centroids=self.index.n_centroids,
+        )
+        return self.plan(cfg, dfilter=dfilter)
 
     def _resolve_filter(self, dfilter):
         """A ``FilterView`` (single index) or ``resolve_segmented``'s

@@ -12,6 +12,13 @@ take all of those.
 
 Tile resolution keeps the JAX package's "config" and "heuristic" sources
 (the autotune table is not ported), so resolved configs agree.
+
+Every scoring wrapper consults the ``engine.kernel_call`` fault injection
+point (``repro_torch.fault``) at its entry, on both executors and every
+call: the JAX package consults it at trace time, once per compilation,
+and only on its kernel path; the port compiles nothing, and firing on the
+CPU's plain path lets the CPU tests drive the failure. A firing point
+raises to the caller: there is no fallback.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.fault import FAULTS as _FAULTS
 from repro_torch.kernels import ref
 from repro_torch.kernels.decompress_score import selective_sum as _selective_sum_kernel
 from repro_torch.kernels.embedding_bag import embedding_bag as _embedding_bag_kernel
@@ -105,6 +113,13 @@ def resolve_tile_choice(
     return chosen
 
 
+def _fault_kernel_call(op: str) -> None:
+    """The ``engine.kernel_call`` injection point; disabled cost: one
+    attribute check."""
+    if _FAULTS.plan is not None:
+        _FAULTS.plan.check("engine.kernel_call", op=op)
+
+
 def resolve_tile_c(cap: int, tile_c: int | None = None, *, layout: str = "dense") -> int:
     return resolve_tile_choice(cap, tile_c, layout=layout).tile_c
 
@@ -120,6 +135,7 @@ def selective_sum(
 ) -> torch.Tensor:
     """packed u8[Q, N, PB], v f32[Q, D, 2^b] -> f32[Q, N].
     impl (plain path only): "gather" (per dim) | "lut" (byte LUT)."""
+    _fault_kernel_call("selective_sum")
     _check_packable_dim(dim, nbits, byte_wise=use_kernel or impl == "lut")
     if use_kernel:
         return _selective_sum_kernel(packed, v, nbits=nbits, dim=dim)
@@ -143,6 +159,7 @@ def fused_gather_selective_sum(
 ) -> torch.Tensor:
     """CSR probe + implicit decompression + scoring in one pass:
     probe_cids [Q, P] -> cand_scores f32[Q, P, cap] (invalid slots 0)."""
+    _fault_kernel_call("fused_gather_score")
     _check_packable_dim(dim, nbits, byte_wise=use_kernel)
     starts = cluster_offsets[probe_cids].to(torch.int32).contiguous()
     sizes = cluster_sizes[probe_cids].to(torch.int32).contiguous()
@@ -168,6 +185,7 @@ def ragged_selective_sum(
 ) -> torch.Tensor:
     """Plain selective sum over a flat worklist-ordered stream:
     packed u8[N, PB], qtok [N] -> f32[N]."""
+    _fault_kernel_call("ragged_selective_sum")
     _check_packable_dim(dim, nbits, byte_wise=impl == "lut")
     if impl == "lut":
         return ref.ragged_selective_sum_lut(packed, qtok, v, nbits=nbits, dim=dim)
@@ -190,6 +208,7 @@ def ragged_fused_gather_selective_sum(
     """Worklist probe + implicit decompression + scoring in one pass:
     row0/nvalid/qtok [W], pscore [W] -> flat f32[W * tile_c] (invalid
     slots 0)."""
+    _fault_kernel_call("ragged_fused_gather_score")
     _check_packable_dim(dim, nbits, byte_wise=use_kernel)
     validate_tile_c(tile_c)
     args = (
@@ -226,6 +245,7 @@ def segmented_ragged_fused_gather_selective_sum(
     takes every segment in one launch, whatever their sizes (the JAX op
     replays its kernel once per segment and sends segments smaller than a
     tile to its reference)."""
+    _fault_kernel_call("segmented_ragged_fused_gather_score")
     _check_packable_dim(dim, nbits, byte_wise=use_kernel)
     validate_tile_c(tile_c)
     args = (

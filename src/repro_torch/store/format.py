@@ -11,6 +11,12 @@ Single-index stores are read and written; a store with delta segments
 loads as a ``SegmentedWarpIndex``. Sharded stores raise a directed error
 naming their ROADMAP item. ``compact``'s lock file and crash recovery
 (``recover_interrupted_compact``) are JAX's, step for step.
+
+The fault injection points (``repro_torch.fault``: ``store.array_read``,
+``store.manifest_parse``, ``store.segment_load``) and the
+``store_save_seconds`` / ``store_load_seconds`` histograms
+(``repro_torch.obs``) sit where the JAX package has them; an injected
+fault surfaces as ``StoreCorruption``.
 """
 
 from __future__ import annotations
@@ -19,12 +25,14 @@ import dataclasses
 import json
 import os
 import shutil
+import time
 import warnings
 from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch import fault, obs
 from repro_torch.core.types import (
     ARRAY_FIELDS,
     STATIC_FIELDS,
@@ -143,6 +151,7 @@ def save_index(
     files are those ``repro.store.save_index`` writes for the same arrays.
     ``build_config`` (an ``IndexBuildConfig`` or dict) goes into the
     manifest."""
+    t0 = time.perf_counter()
     if hasattr(index, "n_shards"):
         raise NotImplementedError(
             f"saving a sharded index is not yet ported to repro_torch ({_SHARDED_TODO})"
@@ -164,6 +173,7 @@ def save_index(
         "arrays": arrays,
         "build_config": _config_dict(build_config),
     })
+    obs.observe("store_save_seconds", time.perf_counter() - t0)
     return path
 
 
@@ -238,11 +248,12 @@ def read_manifest(path: str) -> dict:
     broken"). A v1 manifest loads with a warning: it has no checksums.
     """
     try:
+        fault.check("store.manifest_parse", path=path)
         with open(os.path.join(path, MANIFEST)) as f:
             manifest = json.load(f)
     except FileNotFoundError:
         raise
-    except (OSError, json.JSONDecodeError) as e:
+    except (OSError, json.JSONDecodeError, fault.InjectedFault) as e:
         raise StoreCorruption(f"{path}: unreadable manifest ({e})") from e
     if manifest.get("format") != FORMAT_NAME:
         raise ValueError(f"{path}: not a {FORMAT_NAME} directory")
@@ -269,13 +280,17 @@ def _load_entry(base_dir: str, entry: dict) -> np.ndarray:
     shape = tuple(int(s) for s in entry["shape"])
     if 0 in shape:
         return np.empty(shape, dtype)
-    verify_head(base_dir, entry)
     try:
+        if fault.FAULTS.plan is not None:
+            fault.FAULTS.plan.check("store.array_read", file=path)
+        verify_head(base_dir, entry)
         return np.memmap(
             path, dtype=dtype, mode="c", offset=int(entry.get("offset", 0)),
             shape=shape,
         )
-    except (OSError, ValueError) as e:
+    except StoreCorruption:
+        raise
+    except (OSError, ValueError, fault.InjectedFault) as e:
         raise StoreCorruption(f"{path}: unreadable ({e})") from e
 
 
@@ -302,6 +317,7 @@ def load_index(
     always raises ``StoreCorruption``. A crash inside ``compact``'s
     directory swap is repaired first."""
     device = resolve_device(device)
+    t0 = time.perf_counter()
     recover_interrupted_compact(path)
     manifest = read_manifest(path)
     kind = manifest["kind"]
@@ -322,12 +338,16 @@ def load_index(
     if with_segments and seg_dirs:
         from repro_torch.store.segments import load_segmented  # segments imports us
 
-        return load_segmented(base, seg_dirs, quarantine=quarantine_segments)
+        out = load_segmented(base, seg_dirs, quarantine=quarantine_segments)
+        obs.observe("store_load_seconds", time.perf_counter() - t0)
+        return out
+    obs.observe("store_load_seconds", time.perf_counter() - t0)
     return base
 
 
 def load_segment_arrays(seg_dir: str) -> tuple[dict, dict]:
     """(manifest, host arrays) of one delta-segment directory."""
+    fault.check("store.segment_load", dir=seg_dir)
     manifest = read_manifest(seg_dir)
     if manifest["kind"] != KIND_SEGMENT:
         raise ValueError(f"{seg_dir}: not a delta segment")

@@ -21,9 +21,14 @@ sizes (one t' crossing, one m_i), then stages 2+3 in the plan's layout:
 
 Deletes are tombstones (``tombstones.json``) until ``compact`` folds the
 deltas into a fresh base without the deleted rows; the directory swap
-and its lock are JAX's, step for step. The JAX package's fault hooks and
-metrics (``repro.fault``, ``repro.obs``) are not ported. The segmented
-paths are single-device.
+and its lock are JAX's, step for step. The fault injection points
+(``store.segment_load`` through the loader, the five ``store.compact_step``
+checkpoints) and the store metrics (``store_add_documents_seconds``,
+``store_segments_quarantined_total``, the ``store_delta_*`` gauges,
+``store_documents_deleted_total``, ``store_tombstones``,
+``store_lock_takeovers_total``, ``store_compact_seconds`` under a
+``store_compact`` span) are JAX's, at the same places. The segmented paths
+are single-device.
 """
 
 from __future__ import annotations
@@ -32,11 +37,13 @@ import dataclasses
 import json
 import os
 import shutil
+import time
 import warnings
 
 import numpy as np
 import torch
 
+from repro_torch import fault, obs
 from repro_torch.core import engine, kmeans, quantization
 from repro_torch.core.docfilter import cluster_survivor_counts
 from repro_torch.core.reduction import TopKResult, two_stage_reduce
@@ -243,6 +250,7 @@ def add_documents(path: str, embeddings, token_doc_ids, n_docs: int, *, device=N
     ids are assigned by position at load time. The files are those
     ``repro.store.add_documents`` writes for the same codes."""
     device = resolve_device(device)
+    t0 = time.perf_counter()
     manifest = store_format.read_manifest(path)
     if manifest["kind"] != store_format.KIND_SINGLE:
         raise NotImplementedError(
@@ -279,6 +287,8 @@ def add_documents(path: str, embeddings, token_doc_ids, n_docs: int, *, device=N
         },
         "arrays": arrays,
     })
+    obs.observe("store_add_documents_seconds", time.perf_counter() - t0)
+    obs.count("store_documents_added_total", n_docs)
     return seg_dir
 
 
@@ -298,11 +308,12 @@ def load_segmented(base: WarpIndex, seg_dirs: list[str], *, quarantine: bool = F
     for seg_dir in seg_dirs:
         try:
             manifest, arrays = store_format.load_segment_arrays(seg_dir)
-        except StoreCorruption as e:
+        except (StoreCorruption, fault.InjectedFault) as e:
             if not quarantine:
                 raise
             quarantined.append(os.path.basename(seg_dir))
             warnings.warn(f"quarantined corrupt delta segment {seg_dir}: {e}", stacklevel=2)
+            obs.count("store_segments_quarantined_total")
             try:  # keep later segments' global doc ids stable if we can
                 total += int(store_format.read_manifest(seg_dir)["static"]["n_docs"])
             except Exception:
@@ -341,13 +352,17 @@ def delta_stats(path: str) -> dict:
         delta_tokens += int(seg_static["n_tokens"])
         delta_docs += int(seg_static["n_docs"])
     total = base_tokens + delta_tokens
+    frac = (delta_tokens / total) if total else 0.0
+    obs.gauge("store_delta_segments", len(seg_dirs))
+    obs.gauge("store_delta_tokens", delta_tokens)
+    obs.gauge("store_delta_token_frac", frac)
     return {
         "n_delta_segments": len(seg_dirs),
         "base_tokens": base_tokens,
         "delta_tokens": delta_tokens,
         "base_docs": base_docs,
         "delta_docs": delta_docs,
-        "delta_token_frac": (delta_tokens / total) if total else 0.0,
+        "delta_token_frac": frac,
     }
 
 
@@ -373,7 +388,8 @@ def delete_documents(path: str, doc_ids) -> tuple[int, ...]:
     rename); returns the merged, sorted tombstone set. ``compact`` drops
     the rows; their ids are never reused."""
     store_format.read_manifest(path)  # raises on a non-store path
-    merged = set(read_tombstones(path)) | {int(i) for i in doc_ids}
+    existing = set(read_tombstones(path))
+    merged = existing | {int(i) for i in doc_ids}
     out = tuple(sorted(merged))
     tmp = os.path.join(path, TOMBSTONES_FILE + ".tmp")
     with open(tmp, "w") as f:
@@ -381,6 +397,8 @@ def delete_documents(path: str, doc_ids) -> tuple[int, ...]:
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, os.path.join(path, TOMBSTONES_FILE))
+    obs.count("store_documents_deleted_total", len(merged) - len(existing))
+    obs.gauge("store_tombstones", len(out))
     return out
 
 
@@ -558,11 +576,16 @@ def compact(path: str) -> str:
                 f"another compact() is already running on {path} (lockfile {lock})"
             ) from None
         os.remove(lock)  # stale: a crashed writer's; take over
+        obs.count("store_lock_takeovers_total")
         fd = os.open(lock, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
     with os.fdopen(fd, "w") as f:
         f.write(str(os.getpid()))
     try:
-        return _compact_locked(path)
+        t0 = time.perf_counter()
+        with obs.span("store_compact", store=path):
+            out = _compact_locked(path)
+        obs.observe("store_compact_seconds", time.perf_counter() - t0)
+        return out
     finally:
         if os.path.exists(lock):
             os.remove(lock)
@@ -581,6 +604,9 @@ def _compact_locked(path: str) -> str:
             return path  # no deltas, no tombstones: already compact
         # Tombstones alone still force a rewrite (that is what clears them).
         seg = SegmentedWarpIndex(base=seg, deltas=(), doc_starts=(0,))
+    # Each checkpoint marks a distinct on-disk state of the swap protocol,
+    # in order; the kill-point tests interrupt at each.
+    fault.check("store.compact_step", step="load", store=path)
 
     base = seg.base
     c = base.n_centroids
@@ -652,6 +678,7 @@ def _compact_locked(path: str) -> str:
     packed.flush()
     doc_ids.flush()
     del packed, doc_ids, host, seg
+    fault.check("store.compact_step", step="arrays", store=path)
 
     small = dict(
         centroids=base.centroids.numpy(), cluster_offsets=offsets,
@@ -663,11 +690,14 @@ def _compact_locked(path: str) -> str:
         n_tokens=n_tokens,
     )
     _finalize_store(tmp, small, static, manifest.get("build_config"))
+    fault.check("store.compact_step", step="finalized", store=path)
     del base, small
     # A stale .compact-old can only be left by a crash after a completed
     # swap (path intact): clear it so the rename below works.
     shutil.rmtree(old, ignore_errors=True)
     os.rename(path, old)
+    fault.check("store.compact_step", step="old_aside", store=path)
     os.rename(tmp, path)
+    fault.check("store.compact_step", step="promoted", store=path)
     shutil.rmtree(old)
     return path

@@ -3,10 +3,12 @@ no JAX and no ``repro`` import anywhere in ``src/repro_torch`` (the
 retrieval slice, the LM slice: models, configs, generation, the flash
 kernel, the recsys slice: models, configs, the embedding-bag kernel, and
 the index build: k-means, the builder, the baselines, the warp-xtr
-configs, the CLI, and segmented indexes: doc filters, delta segments) or
-``chip_smoke.py``; entry points refuse to fall back
-to the CPU; the kernel executor refuses a CPU index and CPU recsys
-weights."""
+configs, the CLI, segmented indexes: doc filters, delta segments, and the
+serving surface: ``obs``, ``fault``, the server's cache, admission,
+scheduler and batcher, the serve launcher) or ``chip_smoke.py``; entry
+points refuse to fall back to the CPU (the server, its reloads and tenants
+on the server's device, the serve launcher); the kernel executor refuses a
+CPU index and CPU recsys weights."""
 
 import ast
 import os
@@ -27,6 +29,7 @@ from repro_torch.core import (
     xtr_reference,
 )
 from repro_torch.launch import build_index as build_index_cli
+from repro_torch.launch import serve as serve_cli
 from repro_torch.serving import RetrievalServer
 from repro_torch.store import add_documents, array_chunks, build_index_to_store, load_index
 
@@ -79,6 +82,16 @@ def test_port_imports_neither_jax_nor_repro():
         "src/repro_torch/launch/build_index.py",
         "src/repro_torch/core/docfilter.py",
         "src/repro_torch/store/segments.py",
+        "src/repro_torch/obs/__init__.py",
+        "src/repro_torch/obs/metrics.py",
+        "src/repro_torch/obs/trace.py",
+        "src/repro_torch/fault/__init__.py",
+        "src/repro_torch/fault/plan.py",
+        "src/repro_torch/serving/cache.py",
+        "src/repro_torch/serving/admission.py",
+        "src/repro_torch/serving/scheduler.py",
+        "src/repro_torch/serving/batcher.py",
+        "src/repro_torch/launch/serve.py",
     } <= names
     bad = [
         f"{os.path.relpath(f, ROOT)}: import {m}"
@@ -100,7 +113,9 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.core.kmeans, repro_torch.core.index, repro_torch.core.baselines, "
         "repro_torch.store.builder, repro_torch.configs.warp_family, "
         "repro_torch.configs.warp_xtr, repro_torch.launch.build_index, "
-        "repro_torch.core.docfilter, repro_torch.store.segments; "
+        "repro_torch.core.docfilter, repro_torch.store.segments, "
+        "repro_torch.obs, repro_torch.fault, repro_torch.serving.cache, "
+        "repro_torch.serving.admission, repro_torch.launch.serve; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad; "
         "from repro_torch.kernels import _build; "
@@ -146,6 +161,24 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
                 ["smoke", "--index", FIXTURE]):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_index_cli.main(cmd)
+    for cmd in ([], ["--traffic", "poisson", "--tenants", "2", "--trace-out", str(tmp_path / "t")]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve_cli.main(cmd)
+
+
+def test_server_tenants_and_reloads_follow_the_server_device(no_cuda, tmp_path):
+    """The server's device defaults to the card (raising without it);
+    ``add_tenant`` and ``reload`` of a store path load onto the server's
+    device, and never onto another on their own."""
+    idx = load_index(FIXTURE, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RetrievalServer(idx, WarpSearchConfig(nprobe=8, k=10))
+    srv = RetrievalServer(idx, WarpSearchConfig(nprobe=8, k=10), device="cpu")
+    assert srv.device.type == "cpu"
+    srv.add_tenant("t", FIXTURE)
+    srv.reload(FIXTURE)
+    assert srv.retriever.device.type == "cpu" and srv._state("t").retriever.device.type == "cpu"
+    assert srv.summary()["device"] == "cpu"
 
 
 def test_kernel_executor_on_a_cpu_index_raises_at_plan_time():

@@ -90,7 +90,6 @@ def test_slice_matches_jax(tier, layout, gather, memory):
     jd, td = jplan.describe(), plan.describe()
     for d in (jd, td):
         d.pop("fingerprint")
-    jd.pop("k_ladder")  # the k-ladder is not ported
     assert td == jd
 
     ids, scores = tier["want"][layout]
