@@ -44,6 +44,23 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      one ``maintain()``; 32 traced requests checked span by span; retrieve
      p50 with obs off, metrics and tracing; one run of
      ``repro_torch.launch.serve`` (see ``phase_serving``);
+  6b. document-sharded search (``sharded``, after ``serving``): the
+     index cut into 4 contiguous token-balanced document shards that keep
+     its centroids and codec (``shard_index``), stacked on the card; 128
+     queries single and batched at the four configs x both executors
+     through ``Retriever.from_index(sharded).plan``, doc ids equal to the
+     single index's (shared centroids make them so) up to reported tie
+     swaps, exactly one scoring launch per shard per retrieve, p50 / p95
+     beside the single index's; the sharded store saved, verified and
+     reloaded bit for bit; a ``RetrievalServer`` over that store (a burst
+     of 256, 256 Poisson arrivals, a 50% allowlist, a 1% delete), every
+     reply equal to ``plan.retrieve``; ``launch.serve --n-shards 4``
+     (see ``phase_sharded``); then ``encode``: the XTR token encoder at
+     ``EncoderConfig`` defaults (12 layers, d 768) with random float32
+     weights from ``--seed`` on 128 queries of 8-32 tokens at batch 1 and
+     32 (unit rows, padding rows 0), the encoded queries retrieved over
+     the sharded and the single index (ids equal up to ties), the encode
+     p50 beside the retrieve p50 (see ``phase_encode``);
   7. the index build (``build``): a corpus at Lifestyle's mean document
      length (1,320 docs, ~262,000 tokens, D 128, zipf_like's topic skew)
      built on the card by ``build_index_to_store`` at
@@ -55,8 +72,11 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      launches counted), WARP at the kernel executor held to
      ``plaid_style_search`` (implicit = explicit decompression), and
      nRecall@100 / success@5 of WARP, XTR and PLAID against exact MaxSim;
-     then one assignment chunk of 4,096 tokens timed against Lifestyle's
-     2^17 centroids, with the full build's assignment time it implies;
+     then ``Retriever.build(n_shards=4)`` of the same corpus (kernel =
+     reference executor, one launch per shard per retrieve, its
+     nRecall@100 beside the single build's); then one assignment chunk of
+     4,096 tokens timed against Lifestyle's 2^17 centroids, with the full
+     build's assignment time it implies;
   8. LM generation (``lm``) at qwen2-0.5b full width and depth
      (``repro_torch/configs/qwen2_0_5b.py``: 24 layers, d 896, 14 heads,
      2 kv heads, head_dim 64, vocab 151,936; random bf16 weights from
@@ -261,6 +281,26 @@ SERVE_FILTER_FRAC = 0.25
 SERVE_DELETE_FRAC = 0.01
 SERVE_TRACED = 32
 SERVE_OBS_QUERIES = 128
+
+# Sharded phase: the Lifestyle index cut into SHARDS document shards that
+# keep its centroids and codec (``shard_index``); SHARD_QUERIES queries
+# single and SHARD_BATCHES batches of 4 per plan; a server over the
+# sharded store: a burst of SHARD_SERVE_REQUESTS, as many Poisson
+# arrivals at half its rate, SHARD_FILTERED requests under a 50% allowlist
+# and SHARD_FILTERED after deleting SHARD_DELETE_FRAC of the docs.
+SHARDS = 4
+SHARD_QUERIES = 128
+SHARD_BATCHES = 4
+SHARD_SERVE_REQUESTS = 256
+SHARD_FILTERED = 32
+SHARD_ALLOW_FRAC = 0.5
+SHARD_DELETE_FRAC = 0.01
+# Encode step: the token encoder at EncoderConfig defaults, float32;
+# batch 1 and batch 32 must agree within ENCODE_TOL (float32 products of
+# other shapes).
+ENCODE_QUERIES = 128
+ENCODE_BATCHES = (1, 32)
+ENCODE_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -1108,6 +1148,20 @@ def percentiles_ms(seconds) -> dict:
     return {f"p{q}": float(np.percentile(s, q)) for q in (50, 95, 99)}
 
 
+def run_timed(torch, plan, q, m):
+    """One ``plan.retrieve`` per query, each timed on the host clock
+    between two synchronizes -> ([(ids, scores)], seconds)."""
+    out, times = [], []
+    for i in range(q.shape[0]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = plan.retrieve(q[i], m[i])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        out.append((res.doc_ids.cpu().numpy(), res.scores.cpu().numpy()))
+    return out, times
+
+
 def phase_retrieve(torch, retriever, queries, qmask, batch: int, kernel_err: float):
     """Every config at both executors over all ``queries``, one retrieve
     each (after one untimed warm-up), plus one ``retrieve_batch`` of the
@@ -1130,14 +1184,7 @@ def phase_retrieve(torch, retriever, queries, qmask, batch: int, kernel_err: flo
             ))
             before = dict(LAUNCHES)
             plan.retrieve(queries[0], qmask[0])
-            single, times = [], []
-            for i in range(n):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = plan.retrieve(queries[i], qmask[i])
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-                single.append((res.doc_ids.cpu().numpy(), res.scores.cpu().numpy()))
+            single, times = run_timed(torch, plan, queries, qmask)
             bres = plan.retrieve_batch(queries[:batch], qmask[:batch])
             bids, bsc = bres.doc_ids.cpu().numpy(), bres.scores.cpu().numpy()
             for i in range(batch):
@@ -1181,12 +1228,17 @@ def phase_retrieve(torch, retriever, queries, qmask, batch: int, kernel_err: flo
     return counts, lat
 
 
-def phase_serve(torch, retriever, n_requests: int, seed: int, kernel_err: float):
+def phase_serve(
+    torch, retriever, n_requests: int, seed: int, kernel_err: float, *, index=None,
+    store_path=None, tag="serve",
+):
     """``RetrievalServer`` over the (fused, ragged) plan: a burst of
     ``n_requests`` drained at once (throughput), then ``n_requests``
     Poisson arrivals at half that rate, driven open loop (latency from
     each request's scheduled arrival to the loop seeing its reply).
-    Every reply is held against ``plan.retrieve``."""
+    Every reply is held against ``plan.retrieve``. Queries are made from
+    ``index`` (default the retriever's); ``store_path`` backs the server's
+    deletes. Returns the server and its queries (host arrays)."""
     from repro_torch.core import WarpSearchConfig
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serving import PENDING, BatchPolicy, RetrievalServer
@@ -1196,8 +1248,8 @@ def phase_serve(torch, retriever, n_requests: int, seed: int, kernel_err: float)
         gather="fused", layout="ragged", executor="kernel",
     )
     policy = BatchPolicy(max_batch=8, max_wait_s=0.002)
-    server = RetrievalServer(retriever, cfg, policy)
-    q, qmask = make_queries(torch, retriever.index, 2 * n_requests, seed, lo=4, hi=32)
+    server = RetrievalServer(retriever, cfg, policy, store_path=store_path)
+    q, qmask = make_queries(torch, retriever.index if index is None else index, 2 * n_requests, seed, lo=4, hi=32)
     qh, mh = q.cpu().numpy(), qmask.cpu().numpy()
     for rung in server.config.worklist_buckets:
         server.plan.retrieve_batch_at(qh[:8], mh[:8], bucket=rung)
@@ -1237,30 +1289,31 @@ def phase_serve(torch, retriever, n_requests: int, seed: int, kernel_err: float)
     paced_s = time.perf_counter() - t0
     launched = LAUNCHES["ragged_fused_gather_score"]
     if launched <= 0:
-        fail("serve: the ragged kernel was never launched")
+        fail(f"{tag}: the ragged kernel was never launched")
 
     swaps = 0
     for i, (scores, ids) in sorted(replies.items()):
         want = server.plan.retrieve(qh[i], mh[i])
         swaps += topk_swaps(
-            f"serve reply {i} vs plan.retrieve", ids, scores,
+            f"{tag} reply {i} vs plan.retrieve", ids, scores,
             want.doc_ids.cpu().numpy(), want.scores.cpu().numpy(), kernel_err,
         )
     paced = percentiles_ms(lat)
     log(
-        f"[serve] burst: {n_requests} requests drained in {burst_s * 1e3:.3f} ms = "
+        f"[{tag}] burst: {n_requests} requests drained in {burst_s * 1e3:.3f} ms = "
         f"{capacity:.3f} requests/s ({burst['batches']} batches)"
     )
     log(
-        f"[serve] paced: {n_requests} Poisson arrivals at {rate:.3f}/s over "
+        f"[{tag}] paced: {n_requests} Poisson arrivals at {rate:.3f}/s over "
         f"{paced_s * 1e3:.3f} ms = {n_requests / paced_s:.3f} requests/s served; "
         f"arrival-to-reply latency (ms) {json.dumps(paced)}"
     )
     log(
-        f"[serve] {2 * n_requests} replies equal plan.retrieve ({swaps} places swapped "
+        f"[{tag}] {2 * n_requests} replies equal plan.retrieve ({swaps} places swapped "
         f"within a tie); ragged kernel launches {launched}; summary "
         f"{json.dumps(server.summary())}"
     )
+    return server, qh, mh
 
 
 def delta_embeddings(torch, index, n_docs: int, doc_len: int, g):
@@ -1309,17 +1362,6 @@ def phase_segments(
             nprobe=ARCH["nprobe"], k=k, k_impute=ARCH["k_impute"],
             gather=gather, layout=layout, executor=executor,
         )
-
-    def run_plan(plan, q, m):
-        out, times = [], []
-        for i in range(q.shape[0]):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = plan.retrieve(q[i], m[i])
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            out.append((res.doc_ids.cpu().numpy(), res.scores.cpu().numpy()))
-        return out, times
 
     smi = card()
     swaps = 0
@@ -1371,7 +1413,7 @@ def phase_segments(
                 if main:
                     reset_launches()
                 before = dict(LAUNCHES)
-                res, times = run_plan(plan, q, qmask)
+                res, times = run_timed(torch, plan, q, qmask)
                 used = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
                 if main:
                     launched = LAUNCHES["segmented_ragged_fused_gather_score"]
@@ -1420,11 +1462,11 @@ def phase_segments(
         for name, dfilter in views.items():
             keep = dfilter.survivor_mask
             for gather, layout in (("fused", "ragged"), ("fused", "dense")):
-                got, _ = run_plan(r.plan(cfg(gather, layout), dfilter=dfilter), q, qmask)
+                got, _ = run_timed(torch, r.plan(cfg(gather, layout), dfilter=dfilter), q, qmask)
                 # k' doubles until every query's unfiltered top-k' holds k survivors.
                 k_wide = 2 * ARCH["k"]
                 while True:
-                    wide, _ = run_plan(r.plan(cfg(gather, layout, k=k_wide)), q, qmask)
+                    wide, _ = run_timed(torch, r.plan(cfg(gather, layout, k=k_wide)), q, qmask)
                     if min(int(survivors(w[0], keep).sum()) for w in wide) >= ARCH["k"]:
                         break
                     if k_wide >= ARCH["nprobe"] * r.index.cap:
@@ -1464,7 +1506,7 @@ def phase_segments(
         if single.is_segmented or single.n_docs != n:
             fail("segments: the compacted store is not one index of the same doc-id bound")
         for gather, layout in (("fused", "ragged"), ("fused", "dense")):
-            got, _ = run_plan(single.plan(cfg(gather, layout)), q, qmask)
+            got, _ = run_timed(torch, single.plan(cfg(gather, layout)), q, qmask)
             for i in range(SEG_QUERIES):
                 swaps += topk_swaps(
                     f"segments compacted vs segmented {gather}/{layout}, query {i}",
@@ -1500,7 +1542,7 @@ def phase_segments(
         del folded, rows, cluster_of
         same, overlap, max_diff = 0, 0.0, 0.0
         for gather, layout in (("fused", "ragged"), ("fused", "dense")):
-            got, _ = run_plan(dropped.plan(cfg(gather, layout)), q, qmask)
+            got, _ = run_timed(torch, dropped.plan(cfg(gather, layout)), q, qmask)
             want = filtered[("tombstones", gather, layout)]
             for i in range(SEG_QUERIES):
                 ids = got[i][0]
@@ -1907,7 +1949,284 @@ def phase_serving(torch, index, dev, seed: int, kernel_err: float, store: str) -
         fault.uninstall()
 
 
-def phase_profile(torch, retriever, queries, qmask, n: int = 5):
+def phase_sharded(
+    torch, index, dev, seed: int, kernel_err: float, store: str, profile: bool = False
+) -> dict:
+    """Document-sharded search at full Lifestyle width: the index cut by
+    ``shard_index`` into SHARDS contiguous token-balanced document ranges
+    that keep its centroids and codec (each shard its own CSR), stacked on
+    the card. With shared centroids the sharded plan must return what the
+    single index returns (each shard probes the same clusters, the merged
+    cumulative sizes cross t' at the same centroid score, a document's
+    tokens all live in one shard): SHARD_QUERIES queries single and
+    batched at the four configs x both executors, doc ids identical up to
+    reported tie swaps, scores within TOL, exactly one scoring launch per
+    shard per retrieve at the kernel executor. Then the store round trip
+    (``save_index``, ``verify_store``, ``Retriever.from_store``: bit for
+    bit), a ``RetrievalServer`` over that store (a burst, Poisson arrivals,
+    a 50% allowlist, a 1% delete; every reply equal to ``plan.retrieve``)
+    and ``launch.serve --n-shards SHARDS``; with ``profile``, where a
+    sharded retrieve's time goes (``phase_profile``). Returns the scoring
+    kernels' launches of the retrieve loop (counts set to 0 just before
+    it) and the plans' latency percentiles."""
+    from repro_torch.core import DocFilter, Retriever, WarpSearchConfig, shard_index
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.store import save_index, verify_store
+
+    def cfg(gather, layout, executor="kernel"):
+        return WarpSearchConfig(
+            nprobe=ARCH["nprobe"], k=ARCH["k"], k_impute=ARCH["k_impute"],
+            gather=gather, layout=layout, executor=executor,
+        )
+
+    smi = card()
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sidx = shard_index(index, SHARDS)
+    torch.cuda.synchronize()
+    tokens = sidx.cluster_sizes.sum(dim=1).tolist()
+    log(f"[sharded] shard_index into {SHARDS} shards in {(time.perf_counter() - t0) * 1e3:.3f} ms: "
+        f"doc_start {sidx.doc_start.tolist()}, tokens {tokens} (padded to {sidx.n_tokens_padded}), "
+        f"local_docs {sidx.local_docs}, cap {sidx.cap}, {sidx.nbytes() / 1e9:.3f} GB on the card; {smi}")
+    if sum(tokens) != index.n_tokens or max(tokens) - min(tokens) > 0.01 * index.n_tokens:
+        fail(f"sharded: shards hold {tokens} tokens, not a token-balanced cut of {index.n_tokens}")
+    single, rs = Retriever.from_index(index, device=dev), Retriever.from_index(sidx, device=dev)
+    q, qmask = make_queries(torch, index, SHARD_QUERIES, seed)
+    qh, mh = q.cpu().numpy(), qmask.cpu().numpy()
+
+    results, lat, swaps = {}, {}, 0
+    plans = {}
+    for gather, layout in CONFIGS:
+        for executor in ("kernel", "reference"):
+            for which, r in (("sharded", rs), ("single", single)):
+                plan = r.plan(cfg(gather, layout, executor))
+                plan.warmup()
+                plan.retrieve(q[0], qmask[0])
+                plans[(which, gather, layout, executor)] = plan
+    reset_launches()  # the sharded main path starts here
+    used = {}
+    for gather, layout in CONFIGS:
+        for executor in ("kernel", "reference"):
+            key = (gather, layout, executor)
+            plan = plans[("sharded",) + key]
+            before = dict(LAUNCHES)
+            res, times = run_timed(torch, plan, q, qmask)
+            bres = [plan.retrieve_batch(qh[4 * b: 4 * b + 4], mh[4 * b: 4 * b + 4])
+                    for b in range(SHARD_BATCHES)]
+            used[key] = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            results[key], lat[key] = (res, bres), percentiles_ms(times)
+    counts = dict(LAUNCHES)  # read right after the sharded main path's run
+    for gather, layout in CONFIGS:
+        for executor in ("kernel", "reference"):
+            key = (gather, layout, executor)
+            name = "/".join(key)
+            res, bres = results[key]
+            want = (SHARD_QUERIES + SHARD_BATCHES) * SHARDS if executor == "kernel" else 0
+            kname = KERNEL_OF[(gather, layout)]
+            if used[key][kname] != want or sum(used[key].values()) != want:
+                fail(f"sharded {name}: launches {used[key]} over {SHARD_QUERIES} retrieves and "
+                     f"{SHARD_BATCHES} batches, expected {kname} once per shard per retrieve ({want})")
+            for b in range(SHARD_BATCHES):
+                for j in range(4):
+                    swaps += topk_swaps(
+                        f"sharded {name} retrieve_batch vs retrieve, query {4 * b + j}",
+                        bres[b].doc_ids[j].cpu().numpy(), bres[b].scores[j].cpu().numpy(),
+                        *res[4 * b + j], kernel_err,
+                    )
+            sres, stimes = run_timed(torch, plans[("single",) + key], q, qmask)
+            for i in range(SHARD_QUERIES):
+                swaps += topk_swaps(f"sharded {name} vs the single index, query {i}",
+                                    *res[i], *sres[i], kernel_err)
+            results[key] = res
+            lat[("single",) + key] = percentiles_ms(stimes)
+            d = plans[("sharded",) + key].describe()
+            log(f"[sharded] {name}: per-query latency (ms) {json.dumps(lat[key])} beside the single "
+                f"index's {json.dumps(lat[('single',) + key])}; launches {used[key]}; t' {d['t_prime']}, "
+                f"worklist {d['worklist_tiles']} {d['worklist_buckets']}; {smi}")
+    for gather, layout in CONFIGS:
+        for i in range(SHARD_QUERIES):
+            swaps += topk_swaps(
+                f"sharded {gather}/{layout} kernel vs reference, query {i}",
+                *results[(gather, layout, "kernel")][i], *results[(gather, layout, "reference")][i],
+                kernel_err,
+            )
+    if profile:
+        phase_profile(torch, rs, q, qmask, tag="sharded profile")
+    log(f"[sharded] {SHARDS} shards = the single index at 4 configs x 2 executors over "
+        f"{SHARD_QUERIES} queries (doc ids up to {swaps} places swapped within a tie, scores within "
+        f"{TOL}); one scoring launch per shard per retrieve; {smi}")
+
+    # Store round trip.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_index(sidx, store)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report = verify_store(store)
+    t_verify = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rl = Retriever.from_store(store, device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    if not rl.is_sharded or rl.n_shards != SHARDS:
+        fail(f"sharded: the store loaded as {type(rl.index).__name__}")
+    main_cfg = cfg("fused", "ragged")
+    loaded, _ = run_timed(torch, rl.plan(main_cfg), q, qmask)
+    for i in range(SHARD_QUERIES):
+        a, b = loaded[i], results[("fused", "ragged", "kernel")][i]
+        if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+            fail(f"sharded: the reloaded store's query {i} differs from the in-memory stack")
+    log(f"[sharded] save_index {t_save:.3f} s, verify_store {t_verify:.3f} s ({report['checked']} "
+        f"arrays, {report['dirs']} manifest dirs), Retriever.from_store {t_load:.3f} s; reloaded "
+        f"fused/ragged bit-identical on {SHARD_QUERIES} queries; {smi}")
+    del rl, plans
+
+    # Served from the store: a burst, Poisson arrivals, a filter, a delete.
+    server, sq, sm = phase_serve(
+        torch, Retriever.from_store(store, device=dev), SHARD_SERVE_REQUESTS, seed + 1,
+        kernel_err, index=index, store_path=store, tag="sharded serve",
+    )
+    replies = {}
+    rng = np.random.default_rng(seed)
+    nd = rs.n_docs
+    allow = DocFilter.allow(rng.choice(nd, int(SHARD_ALLOW_FRAC * nd), replace=False), nd)
+    rids = [server.submit(sq[i], sm[i], dfilter=allow) for i in range(SHARD_FILTERED)]
+    server.drain()
+    replies.update({("allow", i): server.poll(rid) for i, rid in enumerate(rids)})
+    deleted = rng.choice(nd, int(round(SHARD_DELETE_FRAC * nd)), replace=False)
+    server.delete_documents(deleted.tolist())
+    tomb = DocFilter.tombstones(deleted.tolist(), nd)
+    rids = [server.submit(sq[i], sm[i]) for i in range(SHARD_FILTERED)]
+    server.drain()
+    replies.update({("deleted", i): server.poll(rid) for i, rid in enumerate(rids)})
+    served = server.retriever
+    views = {"allow": allow, "deleted": tomb}
+    for (view, i), (scores, ids) in sorted(replies.items()):
+        dfilter = views[view]
+        if not dfilter.survivor_mask[ids[ids >= 0]].all():
+            fail(f"sharded serving: reply {i} ({view}) holds a filtered or deleted doc")
+        want = served.plan(main_cfg, dfilter=dfilter).retrieve(sq[i], sm[i])
+        swaps += topk_swaps(f"sharded serving reply {i} ({view}) vs plan.retrieve", ids, scores,
+                            want.doc_ids.cpu().numpy(), want.scores.cpu().numpy(), kernel_err)
+    log(f"[sharded] served from the store: {SHARD_FILTERED} under a 50% allowlist, "
+        f"{SHARD_FILTERED} after deleting {len(deleted)} docs: {len(replies)} replies equal "
+        f"plan.retrieve, none filtered or deleted; summary {json.dumps(server.summary())}; {smi}")
+    del server, served
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = serve_cli.main(["--n-shards", str(SHARDS), "--queries", "32", "--layout", "ragged",
+                             "--gather", "fused", "--executor", "kernel"])
+    if rc != 0:
+        fail(f"sharded: launch.serve --n-shards {SHARDS} exited {rc}")
+    log(f"[sharded] launch.serve --n-shards {SHARDS} on the card: exit 0 in "
+        f"{time.perf_counter() - t0:.3f} s")
+    out = dict(counts=counts, lat=lat, swaps=swaps, sidx=sidx, single=single, rs=rs)
+    log(f"[sharded] phase done in {time.perf_counter() - t_phase:.3f} s; {smi}")
+    return out
+
+
+def encode_tokens(torch, n: int, vocab: int, seed: int, dev, *, lo=8, hi=32, s=32):
+    """n queries of lo..hi random token ids, padded to s: (tokens i32[n, s],
+    mask bool[n, s]) on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, vocab, (n, s), generator=g, device=dev, dtype=torch.int32)
+    lens = torch.randint(lo, hi + 1, (n, 1), generator=g, device=dev)
+    mask = torch.arange(s, device=dev) < lens
+    return tokens * mask, mask
+
+
+def phase_encode(torch, dev, seed: int, kernel_err: float, sh: dict, profile: bool = False) -> None:
+    """The XTR token encoder at ``EncoderConfig`` defaults (12 layers, d
+    768, 12 heads, d_ff 2048, vocab 32,128, out 128) with random float32
+    weights from ``seed``: ENCODE_QUERIES queries of 8-32 token ids padded
+    to 32, encoded at batch 1 and batch 32 (p50 / p95 per batch); valid
+    rows unit-norm, padding rows exactly 0, the two batchings within
+    ENCODE_TOL. The encoded queries are then retrieved over the sharded and
+    the single index at (fused, ragged, kernel): doc ids identical up to
+    reported tie swaps; the encode p50 is printed beside the retrieve p50
+    at batch 1. With ``profile``, five batch-1 encodes under
+    ``torch.profiler``: device-busy share and launches per encode."""
+    from repro_torch.models import EncoderConfig, TokenEncoder, init_params
+
+    smi = card()
+    cfg = EncoderConfig()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = TokenEncoder.from_params(cfg, init_params(cfg, g, device=dev))
+    tokens, mask = encode_tokens(torch, ENCODE_QUERIES, cfg.vocab, seed + 1, dev)
+    outs, lat = {}, {}
+    for b in ENCODE_BATCHES:
+        model.encode(tokens[:b], mask[:b])  # warm-up
+        parts, times = [], []
+        for lo in range(0, ENCODE_QUERIES, b):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts.append(model.encode(tokens[lo: lo + b], mask[lo: lo + b]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        outs[b] = torch.cat(parts)
+        lat[b] = percentiles_ms(times)
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(5):
+                model.encode(tokens[i: i + 1], mask[i: i + 1])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.key_averages()
+        busy = sum(getattr(e, "self_device_time_total", 0) for e in events
+                   if str(e.device_type).endswith("CUDA"))
+        launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+        top = sorted(((getattr(e, "self_device_time_total", 0), e.key) for e in events
+                      if str(e.device_type).endswith("CUDA")), reverse=True)[:5]
+        log(f"[encode profile] batch 1: {wall_us / 5:.1f} us wall per encode, device kernels "
+            f"{busy / 5:.1f} us ({busy / wall_us:.1%} busy), {launches / 5:.0f} kernel launches; "
+            "top kernels: " + "; ".join(f"{k[:40]} {t / 5:.1f}us" for t, k in top))
+    emb = outs[ENCODE_BATCHES[0]]
+    if emb.shape != (ENCODE_QUERIES, cfg.query_maxlen, cfg.out_dim) or emb.dtype != torch.float32:
+        fail(f"encode: output {tuple(emb.shape)} {emb.dtype}")
+    norms = emb[mask].norm(dim=-1)
+    pad_max = float(emb[~mask].abs().max()) if (~mask).any() else 0.0
+    if not bool(torch.isfinite(emb).all()) or float((norms - 1).abs().max()) > 1e-5 or pad_max != 0.0:
+        fail(f"encode: rows not unit-norm ({float((norms - 1).abs().max()):.3g}) or padding not 0 "
+             f"({pad_max})")
+    diff = float((outs[ENCODE_BATCHES[0]] - outs[ENCODE_BATCHES[-1]]).abs().max())
+    if diff > ENCODE_TOL:
+        fail(f"encode: batch {ENCODE_BATCHES[0]} and {ENCODE_BATCHES[-1]} differ by {diff}")
+    log(f"[encode] TokenEncoder ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.param_count()} params, "
+        f"float32) over {ENCODE_QUERIES} queries of 8-32 tokens padded to {cfg.query_maxlen}: "
+        + "; ".join(f"batch {b} p50 / p95 {lat[b]['p50']:.4f} / {lat[b]['p95']:.4f} ms "
+                    f"({b / lat[b]['p50'] * 1e3:.1f} queries/s at p50)" for b in ENCODE_BATCHES)
+        + f"; rows unit-norm within {float((norms - 1).abs().max()):.3g}, padding rows 0, batchings "
+        f"within {diff:.3g}; {smi}")
+
+    from repro_torch.core import WarpSearchConfig
+
+    qcfg = WarpSearchConfig(nprobe=ARCH["nprobe"], k=ARCH["k"], k_impute=ARCH["k_impute"],
+                            gather="fused", layout="ragged", executor="kernel")
+    got = {}
+    for which in ("rs", "single"):
+        plan = sh[which].plan(qcfg)
+        got[which], times = run_timed(torch, plan, emb, mask)
+        lat[which] = percentiles_ms(times)
+    swaps = sum(
+        topk_swaps(f"encoded query {i}: sharded vs single", *got["rs"][i], *got["single"][i],
+                   kernel_err)
+        for i in range(ENCODE_QUERIES)
+    )
+    log(f"[encode] at batch 1: encode p50 {lat[1]['p50']:.4f} ms beside retrieve p50 "
+        f"{lat['rs']['p50']:.4f} ms ({SHARDS} shards) / {lat['single']['p50']:.4f} ms (single "
+        f"index), fused/ragged/kernel; encode share of encode + retrieve "
+        f"{lat[1]['p50'] / (lat[1]['p50'] + lat['rs']['p50']):.3f} (sharded), "
+        f"{lat[1]['p50'] / (lat[1]['p50'] + lat['single']['p50']):.3f} (single); the encoded "
+        f"queries' doc ids equal across the two up to {swaps} tie swaps; {smi}")
+
+
+def phase_profile(torch, retriever, queries, qmask, n: int = 5, tag: str = "profile"):
     """Where a retrieve's time goes, per kernel config: ``torch.profiler``
     over ``n`` retrieves — wall time, device-busy share (summed device
     kernel time over wall), the top device kernels and the top host ops
@@ -1947,7 +2266,7 @@ def phase_profile(torch, retriever, queries, qmask, n: int = 5):
         scoring = KERNEL_OF[(gather, layout)]
         score_us = sum(t for t, k in kernels if f"::{scoring}_kernel<" in k)
         log(
-            f"[profile] {gather}/{layout}/kernel: {wall_us / n:.1f} us wall per retrieve, "
+            f"[{tag}] {gather}/{layout}/kernel: {wall_us / n:.1f} us wall per retrieve, "
             f"device kernels {busy / n:.1f} us ({busy / wall_us:.1%} busy), "
             f"{launches / n:.0f} kernel launches; {scoring} {score_us / n:.1f} us; top kernels "
             f"per retrieve: {top_k} | top host ops (self CPU): {top_h}"
@@ -2261,6 +2580,56 @@ def phase_build(torch, dev, seed: int, kernel_err: float, profile: bool = False)
         f"{ARCH['nprobe']} (and WARP at {WIDE_NPROBE}), xtr k' {k_prime}: {json.dumps(quality)}"
     )
     del retriever, emb, tdi
+
+    # The document-sharded build of the same corpus (each shard its own
+    # k-means and codec): kernel = reference executor, and its recall.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded = Retriever.build(
+        corpus.emb, corpus.token_doc_ids, corpus.n_docs, cfg, n_shards=SHARDS, device=dev
+    )
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    sidx = sharded.index
+    sh_results, sh_swaps = {}, 0
+    for gather, layout in CONFIGS:
+        for executor in ("kernel", "reference"):
+            plan = sharded.plan(WarpSearchConfig(gather=gather, layout=layout, executor=executor, **base))
+            before = dict(LAUNCHES)
+            out = [plan.retrieve(q[i], qmask[i]) for i in range(BUILD_QUERIES)]
+            sh_results[(gather, layout, executor)] = [
+                (r.doc_ids.cpu().numpy(), r.scores.cpu().numpy()) for r in out
+            ]
+            launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            want = SHARDS * BUILD_QUERIES if executor == "kernel" else 0
+            if launched[KERNEL_OF[(gather, layout)]] != want or sum(launched.values()) != want:
+                fail(f"build: sharded {gather}/{layout}/{executor} launches {launched}, expected {want}")
+    for gather, layout in CONFIGS:
+        for i in range(BUILD_QUERIES):
+            sh_swaps += topk_swaps(
+                f"build sharded {gather}/{layout} kernel vs reference, query {i}",
+                *sh_results[(gather, layout, "kernel")][i],
+                *sh_results[(gather, layout, "reference")][i], kernel_err,
+            )
+    sh_quality = {
+        "nRecall@100": float(np.mean([
+            n_recall(sh_results[("fused", "ragged", "kernel")][i][0], golds[i])
+            for i in range(BUILD_QUERIES)
+        ])),
+        "success@5": float(np.mean([
+            float(rel[i] in sh_results[("fused", "ragged", "kernel")][i][0][:5].tolist())
+            for i in range(BUILD_QUERIES)
+        ])),
+    }
+    log(
+        f"[build] Retriever.build(n_shards={SHARDS}) in {t_build * 1e3:.3f} ms: doc_start "
+        f"{sidx.doc_start.tolist()}, {sidx.n_centroids} centroids per shard, tokens "
+        f"{sidx.cluster_sizes.sum(dim=1).tolist()}; kernel vs reference at 4 configs: {sh_swaps} "
+        f"places swapped within a tie; one launch per shard per retrieve; quality "
+        f"{json.dumps(sh_quality)} beside the single build's {json.dumps(quality['warp'])} "
+        f"(no limit set); {card()}"
+    )
+    del sharded, sidx, sh_results
 
     g = torch.Generator(device=dev).manual_seed(seed)
     lc = _LIFESTYLE.n_centroids
@@ -3171,6 +3540,15 @@ def run(torch, dev, args) -> list:
             if row["name"] == "segmented_ragged_fused_gather_score":
                 row["launches"] = seg_launches
         phase_serving(torch, index, dev, args.seed + 7, kernel_err, store)
+        shutil.rmtree(serve_dir, ignore_errors=True)
+        os.makedirs(serve_dir)
+        sh = phase_sharded(torch, index, dev, args.seed + 8, kernel_err,
+                           os.path.join(serve_dir, "sharded"), args.profile)
+        for row in kernels:
+            if row["name"] in sh["counts"] and row["name"] != "segmented_ragged_fused_gather_score":
+                row["sharded_launches"] = sh["counts"][row["name"]]
+        phase_encode(torch, dev, args.seed + 9, kernel_err, sh, args.profile)
+        del sh
     finally:
         shutil.rmtree(serve_dir, ignore_errors=True)
     del retriever, index, plan_ragged, queries, qmask
@@ -3193,7 +3571,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
         "--profile", action="store_true",
-        help="profile where a retrieve's time goes (after the retrieve phase), "
+        help="profile where a retrieve's time goes (after the retrieve phase, and a "
+        "sharded retrieve's and a batch-1 encode's in the sharded phase), "
         "where an LM prefill's time goes (after the lm phase) and where a two-tower "
         "serve step's time goes (in the recsys phase)",
     )

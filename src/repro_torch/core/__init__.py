@@ -1,6 +1,14 @@
-"""WARP engine of the PyTorch port: types, stages and the Retriever."""
+"""WARP engine of the PyTorch port: types, stages, the Retriever and the
+document-sharded index."""
 
 from repro_torch.core.baselines import maxsim_bruteforce, plaid_style_search, xtr_reference
+from repro_torch.core.distributed import (
+    ShardedWarpIndex,
+    build_sharded_index,
+    shard_index,
+    sharded_search,
+    stack_shards,
+)
 from repro_torch.core.docfilter import DocFilter, FilterView
 from repro_torch.core.engine import resolve_config, search, search_batch
 from repro_torch.core.index import build_index, index_stats
@@ -15,10 +23,12 @@ __all__ = [
     "IndexBuildConfig",
     "Retriever",
     "SearchPlan",
+    "ShardedWarpIndex",
     "TopKResult",
     "WarpIndex",
     "WarpSearchConfig",
     "build_index",
+    "build_sharded_index",
     "index_stats",
     "laddered_config",
     "maxsim_bruteforce",
@@ -27,6 +37,9 @@ __all__ = [
     "resolve_device",
     "search",
     "search_batch",
+    "shard_index",
+    "sharded_search",
+    "stack_shards",
     "two_stage_reduce",
     "warp_select",
     "xtr_reference",

@@ -13,7 +13,9 @@ to -inf before the top-k. Imputation never depends on which candidates
 survive, so filtered top-k doc ids equal post-hoc filtering of an
 unfiltered retrieval at a larger k.
 
-``resolve_sharded`` is not ported (the sharded index is not).
+A document-sharded index resolves to a stacked view
+(``resolve_sharded``): per-shard doc masks over shard-local ids, each
+with a dead padding slot, and per-shard cluster liveness.
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ __all__ = [
     "DocFilter",
     "FilterView",
     "cluster_survivor_counts",
+    "local_shard_mask",
     "resolve_local",
     "resolve_segmented",
+    "resolve_sharded",
 ]
 
 
@@ -39,8 +43,10 @@ class FilterView(NamedTuple):
     doc_mask      bool[n_docs] on the index's device, True where the doc
                   survives (a segment's LOCAL ids for a segment's view).
     cluster_live  bool[C] on the index's device, True where the cluster
-                  holds >= 1 surviving token (``[S, C]`` stacked for the
-                  segmented ragged path).
+                  holds >= 1 surviving token.
+
+    Stacked for a sharded index: doc_mask ``[S, local_docs + 1]``,
+    cluster_live ``[S, C]``.
     """
 
     doc_mask: torch.Tensor
@@ -188,6 +194,35 @@ def resolve_local(dfilter: DocFilter, index) -> FilterView:
     mask = torch.from_numpy(dfilter.survivor_mask.copy()).to(dev)
     counts = cluster_survivor_counts(mask, index.token_doc_ids, index.cluster_offsets)
     return FilterView(doc_mask=mask, cluster_live=counts > 0)
+
+
+def local_shard_mask(mask: np.ndarray, start: int, local_docs: int) -> np.ndarray:
+    """A global survivor bitmap sliced to one shard's local ids:
+    ``bool[local_docs + 1]`` from global id ``start`` on; the last slot is
+    the shard's padding doc id and always False."""
+    out = np.zeros(int(local_docs) + 1, dtype=bool)
+    lo = int(start)
+    hi = min(lo + int(local_docs), mask.shape[0])
+    if hi > lo:
+        out[: hi - lo] = mask[lo:hi]
+    return out
+
+
+def resolve_sharded(dfilter: DocFilter, sidx) -> FilterView:
+    """Resolve against a ``ShardedWarpIndex`` on its device: stacked
+    doc masks ``[S, local_docs + 1]`` and cluster liveness ``[S, C]``
+    (padding tokens carry the dead padding id, so they never count)."""
+    mask = dfilter.survivor_mask
+    dev = sidx.token_doc_ids.device
+    starts = sidx.doc_start.cpu().numpy().astype(np.int64).reshape(-1)
+    masks = torch.from_numpy(
+        np.stack([local_shard_mask(mask, st, sidx.local_docs) for st in starts])
+    ).to(dev)
+    live = torch.stack([
+        cluster_survivor_counts(masks[s], sidx.token_doc_ids[s], sidx.cluster_offsets[s]) > 0
+        for s in range(starts.shape[0])
+    ])
+    return FilterView(doc_mask=masks, cluster_live=live)
 
 
 def resolve_segmented(dfilter: DocFilter, seg):

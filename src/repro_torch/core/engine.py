@@ -81,7 +81,9 @@ def resolve_layout_fields(
     config: WarpSearchConfig, cluster_sizes, cap: int
 ) -> WarpSearchConfig:
     """Concretize ``layout="auto"``, the tile, the ragged worklist bound
-    and the adaptive bucket ladder (``cluster_sizes`` is host data)."""
+    and the adaptive bucket ladder. ``cluster_sizes`` is host data, ``[C]``
+    or a sharded ``[S, C]`` stack (the bound then covers the worst
+    shard)."""
     if config.layout == "dense":
         config = resolve_tile_fields(config, cap=cap, layout="dense")
         return dataclasses.replace(config, worklist_tiles=None, worklist_buckets=None)

@@ -1,11 +1,13 @@
 """``Retriever`` facade: plan once, retrieve many. Counterpart of
-``repro/core/retriever.py`` for single-device retrieval.
+``repro/core/retriever.py``.
 
-  build                     index a corpus on ``device`` (None -> "cuda")
+  build                     index a corpus on ``device`` (None -> "cuda"),
+                            document-sharded with ``n_shards``
   from_index / from_store   adopt an index (a ``WarpIndex``, a
-                            ``SegmentedWarpIndex``, a JAX ``WarpIndex``, or
-                            a dict of its arrays) or a saved store (with
-                            its delta segments), onto ``device``
+                            ``ShardedWarpIndex``, a ``SegmentedWarpIndex``,
+                            a JAX ``WarpIndex`` or ``ShardedWarpIndex``, or
+                            a dict of its arrays) or a saved store (single,
+                            sharded, or with delta segments), onto ``device``
   plan(config, dfilter=)    validate against the index geometry, resolve
                             every data-dependent default and the doc
                             filter -> ``SearchPlan`` (cached per
@@ -20,8 +22,11 @@ the host (the one sync of the adaptive pick), and stages 2+3 run at the
 smallest ladder rung that fits the query's — or the batch's — real tile
 demand. On a segmented index a probed cluster costs the sum of its
 per-segment tile counts; a filtered plan counts only runs over clusters
-with a surviving token. There is no executor fallback: a kernel failure
-raises (the JAX plan's ``_activate_fallback`` is not ported).
+with a surviving token. A sharded plan (``core/distributed.py``) runs
+stage 1 on every shard and picks one rung for all of them: the largest
+demand over the shards (and the batch), plus JAX's one tile of pre-pass
+slack, so its rungs are JAX's. There is no executor fallback: a kernel
+failure raises (the JAX plan's ``_activate_fallback`` is not ported).
 
 Observability (``repro_torch.obs``): disabled, a retrieve pays two
 attribute checks; with metrics on, ``warp_retrieves_total`` and
@@ -30,9 +35,9 @@ on the card); with a tracer, single-index plans run stage by stage under
 ``retrieve`` -> ``warp_select`` -> ``bucket_pick`` -> ``gather_score`` ->
 ``reduce`` spans (JAX's names and attributes), fenced by
 ``torch.cuda.synchronize(device)`` on the card, and the stage histograms
-``warp_stage_seconds`` record. Segmented plans trace as one ``engine``
-span. The traced result is bit-identical to the untraced one: the stages
-are the very calls ``engine.finish_from_probes`` makes.
+``warp_stage_seconds`` record. Segmented and sharded plans trace as one
+``engine`` span. The traced result is bit-identical to the untraced one:
+the stages are the very calls ``engine.finish_from_probes`` makes.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import distributed as dist
 from repro_torch.core import docfilter as df
 from repro_torch.core import engine
 from repro_torch.core import worklist as wl
@@ -113,6 +119,12 @@ def laddered_config(
     return dataclasses.replace(base, **kw)
 
 
+# Tiles of headroom on a sharded plan's rung (JAX's PREPASS_SLACK: its
+# pre-pass re-runs stage 1 in another program). The port's pick reads the
+# body's own probes, so the slack only keeps its rungs equal to JAX's.
+PREPASS_SLACK = 1
+
+
 def _is_adaptive(cfg: WarpSearchConfig) -> bool:
     return (
         cfg.layout == "ragged"
@@ -135,8 +147,9 @@ class SearchPlan:
     """A validated pipeline bound to one index, one resolved config
     (``t_prime``/``k_impute`` concrete, ``executor`` "kernel" or
     "reference", layout/tile/worklist fields resolved) and, optionally,
-    one resolved doc filter (``fctx``: a ``FilterView``, or
-    ``resolve_segmented``'s triple on a segmented index)."""
+    one resolved doc filter (``fctx``: a ``FilterView``, stacked per shard
+    on a sharded index, or ``resolve_segmented``'s triple on a segmented
+    index)."""
 
     def __init__(
         self, index, config: WarpSearchConfig, geometry: dict, *, fctx=None,
@@ -144,7 +157,8 @@ class SearchPlan:
     ):
         self.config = config
         self.index = index
-        self.n_shards = 1
+        self.sharded = isinstance(index, dist.ShardedWarpIndex)
+        self.n_shards = index.n_shards if self.sharded else 1
         self.backend = index.device.type
         self.index_geometry = geometry
         self.adaptive = _is_adaptive(config)
@@ -251,11 +265,11 @@ class SearchPlan:
         reduce, fenced after each stage so a span's duration is its
         stage's. The stages are ``_run``'s own calls (``score_from_probes``
         then ``reduce_from_scored`` is ``finish_from_probes``), so the
-        result is bit-identical. Segmented plans run ``_run`` under one
-        ``engine`` span."""
+        result is bit-identical. Segmented and sharded plans run ``_run``
+        under one ``engine`` span."""
         tr, reg = _OBS.tracer, _OBS.metrics
         cfg = self.config
-        staged = not self.segmented
+        staged = not (self.segmented or self.sharded)
         t0 = time.perf_counter()
         with tr.span(
             "retrieve", kind=kind, layout=cfg.layout, n_shards=self.n_shards,
@@ -328,6 +342,10 @@ class SearchPlan:
         return self._pick(self._select(q[None], qmask[None]), qmask[None])
 
     def _select(self, q, qmask):
+        """Stage 1: a ``WarpSelectOut`` (a list of one per shard on a
+        sharded index)."""
+        if self.sharded:
+            return dist.select_sharded(self.index, q, qmask, self.config)
         if self.segmented:
             return _segments_module().select_probes(
                 self.index, q, qmask, self.config, self._combined
@@ -339,6 +357,16 @@ class SearchPlan:
         tokens and (filtered plans) dead clusters build no tiles. Needs
         the probe metadata on the host — the adaptive path's one sync."""
         m = qmask.cpu().numpy()
+        if self.sharded:
+            # One rung for every shard: the largest demand over shards.
+            sizes = np.stack([s.probe_sizes.cpu().numpy() for s in sel])  # [S, B, Q, P]
+            if self._live is not None:
+                cids = np.stack([s.probe_cids.cpu().numpy() for s in sel])
+                shard = np.arange(cids.shape[0]).reshape((-1,) + (1,) * (cids.ndim - 1))
+                sizes = np.where(self._live[shard, cids], sizes, 0)
+            tiles = wl.probe_tile_counts(sizes, self._tile) * m[..., None]
+            needed = wl.needed_worklist_tiles(tiles, amortized=self.config.memory == "full")
+            return wl.pick_bucket(self.config.worklist_buckets, needed + PREPASS_SLACK)
         if self.segmented:
             # One worklist over all Q tokens: demand amortizes.
             tiles = self._cluster_tiles[sel.probe_cids.cpu().numpy()] * m[..., None]
@@ -365,6 +393,8 @@ class SearchPlan:
         if self.adaptive and bucket is None:
             bucket = self._pick(sel, qmask)
         cfg = self._cfg_at(bucket)
+        if self.sharded:
+            return dist.finish_sharded(self.index, q, qmask, sel, cfg, self.fctx)
         if self.segmented:
             return _segments_module().finish_from_probes(
                 self.index, q, qmask, sel, cfg, self.fctx
@@ -394,7 +424,7 @@ class SearchPlan:
             slots = cfg.worklist_tiles * tile
         else:
             slots = dense_slots
-        mean_cluster = geo["n_tokens"] / max(1, geo["n_centroids"])
+        mean_cluster = geo["n_tokens"] / max(1, self.n_shards * geo["n_centroids"])
         expected_real = min(dense_slots, cfg.nprobe * mean_cluster)
         return {
             "gather": cfg.gather,
@@ -432,17 +462,19 @@ class Retriever:
     >>> plan = r.plan(WarpSearchConfig(gather="fused", layout="ragged"))
     >>> res = plan.retrieve(q, qmask)
 
-    It wraps a ``WarpIndex`` or a ``SegmentedWarpIndex`` (a frozen base
-    plus delta segments, ``repro_torch.store.segments``): the segmented
-    plan runs stage 1 once over the combined cluster sizes, then scores
-    every segment (``segments.finish_from_probes``).
+    It wraps a ``WarpIndex``, a ``ShardedWarpIndex`` (document shards
+    stacked on one device, ``core/distributed.py``: stage 1 and stages 2+3
+    per shard with one global m_i, then the top-k merge) or a
+    ``SegmentedWarpIndex`` (a frozen base plus delta segments,
+    ``repro_torch.store.segments``: stage 1 once over the combined cluster
+    sizes, then every segment scored, ``segments.finish_from_probes``).
     """
 
     def __init__(self, index):
-        if not isinstance(index, WarpIndex) and not _is_segmented(index):
+        if not isinstance(index, (WarpIndex, dist.ShardedWarpIndex)) and not _is_segmented(index):
             raise TypeError(
-                f"Retriever wraps a repro_torch WarpIndex or SegmentedWarpIndex, "
-                f"got {type(index).__name__}; use Retriever.from_index"
+                f"Retriever wraps a repro_torch WarpIndex, ShardedWarpIndex or "
+                f"SegmentedWarpIndex, got {type(index).__name__}; use Retriever.from_index"
             )
         self.index = index
         # Keyed by (config, filter digest | None).
@@ -460,30 +492,32 @@ class Retriever:
         device=None,
     ) -> "Retriever":
         """Index a corpus (``core.index.build_index``) on ``device`` (None ->
-        "cuda", raising when CUDA is absent)."""
+        "cuda", raising when CUDA is absent); with ``n_shards``, the
+        document-sharded build (``distributed.build_sharded_index``), every
+        shard on that device."""
         if n_shards is not None:
-            raise NotImplementedError(
-                "the document-sharded build is not yet ported to repro_torch "
-                "(ROADMAP queue 1, 'Sharded search'); build a single index"
-            )
+            return cls(dist.build_sharded_index(
+                embeddings, token_doc_ids, n_docs, n_shards, index_cfg, device=device
+            ))
         return cls(build_index(embeddings, token_doc_ids, n_docs, index_cfg, device=device))
 
     @classmethod
     def from_index(cls, index, *, device=None) -> "Retriever":
         """Adopt ``index`` on ``device`` (None -> "cuda", raising when CUDA
-        is absent; pass ``device="cpu"`` for the CPU). ``index`` is a
-        ``WarpIndex`` or ``SegmentedWarpIndex`` of this package, or
-        anything ``WarpIndex.from_arrays`` takes (e.g. a JAX
-        ``WarpIndex``)."""
+        is absent; pass ``device="cpu"`` for the CPU). ``index`` is an
+        index of this package, or anything ``WarpIndex.from_arrays`` /
+        ``ShardedWarpIndex.from_arrays`` takes (e.g. a JAX index)."""
         device = resolve_device(device)
-        if isinstance(index, WarpIndex) or _is_segmented(index):
+        if isinstance(index, (WarpIndex, dist.ShardedWarpIndex)) or _is_segmented(index):
             return cls(index.to(device))
+        if dist.is_sharded_like(index):
+            return cls(dist.ShardedWarpIndex.from_arrays(index, device=device))
         return cls(WarpIndex.from_arrays(index, device=device))
 
     @classmethod
     def from_store(cls, path: str, *, device=None) -> "Retriever":
-        """Adopt a saved store (``repro_torch.store``), its delta segments
-        included."""
+        """Adopt a saved store (``repro_torch.store``): single, sharded, or
+        with its delta segments."""
         from repro_torch.store import load_index
 
         return cls(load_index(path, device=device))
@@ -499,6 +533,14 @@ class Retriever:
     @property
     def is_segmented(self) -> bool:
         return _is_segmented(self.index)
+
+    @property
+    def is_sharded(self) -> bool:
+        return isinstance(self.index, dist.ShardedWarpIndex)
+
+    @property
+    def n_shards(self) -> int:
+        return self.index.n_shards if self.is_sharded else 1
 
     def plan(
         self, config: WarpSearchConfig = WarpSearchConfig(), *, dfilter=None
@@ -530,15 +572,14 @@ class Retriever:
         """Plan with the k-ladder's defaults for result depth ``k``
         (``laddered_config``: explicit ``config`` settings still win); the
         rung shows as ``k_ladder`` in ``describe()``."""
-        cfg = laddered_config(
-            k, config, n_tokens=self.index.n_tokens,
-            n_centroids=self.index.n_centroids,
-        )
+        n_tokens = self.index.resolved_n_tokens() if self.is_sharded else self.index.n_tokens
+        cfg = laddered_config(k, config, n_tokens=n_tokens, n_centroids=self.index.n_centroids)
         return self.plan(cfg, dfilter=dfilter)
 
     def _resolve_filter(self, dfilter):
-        """A ``FilterView`` (single index) or ``resolve_segmented``'s
-        triple (segmented); None passes through."""
+        """A ``FilterView`` (single index; stacked per shard on a sharded
+        one) or ``resolve_segmented``'s triple (segmented); None passes
+        through."""
         if dfilter is None:
             return None
         if dfilter.n_docs != self.n_docs:
@@ -546,11 +587,15 @@ class Retriever:
                 f"DocFilter covers {dfilter.n_docs} docs but the index holds "
                 f"{self.n_docs}; rebuild the filter against this corpus snapshot"
             )
+        if self.is_sharded:
+            return df.resolve_sharded(dfilter, self.index)
         if self.is_segmented:
             return df.resolve_segmented(dfilter, self.index)
         return df.resolve_local(dfilter, self.index)
 
     def _resolve(self, config: WarpSearchConfig) -> WarpSearchConfig:
+        if self.is_sharded:
+            return dist.resolve_sharded_config(self.index, config)
         if self.is_segmented:
             return self._resolve_segmented(config)
         return engine.resolve_config(self.index, config)
@@ -631,7 +676,7 @@ class Retriever:
             "cap": idx.cap,
             "nbits": idx.nbits,
             "dim": idx.dim,
-            "n_tokens": idx.n_tokens,
+            "n_tokens": idx.resolved_n_tokens() if self.is_sharded else idx.n_tokens,
         }
         if self.is_segmented:
             geo["n_segments"] = idx.n_segments

@@ -58,8 +58,12 @@ class SegmentedTileWorklist(NamedTuple):
 
 def worklist_bound(cluster_sizes, nprobe: int, tile_c: int) -> int:
     """Static per-query-token tile bound: the sum of the ``nprobe``
-    largest clusters' tile counts (at least 1)."""
+    largest clusters' tile counts (at least 1). ``[S, C]`` sizes of a
+    sharded stack give the largest shard's bound (each shard runs its own
+    worklist at the one bound)."""
     sizes = np.asarray(cluster_sizes)
+    if sizes.ndim == 2:
+        return max(worklist_bound(s, nprobe, tile_c) for s in sizes)
     tiles = -np.sort(-((sizes.astype(np.int64) + tile_c - 1) // tile_c))
     return max(1, int(tiles[:nprobe].sum()))
 

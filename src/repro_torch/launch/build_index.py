@@ -28,8 +28,10 @@ verify / smoke.
 ``build``, ``add`` and ``smoke`` run on ``--device`` (default ``cuda``;
 they raise without CUDA unless given ``--device cpu``); ``compact`` runs
 on the host. The stores are those the JAX package's
-``repro.launch.build_index`` writes and reads, delta segments included;
-the sharded build comes with the port's sharded slice.
+``repro.launch.build_index`` writes and reads, delta segments included.
+``build --n-shards N`` writes a document-sharded store (N shards built on
+the one ``--device``; it loads back as a ``ShardedWarpIndex``); a sharded
+base takes no delta segments: compact and re-shard instead.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import time
 
 import numpy as np
 
-from repro_torch.core import IndexBuildConfig, Retriever, WarpSearchConfig
+from repro_torch.core import IndexBuildConfig, Retriever, WarpSearchConfig, build_sharded_index
 from repro_torch.data import make_corpus, make_queries
 from repro_torch.store import (
     add_documents,
@@ -48,6 +50,7 @@ from repro_torch.store import (
     build_index_to_store,
     compact,
     inspect_index,
+    save_index,
     verify_store,
 )
 
@@ -83,11 +86,15 @@ def cmd_build(args) -> None:
         seed=args.seed, chunk_size=args.chunk_size,
     )
     t0 = time.perf_counter()
-    build_index_to_store(
-        array_chunks(emb, tdi, cfg.chunk_size), args.out, n_docs, cfg,
-        n_tokens=int(emb.shape[0]), dim=int(emb.shape[1]), overwrite=args.overwrite,
-        device=args.device,
-    )
+    if args.n_shards:
+        sidx = build_sharded_index(emb, tdi, n_docs, args.n_shards, cfg, device=args.device)
+        save_index(sidx, args.out, build_config=cfg, overwrite=args.overwrite)
+    else:
+        build_index_to_store(
+            array_chunks(emb, tdi, cfg.chunk_size), args.out, n_docs, cfg,
+            n_tokens=int(emb.shape[0]), dim=int(emb.shape[1]), overwrite=args.overwrite,
+            device=args.device,
+        )
     dt = time.perf_counter() - t0
     info = inspect_index(args.out)
     print(f"built {info['kind']} at {args.out} on {args.device or 'cuda'} in {dt:.1f}s: "
@@ -152,6 +159,8 @@ def main(argv=None) -> None:
     b.add_argument("--seed", type=int, default=0)
     b.add_argument("--chunk-size", type=int, default=IndexBuildConfig().chunk_size)
     b.add_argument("--overwrite", action="store_true")
+    b.add_argument("--n-shards", type=int, default=0,
+                   help="document-sharded build (0 = single)")
     b.add_argument("--device", default=None, help="cuda (the default) or cpu")
     b.set_defaults(fn=cmd_build)
 

@@ -17,8 +17,9 @@ corpora). ``--trace-out`` records one span tree per request (admission,
 rung pre-pass, queue wait, batch dispatch, engine stages, reply) as Chrome
 trace-event JSON; ``--metrics-dump`` writes the metric registry at exit
 (Prometheus text, or a JSON snapshot for a ``.json`` path).
-``--n-shards`` is refused: serving a sharded index is not yet ported
-(ROADMAP queue 1, item 10).
+``--n-shards N`` builds the default tenant as an N-shard document-sharded
+index, every shard on the one ``--device`` (N need not divide a device
+count).
 """
 
 from __future__ import annotations
@@ -150,8 +151,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--nbits", type=int, default=4)
     ap.add_argument("--n-shards", type=int, default=0,
-                    help="refused unless 0: sharded serving is not yet ported "
-                         "(ROADMAP queue 1, item 10)")
+                    help="document-sharded index with this many shards, all on "
+                         "--device (0 = a single index)")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--max-wait-ms", type=float, default=5.0)
     ap.add_argument("--gather", choices=["materialize", "fused"], default="materialize")
@@ -193,9 +194,8 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.n_shards:
-        ap.error("--n-shards: serving a sharded index is not yet ported to "
-                 "repro_torch (ROADMAP queue 1, item 10: sharded search)")
+    if args.n_shards < 0:
+        ap.error("--n-shards must be >= 0")
     device = resolve_device(args.device)
 
     prev = (obs.STATE.tracer, obs.STATE.metrics)
@@ -217,13 +217,22 @@ def _serve(args, device, registry) -> None:
     corpus = make_corpus(args.n_docs, mean_doc_len=20, seed=0)
     t0 = time.perf_counter()
     retriever = Retriever.build(
-        corpus.emb, corpus.token_doc_ids, corpus.n_docs, build_cfg, device=device
+        corpus.emb, corpus.token_doc_ids, corpus.n_docs, build_cfg,
+        n_shards=args.n_shards or None, device=device,
     )
-    st = index_stats(retriever.index)
-    print(
-        f"indexed {st['n_tokens']} tokens -> {st['n_centroids']} centroids, "
-        f"{st['bytes'] / 2**20:.1f} MiB on {device} in {time.perf_counter() - t0:.1f}s"
-    )
+    if retriever.is_sharded:
+        idx = retriever.index
+        print(
+            f"sharded index: {idx.n_shards} shards of {idx.n_centroids} centroids, "
+            f"{idx.n_tokens_total} tokens ({idx.n_tokens_padded} per shard padded), "
+            f"{idx.nbytes() / 2**20:.1f} MiB on {device} in {time.perf_counter() - t0:.1f}s"
+        )
+    else:
+        st = index_stats(retriever.index)
+        print(
+            f"indexed {st['n_tokens']} tokens -> {st['n_centroids']} centroids, "
+            f"{st['bytes'] / 2**20:.1f} MiB on {device} in {time.perf_counter() - t0:.1f}s"
+        )
     server = RetrievalServer(
         retriever,
         WarpSearchConfig(

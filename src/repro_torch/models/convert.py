@@ -1,10 +1,12 @@
 """Weights for the port's models: carried across from the JAX package's
 parameter pytree, or drawn anew from a ``torch.Generator``.
 
-Both dispatch on the config's type (``TransformerConfig`` or one of the
-four recsys configs) and return a state dict in the module's names (see
-``TransformerLM`` and ``models/recsys.py``), for the model's
-``from_params``. Dense weights are stored [d_out, d_in] (``nn.Linear``'s
+Both dispatch on the config's type (``TransformerConfig``,
+``EncoderConfig`` or one of the four recsys configs) and return a state
+dict in the module's names (see ``TransformerLM``, ``TokenEncoder`` and
+``models/recsys.py``), for the model's ``from_params``. The JAX trees of
+the LM and the encoder stack their layers on a leading axis; the port
+keeps one module per layer. Dense weights are stored [d_out, d_in] (``nn.Linear``'s
 layout), the transpose of the JAX [d_in, d_out]; embedding tables and
 xDeepFM's CIN matrices keep the JAX layout.
 """
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import resolve_device
+from repro_torch.models.encoder import EncoderConfig
 from repro_torch.models.recsys import DINConfig, SASRecConfig, TwoTowerConfig, XDeepFMConfig
 from repro_torch.models.transformer import TransformerConfig
 
@@ -39,6 +42,8 @@ def params_from_jax(tree, cfg, *, device=None, dtype=torch.float32) -> dict:
 
     if isinstance(cfg, TransformerConfig):
         return _lm_from_jax(tree, cfg, t)
+    if isinstance(cfg, EncoderConfig):
+        return _encoder_from_jax(tree, cfg, t)
 
     def dense(prefix, p):
         out = {f"{prefix}.weight": t(p["w"], transpose=True)}
@@ -94,6 +99,27 @@ def _lm_from_jax(tree, cfg: TransformerConfig, t) -> dict:
     return out
 
 
+def _encoder_from_jax(tree, cfg: EncoderConfig, t) -> dict:
+    """The JAX ``TokenEncoder.init`` pytree (``embed``, ``layers`` stacked
+    on a leading L axis, ``final_norm``, ``proj``), each array converted
+    by ``t``."""
+    lay = tree["layers"]
+    out = {
+        "embed": t(tree["embed"]),
+        "final_norm.scale": t(tree["final_norm"]["scale"]),
+        "proj.weight": t(tree["proj"]["w"], transpose=True),
+    }
+    for i in range(cfg.n_layers):
+        pre = f"layers.{i}."
+        for name in ("attn_norm", "ffn_norm"):
+            out[pre + f"{name}.scale"] = t(lay[name]["scale"][i])
+        for name in _DENSE:
+            out[pre + f"{name}.weight"] = t(lay[name]["w"][i], transpose=True)
+        for name in _FFN:
+            out[pre + f"ffn.{name}.weight"] = t(lay["ffn"][name]["w"][i], transpose=True)
+    return out
+
+
 def init_params(
     cfg, generator: torch.Generator | None = None, *, device=None, dtype=torch.float32,
 ) -> dict:
@@ -105,7 +131,40 @@ def init_params(
         generator = torch.Generator(device=dev).manual_seed(0)
     if isinstance(cfg, TransformerConfig):
         return _lm_init(cfg, generator, dev, dtype)
+    if isinstance(cfg, EncoderConfig):
+        return _encoder_init(cfg, generator, dev, dtype)
     return _recsys_init(cfg, generator, dev, dtype)
+
+
+def _encoder_init(cfg: EncoderConfig, generator, dev, dtype) -> dict:
+    """Random weights with ``TokenEncoder.init``'s distributions: the
+    embedding normal * 1/sqrt(d_model), dense weights normal *
+    1/sqrt(d_in), norm scales 1."""
+    d = cfg.d_model
+
+    def normal(d_out, d_in):
+        w = torch.randn(d_out, d_in, generator=generator, device=dev)
+        return (w * (1.0 / math.sqrt(d_in))).to(dtype)
+
+    def ones():
+        return torch.ones(d, dtype=dtype, device=dev)
+
+    out = {
+        "embed": (torch.randn(cfg.vocab, d, generator=generator, device=dev)
+                  * (1.0 / math.sqrt(d))).to(dtype),
+        "final_norm.scale": ones(),
+    }
+    for i in range(cfg.n_layers):
+        pre = f"layers.{i}."
+        out[pre + "attn_norm.scale"] = ones()
+        out[pre + "ffn_norm.scale"] = ones()
+        for name in _DENSE:
+            out[pre + f"{name}.weight"] = normal(d, d)
+        out[pre + "ffn.gate.weight"] = normal(cfg.d_ff, d)
+        out[pre + "ffn.up.weight"] = normal(cfg.d_ff, d)
+        out[pre + "ffn.down.weight"] = normal(d, cfg.d_ff)
+    out["proj.weight"] = normal(cfg.out_dim, d)
+    return out
 
 
 def _recsys_init(cfg, generator, dev, dtype) -> dict:

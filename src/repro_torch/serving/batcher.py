@@ -47,8 +47,9 @@ Differences from the JAX server:
   batch dispatches again.
 - The server holds its indexes on ``device`` (None -> "cuda", raising
   without CUDA); store paths given to ``add_tenant`` / ``reload`` load
-  there.
-- Sharded indexes are refused (ROADMAP queue 1, item 10).
+  there. A sharded tenant keeps its stack on that device (no mesh to
+  carry across a reload: the shard count travels with the index), and its
+  deletes are a ``DocFilter`` over global ids like any tenant's.
 - It keeps the submit-to-reply seconds of its last 4096 replies
   (``latencies``; ``summary()`` adds their p50/p95 and the device).
 """
@@ -78,12 +79,6 @@ from repro_torch.serving.cache import LRUCache, query_key
 from repro_torch.serving.scheduler import BatchPolicy, BucketScheduler
 
 __all__ = ["BatchPolicy", "RetrievalServer", "ResultAlreadyTaken", "PENDING"]
-
-_SHARDED_TODO = (
-    "serving a sharded index is not yet ported to repro_torch "
-    "(ROADMAP queue 1, item 10: sharded search)"
-)
-
 
 class _PendingType:
     """Sentinel: the request is known but its batch has not run yet."""
@@ -150,11 +145,6 @@ def _default_tenant_field(field: str):
     return property(_get, _set)
 
 
-def _refuse_sharded(index) -> None:
-    if hasattr(index, "n_shards") and not isinstance(index, (str, os.PathLike)):
-        raise NotImplementedError(_SHARDED_TODO)
-
-
 def _tombstone_view(deleted: frozenset, n_docs: int) -> DocFilter | None:
     return DocFilter.tombstones(sorted(deleted), n_docs) if deleted else None
 
@@ -182,7 +172,6 @@ class RetrievalServer:
         sleep: Callable[[float], None] | None = None,
         device=None,
     ):
-        _refuse_sharded(index)
         # Private registry per server by default, so two servers never
         # share counts; the serve launcher passes the process registry.
         self.metrics = registry if registry is not None else obs.MetricsRegistry()
@@ -355,7 +344,6 @@ class RetrievalServer:
         with ``quarantine_segments=True`` and brings its tombstones; an
         index object keeps ``store_path`` (the default tenant's reload
         keeps the server's store)."""
-        _refuse_sharded(index)
         if isinstance(index, (str, os.PathLike)):
             from repro_torch.store import load_index  # the store depends on core
 

@@ -6,10 +6,13 @@ Reading: arrays go mmap -> ``torch.from_numpy`` -> device; on the CPU the
 tensors stay zero-copy views of the files, on the card the one
 host-to-device copy is the load. Manifest versions 1 and 2 are read.
 
-Single-index stores are read and written; a store with delta segments
-(``segments/seg_NNNNN/``, written by ``store.segments.add_documents``)
-loads as a ``SegmentedWarpIndex``. Sharded stores raise a directed error
-naming their ROADMAP item. ``compact``'s lock file and crash recovery
+Single-index and sharded stores are read and written; a store with delta
+segments (``segments/seg_NNNNN/``, written by
+``store.segments.add_documents``) loads as a ``SegmentedWarpIndex``. A
+sharded store keeps the stacked ``[S, ...]`` binaries once and loads as a
+``ShardedWarpIndex``; its ``shard_NNNNN/`` views point into the same
+binaries at per-shard byte offsets, so one shard also loads alone as a
+plain ``WarpIndex``. ``compact``'s lock file and crash recovery
 (``recover_interrupted_compact``) are JAX's, step for step.
 
 The fault injection points (``repro_torch.fault``: ``store.array_read``,
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch import fault, obs
+from repro_torch.core.distributed import SHARDED_ARRAYS, SHARDED_STATIC, ShardedWarpIndex
 from repro_torch.core.types import (
     ARRAY_FIELDS,
     STATIC_FIELDS,
@@ -71,8 +75,6 @@ COMPACT_LOCK_SUFFIX = ".compact-lock"
 KIND_SINGLE = "warp_index"
 KIND_SHARDED = "sharded_warp_index"
 KIND_SEGMENT = "warp_delta_segment"
-
-_SHARDED_TODO = "ROADMAP queue 1, 'Sharded search'"
 # The arrays of a delta segment's own (centroids and codec are the base's).
 SEGMENT_ARRAYS = ("packed_codes", "token_doc_ids", "cluster_offsets", "cluster_sizes")
 
@@ -145,17 +147,18 @@ def list_segment_dirs(path: str) -> list[str]:
 
 
 def save_index(
-    index: WarpIndex, path: str, *, build_config: Any = None, overwrite: bool = False
+    index: WarpIndex | ShardedWarpIndex, path: str, *, build_config: Any = None,
+    overwrite: bool = False,
 ) -> str:
-    """Persist a single index as a store directory; returns ``path``. The
-    files are those ``repro.store.save_index`` writes for the same arrays.
-    ``build_config`` (an ``IndexBuildConfig`` or dict) goes into the
-    manifest."""
+    """Persist a single or sharded index as a store directory; returns
+    ``path``. The files are those ``repro.store.save_index`` writes for the
+    same arrays. ``build_config`` (an ``IndexBuildConfig`` or dict) goes
+    into the manifest."""
     t0 = time.perf_counter()
-    if hasattr(index, "n_shards"):
-        raise NotImplementedError(
-            f"saving a sharded index is not yet ported to repro_torch ({_SHARDED_TODO})"
-        )
+    if isinstance(index, ShardedWarpIndex):
+        out = _save_sharded(index, path, build_config, overwrite)
+        obs.observe("store_save_seconds", time.perf_counter() - t0)
+        return out
     if not isinstance(index, WarpIndex):
         raise TypeError(f"cannot save {type(index).__name__} (segmented "
                         "indexes are saved via their base + delta segments)")
@@ -174,6 +177,62 @@ def save_index(
         "build_config": _config_dict(build_config),
     })
     obs.observe("store_save_seconds", time.perf_counter() - t0)
+    return path
+
+
+def _save_sharded(index: ShardedWarpIndex, path: str, build_config: Any, overwrite: bool) -> str:
+    """The stacked binaries once; per-shard ``shard_NNNNN/MANIFEST.json``
+    views into them at ``shard_nbytes * s`` offsets (each slice with its
+    own checksum), sharing one zero-filled cutoff table; the root manifest
+    last."""
+    _prepare_dir(path, overwrite)
+    arrays = {}
+    views: list[dict] = [{} for _ in range(index.n_shards)]
+    for name in SHARDED_ARRAYS:
+        stacked = np.ascontiguousarray(getattr(index, name).cpu().numpy())
+        rel = f"{ARRAY_DIR}/{name}.bin"
+        arrays[name] = _entry(rel, _write_array(os.path.join(path, rel), stacked))
+        if name == "doc_start":
+            continue
+        stride = stacked[0].nbytes
+        for s in range(index.n_shards):
+            meta = {"dtype": stacked.dtype.name, "shape": list(stacked.shape[1:])}
+            if stacked[s].size:
+                meta["checksum"] = checksum_bytes(stacked[s].data)
+            views[s][name] = _entry(f"../{rel}", meta, offset=stride * s)
+    cut_rel = f"{ARRAY_DIR}/zero_cutoffs.bin"
+    cut_meta = _write_array(
+        os.path.join(path, cut_rel), np.zeros(((1 << index.nbits) - 1,), np.float32)
+    )
+    doc_start = index.doc_start.cpu().numpy()
+    for s in range(index.n_shards):
+        sdir = os.path.join(path, f"shard_{s:05d}")
+        os.makedirs(sdir, exist_ok=True)
+        views[s]["bucket_cutoffs"] = _entry(f"../{cut_rel}", cut_meta)
+        _write_manifest(sdir, {
+            "format": FORMAT_NAME,
+            "version": FORMAT_VERSION,
+            "kind": KIND_SINGLE,
+            "static": {
+                "dim": index.dim,
+                "nbits": index.nbits,
+                "cap": index.cap,
+                # local_index()'s bound: the shard-local ids, padding included.
+                "n_docs": index.local_docs + 1,
+                "n_tokens": index.n_tokens_padded,
+            },
+            "shard": {"index": s, "doc_start": int(doc_start[s])},
+            "arrays": views[s],
+        })
+    _write_manifest(path, {
+        "format": FORMAT_NAME,
+        "version": FORMAT_VERSION,
+        "kind": KIND_SHARDED,
+        "static": {k: int(getattr(index, k)) for k in SHARDED_STATIC},
+        "n_shards": index.n_shards,
+        "arrays": arrays,
+        "build_config": _config_dict(build_config),
+    })
     return path
 
 
@@ -306,13 +365,26 @@ def _load_single(path: str, manifest: dict, device: torch.device) -> WarpIndex:
     )
 
 
+def _load_sharded(path: str, manifest: dict, device: torch.device) -> ShardedWarpIndex:
+    arrays = {
+        name: _load_entry(path, entry)
+        for name, entry in manifest["arrays"].items()
+        if name in SHARDED_ARRAYS
+    }
+    static = manifest["static"]
+    return ShardedWarpIndex.from_arrays(
+        {**arrays, **{k: int(static[k]) for k in SHARDED_STATIC}}, device=device
+    )
+
+
 def load_index(
     path: str, *, device=None, with_segments: bool = True, quarantine_segments: bool = False
 ):
     """Load a store onto ``device`` (``None`` -> the card; pass
-    ``device="cpu"`` to load on the CPU): a ``WarpIndex``, or a
-    ``SegmentedWarpIndex`` when ``segments/`` holds deltas and
-    ``with_segments``. ``quarantine_segments`` skips a corrupt delta
+    ``device="cpu"`` to load on the CPU): a ``WarpIndex``, a
+    ``ShardedWarpIndex`` for a sharded store (a ``shard_NNNNN/`` view
+    loads as a ``WarpIndex``), or a ``SegmentedWarpIndex`` when
+    ``segments/`` holds deltas and ``with_segments``. ``quarantine_segments`` skips a corrupt delta
     (recorded in ``.quarantined``) instead of raising; a corrupt base
     always raises ``StoreCorruption``. A crash inside ``compact``'s
     directory swap is repaired first."""
@@ -322,11 +394,9 @@ def load_index(
     manifest = read_manifest(path)
     kind = manifest["kind"]
     if kind == KIND_SHARDED:
-        raise NotImplementedError(
-            f"{path} is a sharded store; sharded search is not yet ported "
-            f"to repro_torch ({_SHARDED_TODO}) — load it with the JAX "
-            "package (repro.store)"
-        )
+        out = _load_sharded(path, manifest, device)
+        obs.observe("store_load_seconds", time.perf_counter() - t0)
+        return out
     if kind == KIND_SEGMENT:
         raise ValueError(
             f"{path} is a delta segment; load the owning store directory"

@@ -153,8 +153,13 @@ def test_retriever_build(setup):
     assert isinstance(r.index, WarpIndex) and r.n_docs == corpus.n_docs
     res = r.plan(WarpSearchConfig(nprobe=8, k=10)).retrieve(q[0], qmask[0])
     assert ((res.doc_ids >= 0) & (res.doc_ids < corpus.n_docs)).all()
-    with pytest.raises(NotImplementedError, match="Sharded search"):
-        Retriever.build(corpus.emb, corpus.token_doc_ids, corpus.n_docs, n_shards=2, device="cpu")
+    sharded = Retriever.build(
+        corpus.emb, corpus.token_doc_ids, corpus.n_docs, IndexBuildConfig(**CFG), n_shards=2,
+        device="cpu",
+    )
+    assert sharded.is_sharded and sharded.n_shards == 2 and sharded.n_docs == corpus.n_docs
+    res = sharded.plan(WarpSearchConfig(nprobe=8, k=10)).retrieve(q[0], qmask[0])
+    assert ((res.doc_ids >= 0) & (res.doc_ids < corpus.n_docs)).all()
 
 
 def test_cli_build_inspect_verify_smoke(tmp_path, capsys):

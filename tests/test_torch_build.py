@@ -399,14 +399,24 @@ def test_verify_store_names_a_flipped_byte(port_index, tmp_path):
 
 
 def test_save_refuses_sharded_and_segmented(port_index, tmp_path):
+    """A sharded index saves (and loads back as one); a segmented one is
+    refused, as are objects that only look like a sharded index."""
+    from repro_torch.core import ShardedWarpIndex, shard_index
+
     class Sharded:
         n_shards = 2
 
     class Segmented:
         segments = ()
 
-    with pytest.raises(NotImplementedError, match="Sharded search"):
-        save_index(Sharded(), str(tmp_path / "a"))
+    sharded = shard_index(port_index, 2)
+    save_index(sharded, str(tmp_path / "a"))
+    again = load_index(str(tmp_path / "a"), device="cpu")
+    assert isinstance(again, ShardedWarpIndex) and again.n_shards == 2
+    assert torch.equal(again.packed_codes, sharded.packed_codes)
+    assert jax_inspect_index(str(tmp_path / "a"))["n_shards"] == 2
+    with pytest.raises(TypeError, match="cannot save Sharded"):
+        save_index(Sharded(), str(tmp_path / "a2"))
     with pytest.raises(TypeError, match="segmented indexes are saved via"):
         save_index(Segmented(), str(tmp_path / "b"))
     save_index(port_index, str(tmp_path / "c"))

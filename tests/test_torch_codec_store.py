@@ -13,8 +13,9 @@ import torch
 from repro.core import quantization as jq
 from repro.store import load_index as jax_load_index
 from repro.store import save_index
-from repro_torch.core import Retriever, WarpIndex, quantization as tq
+from repro_torch.core import Retriever, ShardedWarpIndex, WarpIndex, shard_index, quantization as tq
 from repro_torch.store import StoreCorruption, crc32c_py, load_index, read_manifest
+from repro_torch.store import save_index as port_save_index
 
 torch.set_num_threads(1)  # xdist runs one test process per core
 
@@ -146,10 +147,15 @@ def test_unported_store_kinds_raise(tmp_path):
     mpath = os.path.join(path, "MANIFEST.json")
     with open(mpath) as f:
         m = json.load(f)
-    m["kind"] = "sharded_warp_index"
+    # A sharded store loads (core/distributed.py); an unknown kind raises.
+    sharded = shard_index(load_index(path, device="cpu", with_segments=False), 2)
+    port_save_index(sharded, os.path.join(str(tmp_path), "sharded"))
+    got = load_index(os.path.join(str(tmp_path), "sharded"), device="cpu")
+    assert isinstance(got, ShardedWarpIndex) and got.n_tokens_total == sharded.n_tokens_total
+    m["kind"] = "mystery_index"
     with open(mpath, "w") as f:
         json.dump(m, f)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="unknown index kind"):
         load_index(path, device="cpu")
 
 

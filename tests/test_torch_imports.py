@@ -5,10 +5,11 @@ kernel, the recsys slice: models, configs, the embedding-bag kernel, and
 the index build: k-means, the builder, the baselines, the warp-xtr
 configs, the CLI, segmented indexes: doc filters, delta segments, and the
 serving surface: ``obs``, ``fault``, the server's cache, admission,
-scheduler and batcher, the serve launcher) or ``chip_smoke.py``; entry
-points refuse to fall back to the CPU (the server, its reloads and tenants
-on the server's device, the serve launcher); the kernel executor refuses a
-CPU index and CPU recsys weights."""
+scheduler and batcher, the serve launcher, the document-sharded index and
+the token encoder) or ``chip_smoke.py``; entry points refuse to fall back
+to the CPU (the server, its reloads and tenants on the server's device,
+the serve launcher, the sharded build, the encoder's weights); the kernel
+executor refuses a CPU index and CPU recsys weights."""
 
 import ast
 import os
@@ -24,6 +25,7 @@ from repro_torch.core import (
     WarpIndex,
     WarpSearchConfig,
     build_index,
+    build_sharded_index,
     maxsim_bruteforce,
     plaid_style_search,
     xtr_reference,
@@ -92,6 +94,8 @@ def test_port_imports_neither_jax_nor_repro():
         "src/repro_torch/serving/scheduler.py",
         "src/repro_torch/serving/batcher.py",
         "src/repro_torch/launch/serve.py",
+        "src/repro_torch/core/distributed.py",
+        "src/repro_torch/models/encoder.py",
     } <= names
     bad = [
         f"{os.path.relpath(f, ROOT)}: import {m}"
@@ -115,7 +119,8 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.configs.warp_xtr, repro_torch.launch.build_index, "
         "repro_torch.core.docfilter, repro_torch.store.segments, "
         "repro_torch.obs, repro_torch.fault, repro_torch.serving.cache, "
-        "repro_torch.serving.admission, repro_torch.launch.serve; "
+        "repro_torch.serving.admission, repro_torch.launch.serve, "
+        "repro_torch.core.distributed, repro_torch.models.encoder; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad; "
         "from repro_torch.kernels import _build; "
@@ -146,6 +151,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_index(emb, doc_ids, 16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        Retriever.build(emb, doc_ids, 16, n_shards=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_sharded_index(emb, doc_ids, 16, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         build_index_to_store(array_chunks(emb, doc_ids), str(tmp_path / "s"), 16)
     q, qmask = emb[:3], torch.ones(3, dtype=torch.bool)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -158,10 +167,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
         add_documents(str(tmp_path / "s"), emb, doc_ids, 16)
     for cmd in (["build", "--out", str(tmp_path / "c"), "--synth-docs", "20"],
                 ["add", "--index", FIXTURE, "--synth-docs", "2"],
-                ["smoke", "--index", FIXTURE]):
+                ["smoke", "--index", FIXTURE],
+                ["build", "--out", str(tmp_path / "d"), "--synth-docs", "20", "--n-shards", "2"]):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_index_cli.main(cmd)
-    for cmd in ([], ["--traffic", "poisson", "--tenants", "2", "--trace-out", str(tmp_path / "t")]):
+    for cmd in ([], ["--traffic", "poisson", "--tenants", "2", "--trace-out", str(tmp_path / "t")],
+                ["--n-shards", "2"]):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve_cli.main(cmd)
 

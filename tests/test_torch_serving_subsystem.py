@@ -362,14 +362,45 @@ def test_cache_hit_equals_miss_bit_for_bit(world):
     assert warm.result_cache.stats()["hits"] == 4  # epoch bumped: a miss
 
 
-def test_sharded_index_is_refused():
+def test_sharded_index_is_refused(world, capsys):
+    """Sharded indexes are served now: a sharded tenant's replies (plain,
+    filtered, after a delete) equal its ``plan.retrieve`` under the
+    effective filter, and the launcher serves ``--n-shards 2``. Objects
+    that only look like an index are still refused."""
+    from repro_torch.core import shard_index
+
     class Sharded:
         n_shards = 2
 
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(AttributeError, match="centroids"):
         RetrievalServer(Sharded(), device="cpu")
-    with pytest.raises(SystemExit):
-        serve_cli.main(["--device", "cpu", "--n-shards", "2"])
+    q, qmask = world["q"], world["qmask"]
+    sidx = shard_index(Retriever.from_index(world["idx"], device="cpu").index, 3)
+    srv = RetrievalServer(world["idx"], WarpSearchConfig(**SEARCH), BatchPolicy(max_batch=4),
+                          FakeClock(), device="cpu")
+    srv.add_tenant("sh", sidx)
+    n_docs = sidx.n_docs
+    allow = DocFilter.allow(range(0, n_docs, 3), n_docs)
+    rids = [(srv.submit(q[i], qmask[i], tenant="sh"), i, None) for i in range(8)]
+    rids += [(srv.submit(q[i], qmask[i], tenant="sh", dfilter=allow), i, allow) for i in range(4)]
+    srv.drain()
+    replies = [(srv.poll(r), i, f) for r, i, f in rids]
+    deleted = srv.delete_documents(replies[0][0][1][:2].tolist(), tenant="sh")
+    tomb = DocFilter.tombstones(deleted, n_docs)
+    rids = [(srv.submit(q[i], qmask[i], tenant="sh"), i, tomb) for i in range(8)]
+    srv.drain()
+    replies += [(srv.poll(r), i, f) for r, i, f in rids]
+    r = srv._state("sh").retriever
+    assert r.is_sharded and r.n_shards == 3
+    for (scores, ids), i, f in replies:
+        want = r.plan(WarpSearchConfig(**SEARCH), dfilter=f).retrieve(q[i], qmask[i])
+        np.testing.assert_array_equal(ids, want.doc_ids.numpy())
+        np.testing.assert_array_equal(scores, want.scores.numpy())
+    assert not set(np.concatenate([d for (_, d), _, _ in replies[12:]]).tolist()) & set(deleted)
+    assert serve_cli.main(["--device", "cpu", "--n-docs", "120", "--queries", "8",
+                           "--n-shards", "2", "--layout", "ragged", "--gather", "fused"]) == 0
+    out = capsys.readouterr().out
+    assert "sharded index: 2 shards" in out and "health: ok" in out
 
 
 # ---------------------------------------------------------------------------
