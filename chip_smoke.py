@@ -94,6 +94,16 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      per layer, and the logits at every step; tokens are identical or
      first differ at a reported near-tie of the reference's top-2 logits.
      ``--lm-seeds N`` repeats these checks on N weight seeds.
+     Then the ``zoo`` step: qwen3-4b (36 layers) and yi-6b (32) on a
+     4 x 2048 prompt, mixtral-8x7b (8 of its 32 layers) and dbrx-132b
+     (4 of 40) at full width on 2 x 8192 (mixtral's 4096-token window
+     binds in prefill and decode), random bf16 weights, the same checks
+     and rates, with the MoE parity run teacher-forced in routing too
+     (the kernel run's own router choices may part from the reference's
+     only at a near-tie), two identical MoE prefills bit for bit, and the
+     dropped (token, slot) pairs and free-run routing flips printed. The
+     flash phase also holds, plants faults at and times the zoo's prefill
+     shapes (Dh 128; mixtral's with its window at S 8192).
   9. recsys serving (``recsys``) at full width: the embedding-bag kernel
      against its plain version per element within
      ``ref.embedding_bag_error_bound`` at the path's shapes (int32 and
@@ -109,6 +119,16 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      within 1e-5 and the top-100 candidates identical up to a reported
      swap inside a tie; DIN, xDeepFM and SASRec at serve_p99 (their
      retrieval_cand shapes do not fit on one card).
+ 10. LM training (``train``): qwen2-0.5b at full width and depth (4 x
+     4096, train_4k's sequence) and one mixtral-8x7b layer at full width
+     (2 x 4096 in its 2 microbatches), float32 parameters and Adam state,
+     bf16 compute, remat, batches from ``ShardedBatcher`` +
+     ``synthetic_lm_fetch``: the step-1 loss equals the no-grad loss,
+     every parameter gets a gradient, the loss falls over 10 steps on one
+     repeated batch, microbatches 2 equal 1 (qwen2), a ``train_loop``
+     killed at step 7 resumes from its step-5 checkpoint to the same bits,
+     and ``launch.train`` runs and resumes on the card; train tokens/s,
+     step p50, peak memory and attention's share of the step printed.
 
 Top-k doc ids must be identical. A swap is allowed only between scores
 tied within what the kernels' measured error allows (``tie_tolerance``),
@@ -217,8 +237,13 @@ FLASH_CASES = (  # name, B, H, Hkv, S, Dh, causal, window
     ("padded", 4, 14, 2, 1000, 64, True, None),
     ("window", 4, 14, 2, 2048, 64, True, 512),
     ("noncausal", 4, 14, 2, 1024, 64, False, None),
-    ("dh128", 4, 32, 8, 2048, 128, True, None),
+    # The zoo's prefill shapes (timed; qwen3's was the earlier dh128 case).
+    ("qwen3", 4, 32, 8, 2048, 128, True, None),
+    ("yi", 4, 32, 4, 2048, 128, True, None),
+    ("mixtral", 2, 32, 8, 8192, 128, True, 4096),
+    ("dbrx", 2, 48, 8, 8192, 128, True, None),
 )
+FLASH_TIMED = ("qwen2", "qwen3", "yi", "mixtral", "dbrx")  # each also rejects two planted faults
 # Prefill and teacher-forced decode logits, kernel vs reference executor,
 # and the top-2 gap that counts as a near-tie: 4 bf16 ulps at the logits'
 # magnitude (4 to 8).
@@ -228,6 +253,47 @@ LM_LOGITS_TOL = 0.125
 # one-ulp differences in a layer's attention flip bf16 roundings in every
 # later layer, and the difference grows with depth (to ~2^-6 at layer 23).
 LM_KV_TOL = 2.0 ** -5
+# Zoo step of the lm phase: the registry's other LMs at full width, random
+# bf16 weights from --seed, one arch at a time. Depth is cut only where
+# the weights do not fit one 80 GB card: mixtral's 32 layers (2.90 GB
+# each) and dbrx's 40 (6.52 GB each). The MoE prompts are longer than
+# mixtral's 4096-token window, so it binds in prefill and in decode.
+ZOO = (  # arch, layers run (None: all), batch, prompt length
+    ("qwen3-4b", None, 4, 2048),
+    ("yi-6b", None, 4, 2048),
+    ("mixtral-8x7b", 8, 2, 8192),
+    ("dbrx-132b", 4, 2, 8192),
+)
+# A router choice the kernel run would make apart from the reference's
+# (teacher-forced tokens and routing) must sit at a near-tie: the
+# reference's k-th and (k+1)-th router probabilities at most this far
+# apart. The executors' hidden states differ by ~1e-2 of their norm at
+# depth (LM_KV_TOL's error model), which moves a router logit by ~1e-2 and
+# a probability by a quarter of that; 2^-5 leaves a margin of ~10.
+MOE_FLIP_GAP = 2.0 ** -5
+
+# Train phase: batches from ShardedBatcher + synthetic_lm_fetch at train_4k's
+# sequence length (configs/families.py LM_SHAPES), float32 parameters and
+# Adam state, each config's bf16 compute and remat. train_4k's global batch
+# of 256 is cut to what one card holds beside float32 logits.
+TRAIN_SEQ = 4096
+TRAIN_RUNS = (  # arch, layers run (None: all), batch, microbatches
+    ("qwen2-0.5b", None, 4, 1),
+    ("mixtral-8x7b", 1, 2, 2),  # its train_microbatches
+)
+TRAIN_STEPS = 10  # on one repeated batch; the loss must fall
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=0)
+TRAIN_RESUME_AT = (5, 7)  # checkpoint every 5 steps, a failure injected at step 7
+# The step-1 loss against the no-grad loss: the same ops on the same
+# inputs, so float32 round-off at most.
+TRAIN_LOSS_TOL = 1e-6
+# Microbatches 2 against 1 (qwen2; dense): the bf16 products run at other
+# shapes and the weight gradients are rounded to bf16 per microbatch
+# before the float32 sum, so the loss (a mean over 16k tokens) may move by
+# ~1e-4 and the global gradient norm by ~2^-8. An MoE layer's capacity and
+# aux loss are per microbatch (in JAX too), so mixtral's are reported only.
+TRAIN_MB_LOSS_TOL = 2.0 ** -7
+TRAIN_MB_GNORM_TOL = 2.0 ** -5
 
 # Recsys phase: two-tower-retrieval at full width (serve_p99, serve_bulk,
 # retrieval_cand); DIN, xDeepFM and SASRec at serve_p99. Embedding-bag
@@ -2675,33 +2741,57 @@ def bf16_excess(torch, got, want):
     return float(diff.max()), float((diff - ulp).max())
 
 
-def attention_p_bf16(torch, q, k, v):
-    """Causal attention over [B, S, H(kv), Dh] with float32 scores and sums
-    but the probabilities rounded to bf16 before the product with v: what
-    the flash kernel would compute if it dropped its p_lo term."""
-    rep = q.shape[2] // k.shape[2]
-    k, v = (t.repeat_interleave(rep, dim=2).float() for t in (k, v))
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / q.shape[-1] ** 0.5
-    s = s.masked_fill(torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).triu(1), -1e30)
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    out = torch.einsum("bhqk,bkhd->bqhd", p.to(torch.bfloat16).float(), v)
-    return (out / p.sum(-1).transpose(1, 2).unsqueeze(-1)).to(q.dtype)
+def attention_p_bf16(torch, q, k, v, window=None):
+    """Causal (optionally windowed) attention over [B, S, H(kv), Dh] with
+    float32 scores and sums but the probabilities rounded to bf16 before
+    the product with v: what the flash kernel would compute if it dropped
+    its p_lo term. One (batch row, kv head) at a time, so the [rep, S, S]
+    scores fit at S 8192."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    pos = torch.arange(sq, device=q.device)
+    rel = pos.unsqueeze(1) - pos
+    hidden = rel < 0
+    if window is not None:
+        hidden |= rel >= window
+    out = torch.empty_like(q)
+    for bi in range(b):
+        for g in range(hkv):
+            qg = q[bi, :, g * rep:(g + 1) * rep].float().transpose(0, 1)  # [rep, S, Dh]
+            s = (qg @ k[bi, :, g].float().T / dh ** 0.5).masked_fill(hidden, -1e30)
+            p = torch.exp(s - s.amax(-1, keepdim=True))
+            o = (p.to(torch.bfloat16).float() @ v[bi, :, g].float()) / p.sum(-1, keepdim=True)
+            out[bi, :, g * rep:(g + 1) * rep] = o.transpose(0, 1).to(q.dtype)
+            del s, p
+    return out
+
+
+def flash_ops(b, h, s, dh, window=None) -> float:
+    """Multiply-adds x 2 of q.k and p.v over the (query, key) pairs the
+    causal mask (and window) keeps: row i sees min(i + 1, window) keys."""
+    w = s if window is None else min(window, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w
+    return 4.0 * b * h * pairs * dh
 
 
 def phase_flash(torch, dev, flush):
     """The flash kernel against its plain version at every ``FLASH_CASES``
     shape in float32 and bf16 (through ``ops.flash_attention``, which pads
     S to the tile), element by element; then the bf16 rule is shown to
-    reject a planted fault (one kv tile's values zeroed), and the kernel is
-    timed at the prefill's shape beside the plain version and
-    ``scaled_dot_product_attention``, and beside SDPA in the model's layout
-    and at the dh128 case. Returns the kernels row."""
+    reject two planted faults (one kv tile's values zeroed; p rounded to
+    bf16) at each ``FLASH_TIMED`` shape, and the kernel is timed there
+    beside ``scaled_dot_product_attention`` (at qwen2's and qwen3's shapes
+    also in the model's transposed layout; at mixtral's window, SDPA gets
+    the window as a dense mask over repeated kv heads) and its operations
+    bound, and at the prefill's shape beside the plain version. Returns the
+    kernels row (qwen2's shape) with the zoo's shapes under ``zoo``."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     g = torch.Generator(device=dev)
     g.manual_seed(7)
-    errs, excess = {}, {}
+    errs, excess, rejected = {}, {}, {}
     for name, b, h, hkv, s, dh, causal, window in FLASH_CASES:
         for dtype in ("float32", "bfloat16"):
             q, k, v = (
@@ -2721,42 +2811,45 @@ def phase_flash(torch, dev, flush):
                     fail(f"flash {key}: max abs err {errs[key]} vs its plain version > {FLASH_F32_TOL}")
                 continue
             errs[key], excess[key] = bf16_excess(torch, got, want)
+            if name in FLASH_TIMED:
+                # The bf16 rule must reject planted faults at this shape: the
+                # last kv tile's values lost, and p rounded to bf16 before p.v.
+                v_bad = v.clone()
+                v_bad[:, -64:] = 0
+                faults = {
+                    "last kv tile zeroed": ops.flash_attention(q, k, v_bad, **kw, use_kernel=False),
+                    "p rounded to bf16": attention_p_bf16(torch, q, k, v, window),
+                }
+                for what, bad in faults.items():
+                    bad_err, bad_excess = bf16_excess(torch, bad, want)
+                    if not bad_excess > FLASH_BF16_ATOL:
+                        fail(f"flash: the bf16 rule does not reject a planted fault ({what}) at {name}")
+                    rejected[f"{name}: {what}"] = [bad_err, bad_excess]
+                del v_bad, faults
             if name == "qwen2":
-                planted = (q, k, v, want)
-    log(f"[flash] max abs err vs the plain version: {json.dumps(errs)}; bf16, the most an "
-        f"element differs beyond one ulp of the larger output: {json.dumps(excess)}")
+                log(f"[flash] qwen2/bfloat16 outputs: median |out| "
+                    f"{float(want.float().abs().median())}, max {float(want.float().abs().max())}")
+            del q, k, v, got, want
+    log(f"[flash] max abs err vs the plain version: {json.dumps(errs)}; bf16, the most an element "
+        f"differs beyond one ulp of the larger output: {json.dumps(excess)}")
     for key, x in excess.items():
         if not x <= FLASH_BF16_ATOL:
             fail(f"flash {key}: an element differs from its plain version by {x} more than "
                  f"one bf16 ulp of the larger output (> {FLASH_BF16_ATOL})")
+    log(f"[flash] planted faults, max abs err and excess beyond one ulp (all rejected): "
+        f"{json.dumps(rejected)}")
 
-    # The bf16 rule must reject planted faults at the prefill's shape: the
-    # last kv tile's values lost, and p rounded to bf16 before p.v.
-    q, k, v, want = planted
-    v_bad = v.clone()
-    v_bad[:, -64:] = 0
-    faults = {
-        "last kv tile zeroed": ops.flash_attention(q, k, v_bad, causal=True, use_kernel=False),
-        "p rounded to bf16": attention_p_bf16(torch, q, k, v),
-    }
-    for what, bad in faults.items():
-        bad_err, bad_excess = bf16_excess(torch, bad, want)
-        if not bad_excess > FLASH_BF16_ATOL:
-            fail(f"flash: the bf16 rule does not reject a planted fault ({what})")
-        log(f"[flash] planted fault at qwen2/bfloat16, {what}: max abs err {bad_err}, "
-            f"{bad_excess} beyond one ulp: rejected")
-    log(f"[flash] qwen2/bfloat16 outputs: median |out| {float(want.float().abs().median())}, "
-        f"max {float(want.float().abs().max())}")
-    del planted, faults, v_bad
-
-    # Timed beside SDPA at the prefill's shape and the dh128 case, bf16,
-    # causal: in the contiguous [B, H, S, Dh] layout, and in the model's own
-    # (the transposed views of [B, S, H, Dh] that ops.flash_attention passes).
+    # Timed beside SDPA at each FLASH_TIMED shape, bf16: in the contiguous
+    # [B, H, S, Dh] layout, and at qwen2's and qwen3's shapes also in the
+    # model's own (the transposed views of [B, S, H, Dh] that
+    # ops.flash_attention passes).
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    timed = {}
-    for name, b, h, hkv, s, dh, _, _ in (FLASH_CASES[0], FLASH_CASES[-1]):
-        ops_ = 4 * b * h * s * s * dh * 0.5  # the causal half
-        for layout in ("contiguous", "model"):
+    timed, zoo = {}, {}
+    for name, b, h, hkv, s, dh, _, window in FLASH_CASES:
+        if name not in FLASH_TIMED:
+            continue
+        ops_ = flash_ops(b, h, s, dh, window)
+        for layout in ("contiguous", "model") if name in ("qwen2", "qwen3") else ("contiguous",):
             if layout == "contiguous":
                 q, k, v = (
                     torch.randn(b, n, s, dh, generator=g, device=dev).to(torch.bfloat16)
@@ -2767,9 +2860,20 @@ def phase_flash(torch, dev, flush):
                     torch.randn(b, s, n, dh, generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
                     for n in (h, hkv, hkv)
                 )
+            if window is None:
+                def library(q=q, k=k, v=v):
+                    return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+            else:
+                pos = torch.arange(s, device=dev)
+                rel = pos.unsqueeze(1) - pos
+                mask = (rel >= 0) & (rel < window)
+                kr, vr = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
+
+                def library(q=q, kr=kr, vr=vr, mask=mask):
+                    return sdpa(q, kr, vr, attn_mask=mask)
             t = {
-                "ms": time_cuda(torch, lambda: flash_attention_cuda(q, k, v, causal=True), flush),
-                "sdpa_ms": time_cuda(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), flush),
+                "ms": time_cuda(torch, lambda: flash_attention_cuda(q, k, v, causal=True, window=window), flush),
+                "sdpa_ms": time_cuda(torch, library, flush),
                 "bound_ms": ops_ / BF16_OPS_PER_S * 1e3,
             }
             t["ratio_to_sdpa"] = t["ms"] / t["sdpa_ms"]
@@ -2777,7 +2881,17 @@ def phase_flash(torch, dev, flush):
             timed[f"{name}/{layout}"] = t
             if name == "qwen2" and layout == "contiguous":
                 main = (q, k, v, t)
-    log(f"[flash] bf16 causal, kernel beside SDPA (ms, ratio, share of the operations bound): "
+            elif layout == "contiguous":
+                nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+                zoo[name] = {
+                    "shape": [b, h, hkv, s, dh], "window": window, "ms": t["ms"],
+                    "library_ms": t["sdpa_ms"],
+                    "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops_ / BF16_OPS_PER_S) * 1e3,
+                    "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops_ / BF16_OPS_PER_S else "operations",
+                    "max_abs_err": errs[f"{name}/bfloat16"], "launches": 0,
+                }
+            del q, k, v
+    log(f"[flash] bf16, kernel beside SDPA (ms, ratio, share of the operations bound): "
         f"{json.dumps(timed)}")
 
     q, k, v, t = main
@@ -2785,7 +2899,7 @@ def phase_flash(torch, dev, flush):
     plain_ms = time_cuda(torch, lambda: ref.flash_attention(q, k, v, causal=True), flush, iters=5)
     ms, library_ms = t["ms"], t["sdpa_ms"]
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())  # q, k, v read; out written
-    ops_ = 4 * b * h * s * s * dh * 0.5  # the causal half
+    ops_ = flash_ops(b, h, s, dh)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / BF16_OPS_PER_S
     row = {
         "name": "flash_attention",
@@ -2800,6 +2914,7 @@ def phase_flash(torch, dev, flush):
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
         "bytes": int(nbytes),
+        "zoo": zoo,
     }
     log(
         f"[flash] timed at B={b} H={h} Hkv={k.shape[1]} S={s} Dh={dh} bf16 causal: "
@@ -2808,11 +2923,40 @@ def phase_flash(torch, dev, flush):
     return row
 
 
-def lm_parity(torch, models, prompt, want) -> dict:
+def routing_flips(top_a, top_b, probs_ref, k: int):
+    """Rows whose expert sets differ between two routings (top-k expert
+    ids [T, k]) and, for each, the reference's gap between its k-th and
+    (k+1)-th router probabilities."""
+    rows = (top_a.sort(-1).values != top_b.sort(-1).values).any(-1).nonzero().flatten()
+    p = probs_ref[rows].sort(-1, descending=True).values
+    return rows, (p[:, k - 1] - p[:, k]) if p.shape[1] > k else p[:, k - 1]
+
+
+def capture_routes(torch, sink):
+    """A stand-in for ``moe.route`` that appends each call's (top_e, probs)
+    to ``sink`` (read by the zoo's checks, not by the model)."""
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def wrapped(x, w, cfg):
+        probs, top_p, top_e = route(x, w, cfg)
+        sink.append((top_e, probs))
+        return probs, top_p, top_e
+
+    return wrapped
+
+
+def lm_parity(torch, models, prompt, want, cfg) -> dict:
     """Both executors fed the same tokens: the prompt, then the reference
-    executor's greedy tokens ``want`` [B, LM_NEW] (teacher forcing). Returns
-    the measurements the lm checks read: for each layer, the flash kernel
-    on the reference prefill's own attention inputs against the reference's
+    executor's greedy tokens ``want`` [B, N] (teacher forcing). With MoE
+    layers the kernel executor is also fed the reference's routing: each
+    router call takes the reference's expert set for that call and weighs
+    it with the kernel run's own probabilities, so the comparison measures
+    the kernel's numerics, not a flipped choice; the expert sets the kernel
+    run would have chosen are recorded (``would_flip``). Returns the
+    measurements the lm checks read: for each layer, the flash kernel on
+    the reference prefill's own attention inputs against the reference's
     output there (the most an element differs beyond one bf16 ulp); the
     prefill KV cache of the two executors per layer (max abs diff, and the
     norm of the difference relative to the reference's); the max abs
@@ -2820,24 +2964,38 @@ def lm_parity(torch, models, prompt, want) -> dict:
     argmax and top-2 at every step."""
     from unittest import mock
 
-    from repro_torch.configs.qwen2_0_5b import CONFIG
     from repro_torch.kernels import ops
-    from repro_torch.models import KVCache
+    from repro_torch.models import KVCache, moe
 
     b, s = prompt.shape
-    flash, captured = ops.flash_attention, []
+    n_new = want.shape[1]
+    flash, route, captured = ops.flash_attention, moe.route, []
+    ref_routes, own_routes = [], []
+    ref_route = capture_routes(torch, ref_routes)
 
     def capture(q, k, v, **kw):
         out = flash(q, k, v, **kw)
         captured.append((q, k, v, kw, out))
         return out
 
+    def forced_route(x, w, c):
+        probs, _, top_e = route(x, w, c)
+        forced = ref_routes[len(own_routes)][0]
+        own_routes.append((top_e, probs))
+        p = torch.gather(probs, 1, forced)
+        return probs, p / p.sum(-1, keepdim=True), forced
+
+    def run(ex, fn, first=False):
+        attn = capture if ex == "reference" and first else flash
+        with mock.patch.object(ops, "flash_attention", attn), \
+                mock.patch.object(moe, "route", ref_route if ex == "reference" else forced_route):
+            return fn()
+
     logits, caches = {}, {}
-    for ex, m in models.items():
-        cache = KVCache.empty(CONFIG, b, s + LM_NEW, device=prompt.device)
-        with mock.patch.object(ops, "flash_attention", capture if ex == "reference" else flash):
-            logits[ex], caches[ex] = m.prefill(prompt, cache)
-    if len(captured) != CONFIG.n_layers:
+    for ex in ("reference", "kernel"):
+        cache = KVCache.empty(cfg, b, s + n_new, device=prompt.device)
+        logits[ex], caches[ex] = run(ex, lambda: models[ex].prefill(prompt, cache), first=True)
+    if len(captured) != cfg.n_layers:
         fail(f"lm: the reference prefill ran attention {len(captured)} times, not once per layer")
     layer_excess = []
     for q, k, v, kw, out in captured:
@@ -2845,7 +3003,7 @@ def lm_parity(torch, models, prompt, want) -> dict:
         layer_excess.append(bf16_excess(torch, got, out)[1])
     del captured
     kv = []
-    for layer in range(CONFIG.n_layers):
+    for layer in range(cfg.n_layers):
         row = {}
         for name in ("k", "v"):
             got = getattr(caches["kernel"], name)[layer, :, :s].float()
@@ -2854,21 +3012,26 @@ def lm_parity(torch, models, prompt, want) -> dict:
             row[name] = (float(diff.abs().max()), float(diff.norm() / ref.norm()))
         kv.append(row)
     steps, argmax, top2, lmax = [], [], [], 0.0
-    for t in range(LM_NEW):
+    for t in range(n_new):
         if t:
-            for ex, m in models.items():
-                logits[ex], caches[ex] = m.decode_step(want[:, t - 1].long(), caches[ex])
+            for ex in ("reference", "kernel"):
+                logits[ex], caches[ex] = run(
+                    ex, lambda: models[ex].decode_step(want[:, t - 1].long(), caches[ex]))
         lk, lr = logits["kernel"].float(), logits["reference"].float()
-        if not bool(torch.isfinite(lk).all()) or tuple(lk.shape) != (b, CONFIG.vocab):
+        if not bool(torch.isfinite(lk).all()) or tuple(lk.shape) != (b, cfg.vocab):
             fail(f"lm: step {t} logits are not finite values of shape [B, vocab]")
         steps.append(float((lk - lr).abs().max()))
         lmax = max(lmax, float(lr.abs().max()))
         argmax.append(lr.argmax(-1))
         top2.append(torch.topk(lr, 2).values)
+    would_flip = []  # per router call (layer, step): the gaps of the rows that would flip
+    for i, ((ref_e, ref_p), (own_e, _)) in enumerate(zip(ref_routes, own_routes)):
+        _, gaps = routing_flips(own_e, ref_e, ref_p, cfg.moe.top_k)
+        would_flip.append((i % cfg.n_layers, i // cfg.n_layers, gaps.tolist()))
     return {
         "layer_excess": layer_excess, "kv": kv, "logits": steps,
         "argmax": torch.stack(argmax, 1), "top2": torch.stack(top2, 1),
-        "logit_max": lmax,
+        "logit_max": lmax, "would_flip": would_flip,
     }
 
 
@@ -2939,31 +3102,39 @@ def prefill_attention_share(torch, model, prompt) -> dict:
             "attention_share": attn / device if device else None}
 
 
-def check_lm(par: dict, got, want, seed: int) -> None:
+def check_lm(par: dict, got, want, what, explained=None) -> None:
     """Raises unless the measurements of ``lm_parity`` hold: the flash
     kernel within the bf16 rule at every layer's own inputs, layer 0's
     cache identical (no attention has run before it), every later layer's
     within ``LM_KV_TOL``, logits within ``LM_LOGITS_TOL`` at every step,
-    the reference's teacher-forced argmax its own greedy tokens, and every
-    row where the kernel's tokens ``got`` part from ``want`` first doing
-    so at a near-tie of the reference's top-2 logits (each reported)."""
+    the reference's teacher-forced argmax its own greedy tokens, every
+    routing the kernel run would have chosen apart from the reference's
+    only at a gap within ``MOE_FLIP_GAP``, and every row where the kernel's
+    tokens ``got`` part from ``want`` first doing so at a near-tie of the
+    reference's top-2 logits, or (MoE) where ``explained[row]`` names the
+    free run's routing flips before that step (each reported)."""
     for layer, x in enumerate(par["layer_excess"]):
         if not x <= FLASH_BF16_ATOL:
-            fail(f"lm seed {seed}: at layer {layer}'s own inputs the flash kernel differs from the "
+            fail(f"lm {what}: at layer {layer}'s own inputs the flash kernel differs from the "
                  f"reference by {x} more than one bf16 ulp (> {FLASH_BF16_ATOL})")
     for layer, row in enumerate(par["kv"]):
         for name, (err, rel) in row.items():
             if layer == 0 and err != 0:
-                fail(f"lm seed {seed}: layer 0 {name} cache differs ({err}) before any attention ran")
+                fail(f"lm {what}: layer 0 {name} cache differs ({err}) before any attention ran")
             if not rel <= LM_KV_TOL:
-                fail(f"lm seed {seed}: layer {layer} {name} cache, kernel vs reference, relative "
+                fail(f"lm {what}: layer {layer} {name} cache, kernel vs reference, relative "
                      f"norm of the difference {rel} > {LM_KV_TOL}")
     worst = max(par["logits"])
     if not worst <= LM_LOGITS_TOL:
         step = par["logits"].index(worst)
-        fail(f"lm seed {seed}: teacher-forced logits at step {step} differ by {worst} > {LM_LOGITS_TOL}")
+        fail(f"lm {what}: teacher-forced logits at step {step} differ by {worst} > {LM_LOGITS_TOL}")
     if not bool((par["argmax"] == want).all()):
-        fail(f"lm seed {seed}: the reference's teacher-forced argmax is not its own greedy output")
+        fail(f"lm {what}: the reference's teacher-forced argmax is not its own greedy output")
+    for layer, step, gaps in par["would_flip"]:
+        if gaps and not max(gaps) <= MOE_FLIP_GAP:
+            fail(f"lm {what}: at layer {layer} step {step} the kernel run's router would pick "
+                 f"other experts than the reference's where they are {max(gaps)} apart "
+                 f"(> {MOE_FLIP_GAP})")
     for row in range(want.shape[0]):
         diff = (got[row] != want[row]).nonzero().flatten()
         if diff.numel() == 0:
@@ -2971,11 +3142,12 @@ def check_lm(par: dict, got, want, seed: int) -> None:
         step = int(diff[0])
         top2 = par["top2"][row, step].tolist()
         gap = top2[0] - top2[1]
-        if not gap <= LM_LOGITS_TOL:
-            fail(f"lm seed {seed}: row {row} first differs at step {step}, where the reference's "
+        why = (explained or {}).get(row, {}).get(step)
+        if not gap <= LM_LOGITS_TOL and not why:
+            fail(f"lm {what}: row {row} first differs at step {step}, where the reference's "
                  f"top-2 logits {top2} are {gap} apart > {LM_LOGITS_TOL}")
-        log(f"[ties] lm seed {seed} row {row}: tokens first differ at step {step}, reference "
-            f"top-2 logits {top2} (gap {gap})")
+        log(f"[ties] lm {what} row {row}: tokens first differ at step {step}, reference "
+            f"top-2 logits {top2} (gap {gap})" + (f"; after {why}" if why else ""))
 
 
 def phase_lm(torch, dev, seeds, profile: bool) -> int:
@@ -3024,7 +3196,7 @@ def phase_lm(torch, dev, seeds, profile: bool) -> int:
         if tuple(got.shape) != (LM_BATCH, LM_NEW) or int(got.min()) < 0 or int(got.max()) >= CONFIG.vocab:
             fail(f"lm: generated tokens of shape {tuple(got.shape)} outside the vocabulary")
 
-        par = lm_parity(torch, models, prompt, want)
+        par = lm_parity(torch, models, prompt, want, CONFIG)
         kv_rel = [max(r["k"][1], r["v"][1]) for r in par["kv"]]
         log(
             f"[lm] seed {seed}: flash kernel at each layer's own inputs, the most an element "
@@ -3036,7 +3208,7 @@ def phase_lm(torch, dev, seeds, profile: bool) -> int:
             f"to {par['logit_max']}); tokens identical in {int((got == want).all(dim=1).sum())} "
             f"of {LM_BATCH} rows"
         )
-        check_lm(par, got, want, seed)
+        check_lm(par, got, want, f"seed {seed}")
         if first:
             for ex, model in models.items():
                 log(f"[lm] {ex} executor: {json.dumps(lm_rates(torch, model, prompt))}; profiled "
@@ -3046,6 +3218,155 @@ def phase_lm(torch, dev, seeds, profile: bool) -> int:
         del params, models, par
     log(f"[lm] flash launches per kernel generate {main}, per reference generate 0")
     return main
+
+
+def moe_report(torch, cfg, routes: dict, b: int, s: int, got, want) -> tuple[dict, dict]:
+    """The zoo's free-run routing (``routes[executor]``: one (top_e, probs)
+    per router call of ``generate``): the pairs dropped at prefill and at
+    decode (the reference's), the kernel run's expert sets apart from the
+    reference's at prefill per layer with the reference's gaps (over each
+    token's first such layer), and for every row whose tokens part, the
+    flips in that row before the step where they do. Returns (report,
+    explained rows for ``check_lm``)."""
+    n_layers, k = cfg.n_layers, cfg.moe.top_k
+
+    def drops(top_e):
+        counts = torch.bincount(top_e.flatten(), minlength=cfg.moe.n_experts)
+        return int((counts - cfg.moe.capacity(top_e.shape[0])).clamp(min=0).sum())
+
+    ref, ker = routes["reference"], routes["kernel"]
+    rep = {
+        "prefill_pairs": b * s * k, "prefill_dropped_per_layer": [drops(e) for e, _ in ref[:n_layers]],
+        "decode_pairs": b * k * (len(ref) - n_layers),  # over every decode call of every layer
+        "decode_dropped": sum(drops(e) for e, _ in ref[n_layers:]),
+    }
+    first = torch.full((b * s,), -1, dtype=torch.long, device=got.device)
+    flips, first_gaps = [], []
+    for layer in range(n_layers):
+        rows, gaps = routing_flips(ker[layer][0], ref[layer][0], ref[layer][1], k)
+        flips.append(int(rows.numel()))
+        new = rows[first[rows] < 0]
+        first[new] = layer
+        first_gaps += gaps[first[rows] == layer].tolist()
+    rep["prefill_flips_per_layer"] = flips
+    rep["prefill_tokens_flipped"] = int((first >= 0).sum())
+    rep["first_flip_max_gap"] = max(first_gaps) if first_gaps else None
+    explained = {}
+    for row in range(b):
+        diff = (got[row] != want[row]).nonzero().flatten()
+        if diff.numel() == 0:
+            continue
+        step = int(diff[0])
+        n_pre = int((first[row * s:(row + 1) * s] >= 0).sum())
+        n_dec = 0
+        for i in range(n_layers, min(len(ref), len(ker), n_layers * (step + 1))):
+            n_dec += int(routing_flips(ker[i][0][row:row + 1], ref[i][0][row:row + 1],
+                                       ref[i][1][row:row + 1], k)[0].numel())
+        if n_pre or n_dec:
+            explained[row] = {step: f"{n_pre} of its prompt tokens and {n_dec} decode steps' "
+                                    f"(token, layer) routings flipped before it"}
+    return rep, explained
+
+
+def phase_zoo(torch, dev, seed: int, profile: bool) -> dict:
+    """The registry's other LMs (``ZOO``) through ``generate`` at both
+    executors, one arch at a time, each checked as the qwen2 step is
+    (``lm_parity`` / ``check_lm``, with MoE routing teacher-forced in the
+    parity run), plus for MoE: two identical prefills bit for bit, the
+    dropped (token, slot) pairs at prefill and decode, and the free run's
+    routing flips. Returns {arch: flash launches per kernel generate}."""
+    from unittest import mock
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import KVCache, TransformerLM, init_params, moe
+    from repro_torch.serving import generate
+
+    out = {}
+    for i, (arch, layers, b, s) in enumerate(ZOO):
+        t0 = time.perf_counter()
+        cfg = get_arch(arch).config
+        full = cfg
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + i)
+        params = init_params(cfg, g, device=dev, dtype=torch.bfloat16)
+        models = {ex: TransformerLM.from_params(cfg, params, executor=ex) for ex in ("kernel", "reference")}
+        prompt = torch.randint(0, cfg.vocab, (b, s), generator=g, device=dev)
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in params.values())
+        log(f"[zoo] {arch}: {cfg.n_layers} of {full.n_layers} layers, d {cfg.d_model}, "
+            f"{cfg.n_heads} heads ({cfg.n_kv_heads} kv, head_dim {cfg.resolved_head_dim}), d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab}, window {cfg.sliding_window}, moe "
+            f"{dataclasses.asdict(cfg.moe) if cfg.moe else None}; {n} bf16 parameters "
+            f"({2 * n / 1e9:.2f} GB; the full model {full.param_count()}) made in "
+            f"{time.perf_counter() - t0:.1f}s; prompt {b} x {s}, {LM_NEW} greedy tokens, bf16 cache")
+
+        tokens, launches, routes = {}, {}, {}
+        for ex, model in models.items():
+            routes[ex] = []
+            reset_launches()
+            with mock.patch.object(moe, "route", capture_routes(torch, routes[ex])):
+                tokens[ex] = generate(model, prompt, max_new_tokens=LM_NEW)
+            torch.cuda.synchronize()
+            launches[ex] = dict(LAUNCHES)  # read right after the path's run
+        if launches["kernel"]["flash_attention"] != cfg.n_layers:
+            fail(f"zoo {arch}: {launches['kernel']['flash_attention']} flash launches per kernel "
+                 f"generate, expected one per layer ({cfg.n_layers})")
+        if any(launches["reference"].values()):
+            fail(f"zoo {arch}: the reference executor launched a kernel: {launches['reference']}")
+        out[arch] = launches["kernel"]["flash_attention"]
+        got, want = tokens["kernel"], tokens["reference"]
+        if tuple(got.shape) != (b, LM_NEW) or int(got.min()) < 0 or int(got.max()) >= cfg.vocab:
+            fail(f"zoo {arch}: generated tokens of shape {tuple(got.shape)} outside the vocabulary")
+
+        explained = None
+        if cfg.moe is not None:
+            again = []
+            for _ in range(2):
+                cache = KVCache.empty(cfg, b, s + 1, device=dev)
+                again.append(models["kernel"].prefill(prompt, cache)[0])
+            if not torch.equal(again[0], again[1]):
+                fail(f"zoo {arch}: two identical prefills gave logits "
+                     f"{float((again[0] - again[1]).abs().max())} apart")
+            rep, explained = moe_report(torch, cfg, routes, b, s, got, want)
+            log(f"[zoo] {arch} routing (free run): two identical prefills bit for bit; "
+                f"{json.dumps(rep)}")
+            del again
+        del routes
+
+        par = lm_parity(torch, models, prompt, want, cfg)
+        kv_rel = [max(r["k"][1], r["v"][1]) for r in par["kv"]]
+        flips = {}
+        for layer, step, gaps in par["would_flip"]:
+            key = "prefill" if step == 0 else "decode"
+            f = flips.setdefault(f"layer {layer} {key}", [0, 0.0])
+            f[0] += len(gaps)
+            f[1] = max([f[1], *gaps])
+        log(
+            f"[zoo] {arch}: flash kernel at each layer's own inputs, the most an element differs "
+            f"from the reference beyond one bf16 ulp: {max(par['layer_excess'])} (limit "
+            f"{FLASH_BF16_ATOL}); prefill cache kernel vs reference, relative norm of the "
+            f"difference per layer {json.dumps(kv_rel)} (limit {LM_KV_TOL}); teacher-forced "
+            f"logits max abs diff per step {json.dumps(par['logits'])} (limit {LM_LOGITS_TOL}, "
+            f"logits up to {par['logit_max']}); tokens identical in "
+            f"{int((got == want).all(dim=1).sum())} of {b} rows"
+            + (f"; routing teacher-forced, the kernel run's own choice apart from the reference's "
+               f"(count, largest gap; limit {MOE_FLIP_GAP}): {json.dumps(flips)}" if cfg.moe else "")
+        )
+        check_lm(par, got, want, arch, explained)
+        del par
+        for ex, model in models.items():
+            log(f"[zoo] {arch} {ex} executor: {json.dumps(lm_rates(torch, model, prompt))}; profiled "
+                f"prefill: {json.dumps(prefill_attention_share(torch, model, prompt))}; {card()}")
+        if profile:
+            profile_lm(torch, models["kernel"], prompt)
+        del params, models, prompt, got, want, tokens
+        torch.cuda.empty_cache()
+        log(f"[zoo] {arch} done in {time.perf_counter() - t0:.1f}s")
+    log(f"[zoo] flash launches per kernel generate {json.dumps(out)}, per reference generate 0")
+    return out
 
 
 def profile_lm(torch, model, prompt, steps: int = 4):
@@ -3502,6 +3823,197 @@ def profile_recsys(torch, model, batches):
         )
 
 
+def attention_step_ms(torch, cfg, b: int, s: int, dev, flush) -> float:
+    """Device ms of attention in one train step: one layer's
+    ``layers.gqa_attention`` at the step's shape, timed forward (the remat
+    pass, no grad) and forward + backward (the recompute and its backward),
+    times the layers."""
+    from repro_torch.models import layers as L
+
+    dh = cfg.resolved_head_dim
+    q, k, v = (torch.randn(b, s, n, dh, device=dev, dtype=cfg.dtype, requires_grad=True)
+               for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    go = torch.randn(b, s, cfg.n_heads, dh, device=dev, dtype=cfg.dtype)
+    kw = dict(causal=True, window=cfg.sliding_window, chunk_size=cfg.attn_chunk)
+    with torch.no_grad():
+        fwd = time_cuda(torch, lambda: L.gqa_attention(q, k, v, **kw), flush, iters=5)
+
+    def fwd_bwd():
+        torch.autograd.grad(L.gqa_attention(q, k, v, **kw), (q, k, v), go)
+
+    return cfg.n_layers * (fwd + time_cuda(torch, fwd_bwd, flush, iters=5))
+
+
+def train_launcher(torch, out_dir: str) -> None:
+    """``repro_torch.launch.train`` on the card (its reduced qwen2-0.5b):
+    4 steps with a checkpoint every 2, then a rerun to 6 that resumes."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen2-0.5b",
+           "--ckpt-dir", out_dir, "--ckpt-every", "2"]
+    for steps, expect in (("4", "done"), ("6", "[resume] step 4")):
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd + ["--steps", steps], capture_output=True, text=True, env=env,
+                           timeout=600)
+        if r.returncode != 0 or expect not in r.stdout:
+            fail(f"train: launch.train --steps {steps} exited {r.returncode}: "
+                 f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
+        log(f"[train] launch.train --steps {steps} on the card: exit 0 in "
+            f"{time.perf_counter() - t0:.1f} s; {r.stdout.strip().splitlines()[-2:]}")
+
+
+def phase_train(torch, dev, seed: int, flush) -> None:
+    """LM training on the card (``TRAIN_RUNS``): for each, the no-grad loss
+    against the step-1 loss, a gradient for every parameter tensor (none
+    all zero or non-finite), ``TRAIN_STEPS`` timed steps on one repeated
+    batch (the loss must fall; tokens/s, step p50, peak memory, the share
+    of attention), and one step at the other microbatch count; for qwen2
+    also a run through ``train_loop`` that dies at step 7, resumes from
+    its step-5 checkpoint and must end bit for bit where the uninterrupted
+    run ended; then the train launcher. Every measurement is printed
+    before any failed check raises."""
+    from repro_torch.configs.families import lm_loss_fn
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import ShardedBatcher, synthetic_lm_fetch
+    from repro_torch.models import init_params
+    from repro_torch.train import (
+        AdamWConfig, FailureInjector, TrainState, latest_step, make_train_step, train_loop,
+    )
+    from repro_torch.train.checkpoint import flatten
+
+    failures = []
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            failures.append(msg)
+            log(f"[train] FAILED: {msg}")
+
+    opt = AdamWConfig(**TRAIN_OPT)
+    tmp = tempfile.mkdtemp(prefix="train_phase_")
+    try:
+        for i, (arch, layers, b, mb) in enumerate(TRAIN_RUNS):
+            t_arch = time.perf_counter()
+            cfg = full = get_arch(arch).config
+            if layers is not None:
+                cfg = dataclasses.replace(cfg, n_layers=layers)
+            batcher = ShardedBatcher(global_batch=b, n_shards=1, seed=seed)
+            fetched = synthetic_lm_fetch(cfg.vocab, TRAIN_SEQ)(batcher.shard_ids(0, 0))
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in fetched.items()}
+
+            def fresh():
+                g = torch.Generator(device=dev)
+                g.manual_seed(seed + 100 + i)
+                return init_params(cfg, g, device=dev)
+
+            state = TrainState.create(fresh())
+            n = sum(p.numel() for p in state.params.values())
+            loss_fn = lm_loss_fn(cfg)
+            halves = [{k: v[j * b // mb:(j + 1) * b // mb] for k, v in batch.items()} for j in range(mb)]
+            with torch.no_grad():
+                nograd = sum(float(loss_fn(state.params, h)[0]) for h in halves) / mb
+            loss, _ = loss_fn(state.params, halves[0])
+            grads = torch.autograd.grad(loss, list(state.params.values()))
+            zero = [k for k, g in zip(state.params, grads) if not bool(g.any())]
+            bad = [k for k, g in zip(state.params, grads) if not bool(torch.isfinite(g).all())]
+            del loss, grads
+            check(not zero and not bad, f"{arch}: parameters with an all-zero gradient {zero}, "
+                                        f"non-finite {bad}")
+            log(f"[train] {arch}: {cfg.n_layers} of {full.n_layers} layers, {n} float32 "
+                f"parameters ({16 * n / 1e9:.2f} GB with gradients, m and v), batch {b} x "
+                f"{TRAIN_SEQ} in {mb} microbatch(es), compute {cfg.compute_dtype}, remat "
+                f"{cfg.remat}; autograd took a gradient for all {len(state.params)} parameter "
+                f"tensors, none all zero or non-finite")
+
+            step = make_train_step(loss_fn, opt, microbatches=mb)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, times, metrics = [], [], []
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                metrics.append({k: float(v) for k, v in m.items()})
+                losses.append(metrics[-1]["loss"])
+            peak = torch.cuda.max_memory_allocated()
+            p50 = float(np.median(times[1:]))
+            rel = abs(losses[0] - nograd) / abs(nograd)
+            check(rel <= TRAIN_LOSS_TOL, f"{arch}: step-1 loss {losses[0]} vs the no-grad loss "
+                                         f"{nograd}: {rel} relative > {TRAIN_LOSS_TOL}")
+            check(losses[-1] < losses[0], f"{arch}: the loss did not fall over {TRAIN_STEPS} "
+                                          f"steps: {losses}")
+            attn = attention_step_ms(torch, cfg, b // mb, TRAIN_SEQ, dev, flush) * mb
+            log(f"[train] {arch}: step-1 loss {losses[0]} (no-grad {nograd}, {rel} relative; "
+                f"limit {TRAIN_LOSS_TOL}); losses over {TRAIN_STEPS} steps at lr {opt.lr} "
+                f"{json.dumps(losses)}; step 1 {json.dumps(metrics[0])}; step p50 "
+                f"{p50 * 1e3:.3f} ms (first {times[0] * 1e3:.1f} ms), "
+                f"{b * TRAIN_SEQ / p50:.1f} train tokens/s; peak memory {peak / 2**30:.2f} GiB; "
+                f"attention (plain chunked, forward + recompute + backward) {attn:.3f} ms a step, "
+                f"{attn / (p50 * 1e3):.3f} of the step; {card()}")
+
+            final = None
+            if i == 0:
+                final = [(k, v.detach().cpu()) for k, v in flatten(state)]
+            del state, step
+            loss_fn = lm_loss_fn(cfg)
+            torch.cuda.empty_cache()
+
+            other = 2 if mb == 1 else 1
+            state = TrainState.create(fresh())
+            state, m = make_train_step(loss_fn, opt, microbatches=other)(state, batch)
+            m = {k: float(v) for k, v in m.items()}
+            d_loss = abs(m["loss"] - metrics[0]["loss"]) / abs(metrics[0]["loss"])
+            d_gn = abs(m["grad_norm"] - metrics[0]["grad_norm"]) / metrics[0]["grad_norm"]
+            if cfg.moe is None:
+                check(d_loss <= TRAIN_MB_LOSS_TOL and d_gn <= TRAIN_MB_GNORM_TOL,
+                      f"{arch}: microbatches {other} vs {mb}: loss {d_loss}, grad_norm {d_gn} "
+                      f"relative (limits {TRAIN_MB_LOSS_TOL}, {TRAIN_MB_GNORM_TOL})")
+            log(f"[train] {arch}: one step at microbatches {other}: {json.dumps(m)}; vs {mb}: "
+                f"loss {d_loss}, grad_norm {d_gn} relative"
+                + (f" (limits {TRAIN_MB_LOSS_TOL}, {TRAIN_MB_GNORM_TOL})" if cfg.moe is None
+                   else " (MoE: capacity and aux per microbatch by design; no limit)"))
+            del state, loss_fn
+            torch.cuda.empty_cache()
+
+            if final is not None:
+                every, dies = TRAIN_RESUME_AT
+                ckdir = os.path.join(tmp, arch)
+                kw = dict(init_params_fn=fresh, loss_fn=lm_loss_fn(cfg), batch_iter=lambda _: batch,
+                          opt_cfg=opt, n_steps=TRAIN_STEPS, ckpt_dir=ckdir, ckpt_every=every,
+                          keep=2, log_every=TRAIN_STEPS, log_fn=log, device=dev)
+                t0 = time.perf_counter()
+                try:
+                    train_loop(failure=FailureInjector(fail_at=(dies,)), **kw)
+                    check(False, f"{arch}: the injected failure at step {dies} did not fire")
+                except RuntimeError as e:
+                    if "injected failure" not in str(e):
+                        raise
+                check(latest_step(ckdir) == every, f"{arch}: newest committed step "
+                                                   f"{latest_step(ckdir)}, not {every}")
+                torch.cuda.empty_cache()
+                resumed, _ = train_loop(**kw)
+                diffs = {k: float((v.detach().cpu() - want).abs().max())
+                         for (k, v), (_, want) in zip(flatten(resumed), final)}
+                worst = max(diffs, key=diffs.get)
+                check(diffs[worst] == 0, f"{arch}: the run resumed from step {every} ends "
+                                         f"{diffs[worst]} from the uninterrupted run at {worst}")
+                log(f"[train] {arch}: train_loop died at step {dies}, resumed from its step-{every} "
+                    f"checkpoint and ended at step {TRAIN_STEPS} with every parameter and Adam "
+                    f"moment {'bit for bit' if diffs[worst] == 0 else 'apart'} (largest diff "
+                    f"{diffs[worst]} at {worst}); {time.perf_counter() - t0:.1f} s with "
+                    f"checkpoint writes")
+                del resumed, final, kw
+                shutil.rmtree(ckdir, ignore_errors=True)
+                torch.cuda.empty_cache()
+                train_launcher(torch, os.path.join(tmp, "launcher"))
+            del batch, halves
+            torch.cuda.empty_cache()
+            log(f"[train] {arch} done in {time.perf_counter() - t_arch:.1f}s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures:
+        fail("train: " + "; ".join(failures))
+
+
 def run(torch, dev, args) -> list:
     """All phases on ``dev``; returns the kernels rows (raises on any
     failed check)."""
@@ -3561,8 +4073,12 @@ def run(torch, dev, args) -> list:
     seeds = [args.seed + 3 + i for i in range(args.lm_seeds)]
     flash["launches"] = phase_lm(torch, dev, seeds, args.profile)
     torch.cuda.empty_cache()  # the LM's weights and caches are gone
+    for arch, n in phase_zoo(torch, dev, args.seed + 10, args.profile).items():
+        flash["zoo"][arch.split("-")[0]]["launches"] = n
 
     bag = phase_recsys(torch, dev, args.seed + 4, flush, args.profile)
+    torch.cuda.empty_cache()
+    phase_train(torch, dev, args.seed + 11, flush)
     return kernels + [flash, bag]
 
 

@@ -5,6 +5,8 @@ The port's copy of ``repro/configs/qwen2_0_5b.py``: ``CONFIG`` is the full
 model, ``REDUCED`` the small one the tests hold against the JAX package.
 """
 
+from repro_torch.configs.base import ArchDef
+from repro_torch.configs.families import LMFamily
 from repro_torch.models.transformer import TransformerConfig
 
 CONFIG = TransformerConfig(
@@ -17,3 +19,10 @@ REDUCED = TransformerConfig(
     head_dim=8, qkv_bias=True, tie_embeddings=True, compute_dtype="float32",
 )
 SOURCE = "arXiv:2407.10671; hf"
+
+
+def get_def() -> ArchDef:
+    return ArchDef(
+        name="qwen2-0.5b", family=LMFamily, config=CONFIG, reduced=REDUCED,
+        shapes=("train_4k", "prefill_32k", "decode_32k", "long_500k"), source=SOURCE,
+    )

@@ -1,13 +1,17 @@
 """WARP engine configurations: the port's copies of ``WarpArchConfig``,
 ``WarpShape``, ``WARP_SHAPES`` and ``WARP_SHAPES_REDUCED`` from
 ``repro/configs/warp_family.py`` (the LoTTE geometries of the paper's own
-workload). The mesh and the sharded step functions are not ported."""
+workload), and ``WarpFamily``, the family's entry in the arch registry:
+its cells are served by ``Retriever.plan(warp_xtr.search_config(shape))``
+(one device; the mesh and the sharded step functions are not ported)."""
 
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["WARP_SHAPES", "WARP_SHAPES_REDUCED", "WarpArchConfig", "WarpShape"]
+from repro_torch.configs.base import ArchDef, ShapeCell
+
+__all__ = ["WARP_SHAPES", "WARP_SHAPES_REDUCED", "WarpArchConfig", "WarpFamily", "WarpShape"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,3 +48,12 @@ WARP_SHAPES_REDUCED = {
     "search_pooled": WarpShape("serve", 8000, 400, 64, 128, 1),
     "qps_pooled_b8": WarpShape("serve", 8000, 400, 64, 128, 4),
 }
+
+
+class WarpFamily:
+    name = "warp"
+
+    @staticmethod
+    def shape_cell(arch: ArchDef, shape: str) -> ShapeCell:
+        s = WARP_SHAPES[shape]
+        return ShapeCell(shape, s.kind, dataclasses.asdict(s))

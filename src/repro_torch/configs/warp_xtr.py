@@ -6,7 +6,13 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.warp_family import WARP_SHAPES, WARP_SHAPES_REDUCED, WarpArchConfig
+from repro_torch.configs.base import ArchDef
+from repro_torch.configs.warp_family import (
+    WARP_SHAPES,
+    WARP_SHAPES_REDUCED,
+    WarpArchConfig,
+    WarpFamily,
+)
 from repro_torch.core.types import WarpSearchConfig
 
 CONFIG = WarpArchConfig(nprobe=32, k=100)
@@ -30,4 +36,11 @@ def search_config(shape: str, reduced: bool = False) -> WarpSearchConfig:
         base,
         t_prime=base.resolved_t_prime(s.n_tokens),
         k_impute=base.resolved_k_impute(max(4, s.n_centroids)),
+    )
+
+
+def get_def() -> ArchDef:
+    return ArchDef(
+        name="warp-xtr", family=WarpFamily, config=CONFIG, reduced=REDUCED,
+        shapes=("search_lifestyle", "search_pooled", "qps_pooled_b8"), source=SOURCE,
     )

@@ -4,8 +4,10 @@
 [B, H, S, Dh] with GQA by head index: the CUDA kernel
 ``csrc/flash_attention.cu`` on a CUDA tensor, the plain version
 ``ref.flash_attention`` on a CPU tensor. Counterpart of
-``repro/kernels/flash_attention.py::flash_attention_kernel_call``. The
-kernel reads strided inputs (the last axis contiguous), so a [B, S, H, Dh]
+``repro/kernels/flash_attention.py::flash_attention_kernel_call``. Like
+the TPU kernel it is forward only: inputs that require grad (with grad
+enabled) are refused on either branch, since the kernel's output would
+carry no gradient back to them. The kernel reads strided inputs (the last axis contiguous), so a [B, S, H, Dh]
 tensor passes as its ``transpose(1, 2)`` view without a copy, and the
 output keeps q's strides. bf16 runs on Hopper's tensor cores (wgmma) fed
 by TMA, which reads from 16-byte aligned rows at strides of whole 16-byte
@@ -42,6 +44,11 @@ def flash_attention(
 ) -> torch.Tensor:
     """q [B, H, Sq, Dh], k/v [B, Hkv, Skv, Dh] -> [B, H, Sq, Dh] in
     ``q.dtype`` (see ``ref.flash_attention`` for the function)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError(
+            "flash_attention is forward only (the kernel has no backward): call it under "
+            "torch.no_grad, or differentiate layers.gqa_attention, JAX's training route"
+        )
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window)
     return flash_attention_cuda(q, k, v, causal=causal, window=window)

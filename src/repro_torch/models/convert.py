@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core.types import resolve_device
 from repro_torch.models.encoder import EncoderConfig
+from repro_torch.models.moe import moe_init
 from repro_torch.models.recsys import DINConfig, SASRecConfig, TwoTowerConfig, XDeepFMConfig
 from repro_torch.models.transformer import TransformerConfig
 
@@ -80,7 +81,9 @@ def params_from_jax(tree, cfg, *, device=None, dtype=torch.float32) -> dict:
 def _lm_from_jax(tree, cfg: TransformerConfig, t) -> dict:
     """The JAX ``TransformerLM.init`` pytree (stacked ``layers`` with a
     leading L axis, dense ``w`` [d_in, d_out] and ``b``, norm ``scale``,
-    ``embed``, optional ``lm_head``), each array converted by ``t``."""
+    ``embed``, optional ``lm_head``; MoE layers: ``moe.router.w``
+    [L, D, E] and the expert stacks ``moe.{gate,up}`` [L, E, D, F],
+    ``moe.down`` [L, E, F, D]), each array converted by ``t``."""
     lay = tree["layers"]
     out = {"embed": t(tree["embed"]), "final_norm.scale": t(tree["final_norm"]["scale"])}
     if "lm_head" in tree:
@@ -94,6 +97,12 @@ def _lm_from_jax(tree, cfg: TransformerConfig, t) -> dict:
             out[pre + f"{name}.weight"] = t(lay[name]["w"][i], transpose=True)
             if "b" in lay[name]:
                 out[pre + f"{name}.bias"] = t(lay[name]["b"][i])
+        if cfg.moe is not None:
+            moe = lay["moe"]
+            out[pre + "moe.router.weight"] = t(moe["router"]["w"][i], transpose=True)
+            for name in _FFN:
+                out[pre + f"moe.{name}"] = t(moe[name][i])
+            continue
         for name in _FFN:
             out[pre + f"ffn.{name}.weight"] = t(lay["ffn"][name]["w"][i], transpose=True)
     return out
@@ -230,7 +239,7 @@ def _recsys_init(cfg, generator, dev, dtype) -> dict:
 def _lm_init(cfg: TransformerConfig, generator, dev, dtype) -> dict:
     """Random weights with ``TransformerLM.init``'s distributions: dense
     weights normal * 1/sqrt(d_in), biases 0, norm scales 1, the embedding
-    normal * 1/sqrt(d_model)."""
+    normal * 1/sqrt(d_model); MoE layers as ``moe.moe_init`` draws them."""
     dh, d = cfg.resolved_head_dim, cfg.d_model
 
     def normal(d_out, d_in):
@@ -260,6 +269,10 @@ def _lm_init(cfg: TransformerConfig, generator, dev, dtype) -> dict:
         if cfg.qk_norm:
             out[pre + "q_norm.scale"] = const(dh, 1.0)
             out[pre + "k_norm.scale"] = const(dh, 1.0)
+        if cfg.moe is not None:
+            moe = moe_init(generator, cfg.moe, d, cfg.d_ff, device=dev, dtype=dtype)
+            out.update({pre + f"moe.{name}": w for name, w in moe.items()})
+            continue
         out[pre + "ffn.gate.weight"] = normal(cfg.d_ff, d)
         out[pre + "ffn.up.weight"] = normal(cfg.d_ff, d)
         out[pre + "ffn.down.weight"] = normal(d, cfg.d_ff)

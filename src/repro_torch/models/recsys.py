@@ -336,8 +336,8 @@ def serve_step(model: _Recsys, shape):
     every target at retrieval."""
     if shape.kind == "train":
         raise NotImplementedError(
-            "training is not yet ported: the recsys loss functions and train/* wait "
-            "for the training slice of the port"
+            "recsys training is not yet ported: the recsys loss functions wait for a "
+            "later slice of the port"
         )
     if shape.kind not in ("serve", "retrieval"):
         raise ValueError(f"shape kind {shape.kind!r} not in ('serve', 'retrieval', 'train')")

@@ -6,10 +6,13 @@ the index build: k-means, the builder, the baselines, the warp-xtr
 configs, the CLI, segmented indexes: doc filters, delta segments, and the
 serving surface: ``obs``, ``fault``, the server's cache, admission,
 scheduler and batcher, the serve launcher, the document-sharded index and
-the token encoder) or ``chip_smoke.py``; entry points refuse to fall back
-to the CPU (the server, its reloads and tenants on the server's device,
-the serve launcher, the sharded build, the encoder's weights); the kernel
-executor refuses a CPU index and CPU recsys weights."""
+the token encoder, the LM zoo and training: MoE, the arch registry and
+families, the optimizer, loop, checkpoints, compression, the batch
+pipeline and the train launcher) or ``chip_smoke.py``; entry points
+refuse to fall back to the CPU (the server, its reloads and tenants on
+the server's device, the serve launcher, the sharded build, the encoder's
+weights, the LM's weights and cache, the train loop and launcher); the
+kernel executor refuses a CPU index and CPU recsys weights."""
 
 import ast
 import os
@@ -96,6 +99,20 @@ def test_port_imports_neither_jax_nor_repro():
         "src/repro_torch/launch/serve.py",
         "src/repro_torch/core/distributed.py",
         "src/repro_torch/models/encoder.py",
+        "src/repro_torch/models/moe.py",
+        "src/repro_torch/configs/base.py",
+        "src/repro_torch/configs/registry.py",
+        "src/repro_torch/configs/qwen3_4b.py",
+        "src/repro_torch/configs/yi_6b.py",
+        "src/repro_torch/configs/mixtral_8x7b.py",
+        "src/repro_torch/configs/dbrx_132b.py",
+        "src/repro_torch/train/__init__.py",
+        "src/repro_torch/train/optimizer.py",
+        "src/repro_torch/train/loop.py",
+        "src/repro_torch/train/checkpoint.py",
+        "src/repro_torch/train/compression.py",
+        "src/repro_torch/data/pipeline.py",
+        "src/repro_torch/launch/train.py",
     } <= names
     bad = [
         f"{os.path.relpath(f, ROOT)}: import {m}"
@@ -120,7 +137,9 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.core.docfilter, repro_torch.store.segments, "
         "repro_torch.obs, repro_torch.fault, repro_torch.serving.cache, "
         "repro_torch.serving.admission, repro_torch.launch.serve, "
-        "repro_torch.core.distributed, repro_torch.models.encoder; "
+        "repro_torch.core.distributed, repro_torch.models.encoder, "
+        "repro_torch.models.moe, repro_torch.configs.registry, repro_torch.train, "
+        "repro_torch.data.pipeline, repro_torch.launch.train; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad; "
         "from repro_torch.kernels import _build; "
@@ -175,6 +194,28 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
                 ["--n-shards", "2"]):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve_cli.main(cmd)
+
+
+def test_lm_and_training_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
+    from repro_torch.configs import mixtral_8x7b
+    from repro_torch.configs.families import LMFamily, lm_loss_fn
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import KVCache, init_params
+    from repro_torch.train import AdamWConfig, train_loop
+
+    cfg = mixtral_8x7b.REDUCED
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        KVCache.empty(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LMFamily.smoke(get_arch("mixtral-8x7b"), "train_4k")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_loop(init_params_fn=lambda: init_params(cfg, device="cpu"), loss_fn=lm_loss_fn(cfg),
+                   batch_iter=lambda s: {}, opt_cfg=AdamWConfig(), n_steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main(["--arch", "qwen2-0.5b", "--steps", "1", "--ckpt-dir", str(tmp_path)])
 
 
 def test_server_tenants_and_reloads_follow_the_server_device(no_cuda, tmp_path):

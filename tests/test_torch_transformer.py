@@ -28,6 +28,7 @@ from repro.models.transformer import KVCache as JKVCache
 from repro.models.transformer import TransformerLM as JLM
 from repro_torch.configs import qwen2_0_5b as tq2
 from repro_torch.models import KVCache, TransformerConfig, TransformerLM, params_from_jax
+from repro_torch.models.moe import MoEConfig as TMoEConfig
 from repro_torch.models import layers as TL
 
 torch.set_num_threads(1)  # xdist runs one test process per core
@@ -87,9 +88,24 @@ def test_port_config_equals_jax_config_field_by_field(which):
 
 
 def test_moe_config_raises_a_directed_error():
-    cfg = _port_cfg(jq2.REDUCED, moe=MoEConfig(n_experts=4, top_k=2))
-    with pytest.raises(NotImplementedError, match="MoE not yet ported"):
-        TransformerLM(cfg)
+    """A MoE config no longer raises: it builds (a router and stacked
+    experts in place of the dense FFN) and its forward matches JAX's."""
+    jcfg = dataclasses.replace(jq2.REDUCED, moe=MoEConfig(n_experts=4, top_k=2))
+    cfg = dataclasses.replace(tq2.REDUCED, moe=TMoEConfig(n_experts=4, top_k=2))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert cfg.param_count() == jcfg.param_count()
+    assert cfg.active_param_count() == jcfg.active_param_count()
+    params = JLM.init(jax.random.PRNGKey(4), jcfg)
+    model = TransformerLM.from_params(
+        cfg, params_from_jax(jax.tree.map(np.asarray, params), cfg, device="cpu")
+    )
+    assert not hasattr(model.layers[0], "ffn") and model.layers[0].moe.gate.shape == (4, 56, 128)
+    toks = _tokens(34, 2, 24, jcfg.vocab)
+    jh, jaux = JLM.forward(params, jcfg, jnp.asarray(toks))
+    with torch.no_grad():
+        hidden, aux = model(torch.from_numpy(toks).long())
+    np.testing.assert_allclose(_np(hidden), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(float(aux), float(jaux), **TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +198,8 @@ def test_forward_and_logits_match_jax(name):
     toks = _tokens(30, 2, 24, jcfg.vocab)
     jh, _ = JLM.forward(params, jcfg, jnp.asarray(toks))
     want = JLM.logits(params, jcfg, jh)
-    hidden, aux = model(torch.from_numpy(toks).long())
+    with torch.no_grad():  # the serving route (flash's plain version)
+        hidden, aux = model(torch.from_numpy(toks).long())
     np.testing.assert_allclose(_np(hidden), np.asarray(jh), **TOL)
     np.testing.assert_allclose(_np(model.logits(hidden)), np.asarray(want), **TOL)
     assert float(aux) == 0.0
