@@ -126,9 +126,25 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      ``synthetic_lm_fetch``: the step-1 loss equals the no-grad loss,
      every parameter gets a gradient, the loss falls over 10 steps on one
      repeated batch, microbatches 2 equal 1 (qwen2), a ``train_loop``
-     killed at step 7 resumes from its step-5 checkpoint to the same bits,
-     and ``launch.train`` runs and resumes on the card; train tokens/s,
-     step p50, peak memory and attention's share of the step printed.
+     killed at step 7 resumes from its step-5 checkpoint to the same bits;
+     train tokens/s, step p50, peak memory and attention's share of the
+     step printed. Then recsys training (``recsys_train``): the embedding
+     bag's backward kernels (the table's dense gradient, the weights')
+     against their plain version per element at the training shapes (int32
+     and int64 ids, duplicates, zero weights, ids outside [0, V)), two calls
+     bit-identical, two planted faults rejected, timed beside
+     ``F.embedding_bag``'s autograd; two-tower (B 32,768), xDeepFM (65,536
+     in 4 microbatches), DIN and SASRec (65,536) at full width: the step-1
+     loss equals the no-grad loss, every gradient finite and non-zero, the
+     tables' only on rows the batch names, kernel vs reference executor
+     (loss; gradients teacher-forced), the loss falls over 10 steps,
+     xDeepFM's microbatches 4 vs 1, DIN's resume to the same bits; samples/s,
+     step p50, peak memory. Then ``gnn``: gin-tu at its four full shapes
+     (ogb_products the whole 61.86M-edge graph; minibatch_lg one
+     ``neighbor_sample`` draw): two step-1 gradients bit-identical, the same
+     loss checks; edges/s, step p50, peak memory, the gather + segment sum
+     share. Last, ``launch.train`` trains and resumes qwen2-0.5b, din and
+     gin-tu on the card.
 
 Top-k doc ids must be identical. A swap is allowed only between scores
 tied within what the kernels' measured error allows (``tie_tolerance``),
@@ -294,6 +310,47 @@ TRAIN_LOSS_TOL = 1e-6
 # aux loss are per microbatch (in JAX too), so mixtral's are reported only.
 TRAIN_MB_LOSS_TOL = 2.0 ** -7
 TRAIN_MB_GNORM_TOL = 2.0 ** -5
+
+# Recsys training (train phase): each model at its full CONFIG, train_batch's
+# 65,536 rows, random weights and batches from --seed, float32 state, the
+# LM's TRAIN_OPT and TRAIN_STEPS. two-tower is cut to 32,768: its in-batch
+# [B, B] float32 logits are 17.2 GB at 65,536 and the softmax holds 2-3 of
+# them beside 29 GB of parameters, AdamW moments and dense table gradients;
+# microbatches would change its in-batch negatives. xDeepFM runs its rows
+# in 4 microbatches: CIN's [B, 7800, 10] products are 20.4 GB each at
+# 65,536, and equal chunks of a mean BCE give the same gradient.
+RECSYS_TRAIN = (  # arch, batch, microbatches
+    ("two-tower-retrieval", 32_768, 1),
+    ("xdeepfm", 65_536, 4),
+    ("din", 65_536, 1),
+    ("sasrec", 65_536, 1),
+)
+# Kernel vs reference executor on one (micro)batch: the loss within
+# TRAIN_LOSS_TOL relative (the bag sums in another order: float32
+# round-off). The gradients are held teacher-forced: the kernel model's bags
+# give the reference's forward values and take the kernel's backward
+# (``forced_bags``), each gradient tensor within RECSYS_GRAD_TOL of its
+# norm. Run free, the bags' ~1e-6 forward differences flip ReLUs whose
+# inputs sit that near 0 (a few in the millions of units of a 65,536-row
+# batch), each moving one row's gradient wholesale, ~1e-3 of a tensor's
+# norm: those free-run differences are printed, with no limit.
+RECSYS_GRAD_TOL = 1e-5
+# xDeepFM microbatches 4 vs 1 at a batch one pass holds: float32 sums of the
+# same terms in another grouping, loss and grad_norm within this, relative.
+XDEEPFM_MB_BATCH = 16_384
+XDEEPFM_MB_TOL = 1e-5
+# The bag backward's kernels against their plain version per element within
+# ref.embedding_bag_backward_error_bound (float32 sums in another order),
+# two calls bit-identical; bound: the bytes it must move.
+# GNN (train phase): gin-tu at its CONFIG on the four GNN_SHAPES at full
+# size, ogb_products as the whole graph (its 61.86M edges in one pass; no
+# chunking). minibatch_lg's batch is one neighbor_sample draw, fanouts
+# GNN_FANOUTS (JAX names none; GraphSAGE's two-hop setting), over a seeded
+# synthetic CSR graph of Reddit's node count and GNN_AVG_DEGREE, padded to
+# the shape's nodes and edges with its masks.
+GNN_FANOUTS = (10, 10)
+GNN_GRAPH_NODES = 232_965
+GNN_AVG_DEGREE = 50
 
 # Recsys phase: two-tower-retrieval at full width (serve_p99, serve_bulk,
 # retrieval_cand); DIN, xDeepFM and SASRec at serve_p99. Embedding-bag
@@ -2885,6 +2942,8 @@ def phase_flash(torch, dev, flush):
                 nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
                 zoo[name] = {
                     "shape": [b, h, hkv, s, dh], "window": window, "ms": t["ms"],
+                    "plain_ms": time_cuda(torch, lambda: ref.flash_attention(
+                        q, k, v, causal=True, window=window), flush, iters=3),
                     "library_ms": t["sdpa_ms"],
                     "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops_ / BF16_OPS_PER_S) * 1e3,
                     "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops_ / BF16_OPS_PER_S else "operations",
@@ -3844,24 +3903,39 @@ def attention_step_ms(torch, cfg, b: int, s: int, dev, flush) -> float:
     return cfg.n_layers * (fwd + time_cuda(torch, fwd_bwd, flush, iters=5))
 
 
+TRAIN_LAUNCHER_ARCHS = ("qwen2-0.5b", "din", "gin-tu")
+
+
 def train_launcher(torch, out_dir: str) -> None:
-    """``repro_torch.launch.train`` on the card (its reduced qwen2-0.5b):
-    4 steps with a checkpoint every 2, then a rerun to 6 that resumes."""
+    """``repro_torch.launch.train`` on the card for each of
+    ``TRAIN_LAUNCHER_ARCHS`` (their reduced configs), one process per arch
+    side by side: 4 steps with a checkpoint every 2, then a rerun to 6 that
+    resumes; every printed loss finite."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen2-0.5b",
-           "--ckpt-dir", out_dir, "--ckpt-every", "2"]
     for steps, expect in (("4", "done"), ("6", "[resume] step 4")):
         t0 = time.perf_counter()
-        r = subprocess.run(cmd + ["--steps", steps], capture_output=True, text=True, env=env,
-                           timeout=600)
-        if r.returncode != 0 or expect not in r.stdout:
-            fail(f"train: launch.train --steps {steps} exited {r.returncode}: "
-                 f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
-        log(f"[train] launch.train --steps {steps} on the card: exit 0 in "
-            f"{time.perf_counter() - t0:.1f} s; {r.stdout.strip().splitlines()[-2:]}")
+        procs = {
+            arch: subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--ckpt-dir",
+                 os.path.join(out_dir, arch), "--ckpt-every", "2", "--steps", steps],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+            for arch in TRAIN_LAUNCHER_ARCHS
+        }
+        for arch, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=600)
+            finally:
+                proc.kill()
+            losses = [float(x.split("loss=")[1]) for x in out.splitlines() if "loss=" in x]
+            if proc.returncode != 0 or expect not in out or not np.all(np.isfinite(losses)):
+                fail(f"train: launch.train --arch {arch} --steps {steps} exited {proc.returncode}: "
+                     f"{out[-2000:]} {err[-2000:]}")
+            log(f"[train] launch.train --arch {arch} --steps {steps} on the card: exit 0, losses "
+                f"{losses}; {out.strip().splitlines()[-1]}")
+        log(f"[train] the launcher runs at --steps {steps} took {time.perf_counter() - t0:.1f} s")
 
 
-def phase_train(torch, dev, seed: int, flush) -> None:
+def phase_train(torch, dev, seed: int, flush) -> dict:
     """LM training on the card (``TRAIN_RUNS``): for each, the no-grad loss
     against the step-1 loss, a gradient for every parameter tensor (none
     all zero or non-finite), ``TRAIN_STEPS`` timed steps on one repeated
@@ -3869,8 +3943,11 @@ def phase_train(torch, dev, seed: int, flush) -> None:
     of attention), and one step at the other microbatch count; for qwen2
     also a run through ``train_loop`` that dies at step 7, resumes from
     its step-5 checkpoint and must end bit for bit where the uninterrupted
-    run ended; then the train launcher. Every measurement is printed
-    before any failed check raises."""
+    run ended; then recsys training (``phase_recsys_train``: the bag
+    backward's kernels and the four models), gin-tu at its four shapes
+    (``phase_gnn``) and the train launcher. Every measurement is printed
+    before any failed check raises. Returns the bag backward's kernels
+    row."""
     from repro_torch.configs.families import lm_loss_fn
     from repro_torch.configs.registry import get_arch
     from repro_torch.data import ShardedBatcher, synthetic_lm_fetch
@@ -4004,14 +4081,554 @@ def phase_train(torch, dev, seed: int, flush) -> None:
                 del resumed, final, kw
                 shutil.rmtree(ckdir, ignore_errors=True)
                 torch.cuda.empty_cache()
-                train_launcher(torch, os.path.join(tmp, "launcher"))
             del batch, halves
             torch.cuda.empty_cache()
             log(f"[train] {arch} done in {time.perf_counter() - t_arch:.1f}s")
+        row = phase_recsys_train(torch, dev, seed + 20, flush, check, tmp)
+        torch.cuda.empty_cache()
+        phase_gnn(torch, dev, seed + 40, flush, check)
+        torch.cuda.empty_cache()
+        train_launcher(torch, os.path.join(tmp, "launcher"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if failures:
         fail("train: " + "; ".join(failures))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# recsys and GNN training (the train phase's recsys_train and gnn steps)
+# ---------------------------------------------------------------------------
+
+
+def recsys_train_batch(torch, cfg, b: int, g, dev) -> dict:
+    """The train_batch inputs ``RecsysFamily.input_specs`` names for ``cfg``
+    at ``b`` rows, on the card: ``recsys_batch``'s ids and masks, log_q
+    standard normal, SASRec's positive and negative ids uniform, labels
+    0/1."""
+    from repro_torch.configs import RecsysShape
+    from repro_torch.models import SASRecConfig, TwoTowerConfig
+
+    batch = recsys_batch(torch, cfg, RecsysShape("train", b), g, dev)
+    if isinstance(cfg, TwoTowerConfig):
+        batch["log_q"] = torch.randn(b, generator=g, device=dev)
+    elif isinstance(cfg, SASRecConfig):
+        del batch["target_ids"]
+        for k in ("pos_ids", "neg_ids"):
+            batch[k] = torch.randint(0, cfg.item_vocab, (b, cfg.seq_len), generator=g, device=dev)
+    else:
+        batch["labels"] = torch.randint(0, 2, (b,), generator=g, device=dev).float()
+    return batch
+
+
+# The table parameters of each recsys model and the batch inputs naming their rows.
+TABLE_IDS = {
+    "TwoTowerConfig": {"user_table": ("user_ids",), "item_table": ("item_ids",)},
+    "SASRecConfig": {"item_table": ("seq_ids", "pos_ids", "neg_ids")},
+    "XDeepFMConfig": {"table": ("field_ids",), "linear": ("field_ids",)},
+    "DINConfig": {"table": ("target_ids", "hist_ids")},
+}
+# Bag kernel launches per (micro)batch of a kernel-executor train step:
+# (forward, backward). Two-tower: one bag per tower, the table's gradient
+# each; DIN: the interest bag, the table's and the weights' gradients;
+# xDeepFM: the linear term's bag and its table's gradient; SASRec: none.
+BAG_LAUNCHES = {"TwoTowerConfig": (2, 2), "DINConfig": (1, 2), "XDeepFMConfig": (1, 1),
+                "SASRecConfig": (0, 0)}
+
+
+def bag_backward_check(torch, what, table, idx, w, g, weights_grad: bool) -> dict:
+    """The bag backward's kernels against their plain version on the same
+    inputs, per element within ``ref.embedding_bag_backward_error_bound``,
+    and two calls bit-identical; returns each gradient's max abs err and
+    the largest share of its limit an element used."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_bag import embedding_bag_backward_cuda
+
+    got = embedding_bag_backward_cuda(table, idx, w, g, weights_grad=weights_grad)
+    again = embedding_bag_backward_cuda(table, idx, w, g, weights_grad=weights_grad)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+    del again
+    if not same:
+        fail(f"embedding_bag backward {what}: two calls are not bit-identical")
+    want = ref.embedding_bag_bags_backward(table, idx, w, g, weights_grad=weights_grad)
+    limits = ref.embedding_bag_backward_error_bound(table, idx, w, g)
+    out = {}
+    for name, a, b, lim in zip(("table", "weights"), got, want, limits):
+        if a is None:
+            continue
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            fail(f"embedding_bag backward {what}: d{name} {tuple(a.shape)} not finite of shape "
+                 f"{tuple(b.shape)}")
+        diff = (a - b).abs_()
+        excess = float((diff - lim).max())
+        if not excess <= 0:
+            fail(f"embedding_bag backward {what}: a d{name} element differs from the plain "
+                 f"version by {excess} beyond its limit")
+        out[f"d{name}_max_abs_err"] = float(diff.max())
+        out[f"d{name}_share_of_limit"] = float((diff / lim).max())
+        del diff
+    if weights_grad:
+        valid = (idx >= 0) & (idx < table.shape[0])
+        if bool(got[1][~valid].any()):
+            fail(f"embedding_bag backward {what}: dw is not 0 at an id outside [0, V)")
+    return out
+
+
+def phase_bag_backward(torch, dev, tables: dict, flush) -> dict:
+    """The bag backward's kernels against their plain version at the
+    training path's shapes (the two-tower user tower at its train batch,
+    DIN's history with the weights' gradient, xDeepFM's linear term at D
+    1), with int32 and int64 ids, duplicate ids within a bag, zero weights
+    and ids outside [0, V); two planted faults (each row's last
+    contribution dropped; dw written one slot off) the limits must reject;
+    the table's gradient timed at the user tower's shape beside its plain
+    version and ``F.embedding_bag``'s autograd. Returns the kernels row
+    (launches filled in by the caller)."""
+    from repro_torch.configs import RecsysShape
+    from repro_torch.configs.two_tower_retrieval import CONFIG as TT
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_bag import embedding_bag_backward_cuda
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    user, din_table, linear = tables["user_table"], tables["din"], tables["linear"]
+    b_tt, b = RECSYS_TRAIN[0][1], RECSYS_TRAIN[2][1]
+
+    def bags(table, s, l, dtype, bad=0.05):
+        v = table.shape[0]
+        idx = torch.randint(0, v, (s, l), generator=g, device=dev)
+        idx[:, 1] = idx[:, 0]  # a duplicate in every bag
+        far = torch.randint(v, 2 * v, (s, l), generator=g, device=dev)
+        pick = torch.rand(s, l, generator=g, device=dev) < bad
+        idx = torch.where(pick, torch.where(far % 2 == 0, far, -far), idx)
+        w = torch.rand(s, l, generator=g, device=dev)
+        w = torch.where(torch.rand(s, l, generator=g, device=dev) < 0.2, 0.0, w)
+        return idx.to(dtype), w, torch.randn(s, table.shape[1], generator=g, device=dev)
+
+    # The timed case is the main path's own input: the user tower at its
+    # train batch, the mask as the weights, the in-range ids it draws.
+    main = recsys_batch(torch, TT, RecsysShape("train", b_tt), g, dev)
+    uidx, uw = main["user_ids"], main["user_mask"]
+    ug = torch.randn(b_tt, user.shape[1], generator=g, device=dev)
+    checks = {"user tower train (path's ids and mask)":
+              bag_backward_check(torch, "user train", user, uidx, uw, ug, False)}
+    cases = {
+        "user tower int32": (user, *bags(user, b_tt, TT.user_fields, torch.int32), False),
+        "din history int64, dw": (din_table, *bags(din_table, b, 100, torch.int64), True),
+        "din history int32, dw": (din_table, *bags(din_table, b, 100, torch.int32), True),
+        "xdeepfm linear D 1, dw": (linear, *bags(linear, b // 4, 39, torch.int32), True),
+    }
+    for what, (table, idx, w, gg, wg) in cases.items():
+        checks[what] = bag_backward_check(torch, what, table, idx, w, gg, wg)
+    log(f"[bag-bwd] kernels vs plain version per element: {json.dumps(checks)}")
+
+    # Planted faults, as perturbations of the plain version's output.
+    _, idx, w, gg, _ = cases["din history int64, dw"]
+    want_t, want_w = ref.embedding_bag_bags_backward(din_table, idx, w, gg, weights_grad=True)
+    lim_t, lim_w = ref.embedding_bag_backward_error_bound(din_table, idx, w, gg)
+    key, pos = ref.bag_sort(idx, din_table.shape[0])
+    last = torch.ones_like(key, dtype=torch.bool)
+    last[:-1] = key[1:] != key[:-1]
+    w_drop = w.reshape(-1).clone()
+    w_drop[pos[last & (key < din_table.shape[0])]] = 0.0
+    dropped = ref.embedding_bag_bags_backward(din_table, idx, w_drop.view_as(w), gg)[0]
+    faults = {"each row's last contribution dropped (dtable)": (dropped, want_t, lim_t),
+              "dw written one slot off": (torch.roll(want_w, 1, dims=1), want_w, lim_w)}
+    for what, (bad, want, lim) in faults.items():
+        excess = float(((bad - want).abs() - lim).max())
+        if not excess > 0:
+            fail(f"embedding_bag backward: the per-element limit does not reject a planted "
+                 f"fault ({what})")
+        log(f"[bag-bwd] planted fault, {what}: {excess} beyond the limit: rejected")
+    del faults, dropped, want_t, want_w, lim_t, lim_w, cases
+
+    s, l, d, v = b_tt, uidx.shape[1], user.shape[1], user.shape[0]
+    ms = time_cuda(torch, lambda: embedding_bag_backward_cuda(user, uidx, uw, ug), flush)
+    plain_ms = time_cuda(torch, lambda: ref.embedding_bag_bags_backward(user, uidx, uw, ug),
+                         flush, iters=5)
+    leaf = user.detach().requires_grad_(True)
+    lib_out = torch.nn.functional.embedding_bag(uidx, leaf, per_sample_weights=uw, mode="sum")
+    lib_err = float((torch.autograd.grad(lib_out, leaf, ug, retain_graph=True)[0]
+                     - embedding_bag_backward_cuda(user, uidx, uw, ug)[0]).abs().max())
+    library_ms = time_cuda(
+        torch, lambda: torch.autograd.grad(lib_out, leaf, ug, retain_graph=True), flush)
+    del lib_out, leaf
+    # The table's gradient is dense: written once whole; g, the ids and the
+    # weights read once; one fma per (bag, slot, column).
+    nbytes = v * d * 4 + s * d * 4 + s * l * (uidx.element_size() + 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * s * l * d / F32_OPS_PER_S
+    din_idx, din_w, din_g = bags(din_table, b, 100, torch.int64, bad=0.0)
+    din_ms = time_cuda(torch, lambda: embedding_bag_backward_cuda(
+        din_table, din_idx, din_w, din_g, weights_grad=True), flush)
+    din_bytes = (din_table.numel() * 4 + din_idx.numel() * (8 + 4 + 4) + din_g.numel() * 4
+                 + din_idx.numel() * din_table.shape[1] * 4)
+    row = {
+        "name": "embedding_bag_backward",
+        "route": "cuda",
+        "source": KERNEL_INFO["embedding_bag"][0],
+        "replaces": KERNEL_INFO["embedding_bag"][1],
+        "tpu_counterpart": "none: the TPU kernel is forward only; JAX differentiates jnp.take + sum",
+        "launches": 0,
+        "max_abs_err": checks["user tower train (path's ids and mask)"]["dtable_max_abs_err"],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+        "bytes": int(nbytes),
+    }
+    log(f"[bag-bwd] timed at the user tower's train input: S={s} L={l} D={d} V={v} int64 ids, "
+        f"the table's gradient (dense, {v * d * 4} bytes); F.embedding_bag autograd vs kernel max "
+        f"abs err {lib_err}; DIN history (S={b} L=100 D=18, both gradients) {din_ms:.5f} ms "
+        f"against a {din_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms bytes bound; {card()}; "
+        f"{json.dumps(row)}")
+    return row
+
+
+def forced_bags(torch, model) -> None:
+    """Teacher-force a kernel-executor model's bag sums: each gives the
+    reference executor's forward value (JAX's rows times weights, summed)
+    and takes the kernel's gradient (the bag backward's kernels), so the two
+    executors' gradients differ only by the backward's arithmetic."""
+    import types
+
+    from repro_torch.kernels import ops, ref
+
+    def bag(self, table, ids, weights):
+        k = ops.embedding_bag(table, bag_indices=ids, bag_weights=weights, use_kernel=True)
+        r = torch.sum(ref.take(table, ids) * weights.unsqueeze(-1), dim=1)
+        return r.detach() + (k - k.detach())
+
+    model._bag = types.MethodType(bag, model)
+
+
+def recsys_train_model(torch, arch: str, b: int, mb: int, dev, seed: int, opt, flush,
+                       check, tmp: str) -> dict:
+    """One recsys model's training at full width: the no-grad loss, the
+    step-1 gradients at both executors on the first microbatch (finite,
+    non-zero, the tables' only on rows the batch names, kernel = reference
+    within RECSYS_GRAD_TOL), TRAIN_STEPS timed kernel-executor steps on the
+    repeated batch (the loss falls; the step-1 loss equals the no-grad
+    loss), the bag launches of those steps; xDeepFM also microbatches
+    4 vs 1; DIN also a train_loop killed at step 7 resumed from step 5 to
+    the same bits. Returns the kernel launches of the timed steps."""
+    from repro_torch.configs.families import recsys_loss_fn
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import init_params
+    from repro_torch.models.recsys import RECSYS_MODELS
+    from repro_torch.train import FailureInjector, TrainState, latest_step, make_train_step, train_loop
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.train.optimizer import adamw_update
+
+    t_arch = time.perf_counter()
+    cfg = get_arch(arch).config
+    kind = type(cfg).__name__
+
+    def fresh():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return init_params(cfg, gen, device=dev)
+
+    state = TrainState.create(fresh())
+    gb = torch.Generator(device=dev)
+    gb.manual_seed(seed + 1)
+    batch = recsys_train_batch(torch, cfg, b, gb, dev)
+    n = sum(p.numel() for p in state.params.values())
+    chunks = [{k: v[j * b // mb:(j + 1) * b // mb] for k, v in batch.items()} for j in range(mb)]
+    loss_fn = recsys_loss_fn(cfg)
+    with torch.no_grad():
+        nograd = sum(float(loss_fn(state.params, c)[0]) for c in chunks) / mb
+
+    grads, first = {}, {}
+    for ex in ("reference", "kernel", "forced"):
+        model = RECSYS_MODELS[type(cfg)].from_params(
+            cfg, state.params, executor="reference" if ex == "reference" else "kernel",
+            trainable=True)
+        if ex == "forced":
+            forced_bags(torch, model)
+        loss, _ = model.loss(chunks[0])
+        grads[ex] = torch.autograd.grad(loss, list(state.params.values()))
+        first[ex] = float(loss.detach())
+        del loss, model
+    names = list(state.params)
+    bad = [k for k, gr in zip(names, grads["kernel"]) if not bool(torch.isfinite(gr).all())]
+    zero = [k for k, gr in zip(names, grads["kernel"]) if not bool(gr.any())]
+    check(not bad and not zero, f"{arch}: parameters with a non-finite gradient {bad}, all zero {zero}")
+    stray = {}
+    for table, keys in TABLE_IDS[kind].items():
+        gr = grads["kernel"][names.index(table)]
+        named = torch.zeros(gr.shape[0], dtype=torch.bool, device=dev)
+        for key in keys:
+            named[chunks[0][key].reshape(-1).long()] = True
+        stray[table] = int((gr.ne(0).any(dim=1) & ~named).sum())
+    check(not any(stray.values()), f"{arch}: table gradient rows the batch does not name: {stray}")
+    rel = {ex: {k: float((a - r).norm() / r.norm().clamp_min(1e-30))
+                for k, a, r in zip(names, grads[ex], grads["reference"])}
+           for ex in ("kernel", "forced")}
+    loss_rel = abs(first["kernel"] - first["reference"]) / abs(first["reference"])
+    worst = {ex: max(r, key=r.get) for ex, r in rel.items()}
+    wf = worst["forced"]
+    check(loss_rel <= TRAIN_LOSS_TOL and rel["forced"][wf] <= RECSYS_GRAD_TOL,
+          f"{arch}: kernel vs reference executor: loss {loss_rel} relative (limit {TRAIN_LOSS_TOL}), "
+          f"teacher-forced gradient {wf} {rel['forced'][wf]} of its norm (limit {RECSYS_GRAD_TOL})")
+    log(f"[recsys-train] {arch}: {n} float32 parameters ({16 * n / 1e9:.2f} GB with gradients, m "
+        f"and v), batch {b} in {mb} microbatch(es); step-1 gradients on {b // mb} rows: all "
+        f"{len(names)} finite and non-zero; table rows outside the batch's ids with a gradient "
+        f"{stray}; kernel vs reference: loss {first['kernel']} vs {first['reference']} ({loss_rel} "
+        f"relative; limit {TRAIN_LOSS_TOL}); gradients teacher-forced: largest difference "
+        f"{rel['forced'][wf]} of its norm at {wf} (limit {RECSYS_GRAD_TOL}); free run: "
+        f"{rel['kernel'][worst['kernel']]} at {worst['kernel']} (ReLU flips; no limit)")
+    del grads
+
+    step = make_train_step(loss_fn, opt, microbatches=mb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # this model's main path: the timed kernel-executor steps
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    launched = {k: LAUNCHES[k] for k in ("embedding_bag", "embedding_bag_backward")}
+    peak = torch.cuda.max_memory_allocated()
+    fwd, bwd = BAG_LAUNCHES[kind]
+    expect = {"embedding_bag": TRAIN_STEPS * mb * fwd, "embedding_bag_backward": TRAIN_STEPS * mb * bwd}
+    check(launched == expect, f"{arch}: bag launches over {TRAIN_STEPS} steps {launched}, expected {expect}")
+    p50 = float(np.median(times[1:]))
+    rel1 = abs(losses[0] - nograd) / abs(nograd)
+    check(rel1 <= TRAIN_LOSS_TOL, f"{arch}: step-1 loss {losses[0]} vs the no-grad loss {nograd}: "
+                                  f"{rel1} relative > {TRAIN_LOSS_TOL}")
+    check(losses[-1] < losses[0], f"{arch}: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    final = ([(k, v.detach().to("cpu", copy=True)) for k, v in flatten(state)]
+             if kind == "DINConfig" else None)
+    # The optimizer's share of the step: one adamw_update (clip, moments,
+    # decay; every parameter dense) timed alone, the m moments standing in
+    # for gradients of the same shapes (the state is not used again).
+    adam = time_cuda(torch, lambda: adamw_update(opt, state.params, state.opt["m"], state.opt),
+                     flush, iters=5)
+    log(f"[recsys-train] {arch}: step-1 loss {losses[0]} (no-grad {nograd}, {rel1} relative); "
+        f"losses at lr {opt.lr} {json.dumps(losses)}; step p50 {p50 * 1e3:.3f} ms (first "
+        f"{times[0] * 1e3:.1f} ms), {b / p50:.1f} samples/s; peak memory {peak / 2**30:.2f} GiB; "
+        f"AdamW alone {adam:.3f} ms, {adam / (p50 * 1e3):.3f} of the step; bag launches "
+        f"{launched}; {card()}")
+    del state, step, loss_fn, chunks
+    torch.cuda.empty_cache()
+
+    if kind == "XDeepFMConfig":
+        small = {k: v[:XDEEPFM_MB_BATCH] for k, v in batch.items()}
+        res = {}
+        for m_ in (mb, 1):
+            st = TrainState.create(fresh())
+            _, met = make_train_step(recsys_loss_fn(cfg), opt, microbatches=m_)(st, small)
+            res[m_] = {k: float(v) for k, v in met.items()}
+            del st
+            torch.cuda.empty_cache()
+        d_loss = abs(res[mb]["loss"] - res[1]["loss"]) / abs(res[1]["loss"])
+        d_gn = abs(res[mb]["grad_norm"] - res[1]["grad_norm"]) / res[1]["grad_norm"]
+        check(d_loss <= XDEEPFM_MB_TOL and d_gn <= XDEEPFM_MB_TOL,
+              f"{arch}: microbatches {mb} vs 1 at {XDEEPFM_MB_BATCH}: loss {d_loss}, grad_norm "
+              f"{d_gn} relative (limit {XDEEPFM_MB_TOL})")
+        log(f"[recsys-train] {arch}: one step at {XDEEPFM_MB_BATCH} rows, microbatches {mb} vs 1: "
+            f"{json.dumps(res)}; loss {d_loss}, grad_norm {d_gn} relative (limit {XDEEPFM_MB_TOL})")
+
+    if final is not None:
+        every, dies = TRAIN_RESUME_AT
+        ckdir = os.path.join(tmp, arch)
+        kw = dict(init_params_fn=fresh, loss_fn=recsys_loss_fn(cfg),
+                  batch_iter=lambda _: batch, opt_cfg=opt, n_steps=TRAIN_STEPS, ckpt_dir=ckdir,
+                  ckpt_every=every, keep=2, log_every=TRAIN_STEPS, log_fn=log, device=dev)
+        t0 = time.perf_counter()
+        try:
+            train_loop(failure=FailureInjector(fail_at=(dies,)), **kw)
+            check(False, f"{arch}: the injected failure at step {dies} did not fire")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        check(latest_step(ckdir) == every, f"{arch}: newest committed step {latest_step(ckdir)}, "
+                                           f"not {every}")
+        resumed, _ = train_loop(**kw)
+        diffs = {k: float((v.detach().cpu() - want).abs().max())
+                 for (k, v), (_, want) in zip(flatten(resumed), final)}
+        worst = max(diffs, key=diffs.get)
+        check(diffs[worst] == 0, f"{arch}: the run resumed from step {every} ends {diffs[worst]} "
+                                 f"from the uninterrupted run at {worst}")
+        log(f"[recsys-train] {arch}: train_loop died at step {dies}, resumed from its step-{every} "
+            f"checkpoint and ended at step {TRAIN_STEPS} with every parameter and Adam moment "
+            f"{'bit for bit' if diffs[worst] == 0 else 'apart'} (largest diff {diffs[worst]} at "
+            f"{worst}); {time.perf_counter() - t0:.1f} s with checkpoint writes")
+        del resumed, final, kw
+        shutil.rmtree(ckdir, ignore_errors=True)
+    del batch
+    torch.cuda.empty_cache()
+    log(f"[recsys-train] {arch} done in {time.perf_counter() - t_arch:.1f}s")
+    return launched
+
+
+def phase_recsys_train(torch, dev, seed: int, flush, check, tmp: str) -> dict:
+    """Recsys training at full width (``RECSYS_TRAIN``): the bag backward's
+    kernels first (``phase_bag_backward``, on the models' full-size
+    tables), then each model (``recsys_train_model``). Returns the bag
+    backward's kernels row, its launches those of the models' timed
+    kernel-executor steps."""
+    from repro_torch.configs import din, two_tower_retrieval, xdeepfm
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    tables = {
+        "user_table": init_params(two_tower_retrieval.CONFIG, g, device=dev)["user_table"],
+        "din": init_params(din.CONFIG, g, device=dev)["table"],
+        "linear": init_params(xdeepfm.CONFIG, g, device=dev)["linear"],
+    }
+    row = phase_bag_backward(torch, dev, tables, flush)
+    del tables
+    torch.cuda.empty_cache()
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    launches = 0
+    for i, (arch, b, mb) in enumerate(RECSYS_TRAIN):
+        launched = recsys_train_model(torch, arch, b, mb, dev, seed + 10 * (i + 1), opt_cfg, flush,
+                                      check, tmp)
+        launches += launched["embedding_bag_backward"]
+    row["launches"] = launches
+    log(f"[recsys-train] step took {time.perf_counter() - t0:.1f}s")
+    return row
+
+
+def gnn_batch(torch, name: str, s, g, dev, seed: int) -> dict:
+    """One batch of ``GNNFamily.input_specs`` at the full shape ``s`` on the
+    card: features standard normal, labels in [0, n_classes); the full
+    graphs' edges uniform over the nodes (molecule: 128 graphs of 30 nodes);
+    minibatch_lg one ``neighbor_sample`` draw over a synthetic CSR graph
+    (``GNN_GRAPH_NODES`` nodes, Poisson ``GNN_AVG_DEGREE`` degrees, uniform
+    neighbours), padded with its masks."""
+    from repro_torch.models.gnn import neighbor_sample
+
+    n = s.n_nodes
+    batch = {
+        "x": torch.randn(n, s.d_feat, generator=g, device=dev),
+        "labels": torch.randint(0, s.n_classes, (s.n_graphs or n,), generator=g, device=dev,
+                                dtype=torch.int32),
+    }
+    if not s.batch_nodes:
+        for k in ("edge_src", "edge_dst"):
+            batch[k] = torch.randint(0, n, (s.n_edges,), generator=g, device=dev, dtype=torch.int32)
+        if s.n_graphs:
+            batch["graph_ids"] = torch.arange(s.n_graphs, device=dev, dtype=torch.int32
+                                              ).repeat_interleave(n // s.n_graphs)
+        return batch
+    rng = np.random.default_rng(seed)
+    deg = rng.poisson(GNN_AVG_DEGREE, GNN_GRAPH_NODES)
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    indices = rng.integers(0, GNN_GRAPH_NODES, indptr[-1])
+    seeds = rng.choice(GNN_GRAPH_NODES, s.batch_nodes, replace=False)
+    t0 = time.perf_counter()
+    nodes, src, dst, emask = neighbor_sample(rng, indptr, indices, seeds, GNN_FANOUTS)
+    sample_s = time.perf_counter() - t0
+    if len(nodes) > n or len(src) > s.n_edges:
+        fail(f"gnn minibatch_lg: the sample has {len(nodes)} nodes and {len(src)} edge slots, "
+             f"over the shape's {n} and {s.n_edges}")
+    pad = s.n_edges - len(src)
+    batch["edge_src"] = torch.from_numpy(np.concatenate([src, np.zeros(pad, np.int32)])).to(dev)
+    batch["edge_dst"] = torch.from_numpy(np.concatenate([dst, np.zeros(pad, np.int32)])).to(dev)
+    batch["edge_mask"] = torch.from_numpy(
+        np.concatenate([emask, np.zeros(pad, bool)]).astype(np.float32)).to(dev)
+    batch["label_mask"] = (torch.arange(n, device=dev) < s.batch_nodes).float()
+    log(f"[gnn] minibatch_lg: neighbor_sample of {s.batch_nodes} seeds, fanouts {GNN_FANOUTS}, over "
+        f"{GNN_GRAPH_NODES} nodes / {indptr[-1]} edges in {sample_s:.3f} s: {len(nodes)} nodes, "
+        f"{int(emask.sum())} sampled edges in {len(src)} slots, padded to {n} / {s.n_edges}")
+    return batch
+
+
+def gather_segment_ms(torch, cfg, batch, flush) -> float:
+    """Device ms of the message passing in one train step: layer 0's gather
+    + segment sum forward at d_feat (its input takes no gradient), and one
+    later layer's forward + backward at d_hidden, times the later layers."""
+    from repro_torch.models.gnn import gather_rows, segment_sum
+
+    src, dst, mask = batch["edge_src"], batch["edge_dst"], batch.get("edge_mask")
+    n = batch["x"].shape[0]
+
+    def agg(h):
+        msgs = gather_rows(h, src)
+        if mask is not None:
+            msgs = msgs * mask[:, None]
+        return segment_sum(msgs, dst, n)
+
+    with torch.no_grad():
+        first = time_cuda(torch, lambda: agg(batch["x"]), flush, iters=5)
+    h = torch.randn(n, cfg.d_hidden, device=batch["x"].device, requires_grad=True)
+    go = torch.randn(n, cfg.d_hidden, device=h.device)
+    later = time_cuda(torch, lambda: torch.autograd.grad(agg(h), h, go), flush, iters=5)
+    return first + (cfg.n_layers - 1) * later
+
+
+def phase_gnn(torch, dev, seed: int, flush, check) -> None:
+    """gin-tu at its CONFIG on the four ``GNN_SHAPES`` at full size: the
+    no-grad loss, two step-1 gradient computations (finite, non-zero,
+    bit-identical), TRAIN_STEPS timed steps on the repeated batch (the
+    loss falls; the step-1 loss equals the no-grad loss); edges/s, step
+    p50, peak memory and the gather + segment sum share of the step."""
+    from repro_torch.configs.families import GNN_SHAPES, GNNFamily, gnn_loss_fn
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, TrainState, make_train_step
+
+    arch = get_arch("gin-tu")
+    opt = AdamWConfig(**TRAIN_OPT)
+    for i, name in enumerate(arch.shapes):
+        t0 = time.perf_counter()
+        s = GNN_SHAPES[name]
+        cfg = GNNFamily._cfg_for(arch, s, reduced=False)
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + i)
+        state = TrainState.create(init_params(cfg, g, device=dev))
+        batch = gnn_batch(torch, name, s, g, dev, seed + i)
+        loss_fn = gnn_loss_fn(cfg, s.n_graphs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            nograd = float(loss_fn(state.params, batch)[0])
+        grads = []
+        for _ in range(2):
+            loss, _ = loss_fn(state.params, batch)
+            grads.append(torch.autograd.grad(loss, list(state.params.values())))
+            del loss
+        same = all(torch.equal(a, b) for a, b in zip(*grads))
+        names = list(state.params)
+        bad = [k for k, gr in zip(names, grads[0]) if not bool(torch.isfinite(gr).all()) or not bool(gr.any())]
+        check(same, f"gin-tu {name}: two step-1 gradient computations differ")
+        check(not bad, f"gin-tu {name}: parameters with a non-finite or all-zero gradient {bad}")
+        del grads
+        step = make_train_step(loss_fn, opt)
+        losses, times = [], []
+        for _ in range(TRAIN_STEPS):
+            t1 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated()
+        p50 = float(np.median(times[1:]))
+        rel = abs(losses[0] - nograd) / abs(nograd)
+        check(rel <= TRAIN_LOSS_TOL, f"gin-tu {name}: step-1 loss {losses[0]} vs the no-grad loss "
+                                     f"{nograd}: {rel} relative > {TRAIN_LOSS_TOL}")
+        check(losses[-1] < losses[0], f"gin-tu {name}: the loss did not fall: {losses}")
+        share = gather_segment_ms(torch, cfg, batch, flush) / (p50 * 1e3)
+        log(f"[gnn] gin-tu {name}: {s.n_nodes} nodes x {s.d_feat} features, {s.n_edges} edges, "
+            f"{cfg.n_classes} classes, {sum(p.numel() for p in state.params.values())} parameters; "
+            f"step-1 gradients bit-identical twice: {same}, every one finite and non-zero: "
+            f"{not bad}; step-1 loss {losses[0]} (no-grad {nograd}, {rel} relative); losses "
+            f"{json.dumps(losses)}; step p50 {p50 * 1e3:.3f} ms (first {times[0] * 1e3:.1f} ms), "
+            f"{s.n_edges / p50:.1f} edges/s; peak memory {peak / 2**30:.2f} GiB; gather + segment "
+            f"sum {share:.3f} of the step; {time.perf_counter() - t0:.1f} s; {card()}")
+        del state, batch, step, loss_fn
+        torch.cuda.empty_cache()
 
 
 def run(torch, dev, args) -> list:
@@ -4078,8 +4695,8 @@ def run(torch, dev, args) -> list:
 
     bag = phase_recsys(torch, dev, args.seed + 4, flush, args.profile)
     torch.cuda.empty_cache()
-    phase_train(torch, dev, args.seed + 11, flush)
-    return kernels + [flash, bag]
+    bag_backward = phase_train(torch, dev, args.seed + 11, flush)
+    return kernels + [flash, bag, bag_backward]
 
 
 def main() -> int:

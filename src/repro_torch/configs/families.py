@@ -1,13 +1,13 @@
 """Family entry points of the port and their shapes: the port's copy of
-``repro/configs/families.py`` for the LM and recsys families.
+``repro/configs/families.py`` for the LM, GNN and recsys families.
 
-``LMFamily`` runs the LM family's cells: ``shape_cell``, ``input_specs``
-(each input as a (shape, dtype) pair), ``step_fn`` (train through
-``train.make_train_step`` with the arch's ``train_microbatches``; prefill
-and decode through the model) and ``smoke`` (the reduced config for real).
-``RecsysFamily`` holds the recsys shapes (its serve and retrieval steps
-are ``models/recsys.py::serve_step``); recsys training, like the GNN
-family, waits for a later slice of the port. JAX's ``abstract_state``,
+Each family runs its cells: ``shape_cell``, ``input_specs`` (each input
+as a (shape, dtype) pair), ``step_fn`` (train through
+``train.make_train_step``, the LM with the arch's ``train_microbatches``;
+prefill, decode, serve and retrieval through the model) and ``smoke`` (the
+reduced config for real). The loss of a train step builds its model once
+per params dict, a view onto ``TrainState``'s parameters (``lm_loss_fn``,
+``gnn_loss_fn``, ``recsys_loss_fn``). JAX's ``abstract_state``,
 ``state_pspec`` and ``input_pspec`` shape and place arrays on a TPU mesh
 for the dry run and are not ported.
 """
@@ -16,18 +16,29 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchDef, ShapeCell
 from repro_torch.core.types import resolve_device
 from repro_torch.models.convert import init_params
+from repro_torch.models.gnn import GIN, GINConfig
+from repro_torch.models.recsys import (
+    RECSYS_MODELS,
+    DINConfig,
+    SASRecConfig,
+    TwoTowerConfig,
+    XDeepFMConfig,
+    serve_step,
+)
 from repro_torch.models.transformer import KVCache, TransformerConfig, TransformerLM
 from repro_torch.train.loop import TrainState, make_train_step
 from repro_torch.train.optimizer import AdamWConfig
 
 __all__ = [
     "LMShape", "LM_SHAPES", "LM_SHAPES_REDUCED", "LMFamily", "lm_loss_fn",
-    "RecsysShape", "RECSYS_SHAPES", "RECSYS_SHAPES_REDUCED", "RecsysFamily",
+    "GNNShape", "GNN_SHAPES", "GNN_SHAPES_REDUCED", "GNNFamily", "gnn_loss_fn",
+    "RecsysShape", "RECSYS_SHAPES", "RECSYS_SHAPES_REDUCED", "RecsysFamily", "recsys_loss_fn",
 ]
 
 _OPT = AdamWConfig()
@@ -57,24 +68,27 @@ LM_SHAPES_REDUCED = {
 }
 
 
-class _LMLoss:
-    """``loss_fn(params, batch) -> (loss, metrics)`` of ``TransformerLM.loss``
-    over a state dict of ``nn.Parameter``s (``TrainState``'s): the model is
-    a view onto those very tensors, built once per params dict."""
+class _Loss:
+    """``loss_fn(params, batch) -> (loss, metrics)`` over a state dict of
+    ``nn.Parameter``s (``TrainState``'s): the model is a view onto those
+    very tensors, built by ``make(params)`` once per params dict, and
+    ``call(model, batch)`` gives its loss."""
 
-    def __init__(self, cfg: TransformerConfig):
-        self.cfg = cfg
+    def __init__(self, make, call):
+        self._make, self._call = make, call
         self._params = self._model = None
 
     def __call__(self, params: dict, batch: dict):
         if params is not self._params:
-            self._model = TransformerLM.from_params(self.cfg, params, trainable=True)
+            self._model = self._make(params)
             self._params = params
-        return self._model.loss(batch["tokens"], batch["labels"])
+        return self._call(self._model, batch)
 
 
-def lm_loss_fn(cfg: TransformerConfig) -> _LMLoss:
-    return _LMLoss(cfg)
+def lm_loss_fn(cfg: TransformerConfig) -> _Loss:
+    """``TransformerLM.loss`` of ``cfg``."""
+    return _Loss(lambda p: TransformerLM.from_params(cfg, p, trainable=True),
+                 lambda m, b: m.loss(b["tokens"], b["labels"]))
 
 
 class LMFamily:
@@ -140,6 +154,123 @@ class LMFamily:
         return {"logits": step(model, {"tokens": tokens[:, 0], "cache": cache})[0]}
 
 
+# ====================================================================== GNN
+@dataclasses.dataclass(frozen=True)
+class GNNShape:
+    kind: str
+    n_nodes: int
+    n_edges: int
+    d_feat: int
+    n_classes: int
+    n_graphs: int | None = None  # molecule batching
+    batch_nodes: int | None = None  # minibatch seeds
+
+
+# Node/edge counts are the assigned sizes padded UP to multiples of 512
+# (JAX's mesh rule); validity masks cover the padding (Cora 2708->2816
+# nodes, 10556->10752 edges; ogbn-products 2449029->2449408 /
+# 61859140->61859840).
+GNN_SHAPES = {
+    "full_graph_sm": GNNShape("train", 2816, 10752, 1433, 7),
+    "minibatch_lg": GNNShape("train", 170240, 169984, 602, 41, batch_nodes=1024),
+    "ogb_products": GNNShape("train", 2449408, 61859840, 100, 47),
+    "molecule": GNNShape("train", 30 * 128, 64 * 128, 16, 2, n_graphs=128),
+}
+
+GNN_SHAPES_REDUCED = {
+    "full_graph_sm": GNNShape("train", 120, 480, 16, 7),
+    "minibatch_lg": GNNShape("train", 512, 960, 16, 8, batch_nodes=32),
+    "ogb_products": GNNShape("train", 256, 1024, 16, 8),
+    "molecule": GNNShape("train", 10 * 8, 16 * 8, 8, 2, n_graphs=8),
+}
+
+
+def gnn_loss_fn(cfg: GINConfig, n_graphs: int | None = None) -> _Loss:
+    """``GIN.loss`` of ``cfg``, with ``n_graphs`` added to each batch for
+    graph readout."""
+    extra = {"n_graphs": n_graphs} if n_graphs else {}
+    return _Loss(lambda p: GIN.from_params(cfg, p, trainable=True),
+                 lambda m, b: m.loss({**b, **extra}))
+
+
+class GNNFamily:
+    """GIN on the four graph shapes; every cell trains."""
+
+    name = "gnn"
+
+    @staticmethod
+    def _cfg_for(arch: ArchDef, s: GNNShape, reduced: bool) -> GINConfig:
+        base: GINConfig = arch.reduced if reduced else arch.config
+        return dataclasses.replace(
+            base,
+            d_feat=s.d_feat,
+            n_classes=s.n_classes,
+            readout="graph" if s.n_graphs else "node",
+        )
+
+    @staticmethod
+    def shape_cell(arch: ArchDef, shape: str) -> ShapeCell:
+        s = GNN_SHAPES[shape]
+        return ShapeCell(shape, s.kind, dataclasses.asdict(s))
+
+    @staticmethod
+    def input_specs(arch: ArchDef, shape: str, *, reduced: bool = False) -> dict:
+        s = (GNN_SHAPES_REDUCED if reduced else GNN_SHAPES)[shape]
+        spec = {
+            "x": ((s.n_nodes, s.d_feat), torch.float32),
+            "edge_src": ((s.n_edges,), torch.int32),
+            "edge_dst": ((s.n_edges,), torch.int32),
+            "labels": ((s.n_graphs or s.n_nodes,), torch.int32),
+        }
+        if s.batch_nodes:  # sampled subgraph: padded edges + seed-only labels
+            spec["edge_mask"] = ((s.n_edges,), torch.float32)
+            spec["label_mask"] = ((s.n_nodes,), torch.float32)
+            spec["labels"] = ((s.n_nodes,), torch.int32)
+        if s.n_graphs:
+            spec["graph_ids"] = ((s.n_nodes,), torch.int32)
+        return spec
+
+    @staticmethod
+    def step_fn(arch: ArchDef, shape: str, *, reduced: bool = False):
+        """``step(TrainState, batch) -> (TrainState, metrics)``."""
+        s = (GNN_SHAPES_REDUCED if reduced else GNN_SHAPES)[shape]
+        cfg = GNNFamily._cfg_for(arch, s, reduced)
+        return make_train_step(gnn_loss_fn(cfg, s.n_graphs), _OPT)
+
+    @staticmethod
+    def smoke(arch: ArchDef, shape: str, seed: int = 0, *, device=None, params=None) -> dict:
+        """One train step of the reduced config on ``device`` (None: the
+        card) -> {"loss"}: the batch drawn as JAX's smoke draws it (numpy,
+        seed 0), the weights ``params`` (a state dict) or drawn from
+        ``seed``."""
+        dev = resolve_device(device)
+        s = GNN_SHAPES_REDUCED[shape]
+        cfg = GNNFamily._cfg_for(arch, s, reduced=True)
+        rng = np.random.default_rng(0)
+        batch = {
+            "x": rng.standard_normal((s.n_nodes, s.d_feat)).astype(np.float32),
+            "edge_src": rng.integers(0, s.n_nodes, s.n_edges).astype(np.int32),
+            "edge_dst": rng.integers(0, s.n_nodes, s.n_edges).astype(np.int32),
+            "labels": rng.integers(0, s.n_classes, s.n_graphs or s.n_nodes).astype(np.int32),
+        }
+        if s.batch_nodes:
+            batch["edge_mask"] = np.ones((s.n_edges,), np.float32)
+            lm = np.zeros((s.n_nodes,), np.float32)
+            lm[: s.batch_nodes] = 1.0
+            batch["label_mask"] = lm
+            batch["labels"] = rng.integers(0, s.n_classes, s.n_nodes).astype(np.int32)
+        if s.n_graphs:
+            batch["graph_ids"] = np.repeat(
+                np.arange(s.n_graphs), s.n_nodes // s.n_graphs
+            ).astype(np.int32)
+        if params is None:
+            params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+        state = TrainState.create(params)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        _, metrics = GNNFamily.step_fn(arch, shape, reduced=True)(state, batch)
+        return {"loss": metrics["loss"]}
+
+
 # =================================================================== RecSys
 @dataclasses.dataclass(frozen=True)
 class RecsysShape:
@@ -165,7 +296,8 @@ RECSYS_SHAPES_REDUCED = {
 
 class RecsysFamily:
     """``batch`` is users (or rows) per step; ``retrieval`` scores one user
-    against ``n_candidates``. The serve and retrieval steps are
+    against ``n_candidates``. The train step is ``make_train_step`` over
+    the model's ``loss``; the serve and retrieval steps are
     ``models.recsys.serve_step(model, shape)``."""
 
     name = "recsys"
@@ -174,3 +306,114 @@ class RecsysFamily:
     def shape_cell(arch: ArchDef, shape: str) -> ShapeCell:
         s = RECSYS_SHAPES[shape]
         return ShapeCell(shape, s.kind, dataclasses.asdict(s))
+
+    @staticmethod
+    def input_specs(arch: ArchDef, shape: str, *, reduced: bool = False) -> dict:
+        """name -> (shape, dtype), in JAX's order."""
+        cfg = arch.reduced if reduced else arch.config
+        s = (RECSYS_SHAPES_REDUCED if reduced else RECSYS_SHAPES)[shape]
+        b, nc = s.batch, s.n_candidates
+        i32, f32 = torch.int32, torch.float32
+        if isinstance(cfg, TwoTowerConfig):
+            if s.kind == "retrieval":
+                return {
+                    "user_ids": ((b, cfg.user_fields), i32),
+                    "user_mask": ((b, cfg.user_fields), f32),
+                    "cand_emb": ((nc, cfg.tower_mlp[-1]), f32),
+                }
+            out = {
+                "user_ids": ((b, cfg.user_fields), i32),
+                "user_mask": ((b, cfg.user_fields), f32),
+                "item_ids": ((b, cfg.item_fields), i32),
+                "item_mask": ((b, cfg.item_fields), f32),
+            }
+            if s.kind == "train":
+                out["log_q"] = ((b,), f32)
+            return out
+        if isinstance(cfg, SASRecConfig):
+            base = {"seq_ids": ((b, cfg.seq_len), i32), "seq_mask": ((b, cfg.seq_len), f32)}
+            if s.kind == "train":
+                base["pos_ids"] = ((b, cfg.seq_len), i32)
+                base["neg_ids"] = ((b, cfg.seq_len), i32)
+            elif s.kind == "serve":
+                base["target_ids"] = ((b,), i32)
+            else:
+                base["cand_ids"] = ((nc,), i32)
+            return base
+        if isinstance(cfg, XDeepFMConfig):
+            rows = nc if s.kind == "retrieval" else b
+            out = {"field_ids": ((rows, cfg.n_fields), i32)}
+            if s.kind == "train":
+                out["labels"] = ((rows,), f32)
+            return out
+        if isinstance(cfg, DINConfig):
+            if s.kind == "retrieval":
+                return {
+                    "target_ids": ((nc,), i32),
+                    "hist_ids": ((1, cfg.seq_len), i32),
+                    "hist_mask": ((1, cfg.seq_len), f32),
+                }
+            out = {
+                "target_ids": ((b,), i32),
+                "hist_ids": ((b, cfg.seq_len), i32),
+                "hist_mask": ((b, cfg.seq_len), f32),
+            }
+            if s.kind == "train":
+                out["labels"] = ((b,), f32)
+            return out
+        raise TypeError(type(cfg))
+
+    @staticmethod
+    def step_fn(arch: ArchDef, shape: str, *, reduced: bool = False):
+        """train: ``step(TrainState, batch) -> (TrainState, metrics)``; serve
+        and retrieval: ``step(model, batch)``, ``serve_step``'s."""
+        cfg = arch.reduced if reduced else arch.config
+        s = (RECSYS_SHAPES_REDUCED if reduced else RECSYS_SHAPES)[shape]
+        if s.kind == "train":
+            return make_train_step(recsys_loss_fn(cfg), _OPT)
+
+        def step(model, batch):
+            return serve_step(model, s)(batch)
+        return step
+
+    @staticmethod
+    def smoke(arch: ArchDef, shape: str, seed: int = 0, *, device=None, params=None) -> dict:
+        """The reduced config for real on ``device`` (None: the card): the
+        batch drawn as JAX's smoke draws it (numpy, seed 0: ids below the
+        smallest vocabulary, masks 1, labels 0/1, floats standard normal),
+        the weights ``params`` (a state dict) or drawn from ``seed``.
+        -> {"loss"} for train, {"scores"} else."""
+        dev = resolve_device(device)
+        cfg = arch.reduced
+        s = RECSYS_SHAPES_REDUCED[shape]
+        specs = RecsysFamily.input_specs(arch, shape, reduced=True)
+        rng = np.random.default_rng(0)
+
+        def realize(name, spec):
+            dims, dtype = spec
+            if dtype == torch.int32:
+                vocabs = [getattr(cfg, a) for a in ("user_vocab", "item_vocab", "vocab")
+                          if hasattr(cfg, a)]
+                hi = min(vocabs) if vocabs else 8
+                return rng.integers(0, hi, dims).astype(np.int32)
+            if "mask" in name:
+                return np.ones(dims, np.float32)
+            if name == "labels":
+                return rng.integers(0, 2, dims).astype(np.float32)
+            return rng.standard_normal(dims).astype(np.float32)
+
+        batch = {k: torch.from_numpy(realize(k, v)).to(dev) for k, v in specs.items()}
+        if params is None:
+            params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+        step = RecsysFamily.step_fn(arch, shape, reduced=True)
+        if s.kind == "train":
+            _, metrics = step(TrainState.create(params), batch)
+            return {"loss": metrics["loss"]}
+        return {"scores": step(RECSYS_MODELS[type(cfg)].from_params(cfg, params), batch)}
+
+
+def recsys_loss_fn(cfg) -> _Loss:
+    """The recsys model's ``loss`` for ``cfg`` (the executor resolved from
+    the weights' device: the bag kernel on the card)."""
+    model = RECSYS_MODELS[type(cfg)]
+    return _Loss(lambda p: model.from_params(cfg, p, trainable=True), lambda m, b: m.loss(b))

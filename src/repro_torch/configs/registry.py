@@ -1,13 +1,13 @@
 """``--arch <id>`` registry of the port: the port's copy of
-``repro/configs/registry.py``, listing the archs the port has (the five
-LMs, the four recsys models and warp-xtr). The JAX registry's ``gin-tu``
-is absent until the GNN family is ported; ``get_arch`` says so."""
+``repro/configs/registry.py``, listing every arch of the JAX registry in
+its order (the five LMs, gin-tu, the four recsys models and warp-xtr)."""
 
 from __future__ import annotations
 
 from repro_torch.configs import (
     dbrx_132b,
     din,
+    gin_tu,
     mixtral_8x7b,
     qwen2_0_5b,
     qwen3_4b,
@@ -19,7 +19,7 @@ from repro_torch.configs import (
 )
 from repro_torch.configs.base import ArchDef
 
-__all__ = ["ARCHS", "ASSIGNED", "NOT_PORTED", "get_arch", "list_archs", "all_cells"]
+__all__ = ["ARCHS", "ASSIGNED", "get_arch", "list_archs", "all_cells"]
 
 _MODULES = [
     mixtral_8x7b,
@@ -27,6 +27,7 @@ _MODULES = [
     qwen2_0_5b,
     yi_6b,
     qwen3_4b,
+    gin_tu,
     two_tower_retrieval,
     sasrec,
     xdeepfm,
@@ -35,16 +36,12 @@ _MODULES = [
 ]
 
 ARCHS: dict[str, ArchDef] = {m.get_def().name: m.get_def() for m in _MODULES}
-NOT_PORTED = ("gin-tu",)  # archs of the JAX registry the port does not have yet
 
 # The assigned cells exclude warp-xtr (which adds 3 of its own).
 ASSIGNED = [n for n in ARCHS if n != "warp-xtr"]
 
 
 def get_arch(name: str) -> ArchDef:
-    if name in NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not yet ported to repro_torch (the GNN family waits "
-                       f"for a later slice); ported: {sorted(ARCHS)}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]

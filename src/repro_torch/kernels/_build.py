@@ -65,6 +65,10 @@ ENTRIES = {
     "ragged_fused_gather_score": {
         "warp_segmented_ragged_fused_gather_score": [*[_P] * 8, *[_I] * 8, _P],
     },
+    "embedding_bag": {  # the bag's backward (kernels/embedding_bag.py)
+        "warp_embedding_bag_grad_table": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _P],
+        "warp_embedding_bag_grad_weights": [_P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _P],
+    },
 }
 
 # What a kernel library reports of the launch it would make, without
@@ -82,8 +86,13 @@ PLANS = {
 
 # Kernel launches per wrapper since the last reset: each wrapper adds one
 # where it launches its kernel and nowhere else. The segmented ragged
-# wrapper launches the ragged library's second entry.
-LAUNCHES = {name: 0 for name in (*KERNELS, "segmented_ragged_fused_gather_score")}
+# wrapper launches the ragged library's second entry; the bag's backward
+# wrapper adds one per kernel it launches (the table's and the weights'
+# gradients) from the bag library's further entries.
+LAUNCHES = {
+    name: 0
+    for name in (*KERNELS, "segmented_ragged_fused_gather_score", "embedding_bag_backward")
+}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

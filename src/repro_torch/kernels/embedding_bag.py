@@ -8,6 +8,16 @@ index outside [0, V) contributes exactly 0. One launch takes any S, L, V
 and D: no padding to tiles. The table may be a view whose rows are any
 number of floats apart (its columns contiguous), and it is never copied:
 a table of millions of rows is read where it lies.
+
+It is differentiable (a ``torch.autograd.Function``): the table takes a
+dense float32 gradient, dtable[v] = sum over (s, l) with idx[s, l] = v of
+w[s, l] * dout[s], as JAX's gradient of ``jnp.take`` + sum is dense; the
+weights, where they require grad (DIN's attention weights), take dw[s, l]
+= <table[idx[s, l]], dout[s]>, 0 for an index outside [0, V); the ids
+take none. On CUDA tensors ``embedding_bag_backward_cuda`` computes both
+with two kernels of ``csrc/embedding_bag.cu``, deterministically (a
+stable sort of the ids, then one warp per table row's run and one per
+bag; no float atomics); on CPU tensors ``ref.embedding_bag_bags_backward``.
 """
 
 from __future__ import annotations
@@ -16,7 +26,10 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-__all__ = ["embedding_bag", "embedding_bag_cuda"]
+__all__ = [
+    "embedding_bag", "embedding_bag_cuda", "embedding_bag_backward",
+    "embedding_bag_backward_cuda",
+]
 
 _INDEX_DTYPES = (torch.int32, torch.int64)
 
@@ -25,16 +38,46 @@ def embedding_bag(
     table: torch.Tensor, bag_indices: torch.Tensor, bag_weights: torch.Tensor
 ) -> torch.Tensor:
     """table f32[V, D], bag_indices int32/int64[S, L], bag_weights f32[S, L]
-    -> f32[S, D]."""
-    if table.device.type == "cpu":
-        return ref.embedding_bag_bags(table, bag_indices, bag_weights)
-    return embedding_bag_cuda(table, bag_indices, bag_weights)
+    -> f32[S, D], differentiable in the table and the weights."""
+    return _EmbeddingBag.apply(table, bag_indices, bag_weights)
 
 
-def embedding_bag_cuda(
-    table: torch.Tensor, bag_indices: torch.Tensor, bag_weights: torch.Tensor
-) -> torch.Tensor:
-    """The CUDA kernel (one warp per bag)."""
+class _EmbeddingBag(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, bag_indices, bag_weights):
+        ctx.save_for_backward(table, bag_indices, bag_weights)
+        if table.device.type == "cpu":
+            return ref.embedding_bag_bags(table, bag_indices, bag_weights)
+        return embedding_bag_cuda(table, bag_indices, bag_weights)
+
+    @staticmethod
+    def backward(ctx, grad):
+        table, bag_indices, bag_weights = ctx.saved_tensors
+        dtable, dw = embedding_bag_backward(
+            table, bag_indices, bag_weights, grad,
+            table_grad=ctx.needs_input_grad[0], weights_grad=ctx.needs_input_grad[2],
+        )
+        return dtable, None, dw
+
+
+def embedding_bag_backward(
+    table: torch.Tensor, bag_indices: torch.Tensor, bag_weights: torch.Tensor,
+    grad: torch.Tensor, *, table_grad: bool = True, weights_grad: bool = False,
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """The bag's gradients given grad = dout f32[S, D] -> (dtable f32[V, D]
+    or None, dw f32[S, L] or None): the kernels on a CUDA tensor, the plain
+    version on a CPU one."""
+    if grad.device.type == "cpu":
+        return ref.embedding_bag_bags_backward(
+            table, bag_indices, bag_weights, grad, table_grad=table_grad, weights_grad=weights_grad
+        )
+    return embedding_bag_backward_cuda(
+        table, bag_indices, bag_weights, grad, table_grad=table_grad, weights_grad=weights_grad
+    )
+
+
+def _check(table: torch.Tensor, bag_indices: torch.Tensor) -> torch.device:
+    """What both directions check of the table and the ids."""
     dev = _build.cuda_device(table)
     if table.dtype != torch.float32:
         raise ValueError(
@@ -51,8 +94,17 @@ def embedding_bag_cuda(
             f"bag_indices is {bag_indices.dtype} of shape {tuple(bag_indices.shape)}; "
             "expected int32 or int64 [S, L]"
         )
-    s, l = bag_indices.shape
     _build.require(bag_indices, "bag_indices", bag_indices.dtype, dev)
+    return dev
+
+
+def embedding_bag_cuda(
+    table: torch.Tensor, bag_indices: torch.Tensor, bag_weights: torch.Tensor
+) -> torch.Tensor:
+    """The CUDA kernel (one warp per bag)."""
+    dev = _check(table, bag_indices)
+    v, d = table.shape
+    s, l = bag_indices.shape
     _build.require(bag_weights, "bag_weights", torch.float32, dev, (s, l))
     if s == 0 or l == 0 or d == 0:
         return torch.zeros((s, d), dtype=torch.float32, device=dev)
@@ -66,3 +118,43 @@ def embedding_bag_cuda(
     _build.check("embedding_bag", rc)
     _build.LAUNCHES["embedding_bag"] += 1
     return out
+
+
+def embedding_bag_backward_cuda(
+    table: torch.Tensor, bag_indices: torch.Tensor, bag_weights: torch.Tensor,
+    grad: torch.Tensor, *, table_grad: bool = True, weights_grad: bool = False,
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """The two backward kernels: dtable (the ids stably sorted by
+    ``ref.bag_sort``, then one warp per table row's run) and dw (one warp
+    per bag). Each launch adds one to ``LAUNCHES["embedding_bag_backward"]``."""
+    dev = _check(table, bag_indices)
+    v, d = table.shape
+    s, l = bag_indices.shape
+    _build.require(bag_weights, "bag_weights", torch.float32, dev, (s, l))
+    grad = grad.contiguous()
+    _build.require(grad, "grad", torch.float32, dev, (s, d))
+    dtable = dw = None
+    if table_grad:
+        dtable = torch.zeros((v, d), dtype=torch.float32, device=dev)
+    if weights_grad:
+        dw = torch.zeros((s, l), dtype=torch.float32, device=dev)
+    if s == 0 or l == 0 or d == 0:
+        return dtable, dw
+    lib = _build.library("embedding_bag")
+    stream = _build.stream_ptr(dev)
+    if table_grad:
+        key, pos = ref.bag_sort(bag_indices, v)
+        rc = lib.warp_embedding_bag_grad_table(
+            key.data_ptr(), pos.data_ptr(), bag_weights.data_ptr(), grad.data_ptr(),
+            dtable.data_ptr(), s * l, l, d, v, stream,
+        )
+        _build.check("embedding_bag", rc)
+        _build.LAUNCHES["embedding_bag_backward"] += 1
+    if weights_grad:
+        rc = lib.warp_embedding_bag_grad_weights(
+            table.data_ptr(), bag_indices.data_ptr(), grad.data_ptr(), dw.data_ptr(), s, l, d, v,
+            table.stride(0), int(bag_indices.dtype == torch.int64), stream,
+        )
+        _build.check("embedding_bag", rc)
+        _build.LAUNCHES["embedding_bag_backward"] += 1
+    return dtable, dw

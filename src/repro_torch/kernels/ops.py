@@ -322,7 +322,8 @@ def embedding_bag(
     - padded: (table, bag_indices [S, L], bag_weights [S, L]) -> [S, D].
       ``use_kernel=True`` runs the embedding-bag kernel (an index outside
       [0, V) contributes 0, as in the TPU kernel); one launch takes any S,
-      L and V, so nothing is padded. ``use_kernel=False`` is JAX's dense
+      L and V, so nothing is padded. It is differentiable in the table and
+      the weights, through the bag's backward kernels. ``use_kernel=False`` is JAX's dense
       path: ``jnp.take``'s rows (NaN for an index outside [-V, V), a
       negative one in range wraps) times the weights, summed over L.
     """

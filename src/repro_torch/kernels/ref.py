@@ -43,6 +43,9 @@ __all__ = [
     "take",
     "embedding_bag_bags",
     "embedding_bag_error_bound",
+    "bag_sort",
+    "embedding_bag_bags_backward",
+    "embedding_bag_backward_error_bound",
     "embedding_bag",
 ]
 
@@ -628,6 +631,62 @@ def embedding_bag_error_bound(
     for j in range(rows.shape[1]):
         out.addcmul_(table[rows[:, j]].float().abs(), w[:, j : j + 1].abs())
     return out.mul_((rows.shape[1] + 1) * 2.0**-24).add_(1e-7)
+
+
+def bag_sort(bag_indices: torch.Tensor, v: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bag backward kernel's index preparation: the flattened ids as
+    int64 keys (V for an index outside [0, V)), stably sorted -> (keys,
+    their flat positions s * L + l), int64 [S * L]. Each table row's
+    contributions then form one run, in increasing position."""
+    flat = bag_indices.reshape(-1).long()
+    key = torch.where((flat >= 0) & (flat < v), flat, v)
+    return torch.sort(key, stable=True)
+
+
+def embedding_bag_bags_backward(
+    table: torch.Tensor, bag_indices: torch.Tensor, bag_weights: torch.Tensor,
+    grad: torch.Tensor, *, table_grad: bool = True, weights_grad: bool = False,
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """The gradient of ``embedding_bag_bags`` given grad = dout f32[S, D]:
+    (dtable f32[V, D] dense, dtable[v] = sum over (s, l) with idx[s, l] = v
+    of w[s, l] * grad[s], by ``index_add_``; dw f32[S, L], dw[s, l] =
+    <table[idx[s, l]], grad[s]>, 0 for an index outside [0, V)), each None
+    where not asked for. The ids take no gradient."""
+    rows, w = _bag_terms(table, bag_indices, bag_weights)
+    g = grad.float()
+    s, l = rows.shape
+    dtable = dw = None
+    if table_grad:
+        dtable = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
+        terms = w.reshape(-1, 1) * g.repeat_interleave(l, dim=0)
+        dtable.index_add_(0, rows.reshape(-1), terms)
+    if weights_grad:
+        valid = (bag_indices >= 0) & (bag_indices < table.shape[0])
+        dots = torch.sum(table[rows].float() * g.unsqueeze(1), dim=-1)
+        dw = torch.where(valid, dots, 0.0)
+    return dtable, dw
+
+
+def embedding_bag_backward_error_bound(
+    table: torch.Tensor, bag_indices: torch.Tensor, bag_weights: torch.Tensor, grad: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """How far two float32 evaluations of the bag's gradients, summed in
+    different orders, may lie apart per element: dtable (n + 1) * 2^-24 *
+    sum |w * grad| + 1e-7 over a row's n contributions; dw (D + 1) * 2^-24 *
+    sum_d |row_d * grad_d| + 1e-7."""
+    rows, w = _bag_terms(table, bag_indices, bag_weights)
+    g = grad.float().abs()
+    s, l = rows.shape
+    flat = rows.reshape(-1)
+    valid = ((bag_indices >= 0) & (bag_indices < table.shape[0])).reshape(-1)
+    count = torch.zeros(table.shape[0], dtype=torch.float32, device=table.device)
+    count.index_add_(0, flat, valid.float())
+    mass = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
+    mass.index_add_(0, flat, w.abs().reshape(-1, 1) * g.repeat_interleave(l, dim=0))
+    dtable = mass.mul_(((count + 1) * 2.0**-24).unsqueeze(-1)).add_(1e-7)
+    dots = torch.sum(table[rows].float().abs() * g.unsqueeze(1), dim=-1)
+    dw = dots.mul_((table.shape[1] + 1) * 2.0**-24).add_(1e-7)
+    return dtable, dw
 
 
 def embedding_bag(

@@ -1,19 +1,23 @@
-"""Training launcher of the PyTorch port: train a registered LM arch on
-synthetic batches. Counterpart of ``repro/launch/train.py``, with its
-flags and ``--device``.
+"""Training launcher of the PyTorch port: train a registered arch (an LM,
+gin-tu or a recsys model) on synthetic batches. Counterpart of
+``repro/launch/train.py``, with its flags and ``--device``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --steps 20 --ckpt-dir /tmp/run1 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch din --steps 6 [--device cpu]
 
 It runs on ``--device`` (cuda by default, raising without CUDA; pass
 ``--device cpu`` for the CPU). As in JAX, ``--reduced`` is on whatever
-the command line says, so the arch's reduced config is trained. Each
-batch array is drawn from ``numpy.random.default_rng([seed, step,
-crc32(name)])``: a pure function of (seed, step, name) in every process,
-so a run resumed from ``--ckpt-dir`` (the newest committed step) trains
-on the batches the interrupted run would have. (JAX keys it by
-``hash(name)``, which Python salts per process.) The recsys and GNN
-families do not train in the port yet.
+the command line says, so the arch's reduced config is trained, on the
+cell's input specs: integer inputs in [0, 64), masks all ones, float
+inputs standard normal. ``--shape`` defaults to the arch's first train
+shape (JAX's default, train_4k, names an LM shape only). Each batch array
+is drawn from ``numpy.random.default_rng([seed, step, crc32(name)])``: a
+pure function of (seed, step, name) in every process, so a run resumed
+from ``--ckpt-dir`` (the newest committed step) trains on the batches the
+interrupted run would have. (JAX keys it by ``hash(name)``, which Python
+salts per process.) GIN's labels are drawn in [0, n_classes): JAX draws
+them in [0, 64) too, and a label >= n_classes makes every loss NaN.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import zlib
 import numpy as np
 import torch
 
-from repro_torch.configs.families import LM_SHAPES
+from repro_torch.configs.families import GNN_SHAPES_REDUCED
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.types import resolve_device
 from repro_torch.models.convert import init_params
@@ -40,7 +44,7 @@ def batch_key(seed: int, step: int, name: str) -> list[int]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--shape", default=None, help="a train shape of the arch (default: its first)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--ckpt-dir", default=None)
@@ -53,27 +57,35 @@ def main(argv=None) -> int:
     fam = arch.family
     if fam.name == "warp":
         raise SystemExit("warp-xtr is a serving arch; use launch.serve")
-    if fam.name != "lm":
-        raise NotImplementedError(
-            f"{args.arch}: {fam.name} training is not yet ported (the recsys losses wait "
-            "for a later slice of the port)"
-        )
-    if LM_SHAPES[args.shape].kind != "train":
-        raise SystemExit(f"{args.shape} is not a training shape")
+    shape = args.shape or next(s for s in arch.shapes if arch.cell(s).kind == "train")
+    if shape not in arch.shapes:
+        raise SystemExit(f"{shape} is not a shape of {args.arch}: {arch.shapes}")
+    if arch.cell(shape).kind != "train":
+        raise SystemExit(f"{shape} is not a training shape")
     dev = resolve_device(args.device)
 
-    specs = fam.input_specs(arch, args.shape, reduced=True)
-    step_fn = fam.step_fn(arch, args.shape, reduced=True)
+    specs = fam.input_specs(arch, shape, reduced=True)
+    step_fn = fam.step_fn(arch, shape, reduced=True)
+    cfg = arch.reduced
+    if fam.name == "gnn":
+        cfg = fam._cfg_for(arch, GNN_SHAPES_REDUCED[shape], True)
 
     def make_batch(step: int) -> dict:
         out = {}
-        for name, (shape, _) in specs.items():
+        for name, (dims, dtype) in specs.items():
             r = np.random.default_rng(batch_key(args.seed, step, name))
-            out[name] = torch.from_numpy(r.integers(0, 64, shape).astype(np.int32)).to(dev)
+            if "mask" in name:
+                a = np.ones(dims, np.float32)
+            elif dtype == torch.float32:
+                a = r.standard_normal(dims).astype(np.float32)
+            else:
+                hi = cfg.n_classes if fam.name == "gnn" and name == "labels" else 64
+                a = r.integers(0, hi, dims).astype(np.int32)
+            out[name] = torch.from_numpy(a).to(dev)
         return out
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
-    state = TrainState.create(init_params(arch.reduced, g, device=dev))
+    state = TrainState.create(init_params(cfg, g, device=dev))
     start = 0
     if args.ckpt_dir:
         latest = ckpt.latest_step(args.ckpt_dir)

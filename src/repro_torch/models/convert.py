@@ -2,9 +2,11 @@
 parameter pytree, or drawn anew from a ``torch.Generator``.
 
 Both dispatch on the config's type (``TransformerConfig``,
-``EncoderConfig`` or one of the four recsys configs) and return a state
-dict in the module's names (see ``TransformerLM``, ``TokenEncoder`` and
-``models/recsys.py``), for the model's ``from_params``. The JAX trees of
+``EncoderConfig``, ``GINConfig`` or one of the four recsys configs) and
+return a state dict in the module's names (see ``TransformerLM``,
+``TokenEncoder``, ``GIN`` and ``models/recsys.py``), for the model's
+``from_params``; float32 weights go into ``train.TrainState.create`` as
+they are, and train as its ``nn.Parameter``s. The JAX trees of
 the LM and the encoder stack their layers on a leading axis; the port
 keeps one module per layer. Dense weights are stored [d_out, d_in] (``nn.Linear``'s
 layout), the transpose of the JAX [d_in, d_out]; embedding tables and
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.core.types import resolve_device
 from repro_torch.models.encoder import EncoderConfig
+from repro_torch.models.gnn import GINConfig
 from repro_torch.models.moe import moe_init
 from repro_torch.models.recsys import DINConfig, SASRecConfig, TwoTowerConfig, XDeepFMConfig
 from repro_torch.models.transformer import TransformerConfig
@@ -55,6 +58,13 @@ def params_from_jax(tree, cfg, *, device=None, dtype=torch.float32) -> dict:
     def mlp(prefix, layers):
         return {k: v for i, p in enumerate(layers) for k, v in dense(f"{prefix}.{i}", p).items()}
 
+    if isinstance(cfg, GINConfig):
+        out = dense("head", tree["head"])
+        for i, lp in enumerate(tree["layers"]):
+            out.update(dense(f"layers.{i}.mlp1", lp["mlp1"]))
+            out.update(dense(f"layers.{i}.mlp2", lp["mlp2"]))
+            out[f"layers.{i}.eps"] = t(lp["eps"])
+        return out
     if isinstance(cfg, TwoTowerConfig):
         return {
             "user_table": t(tree["user_table"]), "item_table": t(tree["item_table"]),
@@ -142,7 +152,28 @@ def init_params(
         return _lm_init(cfg, generator, dev, dtype)
     if isinstance(cfg, EncoderConfig):
         return _encoder_init(cfg, generator, dev, dtype)
+    if isinstance(cfg, GINConfig):
+        return _gin_init(cfg, generator, dev, dtype)
     return _recsys_init(cfg, generator, dev, dtype)
+
+
+def _gin_init(cfg: GINConfig, generator, dev, dtype) -> dict:
+    """Random weights with ``GIN.init``'s distributions: dense weights
+    normal * 1/sqrt(d_in), biases 0, each layer's eps 0."""
+
+    def dense(prefix, d_in, d_out):
+        w = torch.randn(d_out, d_in, generator=generator, device=dev) * (1.0 / math.sqrt(d_in))
+        return {f"{prefix}.weight": w.to(dtype),
+                f"{prefix}.bias": torch.zeros(d_out, dtype=dtype, device=dev)}
+
+    out, d_in = {}, cfg.d_feat
+    for i in range(cfg.n_layers):
+        out.update(dense(f"layers.{i}.mlp1", d_in, cfg.d_hidden))
+        out.update(dense(f"layers.{i}.mlp2", cfg.d_hidden, cfg.d_hidden))
+        out[f"layers.{i}.eps"] = torch.zeros((), dtype=dtype, device=dev)
+        d_in = cfg.d_hidden
+    out.update(dense("head", cfg.d_hidden, cfg.n_classes))
+    return out
 
 
 def _encoder_init(cfg: EncoderConfig, generator, dev, dtype) -> dict:

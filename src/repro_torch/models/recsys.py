@@ -18,7 +18,18 @@ attention stays plain (the flash kernel takes no key-padding mask).
 Gathers that are not bag sums use ``ref.take``, ``jnp.take``'s semantics
 (an index outside [-V, V) gives NaN). The kernel drops an index outside
 [0, V) instead, as the TPU kernel does, so the executors agree on ids in
-range. Training (the ``loss`` functions) is not ported yet.
+range.
+
+Training: ``from_params(..., trainable=True)`` keeps the weights
+trainable, and each model's ``loss(batch) -> (loss, metrics)`` is JAX's
+line for line (two-tower: in-batch softmax with the logQ correction;
+SASRec: masked BCE over positives and sampled negatives; xDeepFM and DIN:
+stable BCE). The serving methods run under ``torch.inference_mode``; the
+losses run the same code with grad enabled. At the kernel executor the bag
+sums take their gradient from the bag kernel's backward
+(``kernels/embedding_bag.py``): the table's dense, DIN's attention
+weights' too. ``RecsysFamily.step_fn`` (``configs/families.py``) trains
+them.
 """
 
 from __future__ import annotations
@@ -73,15 +84,18 @@ class _Recsys(nn.Module):
         self.executor = executor
 
     @classmethod
-    def from_params(cls, cfg, params: dict, *, executor: str = "auto"):
+    def from_params(cls, cfg, params: dict, *, executor: str = "auto", trainable: bool = False):
         """A model that takes ``params`` (a state dict in the module's names)
         as its parameters without copying them: two models of one set of
-        weights (one per executor) share the tensors. The weights are
-        frozen: training is not ported."""
+        weights (one per executor) share the tensors. Serving weights are
+        frozen. ``trainable=True`` leaves them trainable; where ``params``
+        holds ``nn.Parameter``s (``train.TrainState``'s), the model's
+        parameters are those very objects, so gradients land on them."""
         with torch.device("meta"):
             model = cls(cfg, executor="reference")
         model.load_state_dict(params, strict=True, assign=True)
-        model.requires_grad_(False)
+        if not trainable:
+            model.requires_grad_(False)
         model.executor = executor
         model._resolve_executor()
         return model
@@ -96,8 +110,18 @@ class _Recsys(nn.Module):
         )
 
     def _bag(self, table, ids, weights) -> torch.Tensor:
-        """sum_l weights[b, l] * table[ids[b, l]] through the kernel."""
+        """sum_l weights[b, l] * table[ids[b, l]] through the kernel
+        (differentiable in the table and the weights)."""
         return ops.embedding_bag(table, bag_indices=ids, bag_weights=weights, use_kernel=True)
+
+
+def _bce(logit, labels):
+    """Mean stable BCE with logits (JAX's recsys losses)."""
+    y = labels.float()
+    bce = torch.mean(
+        torch.clamp_min(logit, 0) - logit * y + torch.log1p(torch.exp(-torch.abs(logit)))
+    )
+    return bce, {"bce": bce}
 
 
 # ===================================================== Two-tower retrieval
@@ -146,6 +170,17 @@ class TwoTower(_Recsys):
     @torch.inference_mode()
     def item_embed(self, item_ids, item_mask):
         return self._tower(self.item_table, self.item_mlp, item_ids, item_mask)
+
+    def loss(self, batch: dict):
+        """In-batch sampled softmax with logQ correction."""
+        u = self._tower(self.user_table, self.user_mlp, batch["user_ids"], batch["user_mask"])
+        v = self._tower(self.item_table, self.item_mlp, batch["item_ids"], batch["item_mask"])
+        logits = (u @ v.T) / self.cfg.temperature  # [B, B]
+        logits = logits - batch["log_q"][None, :]  # sampling correction
+        labels = torch.arange(u.shape[0], device=u.device)
+        logp = torch.log_softmax(logits, dim=-1)
+        loss = -torch.mean(torch.take_along_dim(logp, labels[:, None], dim=-1))
+        return loss, {"softmax": loss}
 
     @torch.inference_mode()
     def retrieval_scores(self, user_ids, user_mask, cand_emb):
@@ -196,6 +231,9 @@ class SASRec(_Recsys):
     @torch.inference_mode()
     def hidden(self, seq_ids, seq_mask):
         """seq_ids int[B, S] -> causal self-attn hidden states [B, S, D]."""
+        return self._hidden(seq_ids, seq_mask)
+
+    def _hidden(self, seq_ids, seq_mask):
         b, s = seq_ids.shape
         d, h = self.cfg.embed_dim, self.cfg.n_heads
         seq_mask = seq_mask.float()
@@ -217,6 +255,18 @@ class SASRec(_Recsys):
             x = x + blk.ff2(F.relu(blk.ff1(hdd)))
             x = x * seq_mask.unsqueeze(-1)
         return x
+
+    def loss(self, batch: dict):
+        """Next-item BCE with sampled negatives (the paper's training loss)."""
+        hid = self._hidden(batch["seq_ids"], batch["seq_mask"])
+        pos_emb = ref.take(self.item_table, batch["pos_ids"])
+        neg_emb = ref.take(self.item_table, batch["neg_ids"])
+        pos_logit = torch.sum(hid * pos_emb, -1)
+        neg_logit = torch.sum(hid * neg_emb, -1)
+        mask = batch["seq_mask"]
+        bce = -F.logsigmoid(pos_logit) - F.logsigmoid(-neg_logit)
+        loss = torch.sum(bce * mask) / torch.clamp_min(torch.sum(mask), 1)
+        return loss, {"bce": loss}
 
     @torch.inference_mode()
     def score_candidates(self, seq_ids, seq_mask, cand_ids):
@@ -256,6 +306,12 @@ class XDeepFM(_Recsys):
     @torch.inference_mode()
     def logits(self, field_ids):
         """field_ids int[B, F] (field offsets pre-added) -> logit [B]."""
+        return self._logits(field_ids)
+
+    def loss(self, batch: dict):
+        return _bce(self._logits(batch["field_ids"]), batch["labels"])
+
+    def _logits(self, field_ids):
         x0 = ref.take(self.table, field_ids)  # [B, F, D]
         b, f, d = x0.shape
 
@@ -304,6 +360,15 @@ class DIN(_Recsys):
     @torch.inference_mode()
     def logits(self, target_ids, hist_ids, hist_mask):
         """target int[B], hist int[B, S], mask [B, S] -> logit [B]."""
+        return self._logits(target_ids, hist_ids, hist_mask)
+
+    def loss(self, batch: dict):
+        return _bce(
+            self._logits(batch["target_ids"], batch["hist_ids"], batch["hist_mask"]),
+            batch["labels"],
+        )
+
+    def _logits(self, target_ids, hist_ids, hist_mask):
         t = ref.take(self.table, target_ids)  # [B, D]
         h = ref.take(self.table, hist_ids)  # [B, S, D]
         tb = t.unsqueeze(1).expand_as(h)
@@ -335,9 +400,9 @@ def serve_step(model: _Recsys, shape):
     xDeepFM gives logits; DIN gives logits, broadcasting one history over
     every target at retrieval."""
     if shape.kind == "train":
-        raise NotImplementedError(
-            "recsys training is not yet ported: the recsys loss functions wait for a "
-            "later slice of the port"
+        raise ValueError(
+            "serve_step serves; a train shape trains through RecsysFamily.step_fn "
+            "(configs/families.py), on a state of trainable parameters"
         )
     if shape.kind not in ("serve", "retrieval"):
         raise ValueError(f"shape kind {shape.kind!r} not in ('serve', 'retrieval', 'train')")

@@ -8,11 +8,13 @@ serving surface: ``obs``, ``fault``, the server's cache, admission,
 scheduler and batcher, the serve launcher, the document-sharded index and
 the token encoder, the LM zoo and training: MoE, the arch registry and
 families, the optimizer, loop, checkpoints, compression, the batch
-pipeline and the train launcher) or ``chip_smoke.py``; entry points
-refuse to fall back to the CPU (the server, its reloads and tenants on
-the server's device, the serve launcher, the sharded build, the encoder's
-weights, the LM's weights and cache, the train loop and launcher); the
-kernel executor refuses a CPU index and CPU recsys weights."""
+pipeline and the train launcher, recsys and GNN training: GIN, the
+sampler, gin-tu) or ``chip_smoke.py``; entry points refuse to fall back to
+the CPU (the server, its reloads and tenants on the server's device, the
+serve launcher, the sharded build, the encoder's weights, the LM's
+weights and cache, the train loop and launcher, the GNN and recsys
+weights, smokes and launcher runs); the kernel executor refuses a CPU
+index and CPU recsys weights."""
 
 import ast
 import os
@@ -113,6 +115,8 @@ def test_port_imports_neither_jax_nor_repro():
         "src/repro_torch/train/compression.py",
         "src/repro_torch/data/pipeline.py",
         "src/repro_torch/launch/train.py",
+        "src/repro_torch/models/gnn.py",
+        "src/repro_torch/configs/gin_tu.py",
     } <= names
     bad = [
         f"{os.path.relpath(f, ROOT)}: import {m}"
@@ -139,7 +143,8 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.serving.admission, repro_torch.launch.serve, "
         "repro_torch.core.distributed, repro_torch.models.encoder, "
         "repro_torch.models.moe, repro_torch.configs.registry, repro_torch.train, "
-        "repro_torch.data.pipeline, repro_torch.launch.train; "
+        "repro_torch.data.pipeline, repro_torch.launch.train, repro_torch.models.gnn, "
+        "repro_torch.configs.gin_tu; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad; "
         "from repro_torch.kernels import _build; "
@@ -216,6 +221,28 @@ def test_lm_and_training_entry_points_default_to_cuda_and_raise_without_it(no_cu
                    batch_iter=lambda s: {}, opt_cfg=AdamWConfig(), n_steps=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main(["--arch", "qwen2-0.5b", "--steps", "1", "--ckpt-dir", str(tmp_path)])
+
+
+def test_gnn_and_recsys_training_entry_points_default_to_cuda_and_raise_without_it(
+    no_cuda, tmp_path
+):
+    from repro_torch.configs import din, gin_tu
+    from repro_torch.configs.families import GNN_SHAPES_REDUCED, GNNFamily, RecsysFamily
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import init_params
+
+    gin = GNNFamily._cfg_for(gin_tu.get_def(), GNN_SHAPES_REDUCED["molecule"], True)
+    for cfg in (gin, din.REDUCED):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GNNFamily.smoke(gin_tu.get_def(), "molecule")
+    for shape in ("train_batch", "serve_p99"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            RecsysFamily.smoke(din.get_def(), shape)
+    for arch in ("din", "gin-tu"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train_cli.main(["--arch", arch, "--steps", "1", "--ckpt-dir", str(tmp_path)])
 
 
 def test_server_tenants_and_reloads_follow_the_server_device(no_cuda, tmp_path):

@@ -22,7 +22,11 @@ embedding bag at D 1, 18, 256 and 257, int32 and int64 ids, an unaligned
 table view, ids outside [0, V) and empty bag sets, per element within
 ``ref.embedding_bag_error_bound`` ((L + 1) * 2^-24 * sum |w| |row| + 1e-7,
 float32 sums in another order); a two-tower forward at REDUCED, kernel vs
-reference executor, within 1e-5. Marked ``cuda``: each test skips itself
+reference executor, within 1e-5. The bag's backward kernels (the table's
+dense gradient and the weights') per element within
+``ref.embedding_bag_backward_error_bound`` ((n + 1) * 2^-24 * sum |w g| +
+1e-7 over a row's n contributions; (D + 1) * 2^-24 * sum |row g| + 1e-7),
+bit-identical across calls, and through autograd. Marked ``cuda``: each test skips itself
 without a card. This file imports no JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
@@ -42,7 +46,7 @@ from repro_torch.core import worklist as wl
 from repro_torch.kernels import LAUNCHES, _build, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decompress_score import selective_sum_cuda
-from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+from repro_torch.kernels.embedding_bag import embedding_bag_backward_cuda, embedding_bag_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.fused_gather_score import (
     fused_gather_score_cuda,
@@ -460,6 +464,57 @@ def test_embedding_bag_kernel_rejects_what_it_does_not_take(card):
         embedding_bag_cuda(table, idx.short(), w)
     with pytest.raises(ValueError, match="contiguous columns"):
         embedding_bag_cuda(table.t().contiguous().t(), idx, w)
+
+
+def _assert_bag_grads_close(table, idx, w, g, dtable, dw):
+    want_t, want_w = tref.embedding_bag_bags_backward(table, idx, w, g, weights_grad=True)
+    limit_t, limit_w = tref.embedding_bag_backward_error_bound(table, idx, w, g)
+    assert dtable.shape == table.shape and dw.shape == w.shape
+    assert float(((dtable - want_t).abs() - limit_t).max()) <= 0
+    assert float(((dw - want_w).abs() - limit_w).max()) <= 0
+    valid = (idx >= 0) & (idx < table.shape[0])
+    assert not bool(dw[~valid].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("d", [1, 18, 256, 257])
+def test_embedding_bag_backward_kernels_on_card(card, idx_dtype, d):
+    """dtable and dw against the plain backward within
+    ``ref.embedding_bag_backward_error_bound``; duplicate ids, zero
+    weights, ids outside [0, V), a row named by 40 bags (a run longer than
+    one 32-entry batch); two calls bit-identical; one launch per gradient."""
+    table, idx, w = _bag_inputs(card, 20 + d, v=500, d=d, idx_dtype=idx_dtype, bad=0.1)
+    idx[:40, 0] = 7
+    idx[0, :5] = 3
+    g = torch.randn(idx.shape[0], d, generator=torch.Generator(device=card).manual_seed(d),
+                    device=card)
+    before = LAUNCHES["embedding_bag_backward"]
+    dtable, dw = embedding_bag_backward_cuda(table, idx, w, g, weights_grad=True)
+    again = embedding_bag_backward_cuda(table, idx, w, g, weights_grad=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["embedding_bag_backward"] == before + 4
+    assert torch.equal(dtable, again[0]) and torch.equal(dw, again[1])
+    _assert_bag_grads_close(table, idx, w, g, dtable, dw)
+    only_t = embedding_bag_backward_cuda(table, idx, w, g)
+    assert only_t[1] is None and torch.equal(only_t[0], dtable)
+
+
+@pytest.mark.cuda
+def test_embedding_bag_autograd_on_card_uses_the_backward_kernels(card):
+    table, idx, w = _bag_inputs(card, 31, d=32, idx_dtype=torch.int64, bad=0.05)
+    t = table.clone().requires_grad_(True)
+    wr = w.clone().requires_grad_(True)
+    out = ops.embedding_bag(t, bag_indices=idx, bag_weights=wr, use_kernel=True)
+    g = torch.randn_like(out)
+    before = dict(LAUNCHES)
+    dt, dw = torch.autograd.grad(out, (t, wr), g)
+    torch.cuda.synchronize()
+    assert LAUNCHES["embedding_bag_backward"] == before["embedding_bag_backward"] + 2
+    assert LAUNCHES["embedding_bag"] == before["embedding_bag"]
+    _assert_bag_grads_close(table, idx, w, g, dt, dw)
+    with pytest.raises(ValueError, match="grad"):
+        embedding_bag_backward_cuda(table, idx, w, g.double())
 
 
 @pytest.mark.cuda

@@ -210,5 +210,21 @@ def test_executor_rules_on_the_cpu():
 
 
 def test_serve_step_train_shape_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """``serve_step`` still serves only: a train shape is refused with the
+    name of the step that trains it, ``RecsysFamily.step_fn``, and that
+    step trains DIN's weights."""
+    from repro_torch.configs.families import RecsysFamily
+    from repro_torch.train import TrainState
+
+    with pytest.raises(ValueError, match="RecsysFamily.step_fn"):
         serve_step(_port_model("din"), RECSYS_SHAPES_REDUCED["train_batch"])
+    cfg = din.REDUCED
+    params = params_from_jax(_params("din")[1], cfg, device="cpu")
+    state = TrainState.create({k: v.clone() for k, v in params.items()})
+    rng = np.random.default_rng(8)
+    batch = _batch(cfg, RECSYS_SHAPES_REDUCED["train_batch"], seed=8)
+    batch["labels"] = rng.integers(0, 2, len(batch["target_ids"])).astype(np.float32)
+    step = RecsysFamily.step_fn(din.get_def(), "train_batch", reduced=True)
+    state, metrics = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert np.isfinite(float(metrics["loss"])) and int(state.opt["step"]) == 1
+    assert all(not torch.equal(state.params[k], params[k]) for k in params)

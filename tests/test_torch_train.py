@@ -412,11 +412,28 @@ def test_train_launcher_runs_and_resumes_on_the_cpu(tmp_path, capsys):
     assert train_cli.batch_key(0, 3, "tokens") == [0, 3, zlib.crc32(b"tokens")] == [0, 3, 2858029454]
 
 
-@pytest.mark.parametrize("arch,err", [
-    ("din", NotImplementedError), ("gin-tu", KeyError), ("warp-xtr", SystemExit),
-])
-def test_train_launcher_refuses_archs_it_does_not_train(arch, err):
-    with pytest.raises(err):
-        train_cli.main(["--device", "cpu", "--arch", arch])
+@pytest.mark.parametrize("arch", ["din", "gin-tu", "warp-xtr"])
+def test_train_launcher_refuses_archs_it_does_not_train(arch, tmp_path, capsys):
+    """warp-xtr is refused (a serving arch), as is a serving shape; din and
+    gin-tu train at their first train shape and resume: 4 steps with a
+    checkpoint every 2, then a rerun to 6 from step 4, every loss finite
+    (gin-tu's labels lie in [0, n_classes))."""
     with pytest.raises(SystemExit, match="not a training shape"):
         train_cli.main(["--device", "cpu", "--arch", "qwen2-0.5b", "--shape", "prefill_32k"])
+    if arch == "warp-xtr":
+        with pytest.raises(SystemExit, match="serving arch"):
+            train_cli.main(["--device", "cpu", "--arch", arch])
+        return
+    with pytest.raises(SystemExit, match="not a shape of"):
+        train_cli.main(["--device", "cpu", "--arch", arch, "--shape", "train_4k"])
+    if arch == "din":
+        with pytest.raises(SystemExit, match="not a training shape"):
+            train_cli.main(["--device", "cpu", "--arch", arch, "--shape", "serve_p99"])
+    cmd = ["--device", "cpu", "--arch", arch, "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    assert train_cli.main(cmd + ["--steps", "4"]) == 0
+    first = capsys.readouterr().out
+    assert train_cli.main(cmd + ["--steps", "6"]) == 0
+    again = capsys.readouterr().out
+    assert "[resume] step 4" in again and "done" in first
+    losses = [float(x.split("loss=")[1]) for x in (first + again).splitlines() if "loss=" in x]
+    assert len(losses) == 6 and all(np.isfinite(losses))  # steps 1-4, then 5-6

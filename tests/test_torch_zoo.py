@@ -94,8 +94,10 @@ def test_config_equals_jax_field_by_field(name, which):
 
 
 def test_registry_matches_jax_for_every_ported_arch():
-    assert set(registry.ARCHS) == set(jreg.ARCHS) - {"gin-tu"}
-    assert list(registry.ARCHS) == [n for n in jreg.ARCHS if n != "gin-tu"]
+    """Every arch of the JAX registry is ported, gin-tu included, in JAX's
+    order, with its cells."""
+    assert list(registry.ARCHS) == list(jreg.ARCHS)
+    assert registry.ASSIGNED == jreg.ASSIGNED
     for name, a in registry.ARCHS.items():
         j = jreg.get_arch(name)
         assert (a.name, a.shapes, a.source, a.train_microbatches, a.notes) == (
@@ -106,13 +108,10 @@ def test_registry_matches_jax_for_every_ported_arch():
         assert a.family.name == j.family.name
         for shape in a.shapes:
             assert dataclasses.asdict(a.cell(shape)) == dataclasses.asdict(j.cell(shape)), name
-    assert registry.all_cells() == [c for c in jreg.all_cells() if c[0] != "gin-tu"]
-    assert registry.all_cells(include_warp=False) == [
-        c for c in jreg.all_cells(include_warp=False) if c[0] != "gin-tu"
-    ]
-    assert registry.list_archs() == sorted(registry.ARCHS)
-    with pytest.raises(KeyError, match="not yet ported"):
-        registry.get_arch("gin-tu")
+    assert registry.all_cells() == jreg.all_cells()
+    assert registry.all_cells(include_warp=False) == jreg.all_cells(include_warp=False)
+    assert registry.list_archs() == jreg.list_archs() == sorted(registry.ARCHS)
+    assert registry.get_arch("gin-tu").family.name == "gnn"
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get_arch("gpt-5")
 
