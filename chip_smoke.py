@@ -22,6 +22,27 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      (materialize, ragged), each at executor "kernel" and "reference",
      128 timed queries per plan; the launch counts of this phase show the
      main path went through the kernels;
+  2b. the autotune table (``autotune``): the sweep of
+     ``repro_torch/kernels/autotune_sweep.py`` on this index (one query of
+     32 tokens, nprobe 32; the ragged kernel at tile_c 16, 32, 64 and 128,
+     the dense one once; each at its ``probe`` carve-outs "full", "dma" and
+     "compute", L2 flushed), every point's times and overlap printed;
+     ``probe="full"`` bit-identical to the product call and "dma" to its
+     plain twin (the probe scores plus each staged row's XOR fold) at
+     every point, "compute" longer than the kernel over no rows, and full
+     no longer than dma + compute;
+     the table through a save and load at a temporary path; with it
+     installed, auto / ragged / dense plans resolve the winner's tile from
+     "autotune" and give the heuristic plans' doc ids over 128 queries up
+     to reported tie swaps; the same entries measured on "cpu" or
+     "interpret" leave plans "heuristic"; traced retrieves with
+     ``obs.set_kernel_probes(True)`` carry the staging/scoring split
+     (full no longer than dma + compute), bit-identical to untraced ones
+     (see ``phase_autotune``). Every other
+     phase plans without a table (``REPRO_AUTOTUNE_TABLE`` is set to
+     ``os.devnull`` at start-up). The kernels line's rows 2 and 3 carry
+     their carve-outs at the kernel phase's shape (``dma_ms``,
+     ``compute_ms``, ``overlap_frac``);
   3. serve requests of varied length through ``RetrievalServer``: a
      burst of 256 (drain throughput), then 256 Poisson arrivals at half
      that rate (submit-to-reply latency); every reply is held against
@@ -526,20 +547,55 @@ def make_queries(torch, index, n: int, seed: int, *, lo=8, hi=32):
 
 
 def time_cuda(torch, fn, flush, iters: int = 25) -> float:
-    """Median milliseconds of ``fn`` over ``iters`` CUDA-event-timed runs,
-    with the 50 MB L2 flushed (a 256 MB write) before each run."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(iters):
-        flush.zero_()
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return float(np.median(times))
+    """Median milliseconds of ``fn`` over ``iters`` CUDA-event-timed runs
+    after 3 untimed ones, with the 50 MB L2 flushed (a 256 MB write) and
+    then the card spun before each run, so that the events bracket the
+    card's work and not the host's launch path
+    (``autotune_sweep.event_ms``)."""
+    from repro_torch.kernels.autotune_sweep import event_ms
+
+    return event_ms(fn, warmup=3, iters=iters, flush=flush)
+
+
+def check_carve_outs(torch, tag, launch, dma_want, empty, flush, full_ms, times=None,
+                     invalid=None) -> dict:
+    """A fused kernel's carve-outs at one shape. ``launch(probe)`` runs the
+    CUDA wrapper (None: the product call), ``dma_want`` is the plain twin
+    of its "dma" output (``ref.*_dma``) and ``empty()`` the product kernel
+    over no rows. Probe "full" must equal the product call bit for bit;
+    "dma" its twin bit for bit, so every row was staged; "compute" float32
+    finite values of the product's shape, 0 at ``invalid``; "compute" must
+    take longer than the launch over no rows (it scored something) and
+    full no longer than dma + compute, before any clamping. ``times``:
+    the dma and compute times measured already, else timed here. Returns
+    {"dma_ms", "compute_ms", "empty_ms", "overlap_frac"}."""
+    from repro_torch.kernels.autotune import overlap_frac
+
+    product = launch(None)
+    if not torch.equal(launch("full"), product):
+        fail(f"{tag}: probe='full' is not the product call bit for bit")
+    dma = launch("dma")
+    if not torch.equal(dma, dma_want):
+        fail(f"{tag}: probe='dma' differs from the probe scores plus each staged row's XOR "
+             f"fold at {int((dma != dma_want).sum())} of {dma.numel()} slots")
+    x = launch("compute")
+    if x.shape != product.shape or x.dtype != torch.float32 or not bool(torch.isfinite(x).all()) or (
+        invalid is not None and bool((x[invalid] != 0).any())
+    ):
+        fail(f"{tag}: probe='compute' gives no finite float32 scores of the product's shape "
+             "with its invalid slots 0")
+    if times is None:
+        times = {f"{p}_ms": time_cuda(torch, lambda p=p: launch(p), flush) for p in ("dma", "compute")}
+    t = {"dma_ms": times["dma_ms"], "compute_ms": times["compute_ms"],
+         "empty_ms": time_cuda(torch, empty, flush)}
+    if not t["compute_ms"] > t["empty_ms"]:
+        fail(f"{tag}: probe='compute' took {t['compute_ms']} ms, no longer than the kernel over "
+             f"no rows ({t['empty_ms']} ms)")
+    if full_ms > t["dma_ms"] + t["compute_ms"]:
+        fail(f"{tag}: full {full_ms} ms > dma {t['dma_ms']} + compute {t['compute_ms']} ms: "
+             "the carve-outs do not account for the kernel")
+    t["overlap_frac"] = overlap_frac(full_ms, t["dma_ms"], t["compute_ms"])
+    return t
 
 
 def tie_tolerance(kernel_err: float, scores) -> float:
@@ -721,7 +777,9 @@ def phase_kernels(torch, index, plan_ragged, flush):
     from repro_torch.kernels.decompress_score import selective_sum_cuda
     from repro_torch.kernels.flash_attention import TILE_K, bf16_smem_bytes
     from repro_torch.kernels.fused_gather_score import (
+        dense_dims_per_chunk,
         fused_gather_score_cuda,
+        ragged_dims_per_chunk,
         ragged_fused_gather_score_cuda,
     )
 
@@ -789,6 +847,19 @@ def phase_kernels(torch, index, plan_ragged, flush):
             fail(f"{name}: {broken}")
         log(f"[kernels] {name}: max abs err {err} vs its plain version")
 
+    def carve(launch, dma_want, empty, invalid):
+        """The last row beside its kernel's carve-outs at this shape
+        (``check_carve_outs``): ``dma_ms``, ``compute_ms`` and
+        ``overlap_frac`` against ``ms``."""
+        row = out[-1]
+        t = check_carve_outs(torch, row["name"], launch, dma_want, empty, flush, row["ms"],
+                             invalid=invalid)
+        row.update(dma_ms=t["dma_ms"], compute_ms=t["compute_ms"], overlap_frac=t["overlap_frac"])
+        log(f"[kernels] {row['name']} carve-outs: full {row['ms']:.5f} ms, dma "
+            f"{row['dma_ms']:.5f} ms, compute {row['compute_ms']:.5f} ms, overlap "
+            f"{row['overlap_frac']:.4f}; over no rows {t['empty_ms']:.5f} ms; dma equal to its "
+            "plain twin bit for bit")
+
     def report_plan(name, *args):
         plan = _build.launch_plan(name, *args)
         warps = plan["threads"] // 32
@@ -837,6 +908,14 @@ def phase_kernels(torch, index, plan_ragged, flush):
         invalid=invalid, lookups=rows * d,
     )
     report_plan("fused_gather_score", index.packed_codes.data_ptr(), qm, p, cap, pb, d, nbits)
+    carve(
+        lambda probe: fused_gather_score_cuda(*args2, **kw2, probe=probe),
+        ref.fused_gather_score_dma(index.packed_codes, starts, sizes, pscore, nbits=nbits, dim=d,
+                                   cap=cap, dims_per_chunk=dense_dims_per_chunk(d, nbits, p)),
+        lambda: fused_gather_score_cuda(index.packed_codes, starts, torch.zeros_like(sizes),
+                                        pscore, v, **kw2, probe="full"),
+        invalid,
+    )
 
     # Planted faults the checks must reject: one code nibble flipped in one
     # probed row (the dim whose table entries lie furthest apart), and one
@@ -955,6 +1034,16 @@ def phase_kernels(torch, index, plan_ragged, flush):
         invalid=slot_invalid, lookups=valid_rows * d,
     )
     report_plan("ragged_fused_gather_score", index.packed_codes.data_ptr(), w, pb, d, nbits)
+    carve(
+        lambda probe: ragged_fused_gather_score_cuda(*args3, **kw3, probe=probe),
+        ref.ragged_fused_gather_score_dma(index.packed_codes, *work, nbits=nbits, dim=d,
+                                          tile_c=tile, n_q=qm,
+                                          dims_per_chunk=ragged_dims_per_chunk(d, nbits)),
+        lambda: ragged_fused_gather_score_cuda(
+            index.packed_codes, *work._replace(nvalid=torch.zeros_like(work.nvalid)), v, **kw3,
+            probe="full"),
+        slot_invalid,
+    )
     log(
         f"[kernels] shapes: Q={qm} P={p} cap={cap} D={d} nbits={nbits} "
         f"probed_rows={rows} ragged tile_c={tile} rung={bucket} W={w} "
@@ -1349,6 +1438,175 @@ def phase_retrieve(torch, retriever, queries, qmask, batch: int, kernel_err: flo
         "within a tie over all comparisons"
     )
     return counts, lat
+
+
+def phase_autotune(torch, retriever, queries, qmask, seed: int, kernel_err: float) -> None:
+    """The autotune sweep on the Lifestyle index (``kernels/autotune_sweep.py``:
+    one query of 32 tokens, nprobe 32; the ragged kernel at tile_c 16, 32,
+    64, 128, the dense one once) with every point's full, dma and compute
+    times and overlap; at every point the carve-outs held as
+    ``check_carve_outs`` holds them (dma equal to its plain twin bit for
+    bit, full <= dma + compute); the table through a save and load at a temporary
+    path; with it installed, auto / ragged / dense plans from
+    ``tile_source == "autotune"`` at the winner's tile, their doc ids over
+    ``queries`` equal to the heuristic plans' up to reported tie swaps,
+    scores within TOL; the same entries measured on "cpu" or "interpret"
+    leave plans "heuristic"; then, with ``obs.set_kernel_probes(True)``,
+    traced retrieves of the heuristic (fused, dense) and (fused, ragged)
+    plans carry the split on their gather_score span (full <= dma +
+    compute), bit-identical to the untraced retrieve, one product launch
+    each. Resets the table and the
+    probes."""
+    from repro_torch import obs
+    from repro_torch.core import Retriever, WarpSearchConfig
+    from repro_torch.kernels import LAUNCHES, autotune, autotune_sweep, ref
+    from repro_torch.kernels.fused_gather_score import (
+        dense_dims_per_chunk,
+        fused_gather_score_cuda,
+        ragged_dims_per_chunk,
+        ragged_fused_gather_score_cuda,
+    )
+
+    index = retriever.index
+    flush = torch.empty(autotune_sweep.FLUSH_BYTES, dtype=torch.uint8, device=index.device)
+    dev = index.device
+    t0 = time.perf_counter()
+    q1, m1 = make_queries(torch, index, 1, seed, lo=32, hi=32)
+    tmp = tempfile.mkdtemp(prefix="autotune_phase_")
+    try:
+        path = os.path.join(tmp, "table.json")
+        table, rows = autotune_sweep.run(
+            index, q1[0], m1[0], nprobe=ARCH["nprobe"], qtokens=32, out_path=path,
+            install=False, log=log,
+        )
+        if autotune.AutotuneTable.load(path).to_json() != table.to_json():
+            fail("autotune: the table does not come back equal from its file")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for row in rows:
+        if not (min(row["full_ms"], row["dma_ms"], row["compute_ms"]) > 0
+                and 0.0 <= row["overlap_frac"] <= 1.0):
+            fail(f"autotune: point {row} has a time <= 0 or an overlap outside [0, 1]")
+
+    # The carve-outs at every swept point (check_carve_outs), against the
+    # sweep's own times: "full" the product call, "dma" its plain twin.
+    starts, sizes, pscores, v = autotune_sweep.sweep_probe_set(
+        index, q1[0], m1[0], nprobe=ARCH["nprobe"], qtokens=32
+    )
+    kw = dict(nbits=index.nbits, dim=index.dim)
+    nbits, d, qm = index.nbits, index.dim, starts.shape[0]
+    for row in rows:
+        layout, tile = row["layout"], row["tile_c"]
+        if layout == "dense":
+            args = (index.packed_codes, starts, sizes, pscores)
+            launch = functools.partial(fused_gather_score_cuda, *args, v, cap=index.cap, **kw)
+            want = ref.fused_gather_score_dma(
+                *args, cap=index.cap, dims_per_chunk=dense_dims_per_chunk(d, nbits, sizes.shape[1]),
+                **kw)
+            empty = functools.partial(fused_gather_score_cuda, index.packed_codes, starts,
+                                      torch.zeros_like(sizes), pscores, v, cap=index.cap,
+                                      probe="full", **kw)
+        else:
+            work = autotune_sweep.ragged_worklist(index, starts, sizes, pscores, tile)
+            launch = functools.partial(ragged_fused_gather_score_cuda, index.packed_codes, *work, v,
+                                       tile_c=tile, **kw)
+            want = ref.ragged_fused_gather_score_dma(
+                index.packed_codes, *work, tile_c=tile, n_q=qm,
+                dims_per_chunk=ragged_dims_per_chunk(d, nbits), **kw)
+            empty = functools.partial(
+                ragged_fused_gather_score_cuda, index.packed_codes,
+                *work._replace(nvalid=torch.zeros_like(work.nvalid)), v, tile_c=tile,
+                probe="full", **kw)
+        t = check_carve_outs(torch, f"autotune: {layout} tile_c {tile}",
+                             lambda probe, launch=launch: launch(probe=probe), want, empty, flush,
+                             row["full_ms"], times=row)
+        log(f"[autotune] {layout} tile_c {tile}: over no rows {t['empty_ms']:.5f} ms")
+    log(f"[autotune] at all {len(rows)} points: probe='full' bit-identical to the product call, "
+        "'dma' to its plain twin; compute longer than a launch over no rows; full <= dma + compute")
+
+    # The plans the table steers, and those it must not.
+    base = dict(nprobe=ARCH["nprobe"], k=ARCH["k"], k_impute=ARCH["k_impute"],
+                gather="fused", executor="kernel")
+    geo = dict(nbits=index.nbits, dim=index.dim, cap=index.cap, n_tokens=index.n_tokens)
+    winner = {
+        layout: table.lookup(layout, backend="cuda", **geo).tile_c for layout in ("dense", "ragged")
+    }
+
+    def plans(tbl):
+        autotune.set_default_table(tbl)
+        try:
+            r = Retriever.from_index(index, device=dev)
+            return {layout: r.plan(WarpSearchConfig(**base, layout=layout))
+                    for layout in ("auto", "ragged", "dense")}
+        finally:
+            autotune.set_default_table(None)
+
+    heuristic = plans(autotune.AutotuneTable())
+    tuned = plans(table)
+    swaps = 0
+    for layout, plan in tuned.items():
+        d, h = plan.describe(), heuristic[layout].describe()
+        if h["tile_source"] != "heuristic":
+            fail(f"autotune: the {layout} plan without a table is from {h['tile_source']!r}")
+        if d["tile_source"] != "autotune" or d["tile_c"] != winner[d["layout"]]:
+            fail(f"autotune: the {layout} plan resolved tile_c {d['tile_c']} from "
+                 f"{d['tile_source']!r}, not the winner {winner[d['layout']]} from 'autotune'")
+        got, _ = run_timed(torch, plan, queries, qmask)
+        want, _ = run_timed(torch, heuristic[layout], queries, qmask)
+        for i, (g_, w_) in enumerate(zip(got, want)):
+            swaps += topk_swaps(f"autotune: tuned {layout} plan vs heuristic, query {i}",
+                                *g_, *w_, kernel_err)
+        log(f"[autotune] {layout} plan: tuned {json.dumps({k: d[k] for k in ('layout', 'tile_c', 'tile_source', 'worklist_tiles')})}"
+            f" vs heuristic {json.dumps({k: h[k] for k in ('layout', 'tile_c', 'tile_source', 'worklist_tiles')})}")
+    for other in ("cpu", "interpret"):
+        foreign = autotune.AutotuneTable({
+            k: dataclasses.replace(t, measured_on=other) for k, t in table.entries.items()
+        })
+        for layout, plan in plans(foreign).items():
+            if plan.describe()["tile_source"] != "heuristic":
+                fail(f"autotune: an entry measured on {other!r} steered the {layout} plan on the card")
+    log(f"[autotune] tuned vs heuristic plans: {swaps} places swapped within a tie over "
+        f"{3 * queries.shape[0]} (query, plan) pairs; entries measured on 'cpu' / 'interpret' "
+        "left every plan heuristic")
+
+    # The split on traced retrieves, probes armed.
+    n_traced = 8
+    for layout in ("dense", "ragged"):
+        plan = heuristic[layout]
+        name = KERNEL_OF[("fused", layout)]
+        untraced = [plan.retrieve(queries[i], qmask[i]) for i in range(n_traced)]
+        tracer = obs.set_tracer(obs.Tracer())
+        obs.set_kernel_probes(True)
+        before = dict(LAUNCHES)
+        try:
+            traced = [plan.retrieve(queries[i], qmask[i]) for i in range(n_traced)]
+            torch.cuda.synchronize()
+        finally:
+            obs.disable_all()
+        if LAUNCHES[name] - before[name] != n_traced:
+            fail(f"autotune: {n_traced} traced {layout} retrieves launched {name} "
+                 f"{LAUNCHES[name] - before[name]} times")
+        for a, b in zip(traced, untraced):
+            if not (torch.equal(a.doc_ids, b.doc_ids) and torch.equal(a.scores, b.scores)):
+                fail(f"autotune: a traced {layout} retrieve with probes armed differs from the untraced one")
+        splits = [e.args for e in tracer.events() if e.name == "gather_score"]
+        keys = ("kernel_full_ms", "dma_ms", "compute_ms", "overlap_frac", "probe_tile_c",
+                "probe_buffering")
+        if len(splits) != n_traced or any(
+            not set(keys) <= set(a) or not 0.0 <= a["overlap_frac"] <= 1.0 for a in splits
+        ):
+            fail(f"autotune: a traced {layout} gather_score span lacks the split or its overlap "
+                 "lies outside [0, 1]")
+        for a in splits:
+            if a["kernel_full_ms"] > a["dma_ms"] + a["compute_ms"]:
+                fail(f"autotune: a traced {layout} split reads full {a['kernel_full_ms']} ms > "
+                     f"dma {a['dma_ms']} + compute {a['compute_ms']} ms")
+        med = {k: float(np.median([a[k] for a in splits])) for k in keys[:4]}
+        log(f"[autotune] traced {layout} retrieves with kernel probes (median of {n_traced}): "
+            f"{json.dumps(med)}, tile_c {splits[0]['probe_tile_c']}; one {name} launch each, "
+            "ids bit-identical to untraced")
+    autotune.set_default_table(None)
+    log(f"[autotune] phase took {time.perf_counter() - t0:.1f}s")
 
 
 def phase_serve(
@@ -4657,6 +4915,7 @@ def run(torch, dev, args) -> list:
     counts, lat = phase_retrieve(torch, retriever, queries, qmask, 4, kernel_err)
     for row in kernels:
         row["launches"] = counts[row["name"]]
+    phase_autotune(torch, retriever, queries, qmask, args.seed + 12, kernel_err)
     if args.profile:
         phase_profile(torch, retriever, queries, qmask)
     phase_serve(torch, retriever, 256, args.seed + 2, kernel_err)
@@ -4715,6 +4974,9 @@ def main() -> int:
         "many weight seeds (the first is the main path)",
     )
     args = ap.parse_args()
+    # Every phase but `autotune` plans from the heuristic, whatever table
+    # build/ may hold; `autotune` installs its own table and resets it.
+    os.environ.setdefault("REPRO_AUTOTUNE_TABLE", os.devnull)
 
     import torch
 

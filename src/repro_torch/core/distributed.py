@@ -331,7 +331,10 @@ def resolve_sharded_config(sidx: ShardedWarpIndex, config: WarpSearchConfig) -> 
         k_impute=config.resolved_k_impute(sidx.n_centroids),
         executor=executor,
     )
-    return engine.resolve_layout_fields(config, sidx.cluster_sizes.cpu().numpy(), sidx.cap)
+    return engine.resolve_layout_fields(
+        config, sidx.cluster_sizes.cpu().numpy(), sidx.cap,
+        n_tokens=n_tokens, nbits=sidx.nbits, dim=sidx.dim, device=sidx.device,
+    )
 
 
 def select_sharded(sidx: ShardedWarpIndex, q, qmask, config) -> list[WarpSelectOut]:

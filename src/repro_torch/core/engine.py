@@ -58,18 +58,30 @@ __all__ = [
     "score_from_probes",
     "reduce_from_scored",
     "gather_candidates",
+    "index_geometry",
+    "kernel_dma_compute_split",
 ]
 
 
 def resolve_tile_fields(
-    config: WarpSearchConfig, *, cap: int, layout: str
+    config: WarpSearchConfig,
+    *,
+    cap: int,
+    layout: str,
+    n_tokens: int | None = None,
+    nbits: int | None = None,
+    dim: int | None = None,
+    device=None,
 ) -> WarpSearchConfig:
     """Write the concrete ``tile_c`` (with ``tile_source``) and the
-    recorded ``buffering`` into the config; a no-op once resolved."""
+    recorded ``buffering`` into the config; a no-op once resolved. With
+    the full geometry (``n_tokens``, ``nbits``, ``dim``) the autotune
+    table is consulted for entries measured on the kind of ``device``."""
     if config.tile_source is not None and config.tile_c is not None:
         return config
     choice = ops.resolve_tile_choice(
-        cap, config.tile_c, layout=layout, buffering=config.buffering
+        cap, config.tile_c, layout=layout, n_tokens=n_tokens, nbits=nbits, dim=dim,
+        buffering=config.buffering, device=device,
     )
     return dataclasses.replace(
         config, tile_c=choice.tile_c, tile_source=choice.source,
@@ -78,23 +90,27 @@ def resolve_tile_fields(
 
 
 def resolve_layout_fields(
-    config: WarpSearchConfig, cluster_sizes, cap: int
+    config: WarpSearchConfig, cluster_sizes, cap: int, *, n_tokens: int | None = None,
+    nbits: int | None = None, dim: int | None = None, device=None,
 ) -> WarpSearchConfig:
     """Concretize ``layout="auto"``, the tile, the ragged worklist bound
     and the adaptive bucket ladder. ``cluster_sizes`` is host data, ``[C]``
     or a sharded ``[S, C]`` stack (the bound then covers the worst
-    shard)."""
+    shard). The geometry keywords enable the autotune lookup, as in
+    ``resolve_tile_fields``; a tuned ragged tile moves "auto" as the
+    heuristic's does."""
+    geo = dict(n_tokens=n_tokens, nbits=nbits, dim=dim, device=device)
     if config.layout == "dense":
-        config = resolve_tile_fields(config, cap=cap, layout="dense")
+        config = resolve_tile_fields(config, cap=cap, layout="dense", **geo)
         return dataclasses.replace(config, worklist_tiles=None, worklist_buckets=None)
-    ragged = resolve_tile_fields(config, cap=cap, layout="ragged")
+    ragged = resolve_tile_fields(config, cap=cap, layout="ragged", **geo)
     tile = ragged.tile_c
     bound = worklist_bound(cluster_sizes, config.nprobe, tile)
     layout = config.layout
     if layout == "auto":
         layout = "ragged" if bound * tile < config.nprobe * cap else "dense"
     if layout == "dense":
-        config = resolve_tile_fields(config, cap=cap, layout="dense")
+        config = resolve_tile_fields(config, cap=cap, layout="dense", **geo)
         return dataclasses.replace(
             config, layout="dense", worklist_tiles=None, worklist_buckets=None
         )
@@ -102,6 +118,12 @@ def resolve_layout_fields(
         ragged, layout="ragged", worklist_tiles=bound,
         worklist_buckets=bucket_ladder(bound),
     )
+
+
+def index_geometry(index) -> dict:
+    """The keywords of the autotune lookup for an index (a ``WarpIndex``
+    or a segmented one): its token count, code width, dim and device."""
+    return dict(n_tokens=index.n_tokens, nbits=index.nbits, dim=index.dim, device=index.device)
 
 
 def resolve_config(index: WarpIndex, config: WarpSearchConfig) -> WarpSearchConfig:
@@ -128,13 +150,16 @@ def resolve_config(index: WarpIndex, config: WarpSearchConfig) -> WarpSearchConf
         k_impute=config.resolved_k_impute(index.n_centroids),
         executor=executor,
     )
+    geo = index_geometry(index)
     if (
         config.layout == "dense"
         and config.worklist_tiles is None
         and config.worklist_buckets is None
     ):
-        return resolve_tile_fields(config, cap=index.cap, layout="dense")
-    return resolve_layout_fields(config, index.cluster_sizes.cpu().numpy(), index.cap)
+        return resolve_tile_fields(config, cap=index.cap, layout="dense", **geo)
+    return resolve_layout_fields(
+        config, index.cluster_sizes.cpu().numpy(), index.cap, **geo
+    )
 
 
 def _vtable(index: WarpIndex, q: torch.Tensor) -> torch.Tensor:
@@ -416,3 +441,76 @@ def search_batch(
         qmask = torch.ones(q.shape[:2], dtype=torch.bool, device=index.device)
     qmask = torch.as_tensor(qmask, dtype=torch.bool, device=index.device)
     return _run(index, q, qmask, config)
+
+
+def kernel_dma_compute_split(
+    index: WarpIndex, q, qmask, sel: WarpSelectOut, config: WarpSearchConfig, *,
+    warmup: int = 1, iters: int = 2,
+) -> dict:
+    """The staging/scoring split of the fused scoring kernel at this
+    query's probe set (the JAX package's DMA/compute split): the ops entry
+    point of the config's layout timed at its carve-outs ``probe="full"``,
+    ``"dma"`` (rows staged, not scored) and ``"compute"`` (rows scored,
+    not staged; under a "single" schedule derived as full - dma, as in
+    JAX), CUDA events after ``warmup`` runs, median of ``iters``, L2 warm
+    (``autotune_sweep.event_ms``) -> ``{"kernel_full_ms", "dma_ms",
+    "compute_ms", "overlap_frac", "probe_tile_c", "probe_buffering"}``.
+
+    Returns ``{}`` where the CUDA kernel is not on this config's path:
+    materialize gather, the reference executor, an index on the CPU, a
+    ragged config without a worklist bound, or an empty worklist. Unlike
+    the JAX package it measures at nbits 8 and on an index smaller than
+    one tile, which the CUDA kernels take. Batched inputs ([B, Q, ...])
+    are probed at batch element 0, with the filter-free probe sizes. Each
+    call launches the kernel 3 x (warmup + iters) times, each counted
+    under its probe (``_build.LAUNCHES``): armed by
+    ``obs.set_kernel_probes``."""
+    from repro_torch.kernels.autotune import overlap_frac
+    from repro_torch.kernels.autotune_sweep import event_ms
+
+    if config.gather != "fused" or not config.wants_kernel or index.device.type != "cuda":
+        return {}
+    if q.dim() == 3:
+        q, qmask = q[0], qmask[0]
+        sel = WarpSelectOut(*(a[0] for a in sel))
+    ragged = config.layout == "ragged"
+    tile = ops.resolve_tile_c(index.cap, config.tile_c, layout="ragged" if ragged else "dense")
+    buffering = config.buffering if config.buffering in ("single", "double") else ops.DEFAULT_BUFFERING
+    v = _vtable(index, q).contiguous()
+    kw = dict(nbits=index.nbits, dim=index.dim, use_kernel=True, buffering=buffering)
+    if ragged:
+        if config.worklist_tiles is None:
+            return {}
+        starts = index.cluster_offsets[sel.probe_cids].to(torch.int32)
+        sizes = torch.where(qmask.unsqueeze(-1), sel.probe_sizes, 0).to(torch.int32)
+        work = build_tile_worklist(
+            starts, sizes, sel.probe_scores, tile_c=tile, tiles_per_qtoken=config.worklist_tiles
+        )
+        if work.row0.shape[0] == 0:
+            return {}
+
+        def make(probe):
+            return lambda: ops.ragged_fused_gather_selective_sum(
+                index.packed_codes, *work, v, tile_c=tile, probe=probe, **kw
+            )
+    else:
+
+        def make(probe):
+            return lambda: ops.fused_gather_selective_sum(
+                index.packed_codes, index.cluster_offsets, index.cluster_sizes,
+                sel.probe_cids, sel.probe_scores, v, cap=index.cap, probe=probe, **kw
+            )
+
+    t_full, t_dma = (event_ms(make(p), warmup=warmup, iters=iters) for p in ("full", "dma"))
+    if buffering == "double":
+        t_comp = event_ms(make("compute"), warmup=warmup, iters=iters)
+    else:
+        t_comp = max(t_full - t_dma, 0.0)
+    return {
+        "kernel_full_ms": round(t_full, 4),
+        "dma_ms": round(t_dma, 4),
+        "compute_ms": round(t_comp, 4),
+        "overlap_frac": round(overlap_frac(t_full, t_dma, t_comp), 4),
+        "probe_tile_c": tile,
+        "probe_buffering": buffering,
+    }

@@ -35,8 +35,10 @@ on the card); with a tracer, single-index plans run stage by stage under
 ``retrieve`` -> ``warp_select`` -> ``bucket_pick`` -> ``gather_score`` ->
 ``reduce`` spans (JAX's names and attributes), fenced by
 ``torch.cuda.synchronize(device)`` on the card, and the stage histograms
-``warp_stage_seconds`` record. Segmented and sharded plans trace as one
-``engine`` span. The traced result is bit-identical to the untraced one:
+``warp_stage_seconds`` record; with ``obs.set_kernel_probes(True)`` the
+``gather_score`` span also carries the scoring kernel's staging/scoring
+split (``engine.kernel_dma_compute_split``). Segmented and sharded plans
+trace as one ``engine`` span. The traced result is bit-identical to the untraced one:
 the stages are the very calls ``engine.finish_from_probes`` makes.
 """
 
@@ -303,6 +305,10 @@ class SearchPlan:
                         self.index, q, qmask, sel, run_cfg, dfilter=self.fctx
                     )
                     self._fence()
+                    if _OBS.kernel_probes:
+                        sp.set(**engine.kernel_dma_compute_split(
+                            self.index, q, qmask, sel, run_cfg
+                        ))
                 self._obs_stage(reg, "gather_score", sp)
                 with tr.span(
                     "reduce", sort_n=int(scored[0].shape[-1]), k=run_cfg.k,
@@ -626,10 +632,11 @@ class Retriever:
             k_impute=config.resolved_k_impute(idx.n_centroids),
             executor=executor,
         )
+        geo = engine.index_geometry(idx)
         if config.layout == "dense":
-            config = engine.resolve_tile_fields(config, cap=idx.cap, layout="dense")
+            config = engine.resolve_tile_fields(config, cap=idx.cap, layout="dense", **geo)
             return dataclasses.replace(config, worklist_tiles=None, worklist_buckets=None)
-        ragged = engine.resolve_tile_fields(config, cap=idx.cap, layout="ragged")
+        ragged = engine.resolve_tile_fields(config, cap=idx.cap, layout="ragged", **geo)
         tile = ragged.tile_c
         bound = wl.worklist_bound_segmented(idx.per_segment_cluster_sizes(), config.nprobe, tile)
         dense_slots = config.nprobe * sum(s.cap for s in idx.segments)
@@ -637,7 +644,7 @@ class Retriever:
         if layout == "auto":
             layout = "ragged" if bound * tile < dense_slots else "dense"
         if layout == "dense":
-            config = engine.resolve_tile_fields(config, cap=idx.cap, layout="dense")
+            config = engine.resolve_tile_fields(config, cap=idx.cap, layout="dense", **geo)
             return dataclasses.replace(
                 config, layout="dense", worklist_tiles=None, worklist_buckets=None
             )

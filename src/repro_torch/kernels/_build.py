@@ -28,7 +28,7 @@ import torch
 __all__ = [
     "LAUNCHES", "reset_launches", "library", "build_all", "check",
     "stream_ptr", "require", "require_codec", "vtable_chunk", "cuda_device",
-    "launch_plan",
+    "launch_plan", "launch_key",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -62,8 +62,12 @@ KERNELS = {
 }
 # Further C entry points of a kernel library: {library: {symbol: argtypes}}.
 ENTRIES = {
+    "fused_gather_score": {  # a measurement carve-out (kernels/fused_gather_score.py)
+        "warp_fused_gather_score_probe": [*[_P] * 6, *[_I] * 8, _P],
+    },
     "ragged_fused_gather_score": {
         "warp_segmented_ragged_fused_gather_score": [*[_P] * 8, *[_I] * 8, _P],
+        "warp_ragged_fused_gather_score_probe": [*[_P] * 7, *[_I] * 8, _P],
     },
     "embedding_bag": {  # the bag's backward (kernels/embedding_bag.py)
         "warp_embedding_bag_grad_table": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _P],
@@ -88,10 +92,16 @@ PLANS = {
 # where it launches its kernel and nowhere else. The segmented ragged
 # wrapper launches the ragged library's second entry; the bag's backward
 # wrapper adds one per kernel it launches (the table's and the weights'
-# gradients) from the bag library's further entries.
+# gradients) from the bag library's further entries. A measurement launch
+# of a fused kernel's carve-out counts under "<name>:<probe>", never under
+# the kernel's own name.
+PROBED = ("fused_gather_score", "ragged_fused_gather_score")
 LAUNCHES = {
     name: 0
-    for name in (*KERNELS, "segmented_ragged_fused_gather_score", "embedding_bag_backward")
+    for name in (
+        *KERNELS, "segmented_ragged_fused_gather_score", "embedding_bag_backward",
+        *(f"{k}:{p}" for k in PROBED for p in ("full", "dma", "compute")),
+    )
 }
 
 _LIBS: dict = {}
@@ -101,6 +111,13 @@ _LOCK = threading.Lock()
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def launch_key(name: str, probe: str | None) -> str:
+    """The ``LAUNCHES`` entry of a launch of kernel ``name``: its own for
+    the product path (``probe`` None), ``"<name>:<probe>"`` for a
+    measurement carve-out."""
+    return name if probe is None else f"{name}:{probe}"
 
 
 def _nvcc() -> str:

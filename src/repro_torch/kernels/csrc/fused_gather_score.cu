@@ -29,13 +29,19 @@
 // ring per warp; the v-table in chunks of dimensions where it is too wide
 // for one block). Rows outside [0, n_tokens), which a well-formed CSR never
 // yields, are not loaded and their slots are 0.
+//
+// Measurement carve-outs (warp_fused_gather_score_probe; the TPU kernel's
+// `probe`): the same kernel instantiated at PROBE = score_rows::kProbeDma
+// (rows staged, not scored) or kProbeCompute (rows scored, not staged);
+// both write the zero tails and add the probe scores as the full kernel
+// does.
 #include "score_rows.cuh"
 
 namespace {
 
 using score_rows::last_at_most;
 
-template <int NBITS, bool VEC16, bool CHUNKED>
+template <int NBITS, bool VEC16, bool CHUNKED, int PROBE>
 __global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
     fused_gather_score_kernel(const uint8_t* __restrict__ codes,
                               const int* __restrict__ starts, const int* __restrict__ sizes,
@@ -97,7 +103,7 @@ __global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
       }
     }
   };
-  score_rows::score_range<NBITS, VEC16, CHUNKED>(
+  score_rows::score_range<NBITS, VEC16, CHUNKED, PROBE>(
       smem, v_s, v_tok, lo, hi, pb, dim, dc, true, false, row_of, zero_tails,
       [&](long long f, float score, bool first) {
         const int p = probe_of(f);
@@ -112,7 +118,7 @@ __global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
       });
 }
 
-template <int NBITS, bool VEC16>
+template <int NBITS, bool VEC16, int PROBE>
 cudaError_t launch(const uint8_t* codes, const int* starts, const int* sizes,
                    const float* pscore, const float* v, float* out, int n_tokens, int q,
                    int p, int cap, int pb, int dim, cudaStream_t stream, int* plan) {
@@ -122,8 +128,8 @@ cudaError_t launch(const uint8_t* codes, const int* starts, const int* sizes,
   const size_t fixed = probes + score_rows::vtable_bytes(dc, NBITS);
   const int warps = score_rows::warps_that_fit(fixed, dc * NBITS / 8);
   const size_t smem = score_rows::ring_bytes(warps, dc * NBITS / 8) + fixed;
-  auto kernel = fused_gather_score_kernel<NBITS, VEC16, false>;
-  if (dc < dim) kernel = fused_gather_score_kernel<NBITS, VEC16, true>;
+  auto kernel = fused_gather_score_kernel<NBITS, VEC16, false, PROBE>;
+  if (dc < dim) kernel = fused_gather_score_kernel<NBITS, VEC16, true, PROBE>;
   cudaError_t err = score_rows::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int threads = warps * 32;
@@ -143,6 +149,7 @@ cudaError_t launch(const uint8_t* codes, const int* starts, const int* sizes,
   return cudaGetLastError();
 }
 
+template <int PROBE>
 int dispatch(const void* codes, const void* starts, const void* sizes, const void* pscore,
              const void* v, void* out, int n_tokens, int q, int p, int cap, int pb, int dim,
              int nbits, void* stream, int* plan) {
@@ -154,15 +161,18 @@ int dispatch(const void* codes, const void* starts, const void* sizes, const voi
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   const bool vec16 = score_rows::aligned16(codes, pb);
+#define WARP_FUSED_LAUNCH(B, V) \
+  launch<B, V, PROBE>(c, st, sz, ps, vv, o, n_tokens, q, p, cap, pb, dim, s, plan)
   switch (nbits * 2 + (vec16 ? 1 : 0)) {
-    case 4: return launch<2, false>(c, st, sz, ps, vv, o, n_tokens, q, p, cap, pb, dim, s, plan);
-    case 5: return launch<2, true>(c, st, sz, ps, vv, o, n_tokens, q, p, cap, pb, dim, s, plan);
-    case 8: return launch<4, false>(c, st, sz, ps, vv, o, n_tokens, q, p, cap, pb, dim, s, plan);
-    case 9: return launch<4, true>(c, st, sz, ps, vv, o, n_tokens, q, p, cap, pb, dim, s, plan);
-    case 16: return launch<8, false>(c, st, sz, ps, vv, o, n_tokens, q, p, cap, pb, dim, s, plan);
-    case 17: return launch<8, true>(c, st, sz, ps, vv, o, n_tokens, q, p, cap, pb, dim, s, plan);
+    case 4: return WARP_FUSED_LAUNCH(2, false);
+    case 5: return WARP_FUSED_LAUNCH(2, true);
+    case 8: return WARP_FUSED_LAUNCH(4, false);
+    case 9: return WARP_FUSED_LAUNCH(4, true);
+    case 16: return WARP_FUSED_LAUNCH(8, false);
+    case 17: return WARP_FUSED_LAUNCH(8, true);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef WARP_FUSED_LAUNCH
 }
 
 }  // namespace
@@ -171,8 +181,27 @@ extern "C" int warp_fused_gather_score(const void* codes, const void* starts,
                                        const void* sizes, const void* pscore, const void* v,
                                        void* out, int n_tokens, int q, int p, int cap, int pb,
                                        int dim, int nbits, void* stream) {
-  return dispatch(codes, starts, sizes, pscore, v, out, n_tokens, q, p, cap, pb, dim, nbits,
-                  stream, nullptr);
+  return dispatch<score_rows::kProbeFull>(codes, starts, sizes, pscore, v, out, n_tokens, q, p,
+                                          cap, pb, dim, nbits, stream, nullptr);
+}
+
+// The kernel at a measurement carve-out: probe 1 dma, 2 compute
+// (score_rows::Probe); the full kernel is warp_fused_gather_score.
+extern "C" int warp_fused_gather_score_probe(const void* codes, const void* starts,
+                                             const void* sizes, const void* pscore,
+                                             const void* v, void* out, int n_tokens, int q,
+                                             int p, int cap, int pb, int dim, int nbits,
+                                             int probe, void* stream) {
+  switch (probe) {
+    case score_rows::kProbeDma:
+      return dispatch<score_rows::kProbeDma>(codes, starts, sizes, pscore, v, out, n_tokens, q,
+                                             p, cap, pb, dim, nbits, stream, nullptr);
+    case score_rows::kProbeCompute:
+      return dispatch<score_rows::kProbeCompute>(codes, starts, sizes, pscore, v, out, n_tokens,
+                                                 q, p, cap, pb, dim, nbits, stream, nullptr);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The launch warp_fused_gather_score would make for these arguments,
@@ -181,6 +210,6 @@ extern "C" int warp_fused_gather_score(const void* codes, const void* starts,
 // per chunk}.
 extern "C" int warp_fused_gather_score_plan(const void* codes, int q, int p, int cap, int pb,
                                             int dim, int nbits, int* plan) {
-  return dispatch(codes, nullptr, nullptr, nullptr, nullptr, nullptr, 0, q, p, cap, pb, dim,
-                  nbits, nullptr, plan);
+  return dispatch<score_rows::kProbeFull>(codes, nullptr, nullptr, nullptr, nullptr, nullptr, 0,
+                                          q, p, cap, pb, dim, nbits, nullptr, plan);
 }

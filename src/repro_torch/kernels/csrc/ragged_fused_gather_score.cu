@@ -51,6 +51,12 @@
 // sum runs in the same order as there and the output equals the S masked
 // launches' sum bit for bit. Bound: bytes, as above (seg adds 4 bytes a
 // tile).
+//
+// Measurement carve-outs (warp_ragged_fused_gather_score_probe; the TPU
+// kernel's `probe`): the single-array kernel instantiated at PROBE =
+// score_rows::kProbeDma (rows staged, not scored) or kProbeCompute (rows
+// scored, not staged), on the same grid; both zero the invalid slots and
+// padding tiles. The segmented entry has no carve-out.
 #include "score_rows.cuh"
 
 namespace {
@@ -93,7 +99,7 @@ struct Segments {
   int n;
 };
 
-template <int NBITS, bool VEC16, bool CHUNKED, bool SEGMENTED>
+template <int NBITS, bool VEC16, bool CHUNKED, bool SEGMENTED, int PROBE>
 __global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
     ragged_fused_gather_score_kernel(const uint8_t* __restrict__ codes,
                                      const int* __restrict__ row0,
@@ -193,7 +199,7 @@ __global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
     const int q = qt[ta];
     int tb = ta + 1;
     while (tb < nt && (pre[tb + 1] == pre[tb] || qt[tb] == q)) ++tb;
-    score_rows::score_range<NBITS, VEC16, CHUNKED>(
+    score_rows::score_range<NBITS, VEC16, CHUNKED, PROBE>(
         smem, v_s, v + static_cast<size_t>(q) * dim * nb, pre[ta], pre[tb], pb, dim, dc,
         false, scored, row_of,
         [&] {
@@ -206,7 +212,7 @@ __global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
   if (!scored) zero_invalid();
 }
 
-template <int NBITS, bool VEC16, bool SEGMENTED>
+template <int NBITS, bool VEC16, bool SEGMENTED, int PROBE>
 cudaError_t launch(const uint8_t* codes, const int* row0, const int* nvalid, const int* qtok,
                    const float* pscore, const float* v, float* out, int n_tokens, int n_tiles,
                    int tile_c, int n_q, int pb, int dim, Segments segs, cudaStream_t stream,
@@ -218,8 +224,8 @@ cudaError_t launch(const uint8_t* codes, const int* row0, const int* nvalid, con
   const int warps = score_rows::warps_that_fit(fixed, dc * NBITS / 8);
   if (warps == 0) return cudaErrorInvalidValue;
   const size_t smem = score_rows::ring_bytes(warps, dc * NBITS / 8) + fixed;
-  auto kernel = ragged_fused_gather_score_kernel<NBITS, VEC16, false, SEGMENTED>;
-  if (dc < dim) kernel = ragged_fused_gather_score_kernel<NBITS, VEC16, true, SEGMENTED>;
+  auto kernel = ragged_fused_gather_score_kernel<NBITS, VEC16, false, SEGMENTED, PROBE>;
+  if (dc < dim) kernel = ragged_fused_gather_score_kernel<NBITS, VEC16, true, SEGMENTED, PROBE>;
   cudaError_t err = score_rows::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int threads = warps * 32;
@@ -240,7 +246,7 @@ cudaError_t launch(const uint8_t* codes, const int* row0, const int* nvalid, con
   return cudaGetLastError();
 }
 
-template <bool SEGMENTED>
+template <bool SEGMENTED, int PROBE>
 int dispatch(const void* codes, const void* row0, const void* nvalid, const void* qtok,
              const void* pscore, const void* v, void* out, int n_tokens, int n_tiles,
              int tile_c, int n_q, int pb, int dim, int nbits, bool vec16, Segments segs,
@@ -254,8 +260,8 @@ int dispatch(const void* codes, const void* row0, const void* nvalid, const void
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
 #define WARP_RAGGED_LAUNCH(B, V)                                                                \
-  launch<B, V, SEGMENTED>(c, r, nv, qt, ps, vv, o, n_tokens, n_tiles, tile_c, n_q, pb, dim, segs, \
-                          s, plan)
+  launch<B, V, SEGMENTED, PROBE>(c, r, nv, qt, ps, vv, o, n_tokens, n_tiles, tile_c, n_q, pb,    \
+                                 dim, segs, s, plan)
   switch (nbits * 2 + (vec16 ? 1 : 0)) {
     case 4:
       return WARP_RAGGED_LAUNCH(2, false);
@@ -282,9 +288,34 @@ extern "C" int warp_ragged_fused_gather_score(const void* codes, const void* row
                                               const void* pscore, const void* v, void* out,
                                               int n_tokens, int n_tiles, int tile_c, int n_q,
                                               int pb, int dim, int nbits, void* stream) {
-  return dispatch<false>(codes, row0, nvalid, qtok, pscore, v, out, n_tokens, n_tiles, tile_c,
-                         n_q, pb, dim, nbits, score_rows::aligned16(codes, pb),
-                         Segments{nullptr, nullptr, 0}, stream, nullptr);
+  return dispatch<false, score_rows::kProbeFull>(
+      codes, row0, nvalid, qtok, pscore, v, out, n_tokens, n_tiles, tile_c, n_q, pb, dim, nbits,
+      score_rows::aligned16(codes, pb), Segments{nullptr, nullptr, 0}, stream, nullptr);
+}
+
+// The single-array kernel at a measurement carve-out: probe 1 dma, 2
+// compute (score_rows::Probe); the full kernel is
+// warp_ragged_fused_gather_score.
+extern "C" int warp_ragged_fused_gather_score_probe(const void* codes, const void* row0,
+                                                    const void* nvalid, const void* qtok,
+                                                    const void* pscore, const void* v, void* out,
+                                                    int n_tokens, int n_tiles, int tile_c,
+                                                    int n_q, int pb, int dim, int nbits,
+                                                    int probe, void* stream) {
+  const bool vec16 = score_rows::aligned16(codes, pb);
+  const Segments none{nullptr, nullptr, 0};
+  switch (probe) {
+    case score_rows::kProbeDma:
+      return dispatch<false, score_rows::kProbeDma>(codes, row0, nvalid, qtok, pscore, v, out,
+                                                    n_tokens, n_tiles, tile_c, n_q, pb, dim,
+                                                    nbits, vec16, none, stream, nullptr);
+    case score_rows::kProbeCompute:
+      return dispatch<false, score_rows::kProbeCompute>(codes, row0, nvalid, qtok, pscore, v,
+                                                        out, n_tokens, n_tiles, tile_c, n_q, pb,
+                                                        dim, nbits, vec16, none, stream, nullptr);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // One launch over a worklist spanning segments: seg i32[W] names tile w's
@@ -298,8 +329,10 @@ extern "C" int warp_segmented_ragged_fused_gather_score(
     int tile_c, int n_q, int pb, int dim, int nbits, void* stream) {
   const Segments segs{static_cast<const int*>(seg), static_cast<const long long*>(seg_table),
                       n_seg};
-  return dispatch<true>(nullptr, row0, nvalid, qtok, pscore, v, out, 0, n_tiles, tile_c, n_q, pb,
-                        dim, nbits, all_aligned16 != 0 && pb % 16 == 0, segs, stream, nullptr);
+  return dispatch<true, score_rows::kProbeFull>(nullptr, row0, nvalid, qtok, pscore, v, out, 0,
+                                                n_tiles, tile_c, n_q, pb, dim, nbits,
+                                                all_aligned16 != 0 && pb % 16 == 0, segs, stream,
+                                                nullptr);
 }
 
 // The launch warp_ragged_fused_gather_score would make for these
@@ -308,7 +341,7 @@ extern "C" int warp_segmented_ragged_fused_gather_score(
 // tiles per block at most, v-table dims per chunk}.
 extern "C" int warp_ragged_fused_gather_score_plan(const void* codes, int n_tiles, int pb,
                                                    int dim, int nbits, int* plan) {
-  return dispatch<false>(codes, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, n_tiles,
-                         8, 1, pb, dim, nbits, score_rows::aligned16(codes, pb),
-                         Segments{nullptr, nullptr, 0}, nullptr, plan);
+  return dispatch<false, score_rows::kProbeFull>(
+      codes, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, n_tiles, 8, 1, pb, dim, nbits,
+      score_rows::aligned16(codes, pb), Segments{nullptr, nullptr, 0}, nullptr, plan);
 }

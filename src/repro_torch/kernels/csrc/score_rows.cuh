@@ -49,6 +49,15 @@
 // thread owns a row in every chunk). dc is a multiple of 128 / b dims (16
 // bytes of a row), so a 16-byte aligned row stays aligned slice by slice
 // (dims_per_chunk; Python twin: _build.vtable_chunk).
+//
+// Measurement carve-outs (Probe, a template argument of score_range and
+// of the fused kernels; the TPU kernels' `probe`). kProbeDma stages every
+// row through the ring as the full loop does and reads each staged row
+// into a sink (sink_staged: an XOR of its words) in place of the v-table
+// lookups; kProbeCompute issues no copies (every row pointer handed to the
+// ring is null) and scores whatever bytes the ring holds, which are valid
+// codes whatever they are (the lookups mask them). kProbeFull is the
+// product loop and compiles to the same code as before the probes existed.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -62,6 +71,8 @@ constexpr size_t kSmemMax = 232448;  // dynamic shared memory one block may use 
 constexpr int kStages = 3;    // chunks of 32 rows per warp in the ring
 constexpr int kChunk = 32;    // rows per chunk: one per lane
 constexpr unsigned kFull = 0xffffffffu;
+
+enum Probe : int { kProbeFull = 0, kProbeDma = 1, kProbeCompute = 2 };
 
 // Shared-memory bytes per staged row: PB rounded up to an odd number of
 // 16-byte units.
@@ -210,6 +221,20 @@ __device__ __forceinline__ float score_staged(const uint8_t* row_s, int pb, cons
   return acc0 + acc1;
 }
 
+// The dma carve-out's stand-in for score_staged: every byte of the staged
+// row read (16 bytes at a time where it can), folded into a float.
+__device__ __forceinline__ float sink_staged(const uint8_t* row_s, int pb) {
+  const uint4* r16 = reinterpret_cast<const uint4*>(row_s);
+  const int full = pb >> 4;
+  uint32_t x = 0;
+  for (int k = 0; k < full; ++k) {
+    const uint4 w = r16[k];
+    x ^= w.x ^ w.y ^ w.z ^ w.w;
+  }
+  for (int j = full << 4; j < pb; ++j) x ^= row_s[j];
+  return static_cast<float>((x ^ (x >> 16)) & 0xffffu);
+}
+
 // One warp's ring of kStages chunks. The block's rows are the flat range
 // [lo, hi); warp w owns chunks w, w + nwarps, w + 2 nwarps, ... of 32
 // rows each, lane l row l of each. Every lane calls issue/row/flat with
@@ -279,13 +304,18 @@ struct WarpRing {
   // kStages - 2 and after a barrier behind the v-table's arrival
   // (cp_async_wait<kStages - 1>, then __syncthreads).
   // store(f, score) is called for each flat row f < hi of the range.
-  template <int NBITS, class RowOf, class Store>
+  template <int NBITS, int PROBE, class RowOf, class Store>
   __device__ void run(const float* v_s, RowOf row_of, Store store) {
     for (int i = 0; i < n_mine; ++i) {
       issue(i + kStages - 1, row_of);
       cp_async_wait<kStages - 1>();  // chunk i has landed (this lane's copies)
       __syncwarp();                  // ... and every other lane's
-      const float s = score_staged<NBITS>(row(i), pb, v_s);
+      float s;
+      if constexpr (PROBE == kProbeDma) {
+        s = sink_staged(row(i), pb);
+      } else {
+        s = score_staged<NBITS>(row(i), pb, v_s);
+      }
       const long long f = flat(i);
       if (f < hi) store(f, s);
       __syncwarp();  // chunk i's slot is refilled next iteration
@@ -349,8 +379,9 @@ __device__ __forceinline__ void warp0_prefix_sum(int* x, int n) {
 // where the caller issued it already: `preloaded`), kStages - 1 chunks of
 // rows issued, then `overlap()` on the first chunk only, then the ring.
 // store(f, score, first) gets each row's partial sum over the chunk's dims,
-// `first` on the first chunk.
-template <int NBITS, bool VEC16, bool CHUNKED, class RowOf, class Overlap, class Store>
+// `first` on the first chunk. PROBE: a measurement carve-out (Probe); row_of
+// and store see every row as in the full loop.
+template <int NBITS, bool VEC16, bool CHUNKED, int PROBE, class RowOf, class Overlap, class Store>
 __device__ __forceinline__ void score_range(uint8_t* smem, float* v_s, const float* v_tok,
                                             long long lo, long long hi, int pb, int dim,
                                             int dc, bool preloaded, bool after_other,
@@ -364,15 +395,20 @@ __device__ __forceinline__ void score_range(uint8_t* smem, float* v_s, const flo
     if (k > 0 || after_other) __syncthreads();  // every warp is done with shared memory
     if (k > 0 || !preloaded) load_vtable(v_s, v_tok + static_cast<size_t>(d0) * NB, nd * NB);
     auto slice = [&](long long f) -> const uint8_t* {
-      const uint8_t* r = row_of(f);
-      return CHUNKED && r != nullptr ? r + b0 : r;
+      if constexpr (PROBE == kProbeCompute) {
+        return nullptr;  // no copies
+      } else {
+        const uint8_t* r = row_of(f);
+        return CHUNKED && r != nullptr ? r + b0 : r;
+      }
     };
     WarpRing<VEC16> ring(smem, lo, hi, CHUNKED ? nd * NBITS / 8 : pb);
     for (int i = 0; i < kStages - 1; ++i) ring.issue(i, slice);
     if (k == 0) overlap();
     cp_async_wait<kStages - 1>();  // the table slice's group
     __syncthreads();
-    ring.template run<NBITS>(v_s, slice, [&](long long f, float s) { store(f, s, k == 0); });
+    ring.template run<NBITS, PROBE>(v_s, slice,
+                                    [&](long long f, float s) { store(f, s, k == 0); });
   }
 }
 

@@ -40,7 +40,7 @@ __global__ void __launch_bounds__(score_rows::kMaxWarps * 32)
   const int warps = blockDim.x >> 5;
   float* v_s = score_rows::vtable_at(smem, score_rows::ring_bytes(warps, dc * NBITS / 8));
   auto row_of = [&](long long f) { return base + static_cast<size_t>(f) * pb; };
-  score_rows::score_range<NBITS, VEC16, CHUNKED>(
+  score_rows::score_range<NBITS, VEC16, CHUNKED, score_rows::kProbeFull>(
       smem, v_s, v + static_cast<size_t>(q) * dim * nb, lo, hi, pb, dim, dc, false, false,
       row_of, [] {}, [&](long long f, float s, bool first) { o[f] = first ? s : o[f] + s; });
 }

@@ -8,9 +8,22 @@ resident packed codes directly (no gathered copy). On a CUDA tensor each
 launches its kernel (``csrc/fused_gather_score.cu``,
 ``csrc/ragged_fused_gather_score.cu`` and its segmented entry); on a CPU
 tensor each runs its plain version in ``ref``. Invalid slots come out exactly 0 either way.
-Counterpart of ``repro/kernels/fused_gather_score.py``; the TPU's DMA
-schedules (``buffering``) and measurement carve-outs (``probe``) have no
-counterpart here.
+Counterpart of ``repro/kernels/fused_gather_score.py``. The TPU's DMA
+schedules (``buffering``) have no counterpart: the card has one, the
+cp.async ring of ``csrc/score_rows.cuh``.
+
+The two single-array CUDA wrappers also launch the TPU kernels'
+measurement carve-outs (``probe``, one of ``PROBES``, which
+``ops.fused_gather_selective_sum`` and
+``ops.ragged_fused_gather_selective_sum`` check), each a compile-time
+mode of the CUDA kernel: "full" is the product kernel, "dma" stages every
+row through the ring and reads it into a sink in place of the v-table
+lookups (``ref.fused_gather_score_dma`` gives its output bit for bit),
+"compute" issues no copies and scores what the ring holds. All three
+write the zero tails. ``probe=None`` is the product path, counted under
+the kernel's name in ``_build.LAUNCHES``; a named probe is a measurement
+launch, counted under ``"<name>:<probe>"``, so the launches of the
+product path count it alone.
 """
 
 from __future__ import annotations
@@ -28,6 +41,11 @@ __all__ = [
     "segmented_ragged_fused_gather_score_cuda",
     "DEFAULT_TILE_C",
     "DEFAULT_RAGGED_TILE_C",
+    "BUFFERINGS",
+    "PROBES",
+    "validate_tile_c",
+    "dense_dims_per_chunk",
+    "ragged_dims_per_chunk",
 ]
 
 DEFAULT_TILE_C = 128
@@ -35,6 +53,46 @@ DEFAULT_RAGGED_TILE_C = 32
 # Shared-memory bytes of a segmented ragged block's per-tile segment code
 # bases and row counts (csrc/ragged_fused_gather_score.cu, kSegTileBytes).
 SEGMENT_TILE_BYTES = 12 * ref.RAGGED_MAX_TILES + 8
+# The JAX package's DMA schedules, recorded in resolved configs and
+# autotune entries; they select nothing on the card.
+BUFFERINGS = ("double", "single")
+# Measurement carve-outs; the C probe entries take the last two by their
+# template argument (score_rows::Probe), "full" is the product entry.
+PROBES = ("full", "dma", "compute")
+_CARVE_OUT = {"dma": 1, "compute": 2}
+# Shared-memory bytes of a ragged block's tile arrays (pre, row0, qtok,
+# pscore) beside the v-table.
+RAGGED_TILE_BYTES = 4 * (4 * ref.RAGGED_MAX_TILES + 1)
+
+
+def validate_tile_c(tile_c: int, *, where: str = "tile_c") -> int:
+    if not isinstance(tile_c, int) or isinstance(tile_c, bool):
+        raise ValueError(f"{where}={tile_c!r} must be an int")
+    if tile_c < 8 or tile_c % 8:
+        raise ValueError(f"{where}={tile_c} must be a positive multiple of 8")
+    return tile_c
+
+
+def dense_dims_per_chunk(dim: int, nbits: int, n_probes: int) -> int:
+    """V-table dims per chunk of the dense kernel at ``n_probes`` probes
+    per token (its probe arrays sit beside the table)."""
+    return _build.vtable_chunk(dim, nbits, 4 * (3 * n_probes + 1))
+
+
+def ragged_dims_per_chunk(dim: int, nbits: int) -> int:
+    """V-table dims per chunk of the ragged kernels."""
+    return _build.vtable_chunk(dim, nbits, RAGGED_TILE_BYTES)
+
+
+def _launch(lib, name: str, product: str, args, probe, dev) -> None:
+    """Launch ``name``'s product entry (``probe`` None or "full") or its
+    probe entry at carve-out ``probe``, and count it."""
+    if probe is None or probe == "full":
+        rc = getattr(lib, product)(*args, _build.stream_ptr(dev))
+    else:
+        rc = getattr(lib, f"{product}_probe")(*args, _CARVE_OUT[probe], _build.stream_ptr(dev))
+    _build.check(name, rc)
+    _build.LAUNCHES[_build.launch_key(name, probe)] += 1
 
 
 def fused_gather_score(
@@ -60,12 +118,14 @@ def fused_gather_score(
     )
 
 
-def fused_gather_score_cuda(packed_codes, starts, sizes, probe_scores, v, *, nbits, dim, cap):
+def fused_gather_score_cuda(
+    packed_codes, starts, sizes, probe_scores, v, *, nbits, dim, cap, probe=None
+):
     dev = _build.cuda_device(packed_codes)
     n, pb = packed_codes.shape
     qm, p = starts.shape
     _build.require_codec(dim, nbits, pb)
-    _build.vtable_chunk(dim, nbits, 4 * (3 * p + 1))
+    dense_dims_per_chunk(dim, nbits, p)
     _build.require(packed_codes, "packed_codes", torch.uint8, dev)
     _build.require(starts, "starts", torch.int32, dev)
     _build.require(sizes, "sizes", torch.int32, dev, (qm, p))
@@ -75,13 +135,12 @@ def fused_gather_score_cuda(packed_codes, starts, sizes, probe_scores, v, *, nbi
     if qm == 0 or p == 0 or cap == 0:
         return out
     lib = _build.library("fused_gather_score")
-    rc = lib.warp_fused_gather_score(
+    args = (
         packed_codes.data_ptr(), starts.data_ptr(), sizes.data_ptr(),
         probe_scores.data_ptr(), v.data_ptr(), out.data_ptr(),
-        n, qm, p, cap, pb, dim, nbits, _build.stream_ptr(dev),
+        n, qm, p, cap, pb, dim, nbits,
     )
-    _build.check("fused_gather_score", rc)
-    _build.LAUNCHES["fused_gather_score"] += 1
+    _launch(lib, "fused_gather_score", "warp_fused_gather_score", args, probe, dev)
     return out
 
 
@@ -110,15 +169,14 @@ def ragged_fused_gather_score(
 
 
 def ragged_fused_gather_score_cuda(
-    packed_codes, row0, nvalid, qtok, pscore, v, *, nbits, dim, tile_c
+    packed_codes, row0, nvalid, qtok, pscore, v, *, nbits, dim, tile_c, probe=None
 ):
     dev = _build.cuda_device(packed_codes)
     n, pb = packed_codes.shape
     w = nvalid.shape[0]
     qm = v.shape[0]
     _build.require_codec(dim, nbits, pb)
-    # A block's tile arrays (pre, row0, qtok, pscore) sit beside the table.
-    _build.vtable_chunk(dim, nbits, 4 * (4 * ref.RAGGED_MAX_TILES + 1))
+    ragged_dims_per_chunk(dim, nbits)
     _build.require(packed_codes, "packed_codes", torch.uint8, dev)
     _build.require(row0, "row0", torch.int32, dev, (w,))
     _build.require(nvalid, "nvalid", torch.int32, dev, (w,))
@@ -129,13 +187,12 @@ def ragged_fused_gather_score_cuda(
     if w == 0 or tile_c == 0:
         return out
     lib = _build.library("ragged_fused_gather_score")
-    rc = lib.warp_ragged_fused_gather_score(
+    args = (
         packed_codes.data_ptr(), row0.data_ptr(), nvalid.data_ptr(),
         qtok.data_ptr(), pscore.data_ptr(), v.data_ptr(), out.data_ptr(),
-        n, w, tile_c, qm, pb, dim, nbits, _build.stream_ptr(dev),
+        n, w, tile_c, qm, pb, dim, nbits,
     )
-    _build.check("ragged_fused_gather_score", rc)
-    _build.LAUNCHES["ragged_fused_gather_score"] += 1
+    _launch(lib, "ragged_fused_gather_score", "warp_ragged_fused_gather_score", args, probe, dev)
     return out
 
 
@@ -203,9 +260,8 @@ def segmented_ragged_fused_gather_score_cuda(
     _build.require_codec(dim, nbits, pb)
     # The single-array kernel's v-table chunk (so sums run in its order),
     # beside a block's further arrays of segment bases and row counts.
-    tile_bytes = 4 * (4 * ref.RAGGED_MAX_TILES + 1)
-    dc = _build.vtable_chunk(dim, nbits, tile_bytes)
-    if not _build._vtable_fits(dc, nbits, tile_bytes + SEGMENT_TILE_BYTES):
+    dc = ragged_dims_per_chunk(dim, nbits)
+    if not _build._vtable_fits(dc, nbits, RAGGED_TILE_BYTES + SEGMENT_TILE_BYTES):
         raise ValueError(
             f"a v-table chunk of {dc} dims at nbits={nbits} leaves no room for a "
             "segmented block's tile arrays"

@@ -10,8 +10,10 @@ dispatch there is no route from the kernel path to the plain version for
 nbits = 8, cap = 0 or an index smaller than one tile: the CUDA kernels
 take all of those.
 
-Tile resolution keeps the JAX package's "config" and "heuristic" sources
-(the autotune table is not ported), so resolved configs agree.
+Tile resolution follows the JAX package: an explicit ``tile_c``
+("config"), then the autotune table (``kernels/autotune.py``, entries
+matched to the kind of the planned index's device: "autotune"), then the
+heuristic ("heuristic"), so resolved configs agree.
 
 Every scoring wrapper consults the ``engine.kernel_call`` fault injection
 point (``repro_torch.fault``) at its entry, on both executors and every
@@ -29,16 +31,21 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.fault import FAULTS as _FAULTS
-from repro_torch.kernels import ref
+from repro_torch.kernels import autotune, ref
 from repro_torch.kernels.decompress_score import selective_sum as _selective_sum_kernel
 from repro_torch.kernels.embedding_bag import embedding_bag as _embedding_bag_kernel
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 from repro_torch.kernels.fused_gather_score import (
+    BUFFERINGS,
     DEFAULT_RAGGED_TILE_C,
     DEFAULT_TILE_C,
+    PROBES,
     fused_gather_score,
+    fused_gather_score_cuda,
     ragged_fused_gather_score,
+    ragged_fused_gather_score_cuda,
     segmented_ragged_fused_gather_score,
+    validate_tile_c,
 )
 
 __all__ = [
@@ -76,20 +83,12 @@ def _check_packable_dim(dim: int, nbits: int, *, byte_wise: bool) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class TileChoice:
-    """A resolved candidate-tile decision: the tile, its source ("config"
-    or "heuristic") and the recorded schedule name."""
+    """A resolved candidate-tile decision: the tile, its source ("config",
+    "autotune" or "heuristic") and the recorded schedule name."""
 
     tile_c: int
     source: str
     buffering: str
-
-
-def validate_tile_c(tile_c: int, *, where: str = "tile_c") -> int:
-    if not isinstance(tile_c, int) or isinstance(tile_c, bool):
-        raise ValueError(f"{where}={tile_c!r} must be an int")
-    if tile_c < 8 or tile_c % 8:
-        raise ValueError(f"{where}={tile_c} must be a positive multiple of 8")
-    return tile_c
 
 
 def resolve_tile_choice(
@@ -97,18 +96,39 @@ def resolve_tile_choice(
     tile_c: int | None = None,
     *,
     layout: str = "dense",
+    n_tokens: int | None = None,
+    nbits: int | None = None,
+    dim: int | None = None,
     buffering: str = "auto",
+    table: "autotune.AutotuneTable | None" = None,
+    device=None,
 ) -> TileChoice:
-    """An explicit ``tile_c`` wins (source "config"); else a power of two
-    >= 8 capped at the layout default (dense 128, ragged 32) and at the
-    padded cap (source "heuristic")."""
+    """The candidate tile, with its source. An explicit ``tile_c`` wins
+    ("config"). With the full geometry (``n_tokens``, ``nbits``, ``dim``)
+    the table (``table``, else the process default) is consulted for an
+    entry measured on the kind of ``device`` ("autotune"; it also gives
+    the schedule). Else a power of two >= 8 capped at the layout default
+    (dense 128, ragged 32) and at the padded cap ("heuristic"). An
+    explicit ``buffering`` overrides the tuned one."""
     schedule = DEFAULT_BUFFERING if buffering == "auto" else buffering
     if tile_c is not None:
         chosen = TileChoice(tile_c, "config", schedule)
     else:
-        default = DEFAULT_RAGGED_TILE_C if layout == "ragged" else DEFAULT_TILE_C
-        tile = min(default, 1 << max(3, (cap - 1).bit_length() if cap > 1 else 3))
-        chosen = TileChoice(tile, "heuristic", schedule)
+        tuned = None
+        if n_tokens is not None and nbits is not None and dim is not None:
+            tuned = (table if table is not None else autotune.get_default_table()).lookup(
+                "ragged" if layout == "ragged" else "dense",
+                nbits=nbits, dim=dim, cap=cap, n_tokens=n_tokens,
+                backend=autotune.backend_kind(device),
+            )
+        if tuned is not None:
+            chosen = TileChoice(
+                tuned.tile_c, "autotune", tuned.buffering if buffering == "auto" else buffering
+            )
+        else:
+            default = DEFAULT_RAGGED_TILE_C if layout == "ragged" else DEFAULT_TILE_C
+            tile = min(default, 1 << max(3, (cap - 1).bit_length() if cap > 1 else 3))
+            chosen = TileChoice(tile, "heuristic", schedule)
     validate_tile_c(chosen.tile_c, where=f"tile_c ({chosen.source})")
     return chosen
 
@@ -121,7 +141,36 @@ def _fault_kernel_call(op: str) -> None:
 
 
 def resolve_tile_c(cap: int, tile_c: int | None = None, *, layout: str = "dense") -> int:
+    """The explicit tile or the heuristic's, never a table's: plan
+    resolution writes the full choice into the config, so by run time
+    ``tile_c`` is concrete."""
     return resolve_tile_choice(cap, tile_c, layout=layout).tile_c
+
+
+def _check_probe(probe, buffering: str, use_kernel: bool, device, where: str) -> bool:
+    """JAX's probe errors: an unknown probe, "compute" without the
+    double-buffered schedule, and any carve-out but "full" on the plain
+    path (the use_kernel=False executor, or CPU tensors) raise ValueError.
+    Returns whether the call is a measurement launch of the CUDA kernel
+    (a named probe on the kernel path of a CUDA tensor)."""
+    if buffering not in ("auto", *BUFFERINGS):
+        raise ValueError(f"buffering={buffering!r} is not one of {('auto', *BUFFERINGS)}")
+    if probe is None:
+        return False
+    if probe not in PROBES:
+        raise ValueError(f"probe={probe!r} is not a kernel carve-out; expected one of {PROBES}")
+    if probe == "compute" and buffering == "single":
+        raise ValueError(
+            "probe='compute' skips the row copies, which only the double-buffered "
+            "schedule can do; use buffering='double'"
+        )
+    on_card = use_kernel and device.type == "cuda"
+    if probe != "full" and not on_card:
+        raise ValueError(
+            f"probe={probe!r} requires the CUDA kernel, but {where} runs its plain "
+            f"version here (use_kernel={use_kernel}, tensors on {device})"
+        )
+    return on_card
 
 
 def selective_sum(
@@ -156,10 +205,18 @@ def fused_gather_selective_sum(
     dim: int,
     cap: int,
     use_kernel: bool = True,
+    buffering: str = "auto",
+    probe: str | None = None,
 ) -> torch.Tensor:
     """CSR probe + implicit decompression + scoring in one pass:
-    probe_cids [Q, P] -> cand_scores f32[Q, P, cap] (invalid slots 0)."""
+    probe_cids [Q, P] -> cand_scores f32[Q, P, cap] (invalid slots 0).
+    ``buffering`` is recorded only (the card has one schedule). ``probe``
+    None is the product call; a carve-out of ``PROBES`` on the card is a
+    measurement launch, counted apart (``_build.LAUNCHES``): "full" runs
+    the product kernel, "dma" and "compute" split its time and give no
+    scores. "full" on the plain path is the product call."""
     _fault_kernel_call("fused_gather_score")
+    measure = _check_probe(probe, buffering, use_kernel, packed_codes.device, "fused_gather_score")
     _check_packable_dim(dim, nbits, byte_wise=use_kernel)
     starts = cluster_offsets[probe_cids].to(torch.int32).contiguous()
     sizes = cluster_sizes[probe_cids].to(torch.int32).contiguous()
@@ -168,9 +225,13 @@ def fused_gather_selective_sum(
         return ref.fused_gather_score(
             packed_codes, starts, sizes, pscores, v, nbits=nbits, dim=dim, cap=cap
         )
+    if measure:
+        return fused_gather_score_cuda(
+            packed_codes, starts, sizes, pscores, v.contiguous(),
+            nbits=nbits, dim=dim, cap=cap, probe=probe,
+        )
     return fused_gather_score(
-        packed_codes, starts, sizes, pscores, v.contiguous(),
-        nbits=nbits, dim=dim, cap=cap,
+        packed_codes, starts, sizes, pscores, v.contiguous(), nbits=nbits, dim=dim, cap=cap
     )
 
 
@@ -204,11 +265,17 @@ def ragged_fused_gather_selective_sum(
     dim: int,
     tile_c: int,
     use_kernel: bool = True,
+    buffering: str = "auto",
+    probe: str | None = None,
 ) -> torch.Tensor:
     """Worklist probe + implicit decompression + scoring in one pass:
     row0/nvalid/qtok [W], pscore [W] -> flat f32[W * tile_c] (invalid
-    slots 0)."""
+    slots 0). ``buffering`` and ``probe`` as in
+    ``fused_gather_selective_sum``."""
     _fault_kernel_call("ragged_fused_gather_score")
+    measure = _check_probe(
+        probe, buffering, use_kernel, packed_codes.device, "ragged_fused_gather_score"
+    )
     _check_packable_dim(dim, nbits, byte_wise=use_kernel)
     validate_tile_c(tile_c)
     args = (
@@ -221,6 +288,10 @@ def ragged_fused_gather_selective_sum(
     )
     if not use_kernel:
         return ref.ragged_fused_gather_score(*args, nbits=nbits, dim=dim, tile_c=tile_c)
+    if measure:
+        return ragged_fused_gather_score_cuda(
+            *args, nbits=nbits, dim=dim, tile_c=tile_c, probe=probe
+        )
     return ragged_fused_gather_score(*args, nbits=nbits, dim=dim, tile_c=tile_c)
 
 

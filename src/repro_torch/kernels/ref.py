@@ -31,7 +31,10 @@ __all__ = [
     "score_blocks_per_token",
     "score_split",
     "fused_gather_score_split",
+    "staged_row_sink",
+    "fused_gather_score_dma",
     "ragged_fused_gather_score",
+    "ragged_fused_gather_score_dma",
     "segmented_ragged_gather_codes",
     "segmented_ragged_fused_gather_score",
     "ragged_blocks",
@@ -273,6 +276,93 @@ def ragged_fused_gather_score(
     scores = ragged_selective_sum(gathered, qtok_slot, v, nbits=nbits, dim=dim)
     scores = scores + per_slot(pscore.float(), tile_c)
     return torch.where(valid, scores, 0.0)
+
+
+def staged_row_sink(rows: torch.Tensor) -> torch.Tensor:
+    """rows u8[M, B] -> f32[M]: what the fused kernels' "dma" carve-out
+    reads out of each staged row in place of its score
+    (``score_rows::sink_staged``): the XOR of its little-endian 32-bit
+    words over its whole 16-byte units, then of its remaining bytes, the
+    upper half folded onto the lower, as a float."""
+    m, b = rows.shape
+    full = b >> 4 << 4
+    words = rows[:, :full].contiguous().view(torch.int32)
+    x = torch.zeros(m, dtype=torch.int32, device=rows.device)
+    for k in range(words.shape[1]):
+        x ^= words[:, k]
+    for j in range(full, b):
+        x ^= rows[:, j].int()
+    return ((x ^ (x >> 16)) & 0xFFFF).float()
+
+
+def _sink_chain(rows, base, *, nbits: int, dim: int, dims_per_chunk: int):
+    """rows u8[..., PB], base f32 broadcast to rows' leading shape -> the
+    "dma" carve-out's sum: the first v-table chunk's sink plus ``base``,
+    then each further chunk's sink added, in the kernel's order."""
+    lead = rows.shape[:-1]
+    acc = None
+    for d0 in range(0, dim, dims_per_chunk):
+        b0, b1 = d0 * nbits // 8, min(dim, d0 + dims_per_chunk) * nbits // 8
+        s = staged_row_sink(rows[..., b0:b1].reshape(-1, b1 - b0)).reshape(lead)
+        acc = s + base if acc is None else acc + s
+    return acc
+
+
+def fused_gather_score_dma(
+    packed_codes: torch.Tensor,
+    starts: torch.Tensor,
+    sizes: torch.Tensor,
+    probe_scores: torch.Tensor,
+    *,
+    nbits: int,
+    dim: int,
+    cap: int,
+    dims_per_chunk: int,
+) -> torch.Tensor:
+    """What ``csrc/fused_gather_score.cu`` returns at probe "dma", bit for
+    bit: ``fused_gather_score`` with each row's score replaced by its
+    ``staged_row_sink`` per v-table chunk of ``dims_per_chunk`` dims
+    (``_build.vtable_chunk``); the tails and rows outside [0, N) exactly 0.
+    A slot holds it only if its row was staged."""
+    n = packed_codes.shape[0]
+    lane = torch.arange(cap, device=packed_codes.device)
+    row = starts.long().unsqueeze(-1) + lane
+    valid = (lane < sizes.long().clamp(0, cap).unsqueeze(-1)) & (row >= 0) & (row < n)
+    acc = _sink_chain(
+        packed_codes[row.clamp(0, max(n - 1, 0))], probe_scores.float().unsqueeze(-1),
+        nbits=nbits, dim=dim, dims_per_chunk=dims_per_chunk,
+    )
+    return torch.where(valid, acc, 0.0)
+
+
+def ragged_fused_gather_score_dma(
+    packed_codes: torch.Tensor,
+    row0: torch.Tensor,
+    nvalid: torch.Tensor,
+    qtok: torch.Tensor,
+    pscore: torch.Tensor,
+    *,
+    nbits: int,
+    dim: int,
+    tile_c: int,
+    n_q: int,
+    dims_per_chunk: int,
+) -> torch.Tensor:
+    """What ``csrc/ragged_fused_gather_score.cu`` returns at probe "dma",
+    bit for bit, as ``fused_gather_score_dma`` for the worklist form
+    (``n_q`` query tokens: a tile of another token stages nothing); invalid
+    slots and padding tiles exactly 0."""
+    n = packed_codes.shape[0]
+    lane = torch.arange(tile_c, device=packed_codes.device)
+    ok = (qtok >= 0) & (qtok < n_q)
+    m = torch.where(ok, nvalid.long().clamp(0, tile_c), 0)
+    row = row0.long().unsqueeze(-1) + lane
+    valid = (lane < m.unsqueeze(-1)) & (row >= 0) & (row < n)
+    acc = _sink_chain(
+        packed_codes[row.clamp(0, max(n - 1, 0))], pscore.float().unsqueeze(-1),
+        nbits=nbits, dim=dim, dims_per_chunk=dims_per_chunk,
+    )
+    return torch.where(valid, acc, 0.0).reshape(-1)
 
 
 def segmented_ragged_gather_codes(

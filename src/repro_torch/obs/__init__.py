@@ -23,10 +23,12 @@ Runtime state is a three-level switch held in ``STATE``:
                        CPU) — a span's duration means "this stage", so the
                        traced path gives up overlap for attribution.
 
-Left out: the JAX package's ``set_kernel_probes`` (re-timing the Pallas
-kernel's "dma"/"compute" carve-outs on every traced retrieve). The CUDA
-kernels have no such carve-outs; the port's ``STATE`` has no
-``kernel_probes`` field.
+``set_kernel_probes(True)`` arms a fourth switch, ``STATE.kernel_probes``:
+every traced retrieve then re-times its fused scoring kernel at the
+"full", "dma" and "compute" carve-outs
+(``core/engine.py::kernel_dma_compute_split``) and records the split on
+its ``gather_score`` span. Expensive: each traced retrieve launches the
+kernel several more times. Untraced retrieves never read it.
 
 Layering: ``repro_torch.obs`` imports nothing from the rest of the port —
 core, serving, store and launch all import *it*. Sparse call sites use the
@@ -65,7 +67,7 @@ __all__ = [
     "span_tree",
     # runtime state
     "STATE", "enable_metrics", "disable_metrics", "set_tracer", "tracer",
-    "disable_all",
+    "set_kernel_probes", "disable_all",
     # convenience instrumentation
     "count", "gauge", "observe", "span",
 ]
@@ -74,11 +76,12 @@ __all__ = [
 class _ObsState:
     """Process-wide observability switch (see module docstring)."""
 
-    __slots__ = ("metrics", "tracer")
+    __slots__ = ("metrics", "tracer", "kernel_probes")
 
     def __init__(self):
         self.metrics: MetricsRegistry | None = None
         self.tracer: Tracer | None = None
+        self.kernel_probes: bool = False
 
 
 STATE = _ObsState()
@@ -108,10 +111,17 @@ def tracer():
     return t if t is not None else NULL_TRACER
 
 
+def set_kernel_probes(on: bool) -> None:
+    """Arm the staging/scoring split of the fused scoring kernel on traced
+    retrieves (``core/engine.py::kernel_dma_compute_split``)."""
+    STATE.kernel_probes = bool(on)
+
+
 def disable_all() -> None:
     """Back to the zero-overhead default (tests reset through this)."""
     STATE.metrics = None
     STATE.tracer = None
+    STATE.kernel_probes = False
 
 
 # ---- sparse-call-site one-liners (no-ops when disabled) ----

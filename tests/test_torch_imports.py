@@ -9,12 +9,13 @@ scheduler and batcher, the serve launcher, the document-sharded index and
 the token encoder, the LM zoo and training: MoE, the arch registry and
 families, the optimizer, loop, checkpoints, compression, the batch
 pipeline and the train launcher, recsys and GNN training: GIN, the
-sampler, gin-tu) or ``chip_smoke.py``; entry points refuse to fall back to
-the CPU (the server, its reloads and tenants on the server's device, the
-serve launcher, the sharded build, the encoder's weights, the LM's
-weights and cache, the train loop and launcher, the GNN and recsys
-weights, smokes and launcher runs); the kernel executor refuses a CPU
-index and CPU recsys weights."""
+sampler, gin-tu, and the autotune table and its sweep) or
+``chip_smoke.py``; entry points refuse to fall back to the CPU (the
+server, its reloads and tenants on the server's device, the serve
+launcher, the sharded build, the encoder's weights, the LM's weights and
+cache, the train loop and launcher, the GNN and recsys weights, smokes
+and launcher runs); the kernel executor refuses a CPU index and CPU
+recsys weights."""
 
 import ast
 import os
@@ -117,6 +118,8 @@ def test_port_imports_neither_jax_nor_repro():
         "src/repro_torch/launch/train.py",
         "src/repro_torch/models/gnn.py",
         "src/repro_torch/configs/gin_tu.py",
+        "src/repro_torch/kernels/autotune.py",
+        "src/repro_torch/kernels/autotune_sweep.py",
     } <= names
     bad = [
         f"{os.path.relpath(f, ROOT)}: import {m}"
@@ -144,7 +147,8 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.core.distributed, repro_torch.models.encoder, "
         "repro_torch.models.moe, repro_torch.configs.registry, repro_torch.train, "
         "repro_torch.data.pipeline, repro_torch.launch.train, repro_torch.models.gnn, "
-        "repro_torch.configs.gin_tu; "
+        "repro_torch.configs.gin_tu, repro_torch.kernels.autotune, "
+        "repro_torch.kernels.autotune_sweep; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad; "
         "from repro_torch.kernels import _build; "

@@ -26,7 +26,12 @@ reference executor, within 1e-5. The bag's backward kernels (the table's
 dense gradient and the weights') per element within
 ``ref.embedding_bag_backward_error_bound`` ((n + 1) * 2^-24 * sum |w g| +
 1e-7 over a row's n contributions; (D + 1) * 2^-24 * sum |row g| + 1e-7),
-bit-identical across calls, and through autograd. Marked ``cuda``: each test skips itself
+bit-identical across calls, and through autograd. The two fused kernels'
+``probe`` carve-outs: "full" bit-identical to the product call, "dma"
+and "compute" finite with the invalid slots 0, each launch counted under
+its own name; a two-point autotune sweep (the table's schema, the plans
+it steers); the staging/scoring split on traced retrieves. Marked
+``cuda``: each test skips itself
 without a card. This file imports no JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
@@ -49,7 +54,9 @@ from repro_torch.kernels.decompress_score import selective_sum_cuda
 from repro_torch.kernels.embedding_bag import embedding_bag_backward_cuda, embedding_bag_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.fused_gather_score import (
+    dense_dims_per_chunk,
     fused_gather_score_cuda,
+    ragged_dims_per_chunk,
     ragged_fused_gather_score_cuda,
     segmented_ragged_fused_gather_score_cuda,
 )
@@ -1125,3 +1132,147 @@ def test_segmented_retrieve_kernel_vs_reference_on_card(card, segmented_store, g
         np.testing.assert_array_equal(ki, ri)
         np.testing.assert_allclose(ks, rs, rtol=1e-4, atol=1e-4)
         assert not set(tomb) & set(ki.tolist()) or not filtered
+
+
+# ---------------------------------------------------------------------------
+# the fused kernels' measurement carve-outs, the autotune sweep and the
+# staging/scoring split
+# ---------------------------------------------------------------------------
+
+# nbits, dim: D 256 at nbits 8 walks the v-table in chunks of dimensions.
+PROBE_CASES = [(2, 32), (4, 32), (8, 32), (8, 256)]
+SPLIT_KEYS = {
+    "kernel_full_ms", "dma_ms", "compute_ms", "overlap_frac", "probe_tile_c", "probe_buffering",
+}
+
+
+def _check_probes(launch, name, invalid, dma_want):
+    """``probe="full"`` equals the product call bit for bit and "dma" its
+    plain twin (``ref.*_dma``: the probe scores plus each staged row's XOR
+    fold), so every row was staged; "dma" and "compute" give its shape and
+    dtype, finite values and exactly 0 at the invalid slots; each launch
+    counts under its own name."""
+    before = dict(LAUNCHES)
+    base = launch(None)
+    outs = {p: launch(p) for p in ("full", "dma", "compute")}
+    torch.cuda.synchronize()
+    assert torch.equal(outs["full"], base)
+    assert torch.equal(outs["dma"], dma_want)
+    for p in ("dma", "compute"):
+        assert outs[p].shape == base.shape and outs[p].dtype == torch.float32
+        assert bool(torch.isfinite(outs[p]).all())
+        assert bool((outs[p][invalid] == 0).all())
+    launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    assert launched[name] == 1
+    assert all(launched[f"{name}:{p}"] == 1 for p in ("full", "dma", "compute"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits,dim", PROBE_CASES)
+def test_fused_gather_score_probes_on_card(card, nbits, dim):
+    codes, v, starts, sizes, pscore = _inputs(
+        90 + nbits + dim, nbits=nbits, dim=dim, n_tokens=4000, cap=24
+    )
+    args = tuple(_t(a).to(card) for a in (codes, starts, sizes, pscore, v))
+    invalid = torch.arange(24, device=card) >= args[2].long().unsqueeze(-1)
+    dma_want = tref.fused_gather_score_dma(
+        *args[:4], nbits=nbits, dim=dim, cap=24,
+        dims_per_chunk=dense_dims_per_chunk(dim, nbits, args[1].shape[1]),
+    )
+    _check_probes(
+        lambda p: fused_gather_score_cuda(*args, nbits=nbits, dim=dim, cap=24, probe=p),
+        "fused_gather_score", invalid, dma_want,
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 32])
+@pytest.mark.parametrize("nbits,dim", PROBE_CASES)
+def test_ragged_fused_gather_score_probes_on_card(card, nbits, dim, tile):
+    codes, v, starts, sizes, pscore = _inputs(95 + nbits + dim, nbits=nbits, dim=dim)
+    work = _worklist(starts, sizes, pscore, tile, slack=3)  # padding tiles
+    args = (_t(codes).to(card), *(a.to(card) for a in work), _t(v).to(card))
+    invalid = (torch.arange(tile, device=card) >= args[2].long().unsqueeze(-1)).reshape(-1)
+    dma_want = tref.ragged_fused_gather_score_dma(
+        *args[:5], nbits=nbits, dim=dim, tile_c=tile, n_q=args[5].shape[0],
+        dims_per_chunk=ragged_dims_per_chunk(dim, nbits),
+    )
+    _check_probes(
+        lambda p: ragged_fused_gather_score_cuda(*args, nbits=nbits, dim=dim, tile_c=tile, probe=p),
+        "ragged_fused_gather_score", invalid, dma_want,
+    )
+
+
+@pytest.mark.cuda
+def test_autotune_sweep_two_points_on_card(card, tmp_path):
+    """A two-point sweep on the fixture index: the table's schema, its
+    file, and the plans it steers (the card's, never a CPU plan)."""
+    from repro_torch.kernels import autotune, autotune_sweep
+
+    fdir, _, _ = _fixture()
+    store = os.path.join(fdir, "store")
+    idx = Retriever.from_store(store, device=card).index
+    q, qmask = autotune_sweep.sweep_queries(idx, 8, seed=0)
+    out = tmp_path / "table.json"
+    table, rows = autotune_sweep.run(
+        idx, q, qmask, tiles=(16,), nprobe=4, qtokens=8, warmup=1, iters=3,
+        out_path=str(out), install=False, log=lambda msg: None,
+    )
+    dense_tile = ops.resolve_tile_c(idx.cap, layout="dense")
+    assert [(r["layout"], r["tile_c"]) for r in rows] == [("dense", dense_tile), ("ragged", 16)]
+    for r in rows:
+        assert min(r["full_ms"], r["dma_ms"], r["compute_ms"]) > 0
+        assert 0.0 <= r["overlap_frac"] <= 1.0
+    doc = json.loads(out.read_text())
+    assert doc["autotune_table_version"] == 1
+    assert sorted(doc["entries"]) == sorted(table.entries) and len(table) == 2
+    for key, e in doc["entries"].items():
+        assert set(e) == {"tile_c", "buffering", "dma_us", "compute_us", "total_us", "measured_on"}
+        assert e["measured_on"] == "cuda" and e["buffering"] == "double"
+        assert e["tile_c"] == (16 if key.startswith("layout=ragged") else dense_tile)
+    assert autotune.AutotuneTable.load(str(out)).to_json() == table.to_json()
+    autotune.set_default_table(table)
+    try:
+        cfg = WarpSearchConfig(nprobe=4, k=5, layout="ragged", gather="fused")
+        on_card = Retriever.from_store(store, device=card).plan(cfg).describe()
+        on_cpu = Retriever.from_store(store, device="cpu").plan(cfg).describe()
+    finally:
+        autotune.set_default_table(None)
+    assert (on_card["tile_source"], on_card["tile_c"]) == ("autotune", 16)
+    assert on_cpu["tile_source"] == "heuristic"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "ragged"])
+def test_kernel_dma_compute_split_on_card(card, layout):
+    """The split's keys; a traced retrieve with probes armed is bit for
+    bit the untraced one, launches the product kernel once and carries
+    the split on its gather_score span."""
+    from repro_torch import obs
+    from repro_torch.core import engine
+
+    fdir, _, z = _fixture()
+    r = Retriever.from_store(os.path.join(fdir, "store"), device=card)
+    plan = r.plan(WarpSearchConfig(nprobe=8, k=10, gather="fused", layout=layout, executor="kernel"))
+    q, m = _t(z["q"][:2]).to(card), _t(z["qmask"][:2]).to(card)
+    sel = engine.select_probes(r.index, q, m, plan.config)
+    cfg = plan._cfg_at(plan._pick(sel, m) if plan.adaptive else None)
+    split = engine.kernel_dma_compute_split(r.index, q, m, sel, cfg)
+    assert set(split) == SPLIT_KEYS and 0.0 <= split["overlap_frac"] <= 1.0
+    assert split["probe_tile_c"] == cfg.tile_c and split["kernel_full_ms"] > 0
+    assert split["kernel_full_ms"] <= split["dma_ms"] + split["compute_ms"]
+    name = "fused_gather_score" if layout == "dense" else "ragged_fused_gather_score"
+    base = plan.retrieve(q[0], m[0])
+    tracer = obs.set_tracer(obs.Tracer())
+    obs.set_kernel_probes(True)
+    before = dict(LAUNCHES)
+    try:
+        got = plan.retrieve(q[0], m[0])
+        torch.cuda.synchronize()
+    finally:
+        obs.disable_all()
+    assert LAUNCHES[name] - before[name] == 1
+    assert LAUNCHES[f"{name}:dma"] > before[f"{name}:dma"]
+    assert torch.equal(got.doc_ids, base.doc_ids) and torch.equal(got.scores, base.scores)
+    (span,) = [e for e in tracer.events() if e.name == "gather_score"]
+    assert SPLIT_KEYS <= set(span.args) and 0.0 <= span.args["overlap_frac"] <= 1.0

@@ -195,7 +195,11 @@ def test_disabled_state_is_the_shared_null_span():
     assert obs.span("x") is obs.span("y", a=1) is obs.NULL_SPAN
     assert obs.tracer() is obs.NULL_TRACER and obs.tracer().events() == []
     assert obs.STATE.metrics is None and obs.STATE.tracer is None
-    assert not hasattr(obs, "set_kernel_probes")  # not ported (no carve-outs)
+    assert obs.STATE.kernel_probes is False  # set_kernel_probes defaults to off
+    obs.set_kernel_probes(True)
+    assert obs.STATE.kernel_probes is True
+    obs.disable_all()
+    assert obs.STATE.kernel_probes is False
 
 
 # ---------------------------------------------------------------------------
