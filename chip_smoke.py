@@ -82,6 +82,20 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      32 (unit rows, padding rows 0), the encoded queries retrieved over
      the sharded and the single index (ids equal up to ties), the encode
      p50 beside the retrieve p50 (see ``phase_encode``);
+  6c. one process per shard (``ranks``, after ``sharded``, on its store):
+     a gloo world of 4 ranks sharing the first card and an NCCL world of
+     min(cards, 4) ranks, one card each (on one card, a world of 1 over a
+     1-shard cut of the index), spawned by ``repro_torch.launch.ranks``;
+     the sharded step's 128 queries single and batched at the four
+     configs x both executors, ids equal to the one-process stack's up to
+     reported tie swaps, one scoring launch per rank per retrieve, each
+     rank holding its shard's bytes on its card and no more than
+     RANK_MEM_SLACK beside them; a burst, a 50% allowlist and a 1%
+     delete served from rank 0, every
+     reply equal to the stack's ``plan.retrieve``; rank 0's p50 / p95 /
+     p99 beside the stack's and its collectives timed alone; then
+     ``launch.serve --ranks`` (see ``phase_ranks``). Rows 1-3 of the
+     kernels line carry the launches per rank as ``ranks_launches``;
   7. the index build (``build``): a corpus at Lifestyle's mean document
      length (1,320 docs, ~262,000 tokens, D 128, zipf_like's topic skew)
      built on the card by ``build_index_to_store`` at
@@ -439,6 +453,16 @@ SHARD_SERVE_REQUESTS = 256
 SHARD_FILTERED = 32
 SHARD_ALLOW_FRAC = 0.5
 SHARD_DELETE_FRAC = 0.01
+# Ranks step: the sharded step's store served by one process per shard
+# (``repro_torch.launch.ranks``): a gloo world of SHARDS ranks sharing
+# cuda:0, and an NCCL world of min(cards, SHARDS) ranks, one card each
+# (over a store cut into as many shards when that is fewer than SHARDS),
+# each on all of the sharded step's queries. After its load a rank may
+# hold RANK_MEM_SLACK bytes on its card beyond its shard's arrays.
+RANK_SERVE_BURST = 64
+RANK_SERVE_FILTERED = 16
+RANK_MEM_SLACK = 4 << 20
+RANK_JOIN_S = 600
 # Encode step: the token encoder at EncoderConfig defaults, float32;
 # batch 1 and batch 32 must agree within ENCODE_TOL (float32 products of
 # other shapes).
@@ -2399,11 +2423,13 @@ def phase_sharded(
             used[key] = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
             results[key], lat[key] = (res, bres), percentiles_ms(times)
     counts = dict(LAUNCHES)  # read right after the sharded main path's run
+    stack = {}  # the stack's replies, for the ranks phase
     for gather, layout in CONFIGS:
         for executor in ("kernel", "reference"):
             key = (gather, layout, executor)
             name = "/".join(key)
             res, bres = results[key]
+            stack[key] = (res, [(b.doc_ids.cpu().numpy(), b.scores.cpu().numpy()) for b in bres])
             want = (SHARD_QUERIES + SHARD_BATCHES) * SHARDS if executor == "kernel" else 0
             kname = KERNEL_OF[(gather, layout)]
             if used[key][kname] != want or sum(used[key].values()) != want:
@@ -2504,9 +2530,308 @@ def phase_sharded(
         fail(f"sharded: launch.serve --n-shards {SHARDS} exited {rc}")
     log(f"[sharded] launch.serve --n-shards {SHARDS} on the card: exit 0 in "
         f"{time.perf_counter() - t0:.3f} s")
-    out = dict(counts=counts, lat=lat, swaps=swaps, sidx=sidx, single=single, rs=rs)
+    out = dict(counts=counts, lat=lat, swaps=swaps, sidx=sidx, single=single, rs=rs,
+               queries=(qh, mh), stack=stack, store=store)
     log(f"[sharded] phase done in {time.perf_counter() - t_phase:.3f} s; {smi}")
     return out
+
+
+def arch_config(gather: str, layout: str, executor: str = "kernel"):
+    from repro_torch.core import WarpSearchConfig
+
+    return WarpSearchConfig(
+        nprobe=ARCH["nprobe"], k=ARCH["k"], k_impute=ARCH["k_impute"],
+        gather=gather, layout=layout, executor=executor,
+    )
+
+
+def stack_run(torch, retriever, qh, mh, n_batches: int):
+    """The one-process stack over host queries at the four configs x both
+    executors: ``{key: (single [(ids, scores)], batches [(ids, scores)])}``
+    and ``{key: per-query latency percentiles}``."""
+    q, m = torch.from_numpy(qh).cuda(), torch.from_numpy(mh).cuda()
+    out, lat = {}, {}
+    for gather, layout in CONFIGS:
+        for executor in ("kernel", "reference"):
+            plan = retriever.plan(arch_config(gather, layout, executor))
+            plan.warmup()
+            plan.retrieve(q[0], m[0])
+            res, times = run_timed(torch, plan, q, m)
+            bres = [plan.retrieve_batch(q[4 * b: 4 * b + 4], m[4 * b: 4 * b + 4])
+                    for b in range(n_batches)]
+            key = (gather, layout, executor)
+            out[key] = (res, [(b.doc_ids.cpu().numpy(), b.scores.cpu().numpy()) for b in bres])
+            lat[key] = percentiles_ms(times)
+    return out, lat
+
+
+class CollectiveTimer:
+    """A numbered object made on every rank of a ``ranks`` world before
+    its follower loop, so that rank 0 can time a retrieve's collectives
+    alone: the command broadcast (``noop``) and the two all-gathers at a
+    retrieve's shapes (``gathers``)."""
+
+    def __init__(self, group):
+        self.group = group
+        self.oid = group.register(self)
+
+    def noop(self) -> None:
+        if self.group.rank == 0:
+            self.group.lead("call", self.oid, "noop", (), {})
+
+    def gathers(self, n: int, b: int, qm: int, kk: int, k: int) -> float:
+        """``n`` rounds of the two gathers; seconds per round on rank 0."""
+        import torch
+
+        g = self.group
+        if g.rank == 0:
+            g.lead("call", self.oid, "gathers", (n, b, qm, kk, k), {})
+        dev = g.device
+        first = [(torch.zeros((b, qm, kk), device=dev),
+                  torch.zeros((b, qm, kk), dtype=torch.int32, device=dev))]
+        second = [(torch.zeros((b, k), device=dev),
+                   torch.zeros((b, k), dtype=torch.int32, device=dev))]
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            g.gather("warp_select", None, first, [1])
+            g.gather("score_and_reduce", None, second, [0])
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) / n
+
+
+def rank_world(group, store: str, spec_path: str, out_path: str) -> None:
+    """One rank of a ``ranks`` world. Rank 0 loads ``store`` over the group
+    (each rank its own shard), plans the four configs x both executors,
+    retrieves the spec's queries one by one (timed on the host clock
+    between two synchronizes of its card) and in batches of 4, reading
+    every rank's launch counts around each plan's run (``rank_info``), then
+    serves a burst, an allowlist and a delete through a
+    ``RetrievalServer``, and writes what it saw to ``out_path`` (.npz and
+    .json). Ranks 1..S-1 follow."""
+    import torch
+
+    from repro_torch.core import DocFilter, Retriever
+    from repro_torch.serving import BatchPolicy, RetrievalServer, follow
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    timer = CollectiveTimer(group)
+    if group.rank:
+        follow(group)
+        return
+    try:
+        spec = np.load(spec_path)
+        qh, mh, nb = spec["q"], spec["qmask"], int(spec["n_batches"])
+        r = Retriever.from_store(store, group=group)
+        meta = {"load": r.rank_info(), "card": card()}
+        plans = {}
+        for gather, layout in CONFIGS:
+            for executor in ("kernel", "reference"):
+                plan = r.plan(arch_config(gather, layout, executor))
+                plan.warmup()
+                plan.retrieve(qh[0], mh[0])
+                plans[(gather, layout, executor)] = plan
+        arrays = {}
+        for key, plan in plans.items():
+            name = "/".join(key)
+            before = r.rank_info()
+            res, times = run_timed(torch, plan, qh, mh)
+            bres = [plan.retrieve_batch(qh[4 * b: 4 * b + 4], mh[4 * b: 4 * b + 4])
+                    for b in range(nb)]
+            after = r.rank_info()
+            arrays[name + "/ids"] = np.stack([i for i, _ in res])
+            arrays[name + "/scores"] = np.stack([s for _, s in res])
+            arrays[name + "/batch_ids"] = np.stack([b.doc_ids.cpu().numpy() for b in bres])
+            arrays[name + "/batch_scores"] = np.stack([b.scores.cpu().numpy() for b in bres])
+            meta[name] = {
+                "lat": percentiles_ms(times),
+                "launches": [{k: a["launches"][k] - b["launches"][k] for k in a["launches"]}
+                             for a, b in zip(after, before)],
+            }
+        server = RetrievalServer(r, arch_config("fused", "ragged"),
+                                 BatchPolicy(max_batch=8, max_wait_s=0.002))
+        n, nf = qh.shape[0], int(spec["filtered"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [server.submit(qh[i % n], mh[i % n]) for i in range(int(spec["burst"]))]
+        server.drain()
+        meta["burst_s"] = time.perf_counter() - t0
+        allow = DocFilter.from_bitmap(spec["allow"])
+        rids += [server.submit(qh[i], mh[i], dfilter=allow) for i in range(nf)]
+        server.drain()
+        server.delete_documents(spec["deleted"].tolist())
+        rids += [server.submit(qh[i], mh[i]) for i in range(nf)]
+        server.drain()
+        replies = [server.poll(rid) for rid in rids]
+        arrays["serve/ids"] = np.stack([d for _, d in replies])
+        arrays["serve/scores"] = np.stack([s for s, _ in replies])
+        meta["summary"] = server.summary()
+        rounds = 64
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            timer.noop()
+        meta["broadcast_ms"] = (time.perf_counter() - t0) / rounds * 1e3
+        kk = max(ARCH["nprobe"], ARCH["k_impute"])
+        meta["gathers_ms"] = timer.gathers(rounds, 1, qh.shape[1], kk, ARCH["k"]) * 1e3
+        np.savez(out_path + ".npz", **arrays)
+        with open(out_path + ".json", "w") as f:
+            json.dump(meta, f)
+    finally:
+        group.stop()
+
+
+def check_world(torch, label: str, n_ranks: int, got: dict, meta: dict, stack, lat,
+                served, kernel_err: float, smi: str) -> dict:
+    """Hold one world's results to the one-process stack's; returns each
+    scoring kernel's per-rank launches over the retrieve loop."""
+    n_q, n_b = got["materialize/dense/kernel/ids"].shape[0], got["materialize/dense/kernel/batch_ids"].shape[0]
+    for info in meta["load"]:
+        held, alloc = info["index_bytes"], info["allocated_bytes"]
+        if not held <= alloc <= held + RANK_MEM_SLACK:
+            fail(f"ranks {label}: rank {info['rank']} holds {alloc} bytes on {info['device']} after "
+                 f"its load, its shard is {held} bytes (slack {RANK_MEM_SLACK})")
+        log(f"[ranks] {label} rank {info['rank']}: shard loaded in {info['load_s']:.3f} s on "
+            f"{info['device']}, index {held} bytes, {alloc} bytes allocated on its card; {meta['card']}")
+    per_rank = {}
+    for gather, layout in CONFIGS:
+        for executor in ("kernel", "reference"):
+            key = (gather, layout, executor)
+            name = "/".join(key)
+            kname = KERNEL_OF[(gather, layout)]
+            want = n_q + n_b if executor == "kernel" else 0
+            launches = meta[name]["launches"]
+            for r, used in enumerate(launches):
+                scoring = {k: v for k, v in used.items() if v}
+                if used[kname] != want or sum(scoring.values()) != want:
+                    fail(f"ranks {label} {name}: rank {r} launched {scoring} over {n_q} retrieves and "
+                         f"{n_b} batches, expected {kname} once per retrieve ({want})")
+                per_rank.setdefault(kname, [0] * n_ranks)[r] += used[kname]
+            res, bres = stack[key]
+            exact = swaps = 0
+            for i in range(n_q):
+                ids, scores = got[name + "/ids"][i], got[name + "/scores"][i]
+                exact += int(np.array_equal(ids, res[i][0]) and np.array_equal(scores, res[i][1]))
+                swaps += topk_swaps(f"ranks {label} {name} vs the stack, query {i}", ids, scores,
+                                    *res[i], kernel_err)
+            for b in range(n_b):
+                for j in range(4):
+                    ids, scores = got[name + "/batch_ids"][b][j], got[name + "/batch_scores"][b][j]
+                    exact += int(np.array_equal(ids, bres[b][0][j])
+                                 and np.array_equal(scores, bres[b][1][j]))
+                    swaps += topk_swaps(f"ranks {label} {name} batch {b} vs the stack", ids, scores,
+                                        bres[b][0][j], bres[b][1][j], kernel_err)
+            log(f"[ranks] {label} {name}: {n_ranks} ranks = the stack on {n_q} queries and {n_b} "
+                f"batches ({exact} of {n_q + 4 * n_b} bit for bit, {swaps} places swapped within a "
+                f"tie); rank 0's per-query latency (ms) {json.dumps(meta[name]['lat'])} beside the "
+                f"one-process stack's {json.dumps(lat[key])}; {kname} launches per rank "
+                f"{[u[kname] for u in launches]}; {smi}")
+    exact = swaps = 0
+    for j, (ids, scores) in enumerate(served):
+        gi, gs = got["serve/ids"][j], got["serve/scores"][j]
+        exact += int(np.array_equal(gi, ids) and np.array_equal(gs, scores))
+        swaps += topk_swaps(f"ranks {label} served reply {j} vs the stack's plan.retrieve",
+                            gi, gs, ids, scores, kernel_err)
+    log(f"[ranks] {label} rank 0's collectives alone, per retrieve: the command broadcast "
+        f"{meta['broadcast_ms']:.4f} ms, the two all-gathers {meta['gathers_ms']:.4f} ms "
+        f"(64 rounds each); {smi}")
+    log(f"[ranks] {label} served from rank 0: a burst of {RANK_SERVE_BURST} in "
+        f"{meta['burst_s'] * 1e3:.3f} ms, {RANK_SERVE_FILTERED} under a 50% allowlist, "
+        f"{RANK_SERVE_FILTERED} after the deletes: {len(served)} replies equal the stack's "
+        f"plan.retrieve ({exact} bit for bit, {swaps} places swapped within a tie); summary "
+        f"{json.dumps(meta['summary'])}; {smi}")
+    return per_rank
+
+
+def phase_ranks(torch, index, sh: dict, seed: int, kernel_err: float, work: str) -> dict:
+    """The sharded step's store with one process per shard
+    (``repro_torch.launch.ranks``; the world body is ``rank_world``): a gloo
+    world of SHARDS ranks sharing cuda:0, then an NCCL world of
+    min(cards, SHARDS) ranks, one card each (on one card, a world of 1 over
+    a 1-shard store cut from the same index). In each, the four configs x
+    both executors single and batched, ids equal to the one-process
+    stack's up to reported tie swaps and scores within TOL, exactly one
+    scoring launch per rank per retrieve, each rank holding its shard's
+    bytes on its card (within RANK_MEM_SLACK) and not the stack's, and a
+    burst, a 50% allowlist and a 1% delete served from rank 0, every reply
+    equal to the stack's ``plan.retrieve``; then ``launch.serve --ranks``.
+    Returns ``{kernel: {world: launches per rank}}``."""
+    from repro_torch.core import DocFilter, Retriever, shard_index
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.ranks import run_world
+    from repro_torch.store import save_index
+
+    smi = card()
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    qh, mh = sh["queries"]
+    nd = index.n_docs
+    rng = np.random.default_rng(seed)
+    allow = np.zeros(nd, bool)
+    allow[rng.choice(nd, int(SHARD_ALLOW_FRAC * nd), replace=False)] = True
+    deleted = rng.choice(nd, int(round(SHARD_DELETE_FRAC * nd)), replace=False)
+    n_nccl = min(n_cards, SHARDS)
+    stack = sh["stack"]
+    worlds = [("gloo", SHARDS, sh["store"], sh["rs"], stack, sh["lat"])]  # all on cuda:0
+    if n_nccl == SHARDS:
+        worlds.append(("nccl", SHARDS, sh["store"], sh["rs"], stack, sh["lat"]))
+    else:
+        few = shard_index(index, n_nccl)
+        store = save_index(few, os.path.join(work, f"sharded_{n_nccl}"))
+        rs = Retriever.from_index(few, device="cuda")
+        worlds.append(("nccl", n_nccl, store, rs, *stack_run(torch, rs, qh, mh, SHARD_BATCHES)))
+        del few
+    counts = {}
+    main = arch_config("fused", "ragged")
+    views = [None] * RANK_SERVE_BURST + [DocFilter.from_bitmap(allow)] * RANK_SERVE_FILTERED
+    views += [DocFilter.tombstones(deleted.tolist(), nd)] * RANK_SERVE_FILTERED
+    served_q = [j % SHARD_QUERIES for j in range(RANK_SERVE_BURST)]
+    served_q += list(range(RANK_SERVE_FILTERED)) * 2
+    for backend, n, store, rs, stack, lat in worlds:
+        tag = f"{backend}{n}"
+        device = "cuda:0" if backend == "gloo" else "cuda"
+        label = f"{backend} ({n} ranks on {'cuda:0' if backend == 'gloo' else f'{n} card(s)'})"
+        spec_path = os.path.join(work, f"ranks_{tag}_spec.npz")
+        np.savez(spec_path, q=qh, qmask=mh, n_batches=SHARD_BATCHES, burst=RANK_SERVE_BURST,
+                 filtered=RANK_SERVE_FILTERED, allow=allow, deleted=deleted)
+        served = []
+        for j, view in zip(served_q, views):
+            want = rs.plan(main, dfilter=view).retrieve(qh[j], mh[j])
+            served.append((want.doc_ids.cpu().numpy(), want.scores.cpu().numpy()))
+        out = os.path.join(work, f"ranks_{tag}")
+        t0 = time.perf_counter()
+        run_world(rank_world, n, backend=backend, device=device, args=(store, spec_path, out),
+                  join_timeout_s=RANK_JOIN_S)
+        log(f"[ranks] {label}: world of {n} spawned, ran and exited in "
+            f"{time.perf_counter() - t0:.3f} s; {smi}")
+        with open(out + ".json") as f:
+            meta = json.load(f)
+        got = dict(np.load(out + ".npz"))
+        for kname, per in check_world(torch, label, n, got, meta, stack, lat, served,
+                                      kernel_err, smi).items():
+            counts.setdefault(kname, {})[tag] = per
+    # The serve launcher with one process per shard; its ranks inherit this
+    # process's file descriptors, so fd 1 points at stderr meanwhile.
+    backend = "nccl" if n_cards >= SHARDS else "gloo"
+    t0 = time.perf_counter()
+    sys.stdout.flush()
+    saved = os.dup(1)
+    os.dup2(2, 1)
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = serve_cli.main(["--n-shards", str(SHARDS), "--ranks", "--backend", backend,
+                                 "--queries", "16", "--layout", "ragged", "--gather", "fused",
+                                 "--executor", "kernel"])
+    finally:
+        os.dup2(saved, 1)
+        os.close(saved)
+    if rc != 0:
+        fail(f"ranks: launch.serve --n-shards {SHARDS} --ranks --backend {backend} exited {rc}")
+    log(f"[ranks] launch.serve --n-shards {SHARDS} --ranks --backend {backend} on the card: "
+        f"exit 0 in {time.perf_counter() - t0:.3f} s")
+    log(f"[ranks] phase done in {time.perf_counter() - t_phase:.3f} s; launches per rank "
+        f"{json.dumps(counts)}; {smi}")
+    return counts
 
 
 def encode_tokens(torch, n: int, vocab: int, seed: int, dev, *, lo=8, hi=32, s=32):
@@ -4935,6 +5260,10 @@ def run(torch, dev, args) -> list:
         for row in kernels:
             if row["name"] in sh["counts"] and row["name"] != "segmented_ragged_fused_gather_score":
                 row["sharded_launches"] = sh["counts"][row["name"]]
+        ranks = phase_ranks(torch, index, sh, args.seed + 13, kernel_err, serve_dir)
+        for row in kernels:
+            if row["name"] in ranks:
+                row["ranks_launches"] = ranks[row["name"]]
         phase_encode(torch, dev, args.seed + 9, kernel_err, sh, args.profile)
         del sh
     finally:

@@ -9,12 +9,21 @@ across shards. Imputation is aligned globally: each shard's top-kk
 ``impute_mse`` over them gives the m_i every shard scores with.
 
 Placement: the JAX package maps the shard axis onto the devices of a
-mesh (``shard_map``). The port keeps the stacked ``[S, ...]`` tensors on
-one device and runs the per-shard body shard by shard in one process, the
-single-controller reading of ``shard_map``: the same stages in the same
-order, on the card or on the CPU. Each shard runs the engine's exported
-stages, so its scoring dispatch (and the ``engine.kernel_call`` fault
-site inside it) fires once per shard per retrieve.
+mesh (``shard_map``). The port has two placements. ``ShardedWarpIndex``
+keeps the stacked ``[S, ...]`` tensors on one device and runs the
+per-shard body shard by shard in one process, the single-controller
+reading of ``shard_map``. ``RankedShard`` puts each shard in its own
+process (a rank of a ``torch.distributed`` group, ``RankGroup``) on its
+own device. Both run one body, ``ShardedSearch`` (made by
+``make_sharded_search_fn``), over the shards the process holds, and differ
+only in its gather: the stack lists its shards' tensors in shard order
+(``gather_here``), a rank makes JAX's two ``all_gather``s collectives of
+the group (``RankGroup.gather``): the top-kk (score, size) pairs before
+``impute_mse`` and the ``[S * k]`` merge. So both give the same results
+bit for bit on one device type. Each shard runs
+the engine's exported stages, so its scoring dispatch (and the
+``engine.kernel_call`` fault site inside it) fires once per shard per
+retrieve.
 
 The reduction keys on int64 (``core/reduction.py``), so it needs no
 overflow guard; a shard's local view still carries ``n_docs = local_docs
@@ -30,8 +39,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from repro_torch.core import engine
+from repro_torch.core import worklist as wl
 from repro_torch.core.docfilter import FilterView
 from repro_torch.core.index import build_index
 from repro_torch.core.reduction import TopKResult
@@ -39,12 +50,19 @@ from repro_torch.core.types import IndexBuildConfig, WarpIndex, WarpSearchConfig
 from repro_torch.core.warpselect import WarpSelectOut, impute_mse, topk_lower_index_first
 
 __all__ = [
+    "PREPASS_SLACK",
+    "RankFailure",
+    "RankGroup",
+    "RankedShard",
+    "ShardedSearch",
     "ShardedWarpIndex",
     "build_sharded_index",
-    "finish_sharded",
+    "gather_here",
     "local_index",
+    "make_sharded_search_fn",
     "resolve_sharded_config",
     "select_sharded",
+    "shard_demand",
     "shard_doc_bounds",
     "shard_index",
     "sharded_probe_sizes",
@@ -68,6 +86,11 @@ _DTYPES = {
     "bucket_weights": torch.float32,
     "doc_start": torch.int32,
 }
+
+# Tiles of headroom on a sharded plan's rung (JAX's PREPASS_SLACK: its
+# pre-pass re-runs stage 1 in another program). The port's pick reads the
+# body's own probes, so the slack only keeps its rungs equal to JAX's.
+PREPASS_SLACK = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,6 +203,214 @@ def local_index(sidx: ShardedWarpIndex, s: int) -> WarpIndex:
     1`` (the padding id included), the padded token count, zero cutoffs
     (the stack keeps no encoder tables)."""
     return sidx.shards[s]
+
+
+# ---------------------------------------------------------------------------
+# one shard per rank
+# ---------------------------------------------------------------------------
+
+
+class RankFailure(RuntimeError):
+    """A step of a collective operation failed on some ranks of a
+    ``RankGroup``; every rank raises it, with the same message."""
+
+
+def _outcome(err: BaseException | None) -> str | None:
+    return None if err is None else f"{type(err).__name__}: {err}"
+
+
+class RankGroup:
+    """This process's rank in the default ``torch.distributed`` group of
+    document-shard ranks: rank r holds shard r on ``device``, rank 0 leads.
+
+    Collectives move host tensors under gloo and the card's under NCCL
+    (``comm_device``). Every collective operation is entered by every rank
+    in the same order: rank 0 broadcasts each one (``lead``) and the other
+    ranks run it from ``repro_torch.serving.follow``. Objects made by a
+    collective operation (ranked retrievers, their plans) are numbered in
+    creation order, the same on every rank, so a command names them by
+    number. A local step that raises does not leave the other ranks waiting:
+    the rank still enters the collective with a failure flag, and after it
+    every rank raises (``settle``, ``gather``). ``settled`` is the last
+    exception raised that way, the same failure on every rank; a follower
+    goes on after it, and ends on any other."""
+
+    def __init__(self, rank: int, size: int, backend: str, device):
+        self.rank, self.size, self.backend = int(rank), int(size), backend
+        self.device = torch.device(device)
+        self.comm_device = self.device if backend == "nccl" else torch.device("cpu")
+        self.following = False
+        self.settled: BaseException | None = None
+        self._objects: dict[int, Any] = {}
+        self._next_id = 0
+
+    def __repr__(self) -> str:
+        return f"RankGroup(rank={self.rank}, size={self.size}, {self.backend}, {self.device})"
+
+    # ---- numbered objects ----
+    def register(self, obj) -> int:
+        oid, self._next_id = self._next_id, self._next_id + 1
+        self._objects[oid] = obj
+        return oid
+
+    def lookup(self, oid: int):
+        return self._objects[oid]
+
+    def release(self, oids) -> None:
+        for oid in oids:
+            self._objects.pop(oid, None)
+
+    # ---- commands ----
+    def _broadcast(self, obj):
+        box = [obj]
+        tdist.broadcast_object_list(box, src=0, device=self.comm_device)
+        return box[0]
+
+    def lead(self, *cmd) -> None:
+        """Rank 0: broadcast one collective operation to the followers.
+        Elsewhere it may only run inside the follower loop, which received
+        the command already."""
+        if self.rank == 0:
+            if cmd[0] == "call" and cmd[1] not in self._objects:
+                raise ValueError(
+                    f"object {cmd[1]} of {self} was closed (a ranked retriever after "
+                    "close() or a reload, or one of its plans)"
+                )
+            self._broadcast(cmd)
+        elif not self.following:
+            raise RuntimeError(
+                f"rank {self.rank} follows rank 0: collective operations start on rank 0, "
+                "and the other ranks run them in repro_torch.serving.follow(group)"
+            )
+
+    def receive(self):
+        """A follower: the next command rank 0 broadcasts."""
+        return self._broadcast(None)
+
+    def stop(self) -> None:
+        """Rank 0: end the followers' loops."""
+        self.lead("stop")
+
+    # ---- outcomes ----
+    def settle(self, stage: str, err: BaseException | None, value=None) -> list:
+        """Exchange every rank's outcome of a local step (and a picklable
+        ``value``) and raise on every rank if any failed: each rank's own
+        exception where all failed alike (an invalid plan), else
+        ``RankFailure`` naming the ranks. Returns the values in rank
+        order."""
+        got = self.all_gather_object((_outcome(err), value))
+        self._raise(stage, err, [o for o, _ in got])
+        return [v for _, v in got]
+
+    def fail(self, exc: BaseException):
+        """Raise ``exc``, which every rank raises alike after a collective
+        (a check of settled values), as a settled failure."""
+        self.settled = exc
+        raise exc
+
+    def _raise(self, stage: str, err, outcomes) -> None:
+        failed = [(r, o) for r, o in enumerate(outcomes) if o is not None]
+        if not failed:
+            return
+        if err is not None and len(failed) == self.size and len({o for _, o in failed}) == 1:
+            self.fail(err)
+        exc = RankFailure(
+            f"{stage} failed on rank " + "; ".join(f"{r} ({o})" for r, o in failed)
+        )
+        exc.__cause__ = err
+        self.fail(exc)
+
+    def all_gather_object(self, obj) -> list:
+        out = [None] * self.size
+        tdist.all_gather_object(out, obj)
+        return out
+
+    def gather(self, stage: str, err, parts, heads):
+        """``ShardedSearch``'s gather on a rank: one all-gather of this
+        rank's tensors (``parts``, one tuple for its one shard, the same
+        shapes and dtypes on every rank) and integer (``heads``, one), in
+        rank order, behind a failure flag. The tensors travel as their
+        bytes, packed in one buffer. A rank whose local step raised
+        (``err``) sends zeros of the same shapes. Returns ``([S tensors on
+        this rank's device] per tensor, [head per rank])``; raises on every
+        rank as ``settle`` does when any rank failed."""
+        (tensors,), (head,) = parts, heads
+        dev = self.comm_device
+        header = torch.tensor([int(err is not None), int(head)], dtype=torch.int64)
+        flat = [header.view(torch.uint8).to(dev)]
+        for t in tensors:
+            flat.append(t.to(dev).reshape(-1).view(torch.uint8))
+        buf = torch.cat(flat)
+        rows = [torch.empty_like(buf) for _ in range(self.size)]
+        tdist.all_gather(rows, buf)
+        got = torch.stack(rows)
+        flags = got[:, :16].cpu().contiguous().view(torch.int64).tolist()
+        if any(f for f, _ in flags):
+            self._raise(stage, err, self.all_gather_object(_outcome(err)))
+        out, off = [], 16
+        for t in tensors:
+            n = t.numel() * t.element_size()
+            block = got[:, off: off + n].to(self.device).contiguous().view(t.dtype)
+            off += n
+            out.append(list(block.reshape(self.size, *t.shape).unbind(0)))
+        return out, [h for _, h in flags]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RankedShard:
+    """One rank's shard of a document-sharded index, on the rank's device.
+
+    ``local`` is shard ``rank`` at the stack's padded geometry, exactly
+    ``ShardedWarpIndex.shards[rank]``: shard-local doc ids with padding id
+    ``local_docs``, ``n_docs = local_docs + 1``, padding clusters of size 0,
+    ``n_tokens_padded`` rows, the global ``cap``. Beside it the stack's
+    statics, this shard's ``doc_start``, and every shard's cluster sizes
+    ``[S, C]`` on the host (the ragged bound is the worst shard's). The
+    other shards' codes are never read."""
+
+    local: WarpIndex
+    group: RankGroup
+    doc_start: int
+    shard_cluster_sizes: np.ndarray  # i32[S, C]
+    n_docs: int
+    n_tokens_padded: int
+    n_tokens_total: int
+    local_docs: int
+
+    @property
+    def n_shards(self) -> int:
+        return self.shard_cluster_sizes.shape[0]
+
+    @property
+    def rank(self) -> int:
+        return self.group.rank
+
+    @property
+    def n_centroids(self) -> int:
+        return self.local.n_centroids
+
+    @property
+    def cap(self) -> int:
+        return self.local.cap
+
+    @property
+    def nbits(self) -> int:
+        return self.local.nbits
+
+    @property
+    def dim(self) -> int:
+        return self.local.dim
+
+    @property
+    def device(self) -> torch.device:
+        return self.local.device
+
+    def resolved_n_tokens(self) -> int:
+        return self.n_tokens_total or self.n_tokens_padded * self.n_shards
+
+    def nbytes(self) -> int:
+        """Bytes this rank holds on its device."""
+        return self.local.nbytes()
 
 
 # ---------------------------------------------------------------------------
@@ -306,11 +537,12 @@ def shard_index(index: WarpIndex, n_shards: int) -> ShardedWarpIndex:
 # ---------------------------------------------------------------------------
 
 
-def resolve_sharded_config(sidx: ShardedWarpIndex, config: WarpSearchConfig) -> WarpSearchConfig:
-    """``engine.resolve_config`` for a stack: t' from the true token count,
-    k_impute from the per-shard (padded) centroid count, the executor
-    against the stack's device, and the ragged bound from the worst shard
-    (every shard runs at one bound, as JAX's one program does)."""
+def resolve_sharded_config(sidx, config: WarpSearchConfig) -> WarpSearchConfig:
+    """``engine.resolve_config`` for a stack or one rank's shard: t' from
+    the true token count, k_impute from the per-shard (padded) centroid
+    count, the executor against the device, and the ragged bound from the
+    worst shard (every shard runs at one bound, as JAX's one program does;
+    a rank reads every shard's sizes from ``shard_cluster_sizes``)."""
     n_tokens = sidx.resolved_n_tokens()
     if n_tokens == 0:
         raise ValueError(
@@ -331,8 +563,12 @@ def resolve_sharded_config(sidx: ShardedWarpIndex, config: WarpSearchConfig) -> 
         k_impute=config.resolved_k_impute(sidx.n_centroids),
         executor=executor,
     )
+    sizes = (
+        sidx.shard_cluster_sizes if isinstance(sidx, RankedShard)
+        else sidx.cluster_sizes.cpu().numpy()
+    )
     return engine.resolve_layout_fields(
-        config, sidx.cluster_sizes.cpu().numpy(), sidx.cap,
+        config, sizes, sidx.cap,
         n_tokens=n_tokens, nbits=sidx.nbits, dim=sidx.dim, device=sidx.device,
     )
 
@@ -353,33 +589,156 @@ def sharded_probe_sizes(sidx: ShardedWarpIndex, q, qmask, config):
     )
 
 
-def finish_sharded(
-    sidx: ShardedWarpIndex, q, qmask, sels: list[WarpSelectOut], config, fv=None
-) -> TopKResult:
-    """Stages 2+3 per shard from ``select_sharded``'s output, then the
-    merge. The shards' top-kk (score, size) pairs, concatenated shard-major
-    (JAX's all_gather order), give one global m_i; each shard scores and
-    reduces with it; local ids become global (``+ doc_start``, -1 stays);
-    the top-k over the shard-major ``[S * k]`` concatenation breaks ties
-    toward the earlier shard, as ``lax.top_k`` does. ``fv`` is a stacked
-    ``FilterView`` (``docfilter.resolve_sharded``)."""
-    mse = impute_mse(
-        torch.cat([s.top_scores for s in sels], dim=-1),
-        torch.cat([s.top_sizes for s in sels], dim=-1),
-        config.t_prime, qmask,
-    )
-    scores, docs = [], []
-    starts = sidx.doc_start.tolist()
-    for s, (shard, sel) in enumerate(zip(sidx.shards, sels)):
-        shard_fv = None if fv is None else FilterView(fv.doc_mask[s], fv.cluster_live[s])
-        top = engine.score_and_reduce(
-            shard, q, qmask, sel.probe_scores, sel.probe_cids, mse, config,
-            probe_sizes=sel.probe_sizes, dfilter=shard_fv,
+def gather_here(stage: str, err, parts, heads):
+    """``ShardedSearch``'s gather when every shard runs in this process
+    (the stack): a failure raises at once, and ``parts`` (one tuple of
+    tensors per shard) are already in shard order."""
+    if err is not None:
+        raise err
+    return [list(t) for t in zip(*parts)], list(heads)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedSearch:
+    """The per-shard body of a document-sharded search over the shards
+    this process runs: every shard of a stack (``gather=gather_here``) or
+    this rank's one (``gather=RankGroup.gather``, the collective). Called
+    with queries ``[B, Q, D]`` and their mask, the same on every rank.
+
+    1. WARP_SELECT on each local shard; the gather of their top-kk (score,
+       size) pairs, concatenated shard-major (JAX's all_gather order),
+       gives the one global m_i.
+    2. On an adaptive plan (``need``: a shard's worklist demand from its
+       probes) the same gather carries each shard's demand: the largest,
+       plus ``PREPASS_SLACK``, picks the rung every shard runs, as
+       ``needed_worklist_tiles`` takes the max over JAX's stacked shards.
+    3. ``score_and_reduce`` per shard with the global m_i and its filter
+       view; local ids ``+ doc_start`` (-1 stays); the gather of the
+       ``[B, k]`` results and the top-k of their shard-major
+       concatenation, ties toward the earlier shard as ``lax.top_k``
+       breaks them.
+
+    The queries may lie on the host: they move to the shards' device
+    inside the first local step (``to_device``). A rank whose local step
+    raises still enters the gather, and then every rank raises."""
+
+    shards: tuple[WarpIndex, ...]
+    starts: tuple[int, ...]
+    config: WarpSearchConfig
+    gather: Any
+    fvs: tuple[FilterView, ...] | None = None
+    need: Any = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards[0].device
+
+    def to_device(self, q, qmask):
+        return q.to(self.device), qmask.to(self.device)
+
+    def bucket(self, q, qmask) -> int:
+        """The rung an adaptive plan runs ``q`` at: WARP_SELECT on each
+        local shard and the gather of the shards' demands."""
+        err, needed = None, [0] * len(self.shards)
+        try:
+            q, qmask = self.to_device(q, qmask)
+            needed = [
+                self.need(i, engine.select_probes(sh, q, qmask, self.config), qmask)
+                for i, sh in enumerate(self.shards)
+            ]
+        except Exception as e:  # every rank raises after the gather
+            err = e
+        _, demand = self.gather("warp_select", err, [()] * len(self.shards), needed)
+        return wl.pick_bucket(self.config.worklist_buckets, max(demand) + PREPASS_SLACK)
+
+    def __call__(self, q, qmask, bucket: int | None = None) -> TopKResult:
+        config, n = self.config, len(self.shards)
+        b, qm = q.shape[:2]
+        kk = max(config.nprobe, config.k_impute)
+        dev = self.device
+        err, sels, needed = None, [], [0] * n
+        try:
+            q, qmask = self.to_device(q, qmask)
+            sels = [engine.select_probes(sh, q, qmask, config) for sh in self.shards]
+            if self.need is not None and bucket is None:
+                needed = [self.need(i, sel, qmask) for i, sel in enumerate(sels)]
+            # Sizes travel as int32 (a cluster's size fits).
+            parts = [(s.top_scores, s.top_sizes.to(torch.int32)) for s in sels]
+        except Exception as e:  # every rank raises after the gather
+            err = e
+            parts = [(torch.zeros((b, qm, kk), device=dev),
+                      torch.zeros((b, qm, kk), dtype=torch.int32, device=dev))] * n
+        (g_scores, g_sizes), demand = self.gather("warp_select", err, parts, needed)
+        err = None
+        try:
+            mse = impute_mse(
+                torch.cat(g_scores, dim=-1), torch.cat(g_sizes, dim=-1).long(),
+                config.t_prime, qmask,
+            )
+            cfg = config
+            if self.need is not None:
+                if bucket is None:
+                    bucket = wl.pick_bucket(config.worklist_buckets, max(demand) + PREPASS_SLACK)
+                cfg = dataclasses.replace(config, worklist_tiles=bucket, worklist_buckets=None)
+            parts = []
+            for i, (sh, sel) in enumerate(zip(self.shards, sels)):
+                top = engine.score_and_reduce(
+                    sh, q, qmask, sel.probe_scores, sel.probe_cids, mse, cfg,
+                    probe_sizes=sel.probe_sizes,
+                    dfilter=None if self.fvs is None else self.fvs[i],
+                )
+                ids = torch.where(top.doc_ids >= 0, top.doc_ids + self.starts[i], -1)
+                parts.append((top.scores, ids.to(torch.int32)))
+        except Exception as e:  # every rank raises after the gather
+            err = e
+            parts = [(torch.zeros((b, config.k), device=dev),
+                      torch.zeros((b, config.k), dtype=torch.int32, device=dev))] * n
+        (scores, docs), _ = self.gather("score_and_reduce", err, parts, [0] * n)
+        top_scores, idx = topk_lower_index_first(torch.cat(scores, dim=-1), config.k)
+        return TopKResult(top_scores, torch.gather(torch.cat(docs, dim=-1), -1, idx))
+
+
+def shard_demand(config: WarpSearchConfig, cap: int, lives=None):
+    """``ShardedSearch.need`` for an adaptive plan: local shard i's worklist
+    tiles from its probes; masked tokens and, with ``lives`` (bool[C] per
+    local shard), filtered-out clusters build none."""
+    from repro_torch.kernels import ops
+
+    tile = ops.resolve_tile_c(cap, config.tile_c, layout="ragged")
+
+    def need(i: int, sel, qmask) -> int:
+        sizes = sel.probe_sizes.cpu().numpy()
+        if lives is not None:
+            sizes = wl.filtered_probe_sizes(sizes, sel.probe_cids.cpu().numpy(), lives[i])
+        tiles = wl.probe_tile_counts(sizes, tile) * qmask.cpu().numpy()[..., None]
+        return wl.needed_worklist_tiles(tiles, amortized=config.memory == "full")
+
+    return need
+
+
+def make_sharded_search_fn(
+    index, config: WarpSearchConfig, *, fv: FilterView | None = None, adaptive: bool = False
+) -> ShardedSearch:
+    """The per-shard body for ``index``, the counterpart of JAX's
+    ``make_sharded_search_fn``: on a ``ShardedWarpIndex`` every shard runs
+    here, on a ``RankedShard`` its ``RankGroup`` takes the place of the
+    mesh and every rank calls the body on the same queries. ``fv`` is the
+    plan's resolved filter (``docfilter.resolve_sharded``'s stacked view,
+    or ``resolve_rank``'s); ``adaptive`` plans pick their rung from the
+    shards' demand."""
+    if isinstance(index, RankedShard):
+        shards, starts, gather = (index.local,), (index.doc_start,), index.group.gather
+        fvs = None if fv is None else (fv,)
+    else:
+        shards, starts, gather = index.shards, tuple(index.doc_start.tolist()), gather_here
+        fvs = None if fv is None else tuple(
+            FilterView(fv.doc_mask[s], fv.cluster_live[s]) for s in range(index.n_shards)
         )
-        scores.append(top.scores)
-        docs.append(torch.where(top.doc_ids >= 0, top.doc_ids + starts[s], -1))
-    top_scores, idx = topk_lower_index_first(torch.cat(scores, dim=-1), config.k)
-    return TopKResult(top_scores, torch.gather(torch.cat(docs, dim=-1), -1, idx).to(torch.int32))
+    need = None
+    if adaptive:
+        lives = None if fvs is None else [f.cluster_live.cpu().numpy() for f in fvs]
+        need = shard_demand(config, index.cap, lives)
+    return ShardedSearch(shards, starts, config, gather, fvs, need)
 
 
 def sharded_search(
@@ -404,6 +763,5 @@ def sharded_search(
                 f"DocFilter covers {dfilter.n_docs} docs but the sharded index holds {sidx.n_docs}"
             )
         fv = resolve_sharded(dfilter, sidx)
-    sels = select_sharded(sidx, q[None], qmask[None], config)
-    res = finish_sharded(sidx, q[None], qmask[None], sels, config, fv)
+    res = make_sharded_search_fn(sidx, config, fv=fv)(q[None], qmask[None])
     return TopKResult(res.scores[0], res.doc_ids[0])

@@ -15,7 +15,8 @@ unfiltered retrieval at a larger k.
 
 A document-sharded index resolves to a stacked view
 (``resolve_sharded``): per-shard doc masks over shard-local ids, each
-with a dead padding slot, and per-shard cluster liveness.
+with a dead padding slot, and per-shard cluster liveness. One rank's shard
+(``RankedShard``) resolves to its row of that view (``resolve_rank``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ __all__ = [
     "cluster_survivor_counts",
     "local_shard_mask",
     "resolve_local",
+    "resolve_rank",
     "resolve_segmented",
     "resolve_sharded",
 ]
@@ -223,6 +225,19 @@ def resolve_sharded(dfilter: DocFilter, sidx) -> FilterView:
         for s in range(starts.shape[0])
     ])
     return FilterView(doc_mask=masks, cluster_live=live)
+
+
+def resolve_rank(dfilter: DocFilter, shard) -> FilterView:
+    """Resolve against one rank's shard (``distributed.RankedShard``) on
+    its device: row ``rank`` of ``resolve_sharded``'s stacked view, the doc
+    mask ``[local_docs + 1]`` from the shard's ``doc_start`` and the
+    cluster liveness ``[C]`` of its own tokens."""
+    local = shard.local
+    mask = torch.from_numpy(
+        local_shard_mask(dfilter.survivor_mask, shard.doc_start, shard.local_docs)
+    ).to(local.device)
+    live = cluster_survivor_counts(mask, local.token_doc_ids, local.cluster_offsets) > 0
+    return FilterView(doc_mask=mask, cluster_live=live)
 
 
 def resolve_segmented(dfilter: DocFilter, seg):

@@ -28,6 +28,16 @@ demand over the shards (and the batch), plus JAX's one tile of pre-pass
 slack, so its rungs are JAX's. There is no executor fallback: a kernel
 failure raises (the JAX plan's ``_activate_fallback`` is not ported).
 
+Ranked: ``from_store(path, group=)`` loads only this rank's shard of a
+sharded store (``RankedShard``) and every collective operation runs on
+every rank of the ``RankGroup``: ``plan`` (rank 0's config and filter;
+the plans' fingerprints must agree), ``retrieve``, ``retrieve_batch``,
+``retrieve_batch_at``, ``adaptive_bucket``, ``warmup`` and ``close``. Rank
+0 calls them as on any retriever and broadcasts each to the other ranks,
+which run them in ``repro_torch.serving.follow``; the per-rank body is
+``distributed.make_sharded_search_fn``. Results, rungs and ``describe()``
+equal the one-process stack's.
+
 Observability (``repro_torch.obs``): disabled, a retrieve pays two
 attribute checks; with metrics on, ``warp_retrieves_total`` and
 ``warp_retrieve_seconds`` per kind (after one ``torch.cuda.synchronize``
@@ -121,12 +131,6 @@ def laddered_config(
     return dataclasses.replace(base, **kw)
 
 
-# Tiles of headroom on a sharded plan's rung (JAX's PREPASS_SLACK: its
-# pre-pass re-runs stage 1 in another program). The port's pick reads the
-# body's own probes, so the slack only keeps its rungs equal to JAX's.
-PREPASS_SLACK = 1
-
-
 def _is_adaptive(cfg: WarpSearchConfig) -> bool:
     return (
         cfg.layout == "ragged"
@@ -145,13 +149,18 @@ def _is_segmented(index) -> bool:
     return isinstance(index, _segments_module().SegmentedWarpIndex)
 
 
+def _to_host(x):
+    """A command's argument as rank 0 broadcasts it: tensors as numpy."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
 class SearchPlan:
     """A validated pipeline bound to one index, one resolved config
     (``t_prime``/``k_impute`` concrete, ``executor`` "kernel" or
     "reference", layout/tile/worklist fields resolved) and, optionally,
     one resolved doc filter (``fctx``: a ``FilterView``, stacked per shard
-    on a sharded index, or ``resolve_segmented``'s triple on a segmented
-    index)."""
+    on a sharded index, this rank's on a ``RankedShard``, or
+    ``resolve_segmented``'s triple on a segmented index)."""
 
     def __init__(
         self, index, config: WarpSearchConfig, geometry: dict, *, fctx=None,
@@ -159,7 +168,8 @@ class SearchPlan:
     ):
         self.config = config
         self.index = index
-        self.sharded = isinstance(index, dist.ShardedWarpIndex)
+        self.ranked = isinstance(index, dist.RankedShard)
+        self.sharded = self.ranked or isinstance(index, dist.ShardedWarpIndex)
         self.n_shards = index.n_shards if self.sharded else 1
         self.backend = index.device.type
         self.index_geometry = geometry
@@ -177,25 +187,56 @@ class SearchPlan:
                 if fctx is not None:
                     tiles = tiles * fctx[2]
                 self._cluster_tiles = tiles.sum(axis=0)
+        elif self.sharded:
+            self._search = dist.make_sharded_search_fn(
+                index, config, fv=fctx, adaptive=self.adaptive
+            )
         elif fctx is not None and self.adaptive:
             self._live = fctx.cluster_live.cpu().numpy()
+        self._oid = None  # a ranked plan's number, given by Retriever.plan on every rank
+
+    def _lead(self, method: str, *args, **kwargs) -> None:
+        """A ranked plan's collective operation: rank 0 broadcasts it to the
+        followers, which then make the same call."""
+        if self.ranked:
+            self.index.group.lead(
+                "call", self._oid, method, tuple(_to_host(a) for a in args),
+                {k: _to_host(v) for k, v in kwargs.items()},
+            )
 
     # ---- inputs ----
-    def _tensor(self, x, dtype) -> torch.Tensor:
+    def _tensor(self, x, dtype, device) -> torch.Tensor:
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
-        return x.to(device=self.index.device, dtype=dtype)
+        return x.to(device=device, dtype=dtype)
 
     def _inputs(self, q, qmask, lead: int):
-        q = self._tensor(q, torch.float32)
+        """Queries and mask as tensors on the index's device. A ranked plan
+        keeps them on the host and checks their shapes, before rank 0
+        broadcasts them: the per-shard body moves them to the card inside
+        its first settled step, so a rank whose copy fails raises on every
+        rank."""
+        device = torch.device("cpu") if self.ranked else self.index.device
+        q = self._tensor(q, torch.float32, device)
         if qmask is None:
             qmask = torch.ones(q.shape[:lead], dtype=torch.bool, device=q.device)
-        return q, self._tensor(qmask, torch.bool)
+        qmask = self._tensor(qmask, torch.bool, device)
+        if self.ranked and (
+            q.ndim != lead + 1 or q.shape[-1] != self.index.dim
+            or tuple(qmask.shape) != tuple(q.shape[:-1])
+        ):
+            raise ValueError(
+                f"queries {tuple(q.shape)} with mask {tuple(qmask.shape)}: expected "
+                f"{'[B, ' if lead == 2 else '['}Q, {self.index.dim}] and the mask "
+                "over all but the last axis"
+            )
+        return q, qmask
 
     # ---- dispatch ----
     def retrieve(self, q, qmask=None) -> TopKResult:
         """One query q f32[Q, D] -> (scores f32[k], doc_ids i32[k])."""
         q, qmask = self._inputs(q, qmask, 1)
+        self._lead("retrieve", q, qmask)
         res = self._dispatch(q[None], qmask[None], "single")
         return TopKResult(res.scores[0], res.doc_ids[0])
 
@@ -203,6 +244,7 @@ class SearchPlan:
         """Query batch q f32[B, Q, D] -> TopKResult with leading batch dim;
         an adaptive plan runs the whole batch at one rung (the max)."""
         q, qmask = self._inputs(q, qmask, 2)
+        self._lead("retrieve_batch", q, qmask)
         return self._dispatch(q, qmask, "batch")
 
     def warmup(self) -> bool:
@@ -212,6 +254,7 @@ class SearchPlan:
         built. There is no fallback: a failure raises. Returns False (the
         JAX plan returns whether it demoted itself to its reference
         executor; the port never does)."""
+        self._lead("warmup")
         geo = self.index_geometry
         q = torch.zeros((1, 2, geo["dim"]), dtype=torch.float32, device=self.index.device)
         qmask = torch.ones((1, 2), dtype=torch.bool, device=self.index.device)
@@ -337,6 +380,7 @@ class SearchPlan:
                 f"{self.config.worklist_buckets}"
             )
         q, qmask = self._inputs(q, qmask, 2)
+        self._lead("retrieve_batch_at", q, qmask, bucket=bucket)
         return self._dispatch(q, qmask, "batch_at", bucket)
 
     def adaptive_bucket(self, q, qmask=None) -> int | None:
@@ -345,13 +389,13 @@ class SearchPlan:
         if not self.adaptive:
             return None
         q, qmask = self._inputs(q, qmask, 1)
+        self._lead("adaptive_bucket", q, qmask)
+        if self.sharded:
+            return self._search.bucket(q[None], qmask[None])
         return self._pick(self._select(q[None], qmask[None]), qmask[None])
 
     def _select(self, q, qmask):
-        """Stage 1: a ``WarpSelectOut`` (a list of one per shard on a
-        sharded index)."""
-        if self.sharded:
-            return dist.select_sharded(self.index, q, qmask, self.config)
+        """Stage 1 on a single or segmented index: a ``WarpSelectOut``."""
         if self.segmented:
             return _segments_module().select_probes(
                 self.index, q, qmask, self.config, self._combined
@@ -363,16 +407,6 @@ class SearchPlan:
         tokens and (filtered plans) dead clusters build no tiles. Needs
         the probe metadata on the host — the adaptive path's one sync."""
         m = qmask.cpu().numpy()
-        if self.sharded:
-            # One rung for every shard: the largest demand over shards.
-            sizes = np.stack([s.probe_sizes.cpu().numpy() for s in sel])  # [S, B, Q, P]
-            if self._live is not None:
-                cids = np.stack([s.probe_cids.cpu().numpy() for s in sel])
-                shard = np.arange(cids.shape[0]).reshape((-1,) + (1,) * (cids.ndim - 1))
-                sizes = np.where(self._live[shard, cids], sizes, 0)
-            tiles = wl.probe_tile_counts(sizes, self._tile) * m[..., None]
-            needed = wl.needed_worklist_tiles(tiles, amortized=self.config.memory == "full")
-            return wl.pick_bucket(self.config.worklist_buckets, needed + PREPASS_SLACK)
         if self.segmented:
             # One worklist over all Q tokens: demand amortizes.
             tiles = self._cluster_tiles[sel.probe_cids.cpu().numpy()] * m[..., None]
@@ -395,12 +429,12 @@ class SearchPlan:
         )
 
     def _run(self, q, qmask, bucket: int | None = None) -> TopKResult:
+        if self.sharded:
+            return self._search(q, qmask, bucket)
         sel = self._select(q, qmask)
         if self.adaptive and bucket is None:
             bucket = self._pick(sel, qmask)
         cfg = self._cfg_at(bucket)
-        if self.sharded:
-            return dist.finish_sharded(self.index, q, qmask, sel, cfg, self.fctx)
         if self.segmented:
             return _segments_module().finish_from_probes(
                 self.index, q, qmask, sel, cfg, self.fctx
@@ -470,21 +504,29 @@ class Retriever:
 
     It wraps a ``WarpIndex``, a ``ShardedWarpIndex`` (document shards
     stacked on one device, ``core/distributed.py``: stage 1 and stages 2+3
-    per shard with one global m_i, then the top-k merge) or a
-    ``SegmentedWarpIndex`` (a frozen base plus delta segments,
-    ``repro_torch.store.segments``: stage 1 once over the combined cluster
-    sizes, then every segment scored, ``segments.finish_from_probes``).
+    per shard with one global m_i, then the top-k merge), a
+    ``RankedShard`` (this process's shard of a ``RankGroup``, one shard
+    per rank: ``from_store(path, group=)``) or a ``SegmentedWarpIndex`` (a
+    frozen base plus delta segments, ``repro_torch.store.segments``: stage
+    1 once over the combined cluster sizes, then every segment scored,
+    ``segments.finish_from_probes``). A ``Retriever`` of a ``RankedShard``
+    is made on every rank of its group in the same order (``from_store``
+    does so), since collective operations name it by its number.
     """
 
     def __init__(self, index):
-        if not isinstance(index, (WarpIndex, dist.ShardedWarpIndex)) and not _is_segmented(index):
+        index_types = (WarpIndex, dist.ShardedWarpIndex, dist.RankedShard)
+        if not isinstance(index, index_types) and not _is_segmented(index):
             raise TypeError(
-                f"Retriever wraps a repro_torch WarpIndex, ShardedWarpIndex or "
+                f"Retriever wraps a repro_torch WarpIndex, ShardedWarpIndex, RankedShard or "
                 f"SegmentedWarpIndex, got {type(index).__name__}; use Retriever.from_index"
             )
         self.index = index
         # Keyed by (config, filter digest | None).
         self._plans: dict = {}
+        self.load_seconds: float | None = None  # set by a ranked from_store
+        if self.is_ranked:
+            self._oid = index.group.register(self)
 
     @classmethod
     def build(
@@ -513,6 +555,11 @@ class Retriever:
         is absent; pass ``device="cpu"`` for the CPU). ``index`` is an
         index of this package, or anything ``WarpIndex.from_arrays`` /
         ``ShardedWarpIndex.from_arrays`` takes (e.g. a JAX index)."""
+        if isinstance(index, dist.RankedShard):
+            raise TypeError(
+                "a RankedShard stays on its rank's device: wrap it with Retriever(shard) "
+                "on every rank, or load it with Retriever.from_store(path, group=)"
+            )
         device = resolve_device(device)
         if isinstance(index, (WarpIndex, dist.ShardedWarpIndex)) or _is_segmented(index):
             return cls(index.to(device))
@@ -521,12 +568,71 @@ class Retriever:
         return cls(WarpIndex.from_arrays(index, device=device))
 
     @classmethod
-    def from_store(cls, path: str, *, device=None) -> "Retriever":
+    def from_store(cls, path: str, *, device=None, group=None) -> "Retriever":
         """Adopt a saved store (``repro_torch.store``): single, sharded, or
-        with its delta segments."""
-        from repro_torch.store import load_index
+        with its delta segments. With ``group`` (a ``RankGroup``), a
+        collective operation: each rank loads only its own shard of a
+        sharded store on its own device (``store.load_shard``); ``device``,
+        if given, must be that device. A store whose shard count is not
+        the group's size raises on every rank."""
+        from repro_torch.store import load_index, load_shard
 
-        return cls(load_index(path, device=device))
+        if group is None:
+            return cls(load_index(path, device=device))
+        if device is not None and torch.device(device) != group.device:
+            raise ValueError(f"rank {group.rank} runs on {group.device}, not {device}")
+        group.lead("load", path)
+        shard = err = None
+        t0 = time.perf_counter()
+        try:
+            shard = load_shard(path, group)
+        except Exception as e:  # every rank raises in settle
+            err = e
+        group.settle("load", err)
+        out = cls(shard)
+        out.load_seconds = time.perf_counter() - t0
+        return out
+
+    def rank_info(self) -> list[dict]:
+        """A ranked retriever's ranks, in rank order (a collective
+        operation): each rank's device, the bytes of its shard, the bytes
+        allocated on its device, its load seconds and its scoring kernels'
+        launch counts (``kernels.LAUNCHES``)."""
+        from repro_torch.kernels import LAUNCHES
+
+        if not self.is_ranked:
+            raise ValueError("rank_info needs a ranked retriever (from_store(path, group=))")
+        self._lead("rank_info")
+        dev = self.device
+        info = err = None
+        try:
+            info = {
+                "rank": self.index.rank,
+                "device": str(dev),
+                "index_bytes": self.index.nbytes(),
+                "allocated_bytes": (
+                    torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
+                ),
+                "load_s": self.load_seconds,
+                "launches": dict(LAUNCHES),
+            }
+        except Exception as e:  # every rank raises in settle
+            err = e
+        return self.index.group.settle("rank_info", err, info)
+
+    def close(self) -> None:
+        """Drop the cached plans; on a ranked retriever, a collective
+        operation that also drops it and its plans on every rank."""
+        if self.is_ranked:
+            self._lead("close")
+            self.index.group.release(
+                [self._oid] + [p._oid for p in set(self._plans.values())]
+            )
+        self._plans.clear()
+
+    def _lead(self, method: str, *args, **kwargs) -> None:
+        if self.is_ranked:
+            self.index.group.lead("call", self._oid, method, args, kwargs)
 
     @property
     def device(self) -> torch.device:
@@ -542,7 +648,12 @@ class Retriever:
 
     @property
     def is_sharded(self) -> bool:
-        return isinstance(self.index, dist.ShardedWarpIndex)
+        return isinstance(self.index, (dist.ShardedWarpIndex, dist.RankedShard))
+
+    @property
+    def is_ranked(self) -> bool:
+        """Whether this process holds one shard of a ``RankGroup``."""
+        return isinstance(self.index, dist.RankedShard)
 
     @property
     def n_shards(self) -> int:
@@ -561,15 +672,37 @@ class Retriever:
         cached = self._plans.get((config, digest))
         if cached is not None:
             return cached
+        if self.is_ranked:
+            plan = self._plan_ranked(config, dfilter)
+        else:
+            plan = self._make_plan(config, dfilter)
+        self._plans[(config, digest)] = plan
+        self._plans[(plan.config, digest)] = plan
+        return plan
+
+    def _make_plan(self, config: WarpSearchConfig, dfilter) -> SearchPlan:
         fctx = self._resolve_filter(dfilter)
         resolved = self._resolve(config)
         self._validate(resolved)
-        plan = SearchPlan(
+        return SearchPlan(
             self.index, resolved, self._geometry(), fctx=fctx,
             filter_info=dfilter.describe() if dfilter is not None else None,
         )
-        self._plans[(config, digest)] = plan
-        self._plans[(resolved, digest)] = plan
+
+    def _plan_ranked(self, config: WarpSearchConfig, dfilter) -> SearchPlan:
+        """Every rank plans rank 0's config and filter; every rank raises
+        if any failed, or if the plans' fingerprints differ."""
+        group = self.index.group
+        self._lead("plan", config, dfilter=dfilter)
+        plan = err = None
+        try:
+            plan = self._make_plan(config, dfilter)
+        except Exception as e:  # every rank raises in settle
+            err = e
+        fps = group.settle("plan", err, None if plan is None else plan.fingerprint())
+        if len(set(fps)) != 1:
+            group.fail(dist.RankFailure(f"the ranks planned different plans: fingerprints {fps}"))
+        plan._oid = group.register(plan)
         return plan
 
     def plan_for_k(
@@ -593,6 +726,8 @@ class Retriever:
                 f"DocFilter covers {dfilter.n_docs} docs but the index holds "
                 f"{self.n_docs}; rebuild the filter against this corpus snapshot"
             )
+        if self.is_ranked:
+            return df.resolve_rank(dfilter, self.index)
         if self.is_sharded:
             return df.resolve_sharded(dfilter, self.index)
         if self.is_segmented:

@@ -19,13 +19,22 @@ trace-event JSON; ``--metrics-dump`` writes the metric registry at exit
 (Prometheus text, or a JSON snapshot for a ``.json`` path).
 ``--n-shards N`` builds the default tenant as an N-shard document-sharded
 index, every shard on the one ``--device`` (N need not divide a device
-count).
+count). With ``--ranks`` each shard gets its own process instead: the
+index is built and saved as a sharded store, N ranks
+(``repro_torch.launch.ranks``, ``--backend nccl``: rank r on ``cuda:r``;
+``--backend gloo``: ranks share the cards, or the CPU with ``--device
+cpu``) each load their shard, and the server runs on rank 0:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --n-shards 4 --ranks --backend nccl
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
+import tempfile
 import time
 
 import numpy as np
@@ -153,6 +162,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-shards", type=int, default=0,
                     help="document-sharded index with this many shards, all on "
                          "--device (0 = a single index)")
+    ap.add_argument("--ranks", action="store_true",
+                    help="one process per shard (--n-shards of them), the server on "
+                         "rank 0 (needs --backend)")
+    ap.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                    help="the ranks' torch.distributed backend: nccl puts rank r on "
+                         "cuda:r, gloo shares the cards (or the CPU with --device cpu)")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--max-wait-ms", type=float, default=5.0)
     ap.add_argument("--gather", choices=["materialize", "fused"], default="materialize")
@@ -196,43 +211,105 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.n_shards < 0:
         ap.error("--n-shards must be >= 0")
+    if args.ranks and (args.n_shards < 1 or args.backend is None):
+        ap.error("--ranks needs --n-shards N (one rank per shard) and --backend")
+    if args.ranks and args.tenants != 1:
+        ap.error("--ranks serves one tenant: a ranked server's tenants are stores of its ranks")
+    if args.backend is not None and not args.ranks:
+        ap.error("--backend applies to --ranks")
     device = resolve_device(args.device)
+    if args.ranks:
+        _serve_ranks(args, device)
+    else:
+        _observed(args, lambda registry: _serve(args, device, registry))
+    return 0
 
+
+def _observed(args, fn) -> None:
+    """``fn(registry)`` under the tracer and metrics the flags ask for."""
     prev = (obs.STATE.tracer, obs.STATE.metrics)
     try:
         if args.trace_out:
             # The tracer shares the server's clock (time.monotonic) so the
             # queue-wait rows and the engine spans share one timeline.
             obs.set_tracer(obs.Tracer(clock=time.monotonic))
-        registry = obs.enable_metrics() if args.metrics_dump else None
-        _serve(args, device, registry)
+        fn(obs.enable_metrics() if args.metrics_dump else None)
     finally:
         obs.set_tracer(prev[0])
         obs.STATE.metrics = prev[1]
-    return 0
 
 
-def _serve(args, device, registry) -> None:
+def _serve_ranks(args, device) -> None:
+    """Build the sharded store here, then serve it from a world of
+    ``--n-shards`` ranks (``_rank_main``)."""
+    from repro_torch.launch.ranks import run_world
+    from repro_torch.store import save_index
+
+    corpus = make_corpus(args.n_docs, mean_doc_len=20, seed=0)
+    t0 = time.perf_counter()
+    built = Retriever.build(
+        corpus.emb, corpus.token_doc_ids, corpus.n_docs, IndexBuildConfig(nbits=args.nbits),
+        n_shards=args.n_shards, device=device,
+    )
+    tmp = tempfile.mkdtemp(prefix="serve_ranks_")
+    try:
+        store = save_index(built.index, os.path.join(tmp, "store"))
+        print(f"sharded store: {args.n_shards} shards built on {device} and saved in "
+              f"{time.perf_counter() - t0:.1f}s")
+        del built
+        run_world(_rank_main, args.n_shards, backend=args.backend, device=device,
+                  args=(args, store))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rank_main(group, args, store) -> None:
+    """One rank of ``--ranks``: rank 0 serves, the others follow."""
+    from repro_torch.serving import follow
+
+    if group.rank:
+        follow(group)
+        return
+    try:
+        _observed(args, lambda registry: _serve(args, group.device, registry, group=group,
+                                                store=store))
+    finally:
+        group.stop()
+
+
+def _serve(args, device, registry, *, group=None, store=None) -> None:
     build_cfg = IndexBuildConfig(nbits=args.nbits)
     corpus = make_corpus(args.n_docs, mean_doc_len=20, seed=0)
     t0 = time.perf_counter()
-    retriever = Retriever.build(
-        corpus.emb, corpus.token_doc_ids, corpus.n_docs, build_cfg,
-        n_shards=args.n_shards or None, device=device,
-    )
-    if retriever.is_sharded:
+    if group is not None:
+        retriever = Retriever.from_store(store, group=group)
         idx = retriever.index
         print(
-            f"sharded index: {idx.n_shards} shards of {idx.n_centroids} centroids, "
-            f"{idx.n_tokens_total} tokens ({idx.n_tokens_padded} per shard padded), "
-            f"{idx.nbytes() / 2**20:.1f} MiB on {device} in {time.perf_counter() - t0:.1f}s"
+            f"ranked index: {idx.n_shards} ranks ({group.backend}) of {idx.n_centroids} "
+            f"centroids, {idx.n_tokens_total} tokens ({idx.n_tokens_padded} per shard "
+            f"padded), loaded in {time.perf_counter() - t0:.1f}s"
         )
+        for info in retriever.rank_info():
+            print(f"  rank {info['rank']}: {info['device']}, its shard alone: "
+                  f"{info['index_bytes'] / 2**20:.1f} MiB")
     else:
-        st = index_stats(retriever.index)
-        print(
-            f"indexed {st['n_tokens']} tokens -> {st['n_centroids']} centroids, "
-            f"{st['bytes'] / 2**20:.1f} MiB on {device} in {time.perf_counter() - t0:.1f}s"
+        retriever = Retriever.build(
+            corpus.emb, corpus.token_doc_ids, corpus.n_docs, build_cfg,
+            n_shards=args.n_shards or None, device=device,
         )
+        if retriever.is_sharded:
+            idx = retriever.index
+            print(
+                f"sharded index: {idx.n_shards} shards of {idx.n_centroids} centroids, "
+                f"{idx.n_tokens_total} tokens ({idx.n_tokens_padded} per shard padded), "
+                f"{idx.nbytes() / 2**20:.1f} MiB on {device} in {time.perf_counter() - t0:.1f}s"
+            )
+        else:
+            st = index_stats(retriever.index)
+            print(
+                f"indexed {st['n_tokens']} tokens -> {st['n_centroids']} centroids, "
+                f"{st['bytes'] / 2**20:.1f} MiB on {device} in {time.perf_counter() - t0:.1f}s"
+            )
     server = RetrievalServer(
         retriever,
         WarpSearchConfig(

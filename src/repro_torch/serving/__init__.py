@@ -14,6 +14,7 @@ from repro_torch.serving.batcher import (
     BatchPolicy,
     ResultAlreadyTaken,
     RetrievalServer,
+    follow,
 )
 from repro_torch.serving.cache import LRUCache, query_key
 from repro_torch.serving.generate import generate
@@ -31,6 +32,7 @@ __all__ = [
     "PENDING",
     "ResultAlreadyTaken",
     "RetrievalServer",
+    "follow",
     "generate",
     "query_key",
 ]

@@ -52,6 +52,16 @@ Differences from the JAX server:
   deletes are a ``DocFilter`` over global ids like any tenant's.
 - It keeps the submit-to-reply seconds of its last 4096 replies
   (``latencies``; ``summary()`` adds their p50/p95 and the device).
+- **Ranked.** Over a ranked retriever (``Retriever.from_store(path,
+  group=)``: one shard per process of a ``RankGroup``) the server runs
+  unchanged on rank 0, and every retriever call it makes (plan, warm-up,
+  rung pre-pass, batch at a rung, store load, close) is a collective
+  operation that ranks 1..S-1 run in ``follow``. Deletes stay a
+  ``DocFilter`` over global ids: each rank plans the tombstone filter and
+  slices it to its shard. ``reload`` of a store path reloads each rank's
+  own view. Its tenants are all ranked over the same group; an index
+  object (which one process cannot hand the other ranks) and compaction
+  (a sharded store has no delta segments) raise.
 """
 
 from __future__ import annotations
@@ -78,7 +88,7 @@ from repro_torch.serving.admission import (
 from repro_torch.serving.cache import LRUCache, query_key
 from repro_torch.serving.scheduler import BatchPolicy, BucketScheduler
 
-__all__ = ["BatchPolicy", "RetrievalServer", "ResultAlreadyTaken", "PENDING"]
+__all__ = ["BatchPolicy", "RetrievalServer", "ResultAlreadyTaken", "PENDING", "follow"]
 
 class _PendingType:
     """Sentinel: the request is known but its batch has not run yet."""
@@ -182,6 +192,12 @@ class RetrievalServer:
             else Retriever.from_index(index, device=resolve_device(device))
         )
         self.device = self.retriever.device
+        self._group = self.retriever.index.group if self.retriever.is_ranked else None
+        if self._group is not None and compaction is not None:
+            raise ValueError(
+                "a ranked server serves a sharded store, which has no delta segments "
+                "to compact: pass compaction=None"
+            )
         # Kept unresolved: a reload re-resolves t' / k_impute / layout
         # against the NEW index.
         self._requested_config = config
@@ -348,7 +364,22 @@ class RetrievalServer:
             from repro_torch.store import load_index  # the store depends on core
 
             store_path = os.fspath(index)
-            index = load_index(store_path, device=self.device, quarantine_segments=True)
+            if self._group is not None:
+                index = Retriever.from_store(store_path, device=self.device, group=self._group)
+            else:
+                index = load_index(store_path, device=self.device, quarantine_segments=True)
+        ranked = isinstance(index, Retriever) and index.is_ranked
+        if self._group is not None and not (ranked and index.index.group is self._group):
+            raise ValueError(
+                "a ranked server serves its own rank group only: pass a store path "
+                "(each rank loads its shard) or a Retriever.from_store(path, group=) "
+                "over the server's group"
+            )
+        if self._group is None and ranked:
+            raise ValueError(
+                "a ranked retriever needs a ranked server: build the RetrievalServer "
+                "over a ranked retriever on rank 0"
+            )
         retriever = (
             index if isinstance(index, Retriever)
             else Retriever.from_index(index, device=self.device)
@@ -641,7 +672,7 @@ class RetrievalServer:
         state = self._build_state(
             tenant, index, requested, store_path=old.store_path if tenant is None else None
         )
-        # ---- commit point: nothing below raises ----
+        # ---- commit point: nothing below raises but the last close ----
         self._tenants[tenant] = state
         self.index_epoch += 1
         self._purge_caches()
@@ -652,6 +683,10 @@ class RetrievalServer:
             "serving_reload_seconds", "Hot index swap duration"
         ).observe(time.perf_counter() - t0)
         obs.tracer().instant("reload", epoch=self.index_epoch)
+        if old.retriever.is_ranked and all(
+            t.retriever is not old.retriever for t in self._tenants.values()
+        ):
+            old.retriever.close()  # every rank drops the old shard
 
     def maintain(self) -> bool:
         """One maintenance tick: ``compact`` + ``reload`` of the default
@@ -875,3 +910,41 @@ class RetrievalServer:
             "dispatch_failures": self._dispatch_failures,
             "tenants": ["default" if t is None else t for t in self.tenants],
         }
+
+
+def follow(group) -> dict:
+    """The loop of ranks 1..S-1 of a ranked server (or of any ranked
+    retriever that rank 0 drives): run each collective operation rank 0
+    broadcasts (a store load, then calls of the retrievers and plans it
+    made: plan, warm-up, rung pre-pass, retrieve, batch, batch at a rung,
+    close) on this rank's shard, until rank 0 calls ``group.stop()``. An
+    operation that failed in a collective raised the same failure on
+    every rank (``group.settled``), so the loop records it and goes on, as
+    rank 0 does. Any other failure left rank 0 in a collective this rank
+    will not enter: it propagates, the rank's process exits nonzero, and
+    ``launch.ranks.run_world`` ends the world. Returns ``{"ops":
+    operations run, "failed": those that raised, "last_error": the last
+    one's "Type: message" or None}``."""
+    if group.rank == 0:
+        raise ValueError("rank 0 leads the group; follow() runs on ranks 1..S-1")
+    out = {"ops": 0, "failed": 0, "last_error": None}
+    group.following = True
+    try:
+        while True:
+            cmd = group.receive()
+            if cmd[0] == "stop":
+                return out
+            out["ops"] += 1
+            try:
+                if cmd[0] == "load":
+                    Retriever.from_store(cmd[1], group=group)
+                else:  # ("call", number, method, args, kwargs)
+                    _, oid, method, args, kwargs = cmd
+                    getattr(group.lookup(oid), method)(*args, **kwargs)
+            except Exception as e:
+                if e is not group.settled:
+                    raise
+                out["failed"] += 1
+                out["last_error"] = f"{type(e).__name__}: {e}"
+    finally:
+        group.following = False

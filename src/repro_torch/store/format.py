@@ -12,7 +12,8 @@ segments (``segments/seg_NNNNN/``, written by
 sharded store keeps the stacked ``[S, ...]`` binaries once and loads as a
 ``ShardedWarpIndex``; its ``shard_NNNNN/`` views point into the same
 binaries at per-shard byte offsets, so one shard also loads alone as a
-plain ``WarpIndex``. ``compact``'s lock file and crash recovery
+plain ``WarpIndex``, and ``load_shard`` gives one rank of a process group
+its shard alone (``RankedShard``). ``compact``'s lock file and crash recovery
 (``recover_interrupted_compact``) are JAX's, step for step.
 
 The fault injection points (``repro_torch.fault``: ``store.array_read``,
@@ -36,7 +37,12 @@ import numpy as np
 import torch
 
 from repro_torch import fault, obs
-from repro_torch.core.distributed import SHARDED_ARRAYS, SHARDED_STATIC, ShardedWarpIndex
+from repro_torch.core.distributed import (
+    SHARDED_ARRAYS,
+    SHARDED_STATIC,
+    RankedShard,
+    ShardedWarpIndex,
+)
 from repro_torch.core.types import (
     ARRAY_FIELDS,
     STATIC_FIELDS,
@@ -60,6 +66,7 @@ __all__ = [
     "list_segment_dirs",
     "load_index",
     "load_segment_arrays",
+    "load_shard",
     "read_manifest",
     "recover_interrupted_compact",
     "save_index",
@@ -375,6 +382,44 @@ def _load_sharded(path: str, manifest: dict, device: torch.device) -> ShardedWar
     return ShardedWarpIndex.from_arrays(
         {**arrays, **{k: int(static[k]) for k in SHARDED_STATIC}}, device=device
     )
+
+
+def load_shard(path: str, group) -> RankedShard:
+    """Rank ``group.rank``'s shard of a sharded store, on the rank's
+    device (``group.device``): its ``shard_NNNNN/`` view (checked against
+    the view's own checksums), the root manifest's statics, the view's
+    ``doc_start`` and every shard's cluster sizes (the root's small
+    ``cluster_sizes`` array). The other shards' codes are never read.
+    Raises ValueError unless the store holds one shard per rank of the
+    group."""
+    t0 = time.perf_counter()
+    manifest = read_manifest(path)
+    if manifest["kind"] != KIND_SHARDED:
+        raise ValueError(
+            f"{path} holds a {manifest['kind']}, not a sharded index: ranks load one shard each"
+        )
+    if int(manifest["n_shards"]) != group.size:
+        raise ValueError(
+            f"{path} holds {manifest['n_shards']} shards but the group has {group.size} "
+            "ranks: each rank serves one shard"
+        )
+    sdir = os.path.join(path, f"shard_{group.rank:05d}")
+    view = read_manifest(sdir)
+    if int(view["shard"]["index"]) != group.rank:
+        raise StoreCorruption(f"{sdir}: the view of shard {view['shard']['index']}")
+    static = manifest["static"]
+    out = RankedShard(
+        local=_load_single(sdir, view, group.device),
+        group=group,
+        doc_start=int(view["shard"]["doc_start"]),
+        shard_cluster_sizes=np.array(_load_entry(path, manifest["arrays"]["cluster_sizes"])),
+        n_docs=int(static["n_docs"]),
+        n_tokens_padded=int(static["n_tokens_padded"]),
+        n_tokens_total=int(static["n_tokens_total"]),
+        local_docs=int(static["local_docs"]),
+    )
+    obs.observe("store_load_seconds", time.perf_counter() - t0)
+    return out
 
 
 def load_index(

@@ -10,6 +10,13 @@ filter, a delete). The port loads the same store on the CPU and must give
 integers exactly (doc bounds, resolved fields, rungs, doc ids) and scores
 within 1e-4, the reference's own kernel tolerance.
 
+The same store is also served by one gloo world of 3 CPU ranks, one
+process per shard (``repro_torch.launch.ranks``; the world bodies are in
+``tests/torch_ranks_world.py``): every plan single and batched, the
+rungs, ``describe()`` and the served run must equal JAX's 3-device
+``shard_map`` as the stack does, and a fault armed on one rank must make
+the batch raise on every rank.
+
 Also: ``build_sharded_index`` from JAX's per-shard centroids and
 JAX-normalised embeddings gives JAX's stack exactly; a port-written
 sharded store is byte-identical to JAX's and verifies; one shard view
@@ -27,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_ranks_world
 
 from repro.core import kmeans as jk
 from repro.core.docfilter import DocFilter as JaxDocFilter
@@ -46,11 +54,19 @@ from repro_torch.core import (
     sharded_search,
 )
 from repro_torch.core import distributed as dist
-from repro_torch.core.docfilter import resolve_sharded
+from repro_torch.core.docfilter import resolve_rank, resolve_sharded
 from repro_torch.data import make_corpus, make_queries
 from repro_torch.launch import build_index as build_cli
+from repro_torch.launch.ranks import WorldFailed, run_world
 from repro_torch.serving import BatchPolicy, RetrievalServer
-from repro_torch.store import add_documents, builder, load_index, save_index, verify_store
+from repro_torch.store import (
+    add_documents,
+    builder,
+    load_index,
+    load_shard,
+    save_index,
+    verify_store,
+)
 
 torch.set_num_threads(1)  # xdist runs one test process per core
 
@@ -417,3 +433,198 @@ def test_cli_builds_a_sharded_store(tmp_path, capsys):
     build_cli.main(["smoke", "--index", out, "--device", "cpu"])
     assert "smoke top-5" in capsys.readouterr().out
     assert jax_load_index(out).n_shards == 2
+
+
+# ---------------------------------------------------------------------------
+# one process per shard: a gloo world of 3 CPU ranks
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ranked_run(jax_run, tmp_path_factory):
+    """One world of N_SHARDS gloo ranks on the CPU over JAX's store, rank r
+    holding shard r; rank 0 drives (``torch_ranks_world.jax_parity``)."""
+    out = str(tmp_path_factory.mktemp("ranked"))
+    env = dict(os.environ)
+    run_world(
+        torch_ranks_world.jax_parity, N_SHARDS, backend="gloo", device="cpu",
+        args=(jax_run["store"], os.path.join(os.path.dirname(jax_run["store"]), "jax.npz"),
+              out, PLANS, SEARCH, SERVE_SEARCH),
+        threads=1, join_timeout_s=300, workdir=out,
+    )
+    # The test process joined no group and keeps its environment.
+    assert not torch.distributed.is_initialized() and dict(os.environ) == env
+    with open(os.path.join(out, "ranked.json")) as f:
+        info = json.load(f)
+    followers = []
+    for r in range(1, N_SHARDS):
+        with open(os.path.join(out, f"follower{r}.json")) as f:
+            followers.append(json.load(f))
+    return dict(z=dict(np.load(os.path.join(out, "ranked.npz"))), info=info, followers=followers)
+
+
+@pytest.mark.parametrize("name", sorted(PLANS))
+def test_ranked_search_matches_jax(jax_run, ranked_run, name):
+    z, got = jax_run["z"], ranked_run["z"]
+    np.testing.assert_array_equal(got[name + "/ids"], z[name + "/ids"])
+    np.testing.assert_allclose(got[name + "/scores"], z[name + "/scores"], **TOL)
+    np.testing.assert_array_equal(got[name + "/batch_ids"], z[name + "/batch_ids"])
+    np.testing.assert_allclose(got[name + "/batch_scores"], z[name + "/batch_scores"], **TOL)
+    assert (name + "/rungs" in got) == (name + "/rungs" in z)
+    if name + "/rungs" in z:
+        np.testing.assert_array_equal(got[name + "/rungs"], z[name + "/rungs"])
+        forced = [k for k in got if k.startswith(name + "/at")]
+        assert forced
+        for k in forced:
+            np.testing.assert_array_equal(got[k], z[name + "/batch_ids"])
+
+
+@pytest.mark.parametrize("name", sorted(PLANS))
+def test_ranked_plan_describes_like_jax(jax_run, ranked_run, name):
+    got = ranked_run["info"]["describe"][name]
+    assert got == jax_run["describe"][name]
+    assert got["n_shards"] == N_SHARDS
+
+
+def test_ranked_tenant_served_like_jax(jax_run, ranked_run):
+    z, got, info = jax_run["z"], ranked_run["z"], ranked_run["info"]
+    np.testing.assert_array_equal(got["serve/ids"], z["serve/ids"])
+    np.testing.assert_allclose(got["serve/scores"], z["serve/scores"], **TOL)
+    # A reload from the store reloads each rank's own view.
+    assert info["reload"] == [True, N_SHARDS, 2]
+    np.testing.assert_array_equal(got["reload/ids"], z["serve/ids"][0])
+
+
+def _served_after(jax_run, ranked_run, tag, nxt):
+    """A failed batch raised on rank 0 once per member; the next one (of
+    query ``nxt``) is served."""
+    info = ranked_run["info"]
+    msg = info[tag]
+    assert info[tag + "_polls"] == [msg] * 3  # each member of the batch, once
+    assert info[tag + "_health"] == "degraded"
+    z = jax_run["z"]
+    want = Retriever.from_store(jax_run["store"], device="cpu").plan(
+        WarpSearchConfig(**SERVE_SEARCH)).retrieve(z["q"][nxt], z["qmask"][nxt])
+    np.testing.assert_array_equal(ranked_run["z"][f"after_{tag}/ids"], want.doc_ids.numpy())
+    assert info[tag + "_health_after"] == "ok"
+    return msg
+
+
+def test_ranked_fault_on_one_rank_raises_on_every_rank(jax_run, ranked_run):
+    msg = _served_after(jax_run, ranked_run, "fault", 4)
+    assert "score_and_reduce failed on rank 1 (InjectedFault" in msg
+    assert "engine.kernel_call" in msg
+    # Every follower raised in both failed batches (this one and the copy
+    # fault's), then went on.
+    followers = ranked_run["followers"]
+    for f in followers:
+        assert f["failed"] == 2 and f["ops"] > 0
+    assert followers[0]["ops"] == followers[1]["ops"]
+    # A retriever closed by the reload refuses on rank 0, before any rank
+    # could wait for it.
+    assert "was closed" in ranked_run["info"]["closed"]
+
+
+def test_ranked_query_copy_failing_on_one_rank_raises_on_every_rank(jax_run, ranked_run):
+    """The copy of the broadcast queries to a rank's device is a local step
+    before the first gather: it fails on rank 1 alone, and every rank
+    raises at that gather."""
+    msg = _served_after(jax_run, ranked_run, "copy_fault", 5)
+    assert msg == "warp_select failed on rank 1 (RuntimeError: rank 1 could not copy the queries)"
+    for f in ranked_run["followers"]:
+        assert f["last_error"] == f"RankFailure: {msg}"
+
+
+def test_unsettled_failure_on_a_follower_ends_the_world(jax_run, tmp_path):
+    """A follower's failure outside any collective (here its query
+    conversion) ends its loop, and ``run_world`` ends the world, rather
+    than leave rank 0 waiting in a gather the follower never enters."""
+    with pytest.raises(WorldFailed, match="rank 1 could not take the queries"):
+        run_world(torch_ranks_world.unsettled_failure, N_SHARDS, backend="gloo", device="cpu",
+                  args=(jax_run["store"], SEARCH), threads=1, join_timeout_s=120,
+                  workdir=str(tmp_path))
+    assert not torch.distributed.is_initialized()
+
+
+def test_each_rank_holds_its_shard_alone(jax_run, retriever, ranked_run):
+    ranks = ranked_run["info"]["ranks"]
+    sidx = retriever.index
+    assert [r["rank"] for r in ranks] == list(range(N_SHARDS))
+    for r, got in enumerate(ranks):
+        assert got["device"] == "cpu" and got["allocated_bytes"] is None
+        assert got["index_bytes"] == dist.local_index(sidx, r).nbytes() < sidx.nbytes()
+        assert got["launches"]["selective_sum"] == 0  # the reference executor
+
+
+@pytest.mark.parametrize("r", range(N_SHARDS))
+def test_rank_shard_and_filter_equal_the_stack_row(jax_run, retriever, r):
+    """``load_shard`` (no collective) gives shard r of the stack, and
+    ``resolve_rank`` row r of ``resolve_sharded``."""
+    group = dist.RankGroup(r, N_SHARDS, "gloo", "cpu")
+    shard = load_shard(jax_run["store"], group)
+    sidx, local = retriever.index, dist.local_index(retriever.index, r)
+    for name in ("centroids", "packed_codes", "token_doc_ids", "cluster_offsets",
+                 "cluster_sizes", "bucket_weights", "bucket_cutoffs"):
+        assert torch.equal(getattr(shard.local, name), getattr(local, name)), name
+    assert shard.doc_start == int(sidx.doc_start[r])
+    np.testing.assert_array_equal(shard.shard_cluster_sizes, sidx.cluster_sizes.numpy())
+    for name in ("n_docs", "n_tokens_padded", "n_tokens_total", "local_docs", "cap", "n_centroids"):
+        assert getattr(shard, name) == getattr(sidx, name), name
+    mask = np.random.default_rng(r).random(sidx.n_docs) < 0.4
+    row, stack = resolve_rank(DocFilter.from_bitmap(mask), shard), resolve_sharded(
+        DocFilter.from_bitmap(mask), sidx)
+    assert torch.equal(row.doc_mask, stack.doc_mask[r])
+    assert torch.equal(row.cluster_live, stack.cluster_live[r])
+    cfg = WarpSearchConfig(**SEARCH, gather="fused", layout="ragged")
+    assert dist.resolve_sharded_config(shard, cfg) == retriever.plan(cfg).config
+
+
+def test_rank_count_other_than_the_store_raises(jax_run, tmp_path):
+    with pytest.raises(WorldFailed, match="holds 3 shards but the group has 2 ranks"):
+        run_world(torch_ranks_world.load_only, 2, backend="gloo", device="cpu",
+                  args=(jax_run["store"],), threads=1, join_timeout_s=120,
+                  workdir=str(tmp_path))
+    assert not torch.distributed.is_initialized()
+
+
+def test_nccl_needs_cards():
+    with pytest.raises(ValueError, match="ranks on the CPU take backend='gloo'"):
+        run_world(torch_ranks_world.load_only, 2, backend="nccl", device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_world(torch_ranks_world.load_only, 2, backend="nccl")
+    with pytest.raises(ValueError, match="backend='mpi' is not one of"):
+        run_world(torch_ranks_world.load_only, 2, backend="mpi", device="cpu")
+
+
+def test_serve_launcher_with_one_process_per_shard(capfd, monkeypatch):
+    from repro_torch.launch import serve as serve_cli
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the ranks inherit it: one thread each
+
+    with pytest.raises(SystemExit):
+        serve_cli.main(["--device", "cpu", "--n-shards", "2", "--ranks"])  # no --backend
+    assert serve_cli.main(["--device", "cpu", "--n-shards", "2", "--ranks", "--backend", "gloo",
+                           "--n-docs", "120", "--queries", "4", "--layout", "ragged"]) == 0
+    out = capfd.readouterr().out
+    assert "ranked index: 2 ranks (gloo)" in out and "rank 1: cpu, its shard alone" in out
+    assert "'n_shards': 2" in out and "served 4 queries" in out and "health: ok" in out
+    assert not torch.distributed.is_initialized()
+
+
+def test_world_devices_are_explicit(monkeypatch):
+    from repro_torch.launch.ranks import world_devices
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    cuda = [torch.device("cuda", i) for i in range(2)]
+    assert world_devices(2, "nccl") == cuda
+    assert world_devices(3, "gloo") == [cuda[0], cuda[1], cuda[0]]
+    assert world_devices(3, "gloo", "cuda:1") == [cuda[1]] * 3
+    assert world_devices(3, "gloo", "cpu") == [torch.device("cpu")] * 3
+    with pytest.raises(ValueError, match="2 card"):
+        world_devices(3, "nccl")
+    with pytest.raises(ValueError, match="not all on cuda:0"):
+        world_devices(2, "nccl", "cuda:0")
+    with pytest.raises(ValueError, match="not one of the 2 visible"):
+        world_devices(2, "gloo", "cuda:5")

@@ -9,10 +9,10 @@ scheduler and batcher, the serve launcher, the document-sharded index and
 the token encoder, the LM zoo and training: MoE, the arch registry and
 families, the optimizer, loop, checkpoints, compression, the batch
 pipeline and the train launcher, recsys and GNN training: GIN, the
-sampler, gin-tu, and the autotune table and its sweep) or
-``chip_smoke.py``; entry points refuse to fall back to the CPU (the
-server, its reloads and tenants on the server's device, the serve
-launcher, the sharded build, the encoder's weights, the LM's weights and
+sampler, gin-tu, the autotune table and its sweep, and the worlds of
+shard ranks) or ``chip_smoke.py``; entry points refuse to fall back to
+the CPU (the server, its reloads and tenants on the server's device, the
+serve launcher, its ranked worlds, the sharded build, the encoder's weights, the LM's weights and
 cache, the train loop and launcher, the GNN and recsys weights, smokes
 and launcher runs); the kernel executor refuses a CPU index and CPU
 recsys weights."""
@@ -38,6 +38,7 @@ from repro_torch.core import (
 )
 from repro_torch.launch import build_index as build_index_cli
 from repro_torch.launch import serve as serve_cli
+from repro_torch.launch.ranks import run_world, world_devices
 from repro_torch.serving import RetrievalServer
 from repro_torch.store import add_documents, array_chunks, build_index_to_store, load_index
 
@@ -120,6 +121,7 @@ def test_port_imports_neither_jax_nor_repro():
         "src/repro_torch/configs/gin_tu.py",
         "src/repro_torch/kernels/autotune.py",
         "src/repro_torch/kernels/autotune_sweep.py",
+        "src/repro_torch/launch/ranks.py",
     } <= names
     bad = [
         f"{os.path.relpath(f, ROOT)}: import {m}"
@@ -148,7 +150,7 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.models.moe, repro_torch.configs.registry, repro_torch.train, "
         "repro_torch.data.pipeline, repro_torch.launch.train, repro_torch.models.gnn, "
         "repro_torch.configs.gin_tu, repro_torch.kernels.autotune, "
-        "repro_torch.kernels.autotune_sweep; "
+        "repro_torch.kernels.autotune_sweep, repro_torch.launch.ranks; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad; "
         "from repro_torch.kernels import _build; "
@@ -200,9 +202,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_index_cli.main(cmd)
     for cmd in ([], ["--traffic", "poisson", "--tenants", "2", "--trace-out", str(tmp_path / "t")],
-                ["--n-shards", "2"]):
+                ["--n-shards", "2"], ["--n-shards", "2", "--ranks", "--backend", "gloo"]):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve_cli.main(cmd)
+    for backend in ("gloo", "nccl"):  # the ranks' devices default to the cards
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            world_devices(2, backend)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_world(print, 2, backend=backend)
 
 
 def test_lm_and_training_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
