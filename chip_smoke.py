@@ -96,6 +96,14 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      p99 beside the stack's and its collectives timed alone; then
      ``launch.serve --ranks`` (see ``phase_ranks``). Rows 1-3 of the
      kernels line carry the launches per rank as ``ranks_launches``;
+  6d. the cell layer (``dryrun``, after ``encode``): ``launch/dryrun.py``
+     runs ``DRYRUN_CELLS`` (warp-xtr search_lifestyle, qwen2-0.5b
+     long_500k, din serve_p99, gin-tu molecule) whole at full width, each
+     held to ``roofline.model_flops``, its kernels' launches to the step
+     counter's calls and their ``work(...)``, 0 < MFU <= 1.05 and a peak
+     below the card's memory; the warp cell's ``step_fn`` held to the
+     reference executor (see ``phase_dryrun``). Every kernels row's
+     ``bound_ms`` reads its kernel's ``work(...)`` function;
   7. the index build (``build``): a corpus at Lifestyle's mean document
      length (1,320 docs, ~262,000 tokens, D 128, zipf_like's topic skew)
      built on the card by ``build_index_to_store`` at
@@ -213,11 +221,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import warp_xtr  # noqa: E402  (fails outside a checkout of the repo)
 from repro_torch.configs.warp_family import WARP_SHAPES  # noqa: E402
-
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12  # dense tensor cores
+from repro_torch.launch.roofline import BF16_FLOPS as BF16_OPS_PER_S  # noqa: E402
+from repro_torch.launch.roofline import F32_FLOPS as F32_OPS_PER_S  # noqa: E402
+from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
 
 ARCH = dataclasses.asdict(warp_xtr.CONFIG)
 _LIFESTYLE = WARP_SHAPES["search_lifestyle"]
@@ -493,62 +500,14 @@ def fail(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def cluster_sizes(torch, g, n_clusters: int, n_tokens: int, cap: int, dev):
-    """Heavy-tailed (log-normal) sizes in [1, cap] with max exactly cap
-    and sum exactly n_tokens."""
-    w = torch.exp(torch.randn(n_clusters, generator=g, device=dev, dtype=torch.float64))
-
-    def sizes_at(alpha):
-        return torch.clamp(torch.round(w * alpha), 1, cap).long()
-
-    lo, hi = 0.0, 4.0 * cap / float(w.mean())
-    for _ in range(64):
-        mid = 0.5 * (lo + hi)
-        if int(sizes_at(mid).sum()) < n_tokens:
-            lo = mid
-        else:
-            hi = mid
-    sizes = sizes_at(hi)
-    excess = int(sizes.sum()) - n_tokens  # >= 0, small
-    while excess > 0:
-        room = torch.nonzero((sizes > 1) & (sizes < cap)).squeeze(1)
-        pick = room[torch.randperm(room.numel(), generator=g, device=dev)[:excess]]
-        sizes[pick] -= 1
-        excess = int(sizes.sum()) - n_tokens
-    if int(sizes.max()) != cap or int(sizes.sum()) != n_tokens:
-        fail("synthetic cluster sizes missed their max/sum targets")
-    return sizes
-
-
 def make_index(torch, seed: int, dev):
-    from repro_torch.core import WarpIndex
+    """The Lifestyle-geometry index (``GEOMETRY``) drawn on ``dev`` from
+    ``seed`` by ``warp_family.synth_index``."""
+    from repro_torch.configs.warp_family import WarpShape, synth_index
 
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    d, nbits = ARCH["dim"], ARCH["nbits"]
-    n, c, cap = GEOMETRY["n_tokens"], GEOMETRY["n_centroids"], GEOMETRY["cap"]
-    sizes = cluster_sizes(torch, g, c, n, cap, dev)
-    offsets = torch.zeros(c + 1, dtype=torch.long, device=dev)
-    offsets[1:] = torch.cumsum(sizes, 0)
-    cent = torch.randn(c, d, generator=g, device=dev)
-    cent = cent / cent.norm(dim=1, keepdim=True)
-    codes = torch.randint(0, 256, (n, d * nbits // 8), generator=g, device=dev, dtype=torch.uint8)
-    doc_ids = torch.randint(
-        0, GEOMETRY["n_docs"], (n,), generator=g, device=dev, dtype=torch.int32
-    )
-    nb = 1 << nbits
-    quant = torch.special.ndtri((torch.arange(nb, device=dev, dtype=torch.float64) + 0.5) / nb)
-    cuts = torch.special.ndtri(torch.arange(1, nb, device=dev, dtype=torch.float64) / nb)
-    return WarpIndex(
-        centroids=cent,
-        packed_codes=codes,
-        token_doc_ids=doc_ids,
-        cluster_offsets=offsets.int(),
-        cluster_sizes=sizes.int(),
-        bucket_weights=(0.05 * quant).float(),
-        bucket_cutoffs=(0.05 * cuts).float(),
-        dim=d, nbits=nbits, cap=cap, n_docs=GEOMETRY["n_docs"], n_tokens=n,
-    )
+    shape = WarpShape("serve", GEOMETRY["n_tokens"], GEOMETRY["n_docs"],
+                      GEOMETRY["n_centroids"], GEOMETRY["cap"], 1)
+    return synth_index(warp_xtr.CONFIG, shape, seed, dev)
 
 
 def make_queries(torch, index, n: int, seed: int, *, lo=8, hi=32):
@@ -797,7 +756,8 @@ def phase_kernels(torch, index, plan_ragged, flush):
     dimensions); the dense and ragged kernels also on skewed probe sizes,
     with two planted faults each that the checks must reject; the ragged
     kernel also at tile_c 8, 16 and 64."""
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import _build, decompress_score, ref
+    from repro_torch.kernels import fused_gather_score as fused
     from repro_torch.kernels.decompress_score import selective_sum_cuda
     from repro_torch.kernels.flash_attention import TILE_K, bf16_smem_bytes
     from repro_torch.kernels.fused_gather_score import (
@@ -829,16 +789,17 @@ def phase_kernels(torch, index, plan_ragged, flush):
     qm, p = starts.shape
     d, nbits, cap, pb = index.dim, index.nbits, index.cap, index.packed_codes.shape[1]
     nb = 1 << nbits
-    rows = int(sizes.sum())
-    vbytes = qm * d * nb * 4
+    rows = int(sizes.clamp(max=cap).sum())
     out = []
 
-    def record(name, got, want, k_fn, p_fn, nbytes, ops, invalid=None, lookups=None):
+    def record(name, got, want, k_fn, p_fn, work, invalid=None, lookups=None):
+        """``work``: the kernel's (flops, bytes) from its ``work`` function."""
         err, broken = check_scores(got, want, invalid)
         if broken:
             fail(f"{name}: {broken}")
         ms = time_cuda(torch, k_fn, flush)
         plain_ms = time_cuda(torch, p_fn, flush, iters=5)
+        ops, nbytes = work
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
         row = {
             "name": name,
@@ -908,7 +869,7 @@ def phase_kernels(torch, index, plan_ragged, flush):
         "selective_sum", got, want,
         lambda: selective_sum_cuda(gathered, v, **kw),
         lambda: ref.selective_sum(gathered, v, **kw),
-        gathered.numel() + vbytes + 4 * qm * p * cap, qm * p * cap * d,
+        decompress_score.work(q=qm, n=p * cap, pb=pb, dim=d, nbits=nbits),
         lookups=qm * p * cap * d,
     )
     report_plan("selective_sum", gathered.data_ptr(), qm, p * cap, pb, d, nbits)
@@ -928,7 +889,7 @@ def phase_kernels(torch, index, plan_ragged, flush):
         "fused_gather_score", got, want,
         lambda: fused_gather_score_cuda(*args2, **kw2),
         lambda: ref.fused_gather_score(*args2, **kw2),
-        rows * pb + qm * p * 12 + vbytes + 4 * qm * p * cap, rows * d,
+        fused.work(q=qm, p=p, cap=cap, rows=rows, pb=pb, dim=d, nbits=nbits),
         invalid=invalid, lookups=rows * d,
     )
     report_plan("fused_gather_score", index.packed_codes.data_ptr(), qm, p, cap, pb, d, nbits)
@@ -1024,9 +985,10 @@ def phase_kernels(torch, index, plan_ragged, flush):
              ref.selective_sum(packed, vb, **kwb))
         ms = time_cuda(torch, lambda: selective_sum_cuda(packed, vb, **kwb), flush)
         lookups = qm * p * cap * d
+        _, nbytes = decompress_score.work(q=qm, n=p * cap, pb=pbb, dim=d, nbits=b)
         log(
             f"[kernels] selective_sum, nbits {b}: {ms:.5f} ms; bytes bound "
-            f"{(packed.numel() + vb.numel() * 4 + 4 * qm * p * cap) / HBM_BYTES_PER_S * 1e3:.5f} ms, "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms, "
             f"lookup floor {lookups / (32 * n_sm * clock_hz) * 1e3:.5f} ms at one wavefront; "
             f"{lookup_wavefronts(b, 'row'):.3f} wavefronts per lookup (numpy count over random codes)"
         )
@@ -1054,7 +1016,7 @@ def phase_kernels(torch, index, plan_ragged, flush):
         "ragged_fused_gather_score", got, want,
         lambda: ragged_fused_gather_score_cuda(*args3, **kw3),
         lambda: ref.ragged_fused_gather_score(*args3, **kw3),
-        valid_rows * pb + w * 16 + vbytes + 4 * w * tile, valid_rows * d,
+        fused.ragged_work(w=w, tile_c=tile, q=qm, rows=valid_rows, pb=pb, dim=d, nbits=nbits),
         invalid=slot_invalid, lookups=valid_rows * d,
     )
     report_plan("ragged_fused_gather_score", index.packed_codes.data_ptr(), w, pb, d, nbits)
@@ -1252,6 +1214,7 @@ def segmented_kernel_rows(torch, index, cfg, flush, cids, pscore, v, record, cas
         segment_table,
         segmented_ragged_fused_gather_score_cuda,
     )
+    from repro_torch.kernels.fused_gather_score import segmented_work as kernel_work
 
     dev = index.device
     d, nbits, pb = index.dim, index.nbits, index.packed_codes.shape[1]
@@ -1280,12 +1243,12 @@ def segmented_kernel_rows(torch, index, cfg, flush, cids, pscore, v, record, cas
     got = segmented_ragged_fused_gather_score_cuda(*args, **kw)
     want = ref.segmented_ragged_fused_gather_score(*args, **kw)
     valid_rows = int(nvalid.sum())
-    vbytes = qm * d * (1 << nbits) * 4
     record(
         "segmented_ragged_fused_gather_score", got, want,
         lambda: segmented_ragged_fused_gather_score_cuda(*args, **kw),
         lambda: ref.segmented_ragged_fused_gather_score(*args, **kw),
-        valid_rows * pb + w * 20 + vbytes + 4 * w * tile + 16 * len(codes), valid_rows * d,
+        kernel_work(w=w, tile_c=tile, q=qm, rows=valid_rows, n_segments=len(codes), pb=pb,
+                    dim=d, nbits=nbits),
         invalid=invalid, lookups=valid_rows * d,
     )
     if not torch.equal(got, replay()):
@@ -2932,6 +2895,87 @@ def phase_encode(torch, dev, seed: int, kernel_err: float, sh: dict, profile: bo
         f"queries' doc ids equal across the two up to {swaps} tie swaps; {smi}")
 
 
+# The dry-run phase's time budget (the whole script must end in 1200 s).
+DRYRUN_BUDGET_S = 90.0
+DRYRUN_QUERIES = 16
+
+
+# The dry-run phase's cells: warp-xtr's Lifestyle search, and for the LM,
+# recsys and GNN families the cell of the fewest reckoned bytes (state and
+# inputs) that runs whole on one card (qwen2's train_4k reckons fewer, but
+# its activations at batch 256 do not fit).
+DRYRUN_CELLS = (
+    ("warp-xtr", "search_lifestyle"), ("qwen2-0.5b", "long_500k"), ("din", "serve_p99"),
+    ("gin-tu", "molecule"),
+)
+
+
+def phase_dryrun(torch, index, dev, seed: int, kernel_err: float) -> None:
+    """``launch/dryrun.py::run_cell`` on ``DRYRUN_CELLS`` at full width,
+    each checked: whole (no cut); ``model_flops`` equal to
+    ``roofline.model_flops``; each
+    kernel's launches in the counted step (``_build.LAUNCHES``) equal to
+    its calls the counter saw, and its counted work equal to the sum of
+    its ``work(...)`` over those calls; the warp and recsys cells launch a
+    kernel; 0 < mfu <= 1.05; the peak below the card's memory. Then the
+    warp cell's ``step_fn`` at its ``search_config`` on this index (the
+    cell's own, drawn from the same seed) against ``plan.retrieve`` at the
+    reference executor over ``DRYRUN_QUERIES`` queries: doc ids equal up
+    to reported tie swaps, scores within TOL. At most ``DRYRUN_BUDGET_S``."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import Retriever
+    from repro_torch.launch import dryrun, roofline
+
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    for name, shape in DRYRUN_CELLS:
+        rec = dryrun.run_cell(name, shape, device=dev, seed=seed, verbose=False)
+        what = f"dryrun {name}/{shape}"
+        if not rec["ok"] or rec["model_flops"] != roofline.model_flops(get_arch(name), shape):
+            fail(f"{what}: ok {rec['ok']}, model_flops {rec['model_flops']}")
+        if rec["reduced"]:
+            fail(f"{what}: cut ({'; '.join(rec['reduced'])}), where it runs whole")
+        for kname, k in rec["kernels"].items():
+            works = [dryrun.resolve_work(w)(**sh) for n, w, sh in rec["kernel_calls"] if n == kname]
+            summed = tuple(float(sum(x)) for x in zip(*works)) if works else (0.0, 0.0)
+            if not k["launches"] == k["calls"] == len(works) or summed != (k["flops"], k["bytes"]):
+                fail(f"{what}: {kname} launched {k['launches']} times, counted {k['calls']} "
+                     f"calls of work {(k['flops'], k['bytes'])} against {summed} over its calls")
+        if name in ("warp-xtr", "din") and not any(
+                k["launches"] for k in rec["kernels"].values()):
+            fail(f"{what}: the step launched no hand-written kernel")
+        m = rec["measured"]
+        if not (0 < m["mfu"] <= 1.05 and 0 < m["peak_bytes"] < total):
+            fail(f"{what}: mfu {m['mfu']}, peak {m['peak_bytes']} of {total} bytes")
+        log(f"[dryrun] {name}/{shape}: " + json.dumps({
+            "reduced": rec["reduced"], "p50_ms": m["p50_ms"], "peak_bytes": m["peak_bytes"],
+            "mfu": m["mfu"], "bottleneck": rec["roofline"]["bottleneck"],
+            "bound_ms": rec["roofline"]["step_lower_bound_s"] * 1e3,
+            "kernels": {k: v["launches"] for k, v in rec["kernels"].items()},
+            "model_flops": rec["model_flops"], "reckoned": rec["reckoned"],
+        }))
+    arch = get_arch("warp-xtr")
+    retriever = Retriever.from_index(index, device=dev)
+    cfg = arch.family.search_config(arch, "search_lifestyle")
+    plan = retriever.plan(cfg)
+    ref_plan = retriever.plan(dataclasses.replace(cfg, executor="reference"))
+    if plan.config.executor != "kernel":
+        fail(f"dryrun: the warp cell's plan resolved executor {plan.config.executor!r} on the card")
+    step = arch.family.step_fn(arch, "search_lifestyle")
+    queries, qmask = make_queries(torch, index, DRYRUN_QUERIES, seed + 1)
+    swaps = 0
+    for i in range(DRYRUN_QUERIES):
+        got = step(plan, {"q": queries[i], "qmask": qmask[i]})
+        want = ref_plan.retrieve(queries[i], qmask[i])
+        swaps += topk_swaps(f"dryrun warp step {i}", got.doc_ids.cpu(), got.scores.cpu(),
+                            want.doc_ids.cpu(), want.scores.cpu(), kernel_err)
+    elapsed = time.perf_counter() - t0
+    log(f"[dryrun] warp-xtr step_fn at {plan.config.gather}/{plan.config.layout} vs the reference "
+        f"executor over {DRYRUN_QUERIES} queries: {swaps} tie swaps; phase {elapsed:.1f}s; {card()}")
+    if elapsed > DRYRUN_BUDGET_S:
+        fail(f"dryrun: the phase took {elapsed:.1f}s, over its {DRYRUN_BUDGET_S:.0f}s budget")
+
+
 def phase_profile(torch, retriever, queries, qmask, n: int = 5, tag: str = "profile"):
     """Where a retrieve's time goes, per kernel config: ``torch.profiler``
     over ``n`` retrieves — wall time, device-busy share (summed device
@@ -3407,14 +3451,6 @@ def attention_p_bf16(torch, q, k, v, window=None):
     return out
 
 
-def flash_ops(b, h, s, dh, window=None) -> float:
-    """Multiply-adds x 2 of q.k and p.v over the (query, key) pairs the
-    causal mask (and window) keeps: row i sees min(i + 1, window) keys."""
-    w = s if window is None else min(window, s)
-    pairs = w * (w + 1) // 2 + (s - w) * w
-    return 4.0 * b * h * pairs * dh
-
-
 def phase_flash(torch, dev, flush):
     """The flash kernel against its plain version at every ``FLASH_CASES``
     shape in float32 and bf16 (through ``ops.flash_attention``, which pads
@@ -3427,7 +3463,7 @@ def phase_flash(torch, dev, flush):
     bound, and at the prefill's shape beside the plain version. Returns the
     kernels row (qwen2's shape) with the zoo's shapes under ``zoo``."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, work
 
     g = torch.Generator(device=dev)
     g.manual_seed(7)
@@ -3488,7 +3524,7 @@ def phase_flash(torch, dev, flush):
     for name, b, h, hkv, s, dh, _, window in FLASH_CASES:
         if name not in FLASH_TIMED:
             continue
-        ops_ = flash_ops(b, h, s, dh, window)
+        ops_, nbytes = work(b=b, h=h, hkv=hkv, sq=s, skv=s, dh=dh, itemsize=2, window=window)
         for layout in ("contiguous", "model") if name in ("qwen2", "qwen3") else ("contiguous",):
             if layout == "contiguous":
                 q, k, v = (
@@ -3522,7 +3558,6 @@ def phase_flash(torch, dev, flush):
             if name == "qwen2" and layout == "contiguous":
                 main = (q, k, v, t)
             elif layout == "contiguous":
-                nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
                 zoo[name] = {
                     "shape": [b, h, hkv, s, dh], "window": window, "ms": t["ms"],
                     "plain_ms": time_cuda(torch, lambda: ref.flash_attention(
@@ -3540,8 +3575,7 @@ def phase_flash(torch, dev, flush):
     b, h, s, dh = q.shape
     plain_ms = time_cuda(torch, lambda: ref.flash_attention(q, k, v, causal=True), flush, iters=5)
     ms, library_ms = t["ms"], t["sdpa_ms"]
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())  # q, k, v read; out written
-    ops_ = flash_ops(b, h, s, dh)
+    ops_, nbytes = work(b=b, h=h, hkv=k.shape[1], sq=s, skv=s, dh=dh, itemsize=2)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / BF16_OPS_PER_S
     row = {
         "name": "flash_attention",
@@ -4142,7 +4176,7 @@ def phase_bag(torch, dev, tt_params, din_table, xdeepfm_linear, flush) -> dict:
     from repro_torch.configs import RECSYS_SHAPES
     from repro_torch.configs.two_tower_retrieval import CONFIG as TT
     from repro_torch.kernels import ref
-    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda, work
 
     g = torch.Generator(device=dev)
     g.manual_seed(11)
@@ -4218,9 +4252,8 @@ def phase_bag(torch, dev, tt_params, din_table, xdeepfm_linear, flush) -> dict:
     plain_ms = time_cuda(torch, lambda: ref.embedding_bag_bags(user, uidx, uw), flush, iters=5)
     library_ms = time_cuda(torch, lambda: lib(uidx, user, per_sample_weights=uw, mode="sum"), flush)
     needed = int((uw != 0).sum())  # rows a sum of the nonzero terms reads
-    nbytes = needed * d * 4 + s * l * (uidx.element_size() + 4) + s * d * 4
-    all_rows = s * l * d * 4 + s * l * (uidx.element_size() + 4) + s * d * 4
-    ops_ = 2 * needed * d
+    ops_, nbytes = work(s=s, l=l, d=d, needed=needed, index_bytes=uidx.element_size())
+    all_rows = work(s=s, l=l, d=d, needed=s * l, index_bytes=uidx.element_size())[1]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S
     row = {
         "name": "embedding_bag",
@@ -4771,7 +4804,11 @@ def phase_bag_backward(torch, dev, tables: dict, flush) -> dict:
     from repro_torch.configs import RecsysShape
     from repro_torch.configs.two_tower_retrieval import CONFIG as TT
     from repro_torch.kernels import ref
-    from repro_torch.kernels.embedding_bag import embedding_bag_backward_cuda
+    from repro_torch.kernels.embedding_bag import (
+        embedding_bag_backward_cuda,
+        grad_table_work,
+        grad_weights_work,
+    )
 
     g = torch.Generator(device=dev)
     g.manual_seed(12)
@@ -4839,13 +4876,31 @@ def phase_bag_backward(torch, dev, tables: dict, flush) -> dict:
     del lib_out, leaf
     # The table's gradient is dense: written once whole; g, the ids and the
     # weights read once; one fma per (bag, slot, column).
-    nbytes = v * d * 4 + s * d * 4 + s * l * (uidx.element_size() + 4)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * s * l * d / F32_OPS_PER_S
+    ops_, nbytes = grad_table_work(s=s, l=l, d=d, v=v, index_bytes=uidx.element_size())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S
+    # DIN's history with the weights' gradient (both kernels), beside the
+    # autograd of F.embedding_bag in the table and the weights.
     din_idx, din_w, din_g = bags(din_table, b, 100, torch.int64, bad=0.0)
     din_ms = time_cuda(torch, lambda: embedding_bag_backward_cuda(
         din_table, din_idx, din_w, din_g, weights_grad=True), flush)
-    din_bytes = (din_table.numel() * 4 + din_idx.numel() * (8 + 4 + 4) + din_g.numel() * 4
-                 + din_idx.numel() * din_table.shape[1] * 4)
+    din_plain_ms = time_cuda(torch, lambda: ref.embedding_bag_bags_backward(
+        din_table, din_idx, din_w, din_g, weights_grad=True), flush, iters=5)
+    leaves = (din_table.detach().requires_grad_(True), din_w.detach().requires_grad_(True))
+    lib_out = torch.nn.functional.embedding_bag(din_idx, leaves[0], per_sample_weights=leaves[1],
+                                                mode="sum")
+    din_lib_ms = time_cuda(
+        torch, lambda: torch.autograd.grad(lib_out, leaves, din_g, retain_graph=True), flush)
+    del lib_out, leaves
+    shapes = dict(s=b, l=100, d=din_table.shape[1], index_bytes=8)
+    din_work = [grad_table_work(v=din_table.shape[0], **shapes),
+                grad_weights_work(after_table=True, **shapes)]
+    din_ops, din_bytes = (sum(x) for x in zip(*din_work))
+    din_t = (din_bytes / HBM_BYTES_PER_S, din_ops / F32_OPS_PER_S)
+    din_row = {
+        "shape": [b, 100, din_table.shape[1], din_table.shape[0]], "ms": din_ms,
+        "plain_ms": din_plain_ms, "library_ms": din_lib_ms, "bound_ms": max(din_t) * 1e3,
+        "bound_by": "bytes" if din_t[0] >= din_t[1] else "operations", "launches": 0,
+    }
     row = {
         "name": "embedding_bag_backward",
         "route": "cuda",
@@ -4860,6 +4915,7 @@ def phase_bag_backward(torch, dev, tables: dict, flush) -> dict:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
         "bytes": int(nbytes),
+        "din_dw": din_row,
     }
     log(f"[bag-bwd] timed at the user tower's train input: S={s} L={l} D={d} V={v} int64 ids, "
         f"the table's gradient (dense, {v * d * 4} bytes); F.embedding_bag autograd vs kernel max "
@@ -5078,6 +5134,8 @@ def phase_recsys_train(torch, dev, seed: int, flush, check, tmp: str) -> dict:
         launched = recsys_train_model(torch, arch, b, mb, dev, seed + 10 * (i + 1), opt_cfg, flush,
                                       check, tmp)
         launches += launched["embedding_bag_backward"]
+        if arch == "din":
+            row["din_dw"]["launches"] = launched["embedding_bag_backward"]
     row["launches"] = launches
     log(f"[recsys-train] step took {time.perf_counter() - t0:.1f}s")
     return row
@@ -5266,6 +5324,7 @@ def run(torch, dev, args) -> list:
                 row["ranks_launches"] = ranks[row["name"]]
         phase_encode(torch, dev, args.seed + 9, kernel_err, sh, args.profile)
         del sh
+        phase_dryrun(torch, index, dev, args.seed, kernel_err)
     finally:
         shutil.rmtree(serve_dir, ignore_errors=True)
     del retriever, index, plan_ragged, queries, qmask

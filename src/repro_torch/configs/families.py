@@ -1,20 +1,24 @@
 """Family entry points of the port and their shapes: the port's copy of
 ``repro/configs/families.py`` for the LM, GNN and recsys families.
 
-Each family runs its cells: ``shape_cell``, ``input_specs`` (each input
-as a (shape, dtype) pair), ``step_fn`` (train through
+Each family runs its cells: ``shape_cell``, ``abstract_state`` (the
+step's state as a tree of (shape, dtype) pairs shaped like the port's own:
+``TrainState``'s params and AdamW moments for train cells, the weights
+for serving ones, bf16 for the LM's; made on the ``meta`` device, so
+nothing is allocated even for dbrx-132b), ``input_specs`` (each input as a
+(shape, dtype) pair), ``step_fn`` (train through
 ``train.make_train_step``, the LM with the arch's ``train_microbatches``;
 prefill, decode, serve and retrieval through the model) and ``smoke`` (the
 reduced config for real). The loss of a train step builds its model once
 per params dict, a view onto ``TrainState``'s parameters (``lm_loss_fn``,
-``gnn_loss_fn``, ``recsys_loss_fn``). JAX's ``abstract_state``,
-``state_pspec`` and ``input_pspec`` shape and place arrays on a TPU mesh
-for the dry run and are not ported.
+``gnn_loss_fn``, ``recsys_loss_fn``). JAX's ``state_pspec`` and
+``input_pspec`` place arrays on a TPU mesh and are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -36,12 +40,37 @@ from repro_torch.train.loop import TrainState, make_train_step
 from repro_torch.train.optimizer import AdamWConfig
 
 __all__ = [
+    "spec_tree",
     "LMShape", "LM_SHAPES", "LM_SHAPES_REDUCED", "LMFamily", "lm_loss_fn",
     "GNNShape", "GNN_SHAPES", "GNN_SHAPES_REDUCED", "GNNFamily", "gnn_loss_fn",
     "RecsysShape", "RECSYS_SHAPES", "RECSYS_SHAPES_REDUCED", "RecsysFamily", "recsys_loss_fn",
 ]
 
 _OPT = AdamWConfig()
+
+
+def spec_tree(tree):
+    """A tree of tensors (dicts, ``TrainState``) as the same tree of
+    (shape, dtype) pairs; a ``TrainState`` becomes {"params", "opt"}."""
+    if isinstance(tree, TrainState):
+        tree = {"params": tree.params, "opt": tree.opt}
+    if isinstance(tree, dict):
+        return {k: spec_tree(v) for k, v in tree.items()}
+    return (tuple(tree.shape), tree.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _param_specs(cfg) -> dict:
+    """``init_params(cfg)`` made on the ``meta`` device, as (shape, dtype)
+    pairs: nothing is allocated."""
+    return spec_tree(init_params(cfg, torch.Generator(), device="meta"))
+
+
+def _train_state_specs(cfg) -> dict:
+    """``TrainState.create`` over meta tensors of ``cfg``'s parameters."""
+    meta = {k: torch.empty(dims, dtype=dtype, device="meta")
+            for k, (dims, dtype) in _param_specs(cfg).items()}
+    return spec_tree(TrainState.create(meta))
 
 
 # ======================================================================= LM
@@ -98,6 +127,16 @@ class LMFamily:
     def shape_cell(arch: ArchDef, shape: str) -> ShapeCell:
         s = LM_SHAPES[shape]
         return ShapeCell(shape, s.kind, dataclasses.asdict(s))
+
+    @staticmethod
+    def abstract_state(arch: ArchDef, shape: str, *, reduced: bool = False) -> dict:
+        """train: {"params", "opt": {"m", "v", "step"}} of ``TrainState``;
+        prefill and decode: the weights in bf16. name -> (shape, dtype)."""
+        cfg: TransformerConfig = arch.reduced if reduced else arch.config
+        s = (LM_SHAPES_REDUCED if reduced else LM_SHAPES)[shape]
+        if s.kind == "train":
+            return _train_state_specs(cfg)
+        return {k: (dims, torch.bfloat16) for k, (dims, _) in _param_specs(cfg).items()}
 
     @staticmethod
     def input_specs(arch: ArchDef, shape: str, *, reduced: bool = False) -> dict:
@@ -214,6 +253,12 @@ class GNNFamily:
         return ShapeCell(shape, s.kind, dataclasses.asdict(s))
 
     @staticmethod
+    def abstract_state(arch: ArchDef, shape: str, *, reduced: bool = False) -> dict:
+        """``TrainState``'s {"params", "opt"} as (shape, dtype) pairs."""
+        s = (GNN_SHAPES_REDUCED if reduced else GNN_SHAPES)[shape]
+        return _train_state_specs(GNNFamily._cfg_for(arch, s, reduced))
+
+    @staticmethod
     def input_specs(arch: ArchDef, shape: str, *, reduced: bool = False) -> dict:
         s = (GNN_SHAPES_REDUCED if reduced else GNN_SHAPES)[shape]
         spec = {
@@ -306,6 +351,16 @@ class RecsysFamily:
     def shape_cell(arch: ArchDef, shape: str) -> ShapeCell:
         s = RECSYS_SHAPES[shape]
         return ShapeCell(shape, s.kind, dataclasses.asdict(s))
+
+    @staticmethod
+    def abstract_state(arch: ArchDef, shape: str, *, reduced: bool = False) -> dict:
+        """train: ``TrainState``'s {"params", "opt"}; serve and retrieval:
+        the float32 weights. name -> (shape, dtype)."""
+        cfg = arch.reduced if reduced else arch.config
+        s = (RECSYS_SHAPES_REDUCED if reduced else RECSYS_SHAPES)[shape]
+        if s.kind == "train":
+            return _train_state_specs(cfg)
+        return dict(_param_specs(cfg))
 
     @staticmethod
     def input_specs(arch: ArchDef, shape: str, *, reduced: bool = False) -> dict:

@@ -4,15 +4,8 @@ width, ``REDUCED`` the small one."""
 
 from __future__ import annotations
 
-import dataclasses
-
 from repro_torch.configs.base import ArchDef
-from repro_torch.configs.warp_family import (
-    WARP_SHAPES,
-    WARP_SHAPES_REDUCED,
-    WarpArchConfig,
-    WarpFamily,
-)
+from repro_torch.configs.warp_family import WarpArchConfig, WarpFamily
 from repro_torch.core.types import WarpSearchConfig
 
 CONFIG = WarpArchConfig(nprobe=32, k=100)
@@ -21,22 +14,8 @@ SOURCE = "this paper (SIGIR'25)"
 
 
 def search_config(shape: str, reduced: bool = False) -> WarpSearchConfig:
-    """The search config of ``shape`` with ``t_prime`` and ``k_impute``
-    resolved for its geometry, as the JAX family's ``search_config``
-    resolves them; the executor stays "auto" (the plan picks it from the
-    index's device)."""
-    cfg = REDUCED if reduced else CONFIG
-    s = (WARP_SHAPES_REDUCED if reduced else WARP_SHAPES)[shape]
-    base = WarpSearchConfig(
-        nprobe=min(cfg.nprobe, max(4, s.n_centroids // 2)),
-        k=min(cfg.k, s.n_docs),
-        k_impute=min(cfg.k_impute, max(4, s.n_centroids // 2)),
-    )
-    return dataclasses.replace(
-        base,
-        t_prime=base.resolved_t_prime(s.n_tokens),
-        k_impute=base.resolved_k_impute(max(4, s.n_centroids)),
-    )
+    """``WarpFamily.search_config`` of warp-xtr's ``shape``."""
+    return WarpFamily.search_config(get_def(), shape, reduced=reduced)
 
 
 def get_def() -> ArchDef:

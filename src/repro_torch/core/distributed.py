@@ -20,7 +20,8 @@ only in its gather: the stack lists its shards' tensors in shard order
 (``gather_here``), a rank makes JAX's two ``all_gather``s collectives of
 the group (``RankGroup.gather``): the top-kk (score, size) pairs before
 ``impute_mse`` and the ``[S * k]`` merge. So both give the same results
-bit for bit on one device type. Each shard runs
+bit for bit on one device type. A rank reports the bytes of each
+collective it runs to the step counter (``launch/cost.py``). Each shard runs
 the engine's exported stages, so its scoring dispatch (and the
 ``engine.kernel_call`` fault site inside it) fires once per shard per
 retrieve.
@@ -35,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import pickle
 from typing import Any
 
 import numpy as np
@@ -48,6 +50,7 @@ from repro_torch.core.index import build_index
 from repro_torch.core.reduction import TopKResult
 from repro_torch.core.types import IndexBuildConfig, WarpIndex, WarpSearchConfig, resolve_device
 from repro_torch.core.warpselect import WarpSelectOut, impute_mse, topk_lower_index_first
+from repro_torch.launch import cost
 
 __all__ = [
     "PREPASS_SLACK",
@@ -60,6 +63,7 @@ __all__ = [
     "gather_here",
     "local_index",
     "make_sharded_search_fn",
+    "rank_shard",
     "resolve_sharded_config",
     "select_sharded",
     "shard_demand",
@@ -261,9 +265,17 @@ class RankGroup:
             self._objects.pop(oid, None)
 
     # ---- commands ----
+    def _count(self, op: str, nbytes) -> None:
+        """Report one collective to the step counter (``launch/cost.py``):
+        ``nbytes()`` is its operand's bytes (the gathered output's for an
+        all-gather). A group of one moves nothing."""
+        if self.size > 1 and cost.active() is not None:
+            cost.collective(op, nbytes(), self.size)
+
     def _broadcast(self, obj):
         box = [obj]
         tdist.broadcast_object_list(box, src=0, device=self.comm_device)
+        self._count("broadcast", lambda: len(pickle.dumps(box[0])))
         return box[0]
 
     def lead(self, *cmd) -> None:
@@ -323,6 +335,7 @@ class RankGroup:
     def all_gather_object(self, obj) -> list:
         out = [None] * self.size
         tdist.all_gather_object(out, obj)
+        self._count("all-gather", lambda: sum(len(pickle.dumps(o)) for o in out))
         return out
 
     def gather(self, stage: str, err, parts, heads):
@@ -343,6 +356,7 @@ class RankGroup:
         buf = torch.cat(flat)
         rows = [torch.empty_like(buf) for _ in range(self.size)]
         tdist.all_gather(rows, buf)
+        self._count("all-gather", lambda: self.size * buf.numel())
         got = torch.stack(rows)
         flags = got[:, :16].cpu().contiguous().view(torch.int64).tolist()
         if any(f for f, _ in flags):
@@ -530,6 +544,51 @@ def shard_index(index: WarpIndex, n_shards: int) -> ShardedWarpIndex:
             n_tokens=int(rows.numel()),
         ))
     return stack_shards(shards, bounds[:-1], index.n_docs, index.n_tokens)
+
+
+def rank_shard(index: WarpIndex, group: RankGroup) -> RankedShard:
+    """Rank ``group.rank``'s shard of ``index``, cut as ``shard_index``
+    cuts it into ``group.size`` shards (shared centroids and codec) but
+    made on this rank alone: ``local`` equals ``shard_index(index,
+    group.size).shards[group.rank]``, and no other shard's rows are
+    gathered (every shard's cluster sizes are counted). With one rank the
+    shard keeps the index's own arrays."""
+    n_shards, r = group.size, group.rank
+    tdi, dev, c = index.token_doc_ids, index.device, index.n_centroids
+    bounds = shard_doc_bounds(tdi.cpu().numpy(), index.n_docs, n_shards)
+    owner = torch.bucketize(tdi.long(), torch.from_numpy(bounds[1:-1]).to(dev), right=True)
+    cluster_of = torch.repeat_interleave(torch.arange(c, device=dev), index.cluster_sizes.long())
+    sizes = torch.stack([torch.bincount(cluster_of[owner == s], minlength=c)
+                         for s in range(n_shards)])
+    n_max = int(sizes.sum(1).max())
+    local_docs = int(max(max(1, int(bounds[s + 1] - bounds[s])) for s in range(n_shards)))
+    if n_shards == 1:
+        codes, docs = index.packed_codes, tdi
+    else:
+        rows = torch.nonzero(owner == r).squeeze(1)
+        codes = _pad_rows(index.packed_codes[rows], n_max, 0)
+        docs = _pad_rows((tdi[rows] - int(bounds[r])).to(torch.int32), n_max, local_docs)
+    offsets = torch.zeros(c + 1, dtype=torch.long, device=dev)
+    offsets[1:] = torch.cumsum(sizes[r], 0)
+    local = WarpIndex(
+        centroids=index.centroids,
+        packed_codes=codes,
+        token_doc_ids=docs,
+        cluster_offsets=offsets.to(torch.int32),
+        cluster_sizes=sizes[r].to(torch.int32),
+        bucket_weights=index.bucket_weights,
+        bucket_cutoffs=torch.zeros((1 << index.nbits) - 1, dtype=torch.float32, device=dev),
+        dim=index.dim,
+        nbits=index.nbits,
+        cap=int(sizes.max()),
+        n_docs=local_docs + 1,
+        n_tokens=n_max,
+    )
+    return RankedShard(
+        local=local, group=group, doc_start=int(bounds[r]),
+        shard_cluster_sizes=sizes.cpu().numpy().astype(np.int32), n_docs=index.n_docs,
+        n_tokens_padded=n_max, n_tokens_total=index.n_tokens, local_docs=local_docs,
+    )
 
 
 # ---------------------------------------------------------------------------

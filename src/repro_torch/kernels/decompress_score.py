@@ -3,7 +3,9 @@
 ``selective_sum`` scores pre-gathered packed code rows against the
 per-query-token v-tables: the CUDA kernel ``csrc/selective_sum.cu`` on a
 CUDA tensor, the plain version ``ref.selective_sum`` on a CPU tensor.
-Counterpart of ``repro/kernels/decompress_score.py``.
+Counterpart of ``repro/kernels/decompress_score.py``. ``work`` is the
+least work of one call, which the step counter (``launch/cost.py``) and
+the kernel's bound read.
 """
 
 from __future__ import annotations
@@ -12,7 +14,13 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-__all__ = ["selective_sum", "selective_sum_cuda"]
+__all__ = ["selective_sum", "selective_sum_cuda", "work"]
+
+
+def work(*, q: int, n: int, pb: int, dim: int, nbits: int) -> tuple[float, float]:
+    """(flops, bytes) of one call over u8[q, n, pb] rows: the rows and the
+    v-tables read once, the scores written once; one add per (row, dim)."""
+    return float(q * n * dim), float(q * n * pb + q * dim * (1 << nbits) * 4 + 4 * q * n)
 
 
 def selective_sum(

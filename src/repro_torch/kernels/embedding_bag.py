@@ -18,20 +18,53 @@ take none. On CUDA tensors ``embedding_bag_backward_cuda`` computes both
 with two kernels of ``csrc/embedding_bag.cu``, deterministically (a
 stable sort of the ids, then one warp per table row's run and one per
 bag; no float atomics); on CPU tensors ``ref.embedding_bag_bags_backward``.
+
+``work``, ``grad_table_work`` and ``grad_weights_work`` give the least
+work of the forward kernel and of each backward kernel, (flops, bytes),
+which the step counter (``launch/cost.py``) and the kernels' bounds read.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.launch import cost
 
 __all__ = [
     "embedding_bag", "embedding_bag_cuda", "embedding_bag_backward",
-    "embedding_bag_backward_cuda",
+    "embedding_bag_backward_cuda", "work", "grad_table_work", "grad_weights_work",
 ]
 
 _INDEX_DTYPES = (torch.int32, torch.int64)
+
+
+def work(*, s: int, l: int, d: int, needed: int, index_bytes: int) -> tuple[float, float]:
+    """The forward over [s, l] bags of width d: the ``needed`` rows of
+    nonzero weight read (a sum of the nonzero terms reads no other), the
+    ids and weights read, the [s, d] sums written; one fma per (needed
+    row, column)."""
+    return (float(2 * needed * d),
+            float(needed * d * 4 + s * l * (index_bytes + 4) + s * d * 4))
+
+
+def grad_table_work(*, s: int, l: int, d: int, v: int, index_bytes: int):
+    """The table's gradient: dense, written once whole ([v, d]); the
+    output gradient, the ids and the weights read once; one fma per (bag,
+    slot, column)."""
+    return float(2 * s * l * d), float(v * d * 4 + s * d * 4 + s * l * (index_bytes + 4))
+
+
+def grad_weights_work(*, s: int, l: int, d: int, index_bytes: int, after_table: bool):
+    """The weights' gradient: every slot's table row read and dw written;
+    the ids and the output gradient too, unless the table's gradient in
+    the same call (``after_table``) already read them."""
+    nbytes = s * l * d * 4 + s * l * 4
+    if not after_table:
+        nbytes += s * l * index_bytes + s * d * 4
+    return float(2 * s * l * d), float(nbytes)
 
 
 def embedding_bag(
@@ -66,14 +99,27 @@ def embedding_bag_backward(
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """The bag's gradients given grad = dout f32[S, D] -> (dtable f32[V, D]
     or None, dw f32[S, L] or None): the kernels on a CUDA tensor, the plain
-    version on a CPU one."""
-    if grad.device.type == "cpu":
-        return ref.embedding_bag_bags_backward(
+    version on a CPU one. Each kernel it launches (or would launch) reports
+    its work to the step counter (``launch/cost.py``)."""
+    with contextlib.ExitStack() as counted:
+        s, l = bag_indices.shape
+        d = table.shape[1]
+        if s * l * d:
+            shapes = dict(s=s, l=l, d=d, index_bytes=bag_indices.element_size())
+            if table_grad:
+                counted.enter_context(cost.kernel(
+                    "embedding_bag_backward", grad_table_work, v=table.shape[0], **shapes))
+            if weights_grad:
+                counted.enter_context(cost.kernel(
+                    "embedding_bag_backward", grad_weights_work, after_table=table_grad, **shapes))
+        if grad.device.type == "cpu":
+            return ref.embedding_bag_bags_backward(
+                table, bag_indices, bag_weights, grad, table_grad=table_grad,
+                weights_grad=weights_grad,
+            )
+        return embedding_bag_backward_cuda(
             table, bag_indices, bag_weights, grad, table_grad=table_grad, weights_grad=weights_grad
         )
-    return embedding_bag_backward_cuda(
-        table, bag_indices, bag_weights, grad, table_grad=table_grad, weights_grad=weights_grad
-    )
 
 
 def _check(table: torch.Tensor, bag_indices: torch.Tensor) -> torch.device:

@@ -14,16 +14,18 @@ by TMA, which reads from 16-byte aligned rows at strides of whole 16-byte
 units: a bf16 input whose rows do not start on 16 bytes is copied first.
 Its schedule (which kv tiles each 128-row q-block visits, which of them
 need the mask, and the block order) has a plain twin in
-``ref.flash_schedule``.
+``ref.flash_schedule``. ``work`` is the least work of one call, which
+the step counter (``launch/cost.py``) and the kernel's bound read.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build, ref
 
-__all__ = ["flash_attention", "flash_attention_cuda"]
+__all__ = ["flash_attention", "flash_attention_cuda", "pairs", "work"]
 
 HEAD_DIMS = (64, 128)  # the head sizes the kernel is compiled for
 # The bf16 kernel's tiles, as csrc/flash_attention.cu sets them: query rows
@@ -32,6 +34,23 @@ BLOCK_Q = 128
 TILE_K = {64: 128, 128: 64}
 STAGES = {64: 2, 128: 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def pairs(sq: int, skv: int, *, causal: bool = True, window: int | None = None) -> int:
+    """(query, key) pairs the mask keeps, positions absolute indices into
+    the arrays: row i sees keys j <= i (causal) with i - j < window."""
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, skv - 1) if causal else np.full(sq, skv - 1, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window is not None else 0
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def work(*, b: int, h: int, hkv: int, sq: int, skv: int, dh: int, itemsize: int,
+         causal: bool = True, window: int | None = None) -> tuple[float, float]:
+    """(flops, bytes) of one call: the multiply-adds x 2 of q.k and p.v
+    over the kept pairs; q, k, v read once and the output written once."""
+    flops = 4.0 * b * h * pairs(sq, skv, causal=causal, window=window) * dh
+    return flops, float(itemsize * (2 * b * h * sq * dh + 2 * b * hkv * skv * dh))
 
 
 def flash_attention(

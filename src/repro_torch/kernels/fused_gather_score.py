@@ -24,6 +24,12 @@ write the zero tails. ``probe=None`` is the product path, counted under
 the kernel's name in ``_build.LAUNCHES``; a named probe is a measurement
 launch, counted under ``"<name>:<probe>"``, so the launches of the
 product path count it alone.
+
+``work``, ``ragged_work`` and ``segmented_work`` give the least work of
+one call of each kernel, (flops, bytes), which the step counter
+(``launch/cost.py``) and each kernel's bound read: the valid code rows,
+each tile's or probe's arrays and the v-tables read once, every output
+slot written once; one add per (valid row, dim).
 """
 
 from __future__ import annotations
@@ -46,6 +52,9 @@ __all__ = [
     "validate_tile_c",
     "dense_dims_per_chunk",
     "ragged_dims_per_chunk",
+    "work",
+    "ragged_work",
+    "segmented_work",
 ]
 
 DEFAULT_TILE_C = 128
@@ -71,6 +80,36 @@ def validate_tile_c(tile_c: int, *, where: str = "tile_c") -> int:
     if tile_c < 8 or tile_c % 8:
         raise ValueError(f"{where}={tile_c} must be a positive multiple of 8")
     return tile_c
+
+
+def _vtable_bytes(q: int, dim: int, nbits: int) -> int:
+    return q * dim * (1 << nbits) * 4
+
+
+def work(*, q: int, p: int, cap: int, rows: int, pb: int, dim: int, nbits: int):
+    """The dense kernel over q tokens x p probes: ``rows`` valid code rows
+    (sum of min(size, cap)), each probe's start, size and score (12
+    bytes), the [q, p, cap] scores written."""
+    return (float(rows * dim),
+            float(rows * pb + q * p * 12 + _vtable_bytes(q, dim, nbits) + 4 * q * p * cap))
+
+
+def ragged_work(*, w: int, tile_c: int, q: int, rows: int, pb: int, dim: int, nbits: int):
+    """The ragged kernel over a worklist of ``w`` tiles: ``rows`` valid
+    rows (sum of nvalid), each tile's row0, nvalid, qtok and score (16
+    bytes), the [w * tile_c] scores written."""
+    return (float(rows * dim),
+            float(rows * pb + w * 16 + _vtable_bytes(q, dim, nbits) + 4 * w * tile_c))
+
+
+def segmented_work(*, w: int, tile_c: int, q: int, rows: int, n_segments: int, pb: int,
+                   dim: int, nbits: int):
+    """The segmented entry: as ``ragged_work`` plus each tile's segment
+    index (20 bytes a tile) and each segment's code base and row count
+    (16 bytes a segment)."""
+    return (float(rows * dim),
+            float(rows * pb + w * 20 + _vtable_bytes(q, dim, nbits) + 4 * w * tile_c
+                  + 16 * n_segments))
 
 
 def dense_dims_per_chunk(dim: int, nbits: int, n_probes: int) -> int:

@@ -21,17 +21,27 @@ call: the JAX package consults it at trace time, once per compilation,
 and only on its kernel path; the port compiles nothing, and firing on the
 CPU's plain path lets the CPU tests drive the failure. A firing point
 raises to the caller: there is no fallback.
+
+Each wrapper's kernel route reports the kernel's ``work(...)`` to the
+step counter of ``launch/cost.py``, once per call that launches (on the
+card) or would launch (the plain version on a CPU tensor), under the
+kernel's ``_build.LAUNCHES`` name; the ATen ops inside that call are not
+counted, so both devices count the same work for the same call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.fault import FAULTS as _FAULTS
-from repro_torch.kernels import autotune, ref
+from repro_torch.kernels import _build, autotune, decompress_score, ref
+from repro_torch.kernels import embedding_bag as _bag
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import fused_gather_score as _fused
 from repro_torch.kernels.decompress_score import selective_sum as _selective_sum_kernel
 from repro_torch.kernels.embedding_bag import embedding_bag as _embedding_bag_kernel
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
@@ -47,6 +57,7 @@ from repro_torch.kernels.fused_gather_score import (
     segmented_ragged_fused_gather_score,
     validate_tile_c,
 )
+from repro_torch.launch import cost
 
 __all__ = [
     "selective_sum",
@@ -187,7 +198,10 @@ def selective_sum(
     _fault_kernel_call("selective_sum")
     _check_packable_dim(dim, nbits, byte_wise=use_kernel or impl == "lut")
     if use_kernel:
-        return _selective_sum_kernel(packed, v, nbits=nbits, dim=dim)
+        q, n, pb = packed.shape
+        with _counted(q * n, "selective_sum", decompress_score.work,
+                      q=q, n=n, pb=pb, dim=dim, nbits=nbits):
+            return _selective_sum_kernel(packed, v, nbits=nbits, dim=dim)
     if impl == "lut":
         return ref.selective_sum_lut(packed, v, nbits=nbits, dim=dim)
     return ref.selective_sum(packed, v, nbits=nbits, dim=dim)
@@ -225,14 +239,18 @@ def fused_gather_selective_sum(
         return ref.fused_gather_score(
             packed_codes, starts, sizes, pscores, v, nbits=nbits, dim=dim, cap=cap
         )
-    if measure:
-        return fused_gather_score_cuda(
-            packed_codes, starts, sizes, pscores, v.contiguous(),
-            nbits=nbits, dim=dim, cap=cap, probe=probe,
+    qm, p = starts.shape
+    with _counted(qm * p * cap, _build.launch_key("fused_gather_score", probe if measure else None),
+                  _fused.work, q=qm, p=p, cap=cap, rows=lambda: sizes.clamp(0, cap).sum(),
+                  pb=packed_codes.shape[1], dim=dim, nbits=nbits):
+        if measure:
+            return fused_gather_score_cuda(
+                packed_codes, starts, sizes, pscores, v.contiguous(),
+                nbits=nbits, dim=dim, cap=cap, probe=probe,
+            )
+        return fused_gather_score(
+            packed_codes, starts, sizes, pscores, v.contiguous(), nbits=nbits, dim=dim, cap=cap
         )
-    return fused_gather_score(
-        packed_codes, starts, sizes, pscores, v.contiguous(), nbits=nbits, dim=dim, cap=cap
-    )
 
 
 def ragged_selective_sum(
@@ -288,11 +306,16 @@ def ragged_fused_gather_selective_sum(
     )
     if not use_kernel:
         return ref.ragged_fused_gather_score(*args, nbits=nbits, dim=dim, tile_c=tile_c)
-    if measure:
-        return ragged_fused_gather_score_cuda(
-            *args, nbits=nbits, dim=dim, tile_c=tile_c, probe=probe
-        )
-    return ragged_fused_gather_score(*args, nbits=nbits, dim=dim, tile_c=tile_c)
+    w = args[2].shape[0]
+    with _counted(w * tile_c,
+                  _build.launch_key("ragged_fused_gather_score", probe if measure else None),
+                  _fused.ragged_work, w=w, tile_c=tile_c, q=v.shape[0],
+                  rows=lambda: args[2].sum(), pb=packed_codes.shape[1], dim=dim, nbits=nbits):
+        if measure:
+            return ragged_fused_gather_score_cuda(
+                *args, nbits=nbits, dim=dim, tile_c=tile_c, probe=probe
+            )
+        return ragged_fused_gather_score(*args, nbits=nbits, dim=dim, tile_c=tile_c)
 
 
 def segmented_ragged_fused_gather_selective_sum(
@@ -330,7 +353,17 @@ def segmented_ragged_fused_gather_selective_sum(
     )
     if not use_kernel:
         return ref.segmented_ragged_fused_gather_score(*args, nbits=nbits, dim=dim, tile_c=tile_c)
-    return segmented_ragged_fused_gather_score(*args, nbits=nbits, dim=dim, tile_c=tile_c)
+    w = args[2].shape[0]
+    with _counted(w * tile_c, "segmented_ragged_fused_gather_score", _fused.segmented_work,
+                  w=w, tile_c=tile_c, q=v.shape[0], rows=lambda: args[2].sum(),
+                  n_segments=len(args[0]), pb=args[0][0].shape[1], dim=dim, nbits=nbits):
+        return segmented_ragged_fused_gather_score(*args, nbits=nbits, dim=dim, tile_c=tile_c)
+
+
+def _counted(size: int, name: str, work, **shapes):
+    """``cost.kernel`` around a call that launches (``size`` > 0: the
+    wrappers launch nothing for an empty output)."""
+    return cost.kernel(name, work, **shapes) if size else contextlib.nullcontext()
 
 
 def _round_up(x: int, m: int) -> int:
@@ -368,7 +401,11 @@ def flash_attention(
         v = F.pad(v, (0, 0, 0, 0, 0, skv_p - skv))
     args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     if use_kernel:
-        out = _flash_kernel(*args, causal=causal, window=window)
+        b, _, h, dh = q.shape
+        with _counted(q.numel(), "flash_attention", _flash.work, b=b, h=h, hkv=k.shape[2],
+                      sq=sq, skv=skv, dh=dh, itemsize=q.element_size(), causal=causal,
+                      window=window):
+            out = _flash_kernel(*args, causal=causal, window=window)
     else:
         out = ref.flash_attention(*args, causal=causal, window=window, tk=tk)
     return out.transpose(1, 2)[:, :sq]
@@ -401,11 +438,14 @@ def embedding_bag(
     if bag_indices is not None:
         if bag_weights is None:
             raise ValueError("the padded form needs bag_weights beside bag_indices")
-        if use_kernel:
-            return _embedding_bag_kernel(
-                table, bag_indices.contiguous(), bag_weights.to(torch.float32).contiguous()
-            )
         s, l = bag_indices.shape
+        if use_kernel:
+            with _counted(s * l * table.shape[1], "embedding_bag", _bag.work, s=s, l=l,
+                          d=table.shape[1], needed=lambda: (bag_weights != 0).sum(),
+                          index_bytes=bag_indices.element_size()):
+                return _embedding_bag_kernel(
+                    table, bag_indices.contiguous(), bag_weights.to(torch.float32).contiguous()
+                )
         rows = ref.take(table, bag_indices.reshape(-1)).reshape(s, l, -1)
         return torch.sum(rows * bag_weights.unsqueeze(-1), dim=1)
     if indices is None or segment_ids is None or num_segments is None:

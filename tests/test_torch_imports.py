@@ -314,3 +314,33 @@ def test_recsys_kernel_executor_refuses_cpu_weights(name):
     params = init_params(cfg, device="cpu")
     with pytest.raises(ValueError, match="executor='kernel'"):
         RECSYS_MODELS[type(cfg)].from_params(cfg, params, executor="kernel")
+
+
+def test_the_cell_layer_imports_neither_jax_nor_repro_and_defaults_to_cuda(monkeypatch):
+    """The cell layer (``launch/{roofline,cost,dryrun,hillclimb}.py``) is in
+    the port's files, loads no JAX, and its entry points run on the card
+    unless asked for the CPU."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.configs.warp_family import WarpFamily
+    from repro_torch.launch import dryrun, hillclimb
+
+    names = {os.path.relpath(f, ROOT) for f in _port_files()}
+    assert {f"src/repro_torch/launch/{m}.py" for m in ("roofline", "cost", "dryrun", "hillclimb")} <= names
+    code = (
+        "import sys; import repro_torch.launch.roofline, repro_torch.launch.cost, "
+        "repro_torch.launch.dryrun, repro_torch.launch.hillclimb, "
+        "repro_torch.configs.warp_family, repro_torch.configs.families; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
+        "assert not bad, bad"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.run_cell("gin-tu", "molecule", reduced=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.main(["--arch", "gin-tu", "--shape", "molecule", "--reduced"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hillclimb.run_variant("gin-tu", "molecule", "v", {}, reduced=True, out_dir=None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        WarpFamily.smoke(get_arch("warp-xtr"), "search_lifestyle")
