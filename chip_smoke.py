@@ -174,9 +174,13 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      step printed. Then recsys training (``recsys_train``): the embedding
      bag's backward kernels (the table's dense gradient, the weights')
      against their plain version per element at the training shapes (int32
-     and int64 ids, duplicates, zero weights, ids outside [0, V)), two calls
-     bit-identical, two planted faults rejected, timed beside
-     ``F.embedding_bag``'s autograd; two-tower (B 32,768), xDeepFM (65,536
+     and int64 ids, duplicates, zero weights, ids outside [0, V), one row
+     named 100,000 times), two calls bit-identical, the table entry's sort
+     and row offsets equal to ``ref.bag_sort`` / ``ref.bag_csr``, two
+     planted faults rejected, timed beside ``F.embedding_bag``'s autograd
+     (the user tower; DIN's history per gradient and both; xDeepFM's linear
+     term), and the forward kernel at DIN's history (its kernels row's
+     ``din_history``); two-tower (B 32,768), xDeepFM (65,536
      in 4 microbatches), DIN and SASRec (65,536) at full width: the step-1
      loss equals the no-grad loss, every gradient finite and non-zero, the
      tables' only on rows the batch names, kernel vs reference executor
@@ -4791,23 +4795,57 @@ def bag_backward_check(torch, what, table, idx, w, g, weights_grad: bool) -> dic
     return out
 
 
+def bag_prep_check(torch, what, table, idx, w, g) -> dict:
+    """The table entry's index preparation, returned through the wrapper's
+    scratch, against its plain twins exactly: the sorted keys and positions
+    (``ref.bag_sort``), the row offsets and each row's positions
+    (``ref.bag_csr``)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_bag import embedding_bag_backward_cuda
+
+    scratch = {}
+    embedding_bag_backward_cuda(table, idx, w, g, scratch=scratch)
+    key, pos = ref.bag_sort(idx, table.shape[0])
+    offsets, positions = ref.bag_csr(idx, table.shape[0])
+    got = {k: scratch[k].long() for k in ("keys", "positions", "offsets")}
+    torch.cuda.synchronize()
+    same = (torch.equal(got["keys"], key) and torch.equal(got["positions"], pos)
+            and torch.equal(got["offsets"], offsets)
+            and torch.equal(got["positions"][: positions.numel()], positions))
+    if not same:
+        fail(f"embedding_bag backward {what}: the entry's sort or row offsets differ from "
+             "ref.bag_sort / ref.bag_csr")
+    return {"ids": idx.numel(), "in_range": positions.numel(),
+            "rows_named": int((offsets[1:] > offsets[:-1]).sum()),
+            "largest_row": int((offsets[1:] - offsets[:-1]).max()),
+            "index_bits": str(scratch["keys"].dtype).replace("torch.", "")}
+
+
 def phase_bag_backward(torch, dev, tables: dict, flush) -> dict:
     """The bag backward's kernels against their plain version at the
     training path's shapes (the two-tower user tower at its train batch,
     DIN's history with the weights' gradient, xDeepFM's linear term at D
-    1), with int32 and int64 ids, duplicate ids within a bag, zero weights
-    and ids outside [0, V); two planted faults (each row's last
-    contribution dropped; dw written one slot off) the limits must reject;
-    the table's gradient timed at the user tower's shape beside its plain
-    version and ``F.embedding_bag``'s autograd. Returns the kernels row
+    1), with int32 and int64 ids, duplicate ids within a bag, zero weights,
+    ids outside [0, V) and one row named 100,000 times; the table entry's
+    sort and row offsets against ``ref.bag_sort`` / ``ref.bag_csr``
+    exactly; two planted faults (each row's last contribution dropped; dw
+    written one slot off) the limits must reject; the table's gradient
+    timed at the user tower's shape beside its plain version and
+    ``F.embedding_bag``'s autograd, at DIN's history per gradient and both
+    (row 5b-DIN) and at xDeepFM's linear term (row 5b-xDeepFM), and the
+    forward kernel at DIN's history (row 5-DIN, ``din_forward``: the
+    caller moves it to the forward kernel's row). Returns the kernels row
     (launches filled in by the caller)."""
     from repro_torch.configs import RecsysShape
     from repro_torch.configs.two_tower_retrieval import CONFIG as TT
+    from repro_torch.configs.xdeepfm import CONFIG as XD
     from repro_torch.kernels import ref
     from repro_torch.kernels.embedding_bag import (
         embedding_bag_backward_cuda,
+        embedding_bag_cuda,
         grad_table_work,
         grad_weights_work,
+        work,
     )
 
     g = torch.Generator(device=dev)
@@ -4839,9 +4877,19 @@ def phase_bag_backward(torch, dev, tables: dict, flush) -> dict:
         "din history int32, dw": (din_table, *bags(din_table, b, 100, torch.int32), True),
         "xdeepfm linear D 1, dw": (linear, *bags(linear, b // 4, 39, torch.int32), True),
     }
+    # One row named 100,000 times (at every other flat position below
+    # 200,000) among DIN's history: the warp takes it at D 18.
+    hot = bags(din_table, b, 100, torch.int64)
+    hot[0].view(-1)[0:200_000:2] = 7
+    cases["din history, row 7 named 100,000 times, dw"] = (din_table, *hot, True)
     for what, (table, idx, w, gg, wg) in cases.items():
         checks[what] = bag_backward_check(torch, what, table, idx, w, gg, wg)
     log(f"[bag-bwd] kernels vs plain version per element: {json.dumps(checks)}")
+    prep = {"user tower train (path's ids)": bag_prep_check(torch, "user", user, uidx, uw, ug)}
+    for what, (table, idx, w, gg, _) in cases.items():
+        prep[what] = bag_prep_check(torch, what, table, idx, w, gg)
+    log(f"[bag-bwd] the table entry's sort and row offsets equal ref.bag_sort / ref.bag_csr "
+        f"exactly: {json.dumps(prep)}")
 
     # Planted faults, as perturbations of the plain version's output.
     _, idx, w, gg, _ = cases["din history int64, dw"]
@@ -4883,6 +4931,10 @@ def phase_bag_backward(torch, dev, tables: dict, flush) -> dict:
     din_idx, din_w, din_g = bags(din_table, b, 100, torch.int64, bad=0.0)
     din_ms = time_cuda(torch, lambda: embedding_bag_backward_cuda(
         din_table, din_idx, din_w, din_g, weights_grad=True), flush)
+    din_table_ms = time_cuda(torch, lambda: embedding_bag_backward_cuda(
+        din_table, din_idx, din_w, din_g), flush)
+    din_dw_ms = time_cuda(torch, lambda: embedding_bag_backward_cuda(
+        din_table, din_idx, din_w, din_g, table_grad=False, weights_grad=True), flush)
     din_plain_ms = time_cuda(torch, lambda: ref.embedding_bag_bags_backward(
         din_table, din_idx, din_w, din_g, weights_grad=True), flush, iters=5)
     leaves = (din_table.detach().requires_grad_(True), din_w.detach().requires_grad_(True))
@@ -4898,8 +4950,52 @@ def phase_bag_backward(torch, dev, tables: dict, flush) -> dict:
     din_t = (din_bytes / HBM_BYTES_PER_S, din_ops / F32_OPS_PER_S)
     din_row = {
         "shape": [b, 100, din_table.shape[1], din_table.shape[0]], "ms": din_ms,
+        "table_ms": din_table_ms, "weights_ms": din_dw_ms,
         "plain_ms": din_plain_ms, "library_ms": din_lib_ms, "bound_ms": max(din_t) * 1e3,
         "bound_by": "bytes" if din_t[0] >= din_t[1] else "operations", "launches": 0,
+    }
+    # Row 5-DIN: the forward kernel on the same history (measured only).
+    fwd_lib = torch.nn.functional.embedding_bag
+    fwd_ms = time_cuda(torch, lambda: embedding_bag_cuda(din_table, din_idx, din_w), flush)
+    fwd_plain_ms = time_cuda(torch, lambda: ref.embedding_bag_bags(din_table, din_idx, din_w),
+                             flush, iters=5)
+    fwd_lib_ms = time_cuda(torch, lambda: fwd_lib(din_idx, din_table, per_sample_weights=din_w,
+                                                  mode="sum"), flush)
+    fwd_err = bag_check(torch, "din history train", din_table, din_idx, din_w)["max_abs_err"]
+    fwd_ops, fwd_bytes = work(s=b, l=100, d=din_table.shape[1], needed=int((din_w != 0).sum()),
+                              index_bytes=8)
+    fwd_t = (fwd_bytes / HBM_BYTES_PER_S, fwd_ops / F32_OPS_PER_S)
+    din_forward = {
+        "shape": [b, 100, din_table.shape[1], din_table.shape[0]], "ms": fwd_ms,
+        "plain_ms": fwd_plain_ms, "library_ms": fwd_lib_ms, "bound_ms": max(fwd_t) * 1e3,
+        "bound_by": "bytes" if fwd_t[0] >= fwd_t[1] else "operations", "max_abs_err": fwd_err,
+        "launches": 0,
+    }
+    del din_idx, din_w, din_g
+    # Row 5b-xDeepFM: the table's gradient at xDeepFM's linear term, one
+    # training microbatch of the path's own input (field ids, weights 1).
+    xb = RECSYS_TRAIN[1][1] // RECSYS_TRAIN[1][2]
+    xin = recsys_batch(torch, XD, RecsysShape("train", xb), g, dev)
+    xidx = xin["field_ids"]
+    xw = torch.ones(xidx.shape, device=dev)
+    xg = torch.randn(xb, linear.shape[1], generator=g, device=dev)
+    xd_check = bag_backward_check(torch, "xdeepfm linear (path's ids)", linear, xidx, xw, xg, False)
+    xd_ms = time_cuda(torch, lambda: embedding_bag_backward_cuda(linear, xidx, xw, xg), flush)
+    xd_plain_ms = time_cuda(torch, lambda: ref.embedding_bag_bags_backward(linear, xidx, xw, xg),
+                            flush, iters=5)
+    leaf = linear.detach().requires_grad_(True)
+    lib_out = torch.nn.functional.embedding_bag(xidx, leaf, per_sample_weights=xw, mode="sum")
+    xd_lib_ms = time_cuda(
+        torch, lambda: torch.autograd.grad(lib_out, leaf, xg, retain_graph=True), flush)
+    del lib_out, leaf
+    xd_ops, xd_bytes = grad_table_work(s=xb, l=xidx.shape[1], d=linear.shape[1],
+                                       v=linear.shape[0], index_bytes=xidx.element_size())
+    xd_t = (xd_bytes / HBM_BYTES_PER_S, xd_ops / F32_OPS_PER_S)
+    xd_row = {
+        "shape": [xb, xidx.shape[1], linear.shape[1], linear.shape[0]], "ms": xd_ms,
+        "plain_ms": xd_plain_ms, "library_ms": xd_lib_ms, "bound_ms": max(xd_t) * 1e3,
+        "bound_by": "bytes" if xd_t[0] >= xd_t[1] else "operations",
+        "max_abs_err": xd_check["dtable_max_abs_err"], "launches": 0,
     }
     row = {
         "name": "embedding_bag_backward",
@@ -4916,12 +5012,17 @@ def phase_bag_backward(torch, dev, tables: dict, flush) -> dict:
         "library_ms": library_ms,
         "bytes": int(nbytes),
         "din_dw": din_row,
+        "xdeepfm_linear": xd_row,
+        "din_forward": din_forward,
     }
     log(f"[bag-bwd] timed at the user tower's train input: S={s} L={l} D={d} V={v} int64 ids, "
         f"the table's gradient (dense, {v * d * 4} bytes); F.embedding_bag autograd vs kernel max "
         f"abs err {lib_err}; DIN history (S={b} L=100 D=18, both gradients) {din_ms:.5f} ms "
-        f"against a {din_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms bytes bound; {card()}; "
-        f"{json.dumps(row)}")
+        f"(dtable alone {din_table_ms:.5f}, dw alone {din_dw_ms:.5f}) against a "
+        f"{din_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms bytes bound; the forward kernel there "
+        f"(row 5-DIN) {fwd_ms:.5f} ms against {fwd_t[0] * 1e3:.5f}; xDeepFM's linear term "
+        f"(row 5b-xDeepFM, S={xb} L={xidx.shape[1]} D=1 V={linear.shape[0]}) {xd_ms:.5f} ms "
+        f"against {max(xd_t) * 1e3:.5f}; {card()}; {json.dumps(row)}")
     return row
 
 
@@ -5136,6 +5237,9 @@ def phase_recsys_train(torch, dev, seed: int, flush, check, tmp: str) -> dict:
         launches += launched["embedding_bag_backward"]
         if arch == "din":
             row["din_dw"]["launches"] = launched["embedding_bag_backward"]
+            row["din_forward"]["launches"] = launched["embedding_bag"]
+        if arch == "xdeepfm":
+            row["xdeepfm_linear"]["launches"] = launched["embedding_bag_backward"]
     row["launches"] = launches
     log(f"[recsys-train] step took {time.perf_counter() - t0:.1f}s")
     return row
@@ -5343,6 +5447,7 @@ def run(torch, dev, args) -> list:
     bag = phase_recsys(torch, dev, args.seed + 4, flush, args.profile)
     torch.cuda.empty_cache()
     bag_backward = phase_train(torch, dev, args.seed + 11, flush)
+    bag["din_history"] = bag_backward.pop("din_forward")  # row 5-DIN, the forward kernel's
     return kernels + [flash, bag, bag_backward]
 
 

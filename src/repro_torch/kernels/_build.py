@@ -70,7 +70,7 @@ ENTRIES = {
         "warp_ragged_fused_gather_score_probe": [*[_P] * 7, *[_I] * 8, _P],
     },
     "embedding_bag": {  # the bag's backward (kernels/embedding_bag.py)
-        "warp_embedding_bag_grad_table": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _P],
+        "warp_embedding_bag_grad_table": [*[_P] * 7, _L, _P, _L, _I, _I, _L, _I, _I, _P],
         "warp_embedding_bag_grad_weights": [_P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _P],
     },
 }

@@ -14,10 +14,14 @@ dense float32 gradient, dtable[v] = sum over (s, l) with idx[s, l] = v of
 w[s, l] * dout[s], as JAX's gradient of ``jnp.take`` + sum is dense; the
 weights, where they require grad (DIN's attention weights), take dw[s, l]
 = <table[idx[s, l]], dout[s]>, 0 for an index outside [0, V); the ids
-take none. On CUDA tensors ``embedding_bag_backward_cuda`` computes both
-with two kernels of ``csrc/embedding_bag.cu``, deterministically (a
-stable sort of the ids, then one warp per table row's run and one per
-bag; no float atomics); on CPU tensors ``ref.embedding_bag_bags_backward``.
+take none. On CUDA tensors ``embedding_bag_backward_cuda`` computes each
+with one C entry of ``csrc/embedding_bag.cu``, deterministically and with
+no float atomics: for dtable a stable radix sort of the ids on the card,
+each row's range of positions (``ref.bag_csr`` is its plain twin) and a
+pass that writes every row, each summed in increasing flat position; for
+dw a pass over the (bag, slot) pairs. Neither output is zero-filled first:
+the kernels write every element. On CPU tensors
+``ref.embedding_bag_bags_backward``.
 
 ``work``, ``grad_table_work`` and ``grad_weights_work`` give the least
 work of the forward kernel and of each backward kernel, (flops, bytes),
@@ -39,6 +43,9 @@ __all__ = [
 ]
 
 _INDEX_DTYPES = (torch.int32, torch.int64)
+# The backward's sort keys and positions are 32-bit below this many ids and
+# rows, 64-bit from it on.
+SORT_32BIT_BELOW = 2**31
 
 
 def work(*, s: int, l: int, d: int, needed: int, index_bytes: int) -> tuple[float, float]:
@@ -169,37 +176,60 @@ def embedding_bag_cuda(
 def embedding_bag_backward_cuda(
     table: torch.Tensor, bag_indices: torch.Tensor, bag_weights: torch.Tensor,
     grad: torch.Tensor, *, table_grad: bool = True, weights_grad: bool = False,
+    scratch: dict | None = None,
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
-    """The two backward kernels: dtable (the ids stably sorted by
-    ``ref.bag_sort``, then one warp per table row's run) and dw (one warp
-    per bag). Each launch adds one to ``LAUNCHES["embedding_bag_backward"]``."""
+    """The backward's CUDA kernels, one C entry per gradient on the
+    current stream. dtable: a stable radix sort of the ids' bit_length(V)-bit
+    keys on the card, each row's range of positions, then every row
+    written (one thread per row at D <= 32; wider, the rows no id names
+    zeroed by a warp each and the named ones summed by the warp holding
+    their first sorted position). dw: one thread per (bag, slot) at D <= 32,
+    one warp per slot wider. The outputs and all scratch are allocated with
+    ``torch.empty``: the kernels write every element. Each gradient's launch
+    adds one to ``LAUNCHES["embedding_bag_backward"]``. ``scratch``, if
+    given a dict, gets the table entry's ``keys`` and ``positions`` (the
+    stably sorted keys, V for an id outside [0, V), and their flat
+    positions, [S * L]: ``ref.bag_sort``'s) and ``offsets`` ([V + 1];
+    ``ref.bag_csr``'s), int32 while S * L and V stay below
+    ``SORT_32BIT_BELOW``, else int64."""
     dev = _check(table, bag_indices)
     v, d = table.shape
     s, l = bag_indices.shape
     _build.require(bag_weights, "bag_weights", torch.float32, dev, (s, l))
     grad = grad.contiguous()
     _build.require(grad, "grad", torch.float32, dev, (s, d))
-    dtable = dw = None
-    if table_grad:
-        dtable = torch.zeros((v, d), dtype=torch.float32, device=dev)
-    if weights_grad:
-        dw = torch.zeros((s, l), dtype=torch.float32, device=dev)
-    if s == 0 or l == 0 or d == 0:
-        return dtable, dw
+    if s * l * d == 0:  # no term: both gradients are 0, nothing to launch
+        return (torch.zeros((v, d), dtype=torch.float32, device=dev) if table_grad else None,
+                torch.zeros((s, l), dtype=torch.float32, device=dev) if weights_grad else None)
     lib = _build.library("embedding_bag")
     stream = _build.stream_ptr(dev)
+    idx64 = int(bag_indices.dtype == torch.int64)
+    dtable = dw = None
     if table_grad:
-        key, pos = ref.bag_sort(bag_indices, v)
+        dtable = torch.empty((v, d), dtype=torch.float32, device=dev)
+    if table_grad and v:
+        n = s * l
+        wide = max(n, v) >= SORT_32BIT_BELOW
+        itype = torch.int64 if wide else torch.int32
+        _, digit_bits, tiles = ref.bag_sort_plan(n, v)
+        keys = torch.empty((2, n), dtype=itype, device=dev)
+        pos = torch.empty((2, n), dtype=itype, device=dev)
+        hist = torch.empty(((1 << digit_bits) * (tiles + 1),), dtype=itype, device=dev)
+        offsets = torch.empty((v + 1,), dtype=itype, device=dev)
         rc = lib.warp_embedding_bag_grad_table(
-            key.data_ptr(), pos.data_ptr(), bag_weights.data_ptr(), grad.data_ptr(),
-            dtable.data_ptr(), s * l, l, d, v, stream,
+            bag_indices.data_ptr(), bag_weights.data_ptr(), grad.data_ptr(), dtable.data_ptr(),
+            keys.data_ptr(), pos.data_ptr(), hist.data_ptr(), hist.numel(), offsets.data_ptr(),
+            s, l, d, v, idx64, int(wide), stream,
         )
         _build.check("embedding_bag", rc)
         _build.LAUNCHES["embedding_bag_backward"] += 1
+        if scratch is not None:
+            scratch.update(keys=keys[0], positions=pos[0], offsets=offsets)
     if weights_grad:
+        dw = torch.empty((s, l), dtype=torch.float32, device=dev)
         rc = lib.warp_embedding_bag_grad_weights(
             table.data_ptr(), bag_indices.data_ptr(), grad.data_ptr(), dw.data_ptr(), s, l, d, v,
-            table.stride(0), int(bag_indices.dtype == torch.int64), stream,
+            table.stride(0), idx64, stream,
         )
         _build.check("embedding_bag", rc)
         _build.LAUNCHES["embedding_bag_backward"] += 1

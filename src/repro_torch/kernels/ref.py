@@ -47,6 +47,8 @@ __all__ = [
     "embedding_bag_bags",
     "embedding_bag_error_bound",
     "bag_sort",
+    "bag_sort_plan",
+    "bag_csr",
     "embedding_bag_bags_backward",
     "embedding_bag_backward_error_bound",
     "embedding_bag",
@@ -731,6 +733,34 @@ def bag_sort(bag_indices: torch.Tensor, v: int) -> tuple[torch.Tensor, torch.Ten
     flat = bag_indices.reshape(-1).long()
     key = torch.where((flat >= 0) & (flat < v), flat, v)
     return torch.sort(key, stable=True)
+
+
+# The bag backward's sort (csrc/embedding_bag.cu): keys per block, and the
+# widest digit of one pass.
+BAG_SORT_TILE = 2048
+BAG_SORT_DIGIT_BITS = 8
+
+
+def bag_sort_plan(n: int, v: int) -> tuple[int, int, int]:
+    """The bag backward kernel's sort of ``n`` keys in [0, V], V >= 1 (twin
+    of ``sort_plan`` in ``csrc/embedding_bag.cu``): (passes, digit bits,
+    tiles). The passes of at most ``BAG_SORT_DIGIT_BITS`` bits, all of one
+    width, cover bit_length(V) bits; a tile is ``BAG_SORT_TILE`` keys."""
+    bits = max(int(v).bit_length(), 1)
+    passes = -(-bits // BAG_SORT_DIGIT_BITS)
+    return passes, -(-bits // passes), -(-n // BAG_SORT_TILE)
+
+
+def bag_csr(bag_indices: torch.Tensor, v: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bag backward kernel's index preparation as rows: (offsets
+    int64 [V + 1], positions int64 [n]). ``positions`` are the flat
+    positions s * L + l of the ids in [0, V), grouped by id in increasing
+    id and, within an id, in increasing position (``bag_sort``'s positions
+    of keys below V); ``offsets[r]`` is the number of those ids below r,
+    so row r's contributions are positions[offsets[r]:offsets[r + 1]]."""
+    key, pos = bag_sort(bag_indices, v)
+    offsets = torch.searchsorted(key, torch.arange(v + 1, device=key.device))
+    return offsets, pos[: int(offsets[-1])]
 
 
 def embedding_bag_bags_backward(

@@ -26,7 +26,10 @@ reference executor, within 1e-5. The bag's backward kernels (the table's
 dense gradient and the weights') per element within
 ``ref.embedding_bag_backward_error_bound`` ((n + 1) * 2^-24 * sum |w g| +
 1e-7 over a row's n contributions; (D + 1) * 2^-24 * sum |row g| + 1e-7),
-bit-identical across calls, and through autograd. The two fused kernels'
+bit-identical across calls, and through autograd; at every width tier
+(D 1 to 256) with a row named 100,000 times, and at V 2^16 - 1 to
+2^16 + 1 with 32- and 64-bit keys, the table entry's sort and row offsets
+equal to ``ref.bag_sort`` / ``ref.bag_csr``. The two fused kernels'
 ``probe`` carve-outs: "full" bit-identical to the product call, "dma"
 and "compute" finite with the invalid slots 0, each launch counted under
 its own name; a two-point autotune sweep (the table's schema, the plans
@@ -1276,3 +1279,60 @@ def test_kernel_dma_compute_split_on_card(card, layout):
     assert torch.equal(got.doc_ids, base.doc_ids) and torch.equal(got.scores, base.scores)
     (span,) = [e for e in tracer.events() if e.name == "gather_score"]
     assert SPLIT_KEYS <= set(span.args) and 0.0 <= span.args["overlap_frac"] <= 1.0
+
+
+def _check_bag_backward(card, table, idx, w, g):
+    """Both gradients within their limits, two calls bit for bit, one launch
+    per gradient, the C entry's sort and row offsets equal to the plain
+    preparation (``ref.bag_sort``, ``ref.bag_csr``) exactly."""
+    before = LAUNCHES["embedding_bag_backward"]
+    scratch = {}
+    dtable, dw = embedding_bag_backward_cuda(table, idx, w, g, weights_grad=True, scratch=scratch)
+    again = embedding_bag_backward_cuda(table, idx, w, g, weights_grad=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["embedding_bag_backward"] == before + 4
+    assert torch.equal(dtable, again[0]) and torch.equal(dw, again[1])
+    _assert_bag_grads_close(table, idx, w, g, dtable, dw)
+    key, pos = tref.bag_sort(idx, table.shape[0])
+    offsets, positions = tref.bag_csr(idx, table.shape[0])
+    assert torch.equal(scratch["keys"].long(), key) and torch.equal(scratch["positions"].long(), pos)
+    assert torch.equal(scratch["offsets"].long(), offsets)
+    assert torch.equal(scratch["positions"][: positions.numel()].long(), positions)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("d", [1, 2, 18, 32, 33, 256])
+def test_embedding_bag_backward_redesign_on_card(card, idx_dtype, d):
+    """The sort on the card, the rows pass and the slots pass at every
+    width tier (one thread per row and per slot at D <= 32, a warp wider):
+    S * L = 260,000 ids (64 tiles of the sort), 10% outside [0, V) on both
+    sides, duplicates, zero weights, and one row named 100,000 times (at
+    every other flat position below 200,000: the warp takes it at narrow D)."""
+    table, idx, w = _bag_inputs(card, 40 + d, v=5000, d=d, s=20_000, l=13, idx_dtype=idx_dtype,
+                                bad=0.1)
+    flat = idx.view(-1)
+    flat[0:200_000:2] = 7
+    g = torch.randn(idx.shape[0], d, generator=torch.Generator(device=card).manual_seed(d),
+                    device=card)
+    _check_bag_backward(card, table, idx, w, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [2**16 - 1, 2**16, 2**16 + 1])
+@pytest.mark.parametrize("wide", [False, True])
+def test_embedding_bag_backward_sort_widths_on_card(card, monkeypatch, v, wide):
+    """V at 2^16 - 1, 2^16 and 2^16 + 1 (16 then 17 key bits: 2 passes of 8,
+    then 3 of 6), with 32-bit and, forced, 64-bit keys and positions."""
+    from repro_torch.kernels import embedding_bag
+
+    if wide:
+        monkeypatch.setattr(embedding_bag, "SORT_32BIT_BELOW", 0)
+    table, idx, w = _bag_inputs(card, v, v=v, d=18, s=3000, l=29, idx_dtype=torch.int64, bad=0.05)
+    idx[:, 0] = v - 1  # the last row, and keys up to V itself
+    g = torch.randn(idx.shape[0], 18, generator=torch.Generator(device=card).manual_seed(v),
+                    device=card)
+    scratch = {}
+    embedding_bag_backward_cuda(table, idx, w, g, scratch=scratch)
+    assert scratch["keys"].dtype == (torch.int64 if wide else torch.int32)
+    _check_bag_backward(card, table, idx, w, g)
