@@ -409,6 +409,7 @@ RECSYS_LOGIT_TOL = 1e-4
 RECSYS_TOPK = 100
 RECSYS_CAND_CHUNK = 262_144  # candidate embeddings made per item_embed call
 RECSYS_P99_STEPS = 50  # timed serve_p99 steps per executor
+DIN_HISTORY_ROWS = RECSYS_TRAIN[2][1]  # DIN's history checked at its training batch
 
 # Build phase: a corpus at Lifestyle's mean document length (23,710,000
 # tokens / 119,461 docs), D 128, with zipf_like's topic settings
@@ -4170,15 +4171,23 @@ def phase_bag(torch, dev, tt_params, din_table, xdeepfm_linear, flush) -> dict:
     """The embedding-bag kernel against its plain version at the recsys
     path's shapes (the two-tower towers at serve_bulk and serve_p99 on the
     full-size tables, DIN's interest and xDeepFM's linear term at
-    serve_p99), with int32 and int64 ids, zero weights, ids outside [0, V)
-    (which must give exactly the in-range-only sum) and a table view whose
-    rows are not on 16 bytes; then two planted faults the limit must
-    reject (on the user tower's shape with weights in [0, 1), since the
-    path's 0/1 mask hides a squared weight), and the kernel timed at the user tower's serve_bulk shape
-    beside its plain version and ``F.embedding_bag``. Returns the kernels
-    row."""
-    from repro_torch.configs import RECSYS_SHAPES
+    serve_p99, and the path's own narrow inputs: DIN's history at 65,536
+    rows, its prefix mask times attention weights in [-1, 1) so that 0.0
+    and -0.0 occur, and xDeepFM's linear term at serve_bulk), with int32
+    and int64 ids, zero weights of both signs (which must give exactly 0),
+    ids outside [0, V) (which must give exactly the in-range-only sum), a
+    table view whose rows are not on 16 bytes, and a NaN row (under weight
+    0.0 or -0.0 it adds nothing, under a nonzero weight it makes that bag
+    NaN); then two planted faults the limit must reject (on the user
+    tower's shape with weights in [0, 1), since the path's 0/1 mask hides
+    a squared weight), and the kernel timed at the user tower's serve_bulk
+    shape beside its plain version and ``F.embedding_bag``, at serve_p99,
+    and at xDeepFM's linear term at serve_bulk (row 5-xDeepFM,
+    ``xdeepfm_linear``). Returns the kernels row."""
+    from repro_torch.configs import RECSYS_SHAPES, RecsysShape
+    from repro_torch.configs.din import CONFIG as DIN
     from repro_torch.configs.two_tower_retrieval import CONFIG as TT
+    from repro_torch.configs.xdeepfm import CONFIG as XD
     from repro_torch.kernels import ref
     from repro_torch.kernels.embedding_bag import embedding_bag_cuda, work
 
@@ -4209,12 +4218,40 @@ def phase_bag(torch, dev, tt_params, din_table, xdeepfm_linear, flush) -> dict:
     wide = torch.empty(min(100_000, user.shape[0]), 257, device=dev)
     wide[:, 1:] = user[: wide.shape[0]]
     cases["unaligned rows (stride 257, +4 bytes)"] = (wide[:, 1:], *bags(wide, p99, 8))
+    # The path's own narrow inputs: DIN's history (S 65,536) and xDeepFM's
+    # linear term at serve_bulk (int32 ids, weights 1).
+    hist = recsys_batch(torch, DIN, RecsysShape("train", DIN_HISTORY_ROWS), g, dev)
+    din_w = hist["hist_mask"] * (torch.rand(hist["hist_mask"].shape, generator=g, device=dev) * 2 - 1)
+    cases["din history (path's ids, mask x attention weights)"] = (din_table, hist["hist_ids"], din_w)
+    xd = recsys_batch(torch, XD, RECSYS_SHAPES["serve_bulk"], g, dev)["field_ids"].int()
+    cases["xdeepfm linear serve_bulk (path's ids)"] = (xdeepfm_linear, xd, torch.ones(xd.shape, device=dev))
     for what, (table, idx, w) in cases.items():
         checks[what] = bag_check(torch, what, table, idx, w)
-    if bool(embedding_bag_cuda(user, *cases["zero weights"][1:]).any()):
-        fail("embedding_bag: zero weights did not give exactly 0")
+    for zero in (0.0, -0.0):
+        for table, idx, w in (cases["zero weights"], cases["din history (path's ids, mask x attention weights)"]):
+            out = embedding_bag_cuda(table, idx, torch.full_like(w, zero))
+            if bool(out.any()) or bool(torch.signbit(out).any()):
+                fail(f"embedding_bag: weights all {zero} did not give exactly +0.0")
     _, fidx, fw = cases["user tower serve_bulk int32"]
+    _, xidx, xw = cases["xdeepfm linear serve_bulk (path's ids)"]
     del wide, cases
+
+    # A NaN row of (a copy of) DIN's table, named by bag 0 under 0.0, bag
+    # 1 under -0.0 and bag 2 under 0.5, by no other slot.
+    nan_row = 12_345
+    idx = torch.randint(0, din_table.shape[0], (p99, 100), generator=g, device=dev)
+    idx = torch.where(idx == nan_row, nan_row + 1, idx)
+    w = torch.rand(p99, 100, generator=g, device=dev)
+    for bag, wt in ((0, 0.0), (1, -0.0), (2, 0.5)):
+        idx[bag, 50], w[bag, 50] = nan_row, wt
+    poisoned = din_table.clone()
+    poisoned[nan_row] = float("nan")
+    got, finite = embedding_bag_cuda(poisoned, idx, w), embedding_bag_cuda(din_table, idx, w)
+    rest = torch.arange(p99, device=dev) != 2
+    if not (bool(torch.isnan(got[2]).all()) and torch.equal(got[rest], finite[rest])):
+        fail("embedding_bag: a NaN row under weight 0.0 / -0.0 did not add exactly nothing, or "
+             "under weight 0.5 did not make its bag NaN")
+    del poisoned, got, finite
 
     for dtype in (torch.int32, torch.int64):
         idx, w = bags(user, p99, 8, dtype)
@@ -4252,6 +4289,9 @@ def phase_bag(torch, dev, tt_params, din_table, xdeepfm_linear, flush) -> dict:
     lib = torch.nn.functional.embedding_bag
     lib_err = float((lib(uidx, user, per_sample_weights=uw, mode="sum")
                      - ref.embedding_bag_bags(user, uidx, uw)).abs().max())
+    p99_in = recsys_batch(torch, TT, RECSYS_SHAPES["serve_p99"], g, dev)
+    p99_ms = time_cuda(torch, lambda: embedding_bag_cuda(user, p99_in["user_ids"], p99_in["user_mask"]),
+                       flush)
     ms = time_cuda(torch, lambda: embedding_bag_cuda(user, uidx, uw), flush)
     plain_ms = time_cuda(torch, lambda: ref.embedding_bag_bags(user, uidx, uw), flush, iters=5)
     library_ms = time_cuda(torch, lambda: lib(uidx, user, per_sample_weights=uw, mode="sum"), flush)
@@ -4272,12 +4312,31 @@ def phase_bag(torch, dev, tt_params, din_table, xdeepfm_linear, flush) -> dict:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
         "bytes": int(nbytes),
+        "serve_p99_ms": p99_ms,
     }
+    # Row 5-xDeepFM: the linear term at serve_bulk (measured only; its
+    # launches are xDeepFM's training forward's, filled in by the caller).
+    xs, xl = xidx.shape
+    x_ops, x_bytes = work(s=xs, l=xl, d=1, needed=xs * xl, index_bytes=xidx.element_size())
+    x_t = (x_bytes / HBM_BYTES_PER_S, x_ops / F32_OPS_PER_S)
+    row["xdeepfm_linear"] = {
+        "shape": [xs, xl, 1, xdeepfm_linear.shape[0]],
+        "ms": time_cuda(torch, lambda: embedding_bag_cuda(xdeepfm_linear, xidx, xw), flush),
+        "plain_ms": time_cuda(torch, lambda: ref.embedding_bag_bags(xdeepfm_linear, xidx, xw), flush,
+                              iters=5),
+        "library_ms": time_cuda(torch, lambda: lib(xidx, xdeepfm_linear, per_sample_weights=xw,
+                                                   mode="sum"), flush),
+        "bound_ms": max(x_t) * 1e3, "bound_by": "bytes" if x_t[0] >= x_t[1] else "operations",
+        "max_abs_err": checks["xdeepfm linear serve_bulk (path's ids)"]["max_abs_err"], "launches": 0,
+    }
+    del xidx, xw
     log(
         f"[bag] timed at the user tower's serve_bulk input: S={s} L={l} D={d} V={user.shape[0]} "
         f"int64 ids, {needed} of {s * l} weights nonzero (the mask); every row read: "
-        f"{all_rows} bytes, {all_rows / HBM_BYTES_PER_S * 1e3:.6f} ms at 3.35 TB/s; "
-        f"F.embedding_bag vs plain max abs err {lib_err}; {json.dumps(row)}"
+        f"{all_rows} bytes, {all_rows / HBM_BYTES_PER_S * 1e3:.6f} ms at 3.35 TB/s; at serve_p99 "
+        f"(S={p99}) {p99_ms:.5f} ms; xDeepFM's linear term at serve_bulk (row 5-xDeepFM, S={xs} "
+        f"L={xl} D=1 V={xdeepfm_linear.shape[0]} int32 ids) {row['xdeepfm_linear']['ms']:.5f} ms; "
+        f"F.embedding_bag vs plain max abs err {lib_err}; {card()}; {json.dumps(row)}"
     )
     return row
 
@@ -4834,9 +4893,10 @@ def phase_bag_backward(torch, dev, tables: dict, flush) -> dict:
     ``F.embedding_bag``'s autograd, at DIN's history per gradient and both
     (row 5b-DIN) and at xDeepFM's linear term (row 5b-xDeepFM), and the
     forward kernel at DIN's history (row 5-DIN, ``din_forward``: the
-    caller moves it to the forward kernel's row). Returns the kernels row
-    (launches filled in by the caller)."""
-    from repro_torch.configs import RecsysShape
+    caller moves it to the forward kernel's row) and at serve_p99. Returns
+    the kernels row (launches filled in by the caller)."""
+    from repro_torch.configs import RECSYS_SHAPES, RecsysShape
+    from repro_torch.configs.din import CONFIG as DIN
     from repro_torch.configs.two_tower_retrieval import CONFIG as TT
     from repro_torch.configs.xdeepfm import CONFIG as XD
     from repro_torch.kernels import ref
@@ -4962,6 +5022,11 @@ def phase_bag_backward(torch, dev, tables: dict, flush) -> dict:
     fwd_lib_ms = time_cuda(torch, lambda: fwd_lib(din_idx, din_table, per_sample_weights=din_w,
                                                   mode="sum"), flush)
     fwd_err = bag_check(torch, "din history train", din_table, din_idx, din_w)["max_abs_err"]
+    # DIN's history at serve_p99 as the path makes it: the prefix mask times
+    # attention weights in [-1, 1).
+    p99 = recsys_batch(torch, DIN, RECSYS_SHAPES["serve_p99"], g, dev)
+    p99_w = p99["hist_mask"] * (torch.rand(p99["hist_mask"].shape, generator=g, device=dev) * 2 - 1)
+    fwd_p99_ms = time_cuda(torch, lambda: embedding_bag_cuda(din_table, p99["hist_ids"], p99_w), flush)
     fwd_ops, fwd_bytes = work(s=b, l=100, d=din_table.shape[1], needed=int((din_w != 0).sum()),
                               index_bytes=8)
     fwd_t = (fwd_bytes / HBM_BYTES_PER_S, fwd_ops / F32_OPS_PER_S)
@@ -4969,7 +5034,7 @@ def phase_bag_backward(torch, dev, tables: dict, flush) -> dict:
         "shape": [b, 100, din_table.shape[1], din_table.shape[0]], "ms": fwd_ms,
         "plain_ms": fwd_plain_ms, "library_ms": fwd_lib_ms, "bound_ms": max(fwd_t) * 1e3,
         "bound_by": "bytes" if fwd_t[0] >= fwd_t[1] else "operations", "max_abs_err": fwd_err,
-        "launches": 0,
+        "launches": 0, "serve_p99_ms": fwd_p99_ms,
     }
     del din_idx, din_w, din_g
     # Row 5b-xDeepFM: the table's gradient at xDeepFM's linear term, one
@@ -5020,7 +5085,8 @@ def phase_bag_backward(torch, dev, tables: dict, flush) -> dict:
         f"abs err {lib_err}; DIN history (S={b} L=100 D=18, both gradients) {din_ms:.5f} ms "
         f"(dtable alone {din_table_ms:.5f}, dw alone {din_dw_ms:.5f}) against a "
         f"{din_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms bytes bound; the forward kernel there "
-        f"(row 5-DIN) {fwd_ms:.5f} ms against {fwd_t[0] * 1e3:.5f}; xDeepFM's linear term "
+        f"(row 5-DIN) {fwd_ms:.5f} ms against {fwd_t[0] * 1e3:.5f}, at serve_p99 (S="
+        f"{p99['hist_ids'].shape[0]}, the path's mask x attention weights) {fwd_p99_ms:.5f} ms; xDeepFM's linear term "
         f"(row 5b-xDeepFM, S={xb} L={xidx.shape[1]} D=1 V={linear.shape[0]}) {xd_ms:.5f} ms "
         f"against {max(xd_t) * 1e3:.5f}; {card()}; {json.dumps(row)}")
     return row
@@ -5240,6 +5306,7 @@ def phase_recsys_train(torch, dev, seed: int, flush, check, tmp: str) -> dict:
             row["din_forward"]["launches"] = launched["embedding_bag"]
         if arch == "xdeepfm":
             row["xdeepfm_linear"]["launches"] = launched["embedding_bag_backward"]
+            row["xdeepfm_forward_launches"] = launched["embedding_bag"]  # row 5-xDeepFM's
     row["launches"] = launches
     log(f"[recsys-train] step took {time.perf_counter() - t0:.1f}s")
     return row
@@ -5448,6 +5515,7 @@ def run(torch, dev, args) -> list:
     torch.cuda.empty_cache()
     bag_backward = phase_train(torch, dev, args.seed + 11, flush)
     bag["din_history"] = bag_backward.pop("din_forward")  # row 5-DIN, the forward kernel's
+    bag["xdeepfm_linear"]["launches"] = bag_backward.pop("xdeepfm_forward_launches")
     return kernels + [flash, bag, bag_backward]
 
 

@@ -12,21 +12,41 @@
 // zero padding row). Here such a row is never loaded, so no index value
 // reads outside the table.
 //
-// Bound on the H100: bytes. Every bag reads L rows of D floats from random
-// places in the table, its L indices and weights, and writes D floats:
-// S*L*D*4 + S*L*(idx + 4) + S*D*4 bytes (two-tower user tower at serve_bulk,
-// S = 262,144, L = 8, D = 256: 2.43 GB, 0.73 ms at 3.35 TB/s). One fma per
-// row element is far below the card's float32 rate for that traffic.
+// Bound on the H100: bytes. A sum of the nonzero terms reads only the rows
+// of nonzero weight (the `needed` rows of kernels/embedding_bag.py::work),
+// each bag's L indices and weights, and writes D floats a bag:
+// needed*D*4 + S*L*(idx + 4) + S*D*4 bytes (the two-tower user tower at
+// serve_bulk, S = 262,144, L = 8, D = 256, its prefix mask as the weights,
+// 56% of them nonzero: 1.50 GB, 0.448 ms at 3.35 TB/s; DIN's history, S =
+// 65,536, L = 100, D = 18: 0.138 ms). One fma per row element is far below
+// the card's float32 rate for that traffic.
 //
-// Design: one warp per bag, eight bags per 256-thread block. The warp loads
-// its bag's indices and weights 32 at a time (one per lane) and broadcasts
-// them with __shfl_sync; the lanes stride the D columns of each row, so a
-// row is read by contiguous, coalesced loads: float4 loads where D % 4 == 0
-// and rows sit on 16 bytes, else scalar loads. Columns are taken in chunks
-// of 128 outside the l-loop (4 accumulators a lane), so registers stay
-// bounded for any D. Rows are fetched kUnroll at a time before their fmas,
-// so each warp keeps several row loads in flight. The sum is float32, in
-// index order l = 0 .. L-1, with fmaf, and each output is written once.
+// Design: the card is held back by the row loads in flight and by the
+// bytes of each row actually fetched, so the kernel reads only the rows
+// that count and keeps many of them in flight, whatever D is:
+//  - A group of G lanes takes one bag, each lane VEC adjacent columns (the
+//    widest float4 / float2 / float loads the width, the row stride and the
+//    bases allow) and NV such vectors G apart: G = D / VEC lanes up to 32
+//    (DIN's D 18 in float2: 9 lanes, three bags a warp; xDeepFM's linear
+//    term at D 1: one thread a bag, 32 bags a warp), else the whole warp
+//    with NV vectors a lane, in passes of at most 8 floats a lane (one pass
+//    over a 256-wide row in float4). A group's lanes load one row as one
+//    contiguous run, so a warp's load touches few cache lines however
+//    narrow the row.
+//  - The warp stages its bags' ids and weights 32 slots at a time, one bag
+//    per coalesced load (lane j on slot j), and compacts each bag's slots
+//    that count by a ballot and a popcount rank into shared memory, in slot
+//    order: a slot whose weight is 0.0 or -0.0, or whose id lies outside
+//    [0, V), loads no row (it would add exactly 0: fmaf(0, x, acc) == acc
+//    for finite x, and the sum never reaches -0.0).
+//  - Each group then fetches kRowsInFlight of its compacted rows before
+//    their fmas, and writes its output row once, as whole vectors.
+// Each output element is fmaf over its bag's nonzero, in-range terms in
+// increasing l, from +0.0: on a finite table the result is bit for bit the
+// sum that fmas every in-range term. A NaN or Inf row under weight 0 adds
+// nothing here (the plain version gives NaN there, as jnp.take + sum does;
+// the TPU kernel's one-hot product gives NaN in every bag of the row's
+// vocab block): no version promises anything for a non-finite table.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -36,98 +56,191 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBagsPerBlock = kThreads / 32;
-constexpr int kChunk = 128;  // columns a warp covers per pass (4 per lane)
-constexpr int kUnroll = 4;   // rows fetched before their fmas
 constexpr unsigned kFull = 0xffffffffu;
 
-template <typename Idx, bool VEC4>
-__global__ void __launch_bounds__(kThreads)
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<1> { using T = float; };
+template <>
+struct Vec<2> { using T = float2; };
+template <>
+struct Vec<4> { using T = float4; };
+
+__device__ __forceinline__ void fma_into(float* acc, float a, float x) { acc[0] = fmaf(a, x, acc[0]); }
+__device__ __forceinline__ void fma_into(float* acc, float a, float2 x) {
+  acc[0] = fmaf(a, x.x, acc[0]);
+  acc[1] = fmaf(a, x.y, acc[1]);
+}
+__device__ __forceinline__ void fma_into(float* acc, float a, float4 x) {
+  acc[0] = fmaf(a, x.x, acc[0]);
+  acc[1] = fmaf(a, x.y, acc[1]);
+  acc[2] = fmaf(a, x.z, acc[2]);
+  acc[3] = fmaf(a, x.w, acc[3]);
+}
+__device__ __forceinline__ void store(float* o, const float* a) { *o = a[0]; }
+__device__ __forceinline__ void store(float2* o, const float* a) { *o = make_float2(a[0], a[1]); }
+__device__ __forceinline__ void store(float4* o, const float* a) {
+  *o = make_float4(a[0], a[1], a[2], a[3]);
+}
+
+// The widest vector (4, 2 or 1 floats) whose loads stay aligned: d and the
+// stride whole vectors, every base on the vector's bytes.
+int vec_width(int d, long long stride, const void* a, const void* b) {
+  const auto aligned = [&](int k) {
+    return d % k == 0 && stride % k == 0 && reinterpret_cast<uintptr_t>(a) % (4 * k) == 0 &&
+           reinterpret_cast<uintptr_t>(b) % (4 * k) == 0;
+  };
+  return aligned(4) ? 4 : aligned(2) ? 2 : 1;
+}
+
+constexpr int kBagWarps = 4;                   // warps a block of the forward
+constexpr int kBagThreads = 32 * kBagWarps;
+constexpr int kRowsInFlight = 8;               // rows a group fetches before their fmas
+constexpr int kLaneFloats = 8;                 // floats a lane holds per row and pass
+
+constexpr int kPitch = 33;                     // entries a bag's staged chunk spans
+
+// The forward: G = lanes lanes a bag, 32 / G bags a warp. Shared memory
+// holds, per warp, the compacted rows and weights of one 32-slot chunk of
+// its bags, entry j of bag i at i * kPitch + j: a bag's entries are written
+// to adjacent words, and the groups' reads of their entry j fall in
+// different banks.
+template <int VEC, int NV, typename Idx>
+__global__ void __launch_bounds__(kBagThreads)
     embedding_bag_kernel(const float* __restrict__ table, const Idx* __restrict__ idx,
                          const float* __restrict__ w, float* __restrict__ out, long long s,
-                         int l, int d, long long v, long long row_stride) {
-  const int lane = threadIdx.x & 31;
-  const long long bag = static_cast<long long>(blockIdx.x) * kBagsPerBlock + (threadIdx.x >> 5);
-  if (bag >= s) return;  // the whole warp leaves together
-  const Idx* bag_idx = idx + bag * l;
-  const float* bag_w = w + bag * l;
-  float* o = out + bag * d;
+                         int l, int d, long long v, long long row_stride, int lanes) {
+  using VT = typename Vec<VEC>::T;
+  constexpr int kStage = 64 / sizeof(Idx);  // bags whose slot loads are in flight together
+  extern __shared__ unsigned char staged[];
+  const int per = 32 / lanes;  // bags a warp
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int group = lane / lanes, k = lane - group * lanes;
+  const long long bag0 = (static_cast<long long>(blockIdx.x) * kBagWarps + warp) * per;
+  if (bag0 >= s) return;  // the whole warp leaves together
+  Idx* rows = reinterpret_cast<Idx*>(staged) + warp * kPitch * per;
+  float* wts = reinterpret_cast<float*>(reinterpret_cast<Idx*>(staged) + kBagWarps * kPitch * per) +
+               warp * kPitch * per;
+  const unsigned below = (1u << lane) - 1u;
+  const long long bag = bag0 + group;
+  const bool mine = group < per && bag < s;
+  const int nv = d / VEC;
+  const int span = lanes * NV;  // vectors of one pass
 
-  for (int c0 = 0; c0 < d; c0 += kChunk) {
-    // Column offsets of this lane's 4 accumulators within the chunk:
-    // VEC4: 4 adjacent columns at 4 * lane; scalar: lane + 32 * k.
-    const int cols = min(kChunk, d - c0);
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int q0 = 0; q0 < nv; q0 += span) {
+    float acc[NV * VEC];
+#pragma unroll
+    for (int c = 0; c < NV * VEC; ++c) acc[c] = 0.f;
     for (int l0 = 0; l0 < l; l0 += 32) {
-      const int n = min(32, l - l0);
-      const long long my_i = lane < n ? static_cast<long long>(bag_idx[l0 + lane]) : -1;
-      const float my_w = lane < n ? bag_w[l0 + lane] : 0.f;
-      for (int j0 = 0; j0 < n; j0 += kUnroll) {
-        float vals[kUnroll][4];
-        float wts[kUnroll];
-        bool ok[kUnroll];
+      const int j = l0 + lane;
+      int n = 0;  // this group's compacted slots in the chunk
+      for (int i0 = 0; i0 < per; i0 += kStage) {  // warp-uniform
+        Idx id[kStage];
+        float wt[kStage];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          // j0 + u may pass n on the last step: lanes >= n hold index -1,
-          // which is never loaded. Every lane takes part in the shuffles.
-          const long long r = __shfl_sync(kFull, my_i, (j0 + u) & 31);
-          wts[u] = __shfl_sync(kFull, my_w, (j0 + u) & 31);
-          ok[u] = j0 + u < n && r >= 0 && r < v;
-          const float* row = table + (ok[u] ? r : 0) * row_stride + c0;
-          if (VEC4) {
-            float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (ok[u] && 4 * lane < cols) t = __ldg(reinterpret_cast<const float4*>(row) + lane);
-            vals[u][0] = t.x;
-            vals[u][1] = t.y;
-            vals[u][2] = t.z;
-            vals[u][3] = t.w;
-          } else {
+        for (int u = 0; u < kStage; ++u) {
+          const long long b = bag0 + i0 + u;
+          const bool in = i0 + u < per && b < s && j < l;
+          id[u] = in ? idx[b * l + j] : Idx(-1);
+          wt[u] = in ? w[b * l + j] : 0.f;
+        }
 #pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const int c = lane + 32 * k;
-              vals[u][k] = ok[u] && c < cols ? __ldg(row + c) : 0.f;
-            }
+        for (int u = 0; u < kStage; ++u) {
+          if (i0 + u >= per) break;  // warp-uniform
+          const long long r = static_cast<long long>(id[u]);
+          const bool ok = r >= 0 && r < v && wt[u] != 0.f;  // -0.0f == 0.f
+          const unsigned mask = __ballot_sync(kFull, ok);
+          if (ok) {
+            const int at = (i0 + u) * kPitch + __popc(mask & below);
+            rows[at] = id[u];
+            wts[at] = wt[u];
+          }
+          if (group == i0 + u) n = __popc(mask);
+        }
+      }
+      __syncwarp();
+      if (mine) {
+        for (int j0 = 0; j0 < n; j0 += kRowsInFlight) {
+          VT vals[kRowsInFlight][NV];
+          float a[kRowsInFlight];
+#pragma unroll
+          for (int u = 0; u < kRowsInFlight; ++u) {
+            const bool in = j0 + u < n;
+            const int at = group * kPitch + j0 + u;
+            a[u] = in ? wts[at] : 0.f;
+            const VT* row = reinterpret_cast<const VT*>(
+                                table + (in ? static_cast<long long>(rows[at]) : 0LL) * row_stride) +
+                            q0 + k;
+#pragma unroll
+            for (int c = 0; c < NV; ++c)
+              vals[u][c] = in && q0 + k + lanes * c < nv ? __ldg(row + lanes * c) : VT{};
+          }
+#pragma unroll
+          for (int u = 0; u < kRowsInFlight; ++u) {
+            if (j0 + u >= n) break;
+#pragma unroll
+            for (int c = 0; c < NV; ++c) fma_into(acc + c * VEC, a[u], vals[u][c]);
           }
         }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          if (!ok[u]) continue;  // outside [0, V) or past the bag: exactly 0
-#pragma unroll
-          for (int k = 0; k < 4; ++k) acc[k] = fmaf(wts[u], vals[u][k], acc[k]);
-        }
       }
+      __syncwarp();  // the chunk's entries are read before the next is staged
     }
-    if (VEC4) {
-      if (4 * lane < cols)
-        reinterpret_cast<float4*>(o + c0)[lane] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    } else {
+    if (mine) {
+      VT* o = reinterpret_cast<VT*>(out + bag * d) + q0 + k;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int c = lane + 32 * k;
-        if (c < cols) o[c0 + c] = acc[k];
-      }
+      for (int c = 0; c < NV; ++c)
+        if (q0 + k + lanes * c < nv) store(o + lanes * c, acc + c * VEC);
     }
   }
 }
 
+template <typename Idx, int VEC, int NV>
+cudaError_t launch_bags(const float* table, const Idx* idx, const float* w, float* out,
+                        long long s, int l, int d, long long v, long long row_stride, int lanes,
+                        cudaStream_t stream) {
+  const int per = 32 / lanes;
+  const long long blocks = ((s + per - 1) / per + kBagWarps - 1) / kBagWarps;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(kBagWarps) * kPitch * per * (sizeof(Idx) + sizeof(float));
+  if (smem > 48 * 1024) {  // int64 ids at 32 bags a warp: 50,688 bytes
+    const cudaError_t err = cudaFuncSetAttribute(embedding_bag_kernel<VEC, NV, Idx>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  embedding_bag_kernel<VEC, NV, Idx><<<dim3(static_cast<unsigned>(blocks)), kBagThreads, smem,
+                                       stream>>>(table, idx, w, out, s, l, d, v, row_stride, lanes);
+  return cudaGetLastError();
+}
+
+// Lanes a bag: D / VEC up to 32, else 32 with NV vectors a lane (the least
+// power of two covering the row, at most kLaneFloats floats; a wider row
+// takes several passes).
 template <typename Idx>
 cudaError_t launch(const float* table, const Idx* idx, const float* w, float* out, long long s,
                    int l, int d, long long v, long long row_stride, cudaStream_t stream) {
-  const long long blocks = (s + kBagsPerBlock - 1) / kBagsPerBlock;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  // float4 loads need every row start on 16 bytes: the base and the row
-  // stride, and whole float4s per row (d % 4 == 0; the output then too).
-  const bool vec4 = d % 4 == 0 && row_stride % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const dim3 grid(static_cast<unsigned>(blocks));
-  if (vec4) {
-    embedding_bag_kernel<Idx, true>
-        <<<grid, kThreads, 0, stream>>>(table, idx, w, out, s, l, d, v, row_stride);
-  } else {
-    embedding_bag_kernel<Idx, false>
-        <<<grid, kThreads, 0, stream>>>(table, idx, w, out, s, l, d, v, row_stride);
+  const int vec = vec_width(d, row_stride, table, out);
+  const int nv = d / vec;
+  const int lanes = nv < 32 ? nv : 32;
+  int per_lane = 1;
+  while (per_lane * lanes < nv && 2 * per_lane * vec <= kLaneFloats) per_lane *= 2;
+#define BAG_LAUNCH(VEC, NV) \
+  return launch_bags<Idx, VEC, NV>(table, idx, w, out, s, l, d, v, row_stride, lanes, stream)
+  if (vec == 4) {
+    if (per_lane == 1) BAG_LAUNCH(4, 1);
+    BAG_LAUNCH(4, 2);
   }
-  return cudaGetLastError();
+  if (vec == 2) {
+    if (per_lane == 1) BAG_LAUNCH(2, 1);
+    if (per_lane == 2) BAG_LAUNCH(2, 2);
+    BAG_LAUNCH(2, 4);
+  }
+  if (per_lane == 1) BAG_LAUNCH(1, 1);
+  if (per_lane == 2) BAG_LAUNCH(1, 2);
+  if (per_lane == 4) BAG_LAUNCH(1, 4);
+  BAG_LAUNCH(1, 8);
+#undef BAG_LAUNCH
 }
 
 // ---------------------------------------------------------------- backward
@@ -206,31 +319,6 @@ constexpr int kHotRow = 64;      // contributions past which the warp takes a na
 constexpr int kRowGroup = 4;     // rows a thread of the narrow rows pass starts together
 constexpr int kWideChunk = 256;  // columns one walk of a wide row covers (8 a lane)
 
-template <int VEC>
-struct Vec;
-template <>
-struct Vec<1> { using T = float; };
-template <>
-struct Vec<2> { using T = float2; };
-template <>
-struct Vec<4> { using T = float4; };
-
-__device__ __forceinline__ void fma_into(float* acc, float a, float x) { acc[0] = fmaf(a, x, acc[0]); }
-__device__ __forceinline__ void fma_into(float* acc, float a, float2 x) {
-  acc[0] = fmaf(a, x.x, acc[0]);
-  acc[1] = fmaf(a, x.y, acc[1]);
-}
-__device__ __forceinline__ void fma_into(float* acc, float a, float4 x) {
-  acc[0] = fmaf(a, x.x, acc[0]);
-  acc[1] = fmaf(a, x.y, acc[1]);
-  acc[2] = fmaf(a, x.z, acc[2]);
-  acc[3] = fmaf(a, x.w, acc[3]);
-}
-__device__ __forceinline__ void store(float* o, const float* a) { *o = a[0]; }
-__device__ __forceinline__ void store(float2* o, const float* a) { *o = make_float2(a[0], a[1]); }
-__device__ __forceinline__ void store(float4* o, const float* a) {
-  *o = make_float4(a[0], a[1], a[2], a[3]);
-}
 // part + <x, gb[0 .. VEC)>, in column order.
 __device__ __forceinline__ float dot_from(float part, float x, const float* gb) {
   return fmaf(x, gb[0], part);
@@ -710,16 +798,6 @@ cudaError_t at_width(int d, int vec, A... a) {
   if (d <= 8) return at_vec<K, 8>(vec, a...);
   if (d <= 16) return at_vec<K, 16>(vec, a...);
   return at_vec<K, 32>(vec, a...);
-}
-
-// The widest vector (4, 2 or 1 floats) whose loads stay aligned: d and the
-// stride whole vectors, every base on the vector's bytes.
-int vec_width(int d, long long stride, const void* a, const void* b) {
-  const auto aligned = [&](int k) {
-    return d % k == 0 && stride % k == 0 && reinterpret_cast<uintptr_t>(a) % (4 * k) == 0 &&
-           reinterpret_cast<uintptr_t>(b) % (4 * k) == 0;
-  };
-  return aligned(4) ? 4 : aligned(2) ? 2 : 1;
 }
 
 dim3 grid_of(long long items, long long per) { return dim3(static_cast<unsigned>((items + per - 1) / per)); }

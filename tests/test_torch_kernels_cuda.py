@@ -22,7 +22,11 @@ embedding bag at D 1, 18, 256 and 257, int32 and int64 ids, an unaligned
 table view, ids outside [0, V) and empty bag sets, per element within
 ``ref.embedding_bag_error_bound`` ((L + 1) * 2^-24 * sum |w| |row| + 1e-7,
 float32 sums in another order); a two-tower forward at REDUCED, kernel vs
-reference executor, within 1e-5. The bag's backward kernels (the table's
+reference executor, within 1e-5; the forward at every lane grouping (D 1
+to 257, L 1 to 100, S below and above one block, a table view at +4
+bytes) with 0.0 and -0.0 weights, bit-identical across calls, exactly 0
+at all-zero weights, and a NaN row that adds nothing under weight 0 and
+gives NaN under a nonzero weight. The bag's backward kernels (the table's
 dense gradient and the weights') per element within
 ``ref.embedding_bag_backward_error_bound`` ((n + 1) * 2^-24 * sum |w g| +
 1e-7 over a row's n contributions; (D + 1) * 2^-24 * sum |row g| + 1e-7),
@@ -1336,3 +1340,70 @@ def test_embedding_bag_backward_sort_widths_on_card(card, monkeypatch, v, wide):
     embedding_bag_backward_cuda(table, idx, w, g, scratch=scratch)
     assert scratch["keys"].dtype == (torch.int64 if wide else torch.int32)
     _check_bag_backward(card, table, idx, w, g)
+
+
+def _forward_inputs(card, seed, *, v, d, s, l, idx_dtype):
+    """A table [V, D] and S bags of L ids, 10% of them outside [0, V) on
+    both sides; the weights a prefix mask (1..L valid slots) times values
+    in [-1, 1), so masked slots hold 0.0 and -0.0, with a few zeros more
+    among the valid slots."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    table = torch.randn(v, d, generator=g, device=card)
+    idx = torch.randint(0, v, (s, l), generator=g, device=card)
+    pick = torch.rand(s, l, generator=g, device=card) < 0.1
+    far = torch.randint(v, 2 * v, (s, l), generator=g, device=card)
+    idx = torch.where(pick, torch.where(idx % 2 == 0, far, -1 - idx), idx)
+    n = torch.randint(1, l + 1, (s, 1), generator=g, device=card)
+    w = (torch.arange(l, device=card) < n).float() * (torch.rand(s, l, generator=g, device=card) * 2 - 1)
+    w = torch.where(torch.rand(s, l, generator=g, device=card) < 0.05, 0.0, w)
+    return table, idx.to(idx_dtype).contiguous(), w.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [3, 700])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("l", [1, 39, 100])
+@pytest.mark.parametrize("d", [1, 2, 10, 18, 32, 33, 256, 257])
+def test_embedding_bag_forward_redesign_on_card(card, d, l, idx_dtype, s):
+    """The forward at every lane grouping (D / VEC lanes a bag up to 32, a
+    warp wider, two passes at 257), S below one block and above it, on the
+    table and on a view of it at +4 bytes (float loads): each element
+    within ``ref.embedding_bag_error_bound``, two calls bit for bit, one
+    launch a call; all-zero weights (0.0 and -0.0) give exactly 0; a NaN
+    row under weight 0 (0.0 or -0.0) adds nothing, and under a nonzero
+    weight gives NaN in that bag."""
+    v = 3000
+    table, idx, w = _forward_inputs(card, 1000 * d + 10 * l + s, v=v, d=d, s=s, l=l,
+                                    idx_dtype=idx_dtype)
+    shifted = torch.zeros(table.numel() + 1, device=card)
+    shifted[1:] = table.reshape(-1)
+    view = shifted[1:].view(v, d)
+    assert view.data_ptr() % 16 == 4
+    for t in (table, view):
+        before = LAUNCHES["embedding_bag"]
+        got = embedding_bag_cuda(t, idx, w)
+        again = embedding_bag_cuda(t, idx, w)
+        torch.cuda.synchronize()
+        assert LAUNCHES["embedding_bag"] == before + 2
+        assert torch.equal(got, again)
+        _assert_bag_close(table, idx, w, got)
+        for zero in (0.0, -0.0):
+            out = embedding_bag_cuda(t, idx, torch.full_like(w, zero))
+            assert not bool(out.any()) and not bool(torch.signbit(out).any())
+
+    # Row 5 turns NaN: bag 0 names it under 0.0, bag 1 under -0.0, bag 2
+    # under 0.5, each in its last slot; no other slot names it.
+    nan_row = 5
+    idx = torch.where(idx == nan_row, nan_row + 1, idx)
+    for bag, wt in ((0, 0.0), (1, -0.0), (2, 0.5)):
+        idx[bag, l - 1], w[bag, l - 1] = nan_row, wt
+    finite = embedding_bag_cuda(table, idx, w)
+    poisoned = table.clone()
+    poisoned[nan_row] = float("nan")
+    got = embedding_bag_cuda(poisoned, idx, w)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[2]).all())
+    keep = torch.ones(s, dtype=torch.bool, device=card)
+    keep[2] = False
+    assert torch.equal(got[keep], finite[keep])
+    assert bool(torch.isfinite(got[keep]).all())
