@@ -192,6 +192,21 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      loss checks; edges/s, step p50, peak memory, the gather + segment sum
      share. Last, ``launch.train`` trains and resumes qwen2-0.5b, din and
      gin-tu on the card.
+ 11. the LM and recsys families over a (data, model) mesh of ranks
+     (``mesh``, last): one gloo world of 4 ranks sharing the card runs
+     mixtral-8x7b at full width at (1, 4) (8 layers, 2 x 8192 prompt, 16
+     steps), at (2, 2) (2 layers, 2 x 2048, 4 steps; the FSDP gathers)
+     and a batch-1 decode of 8 steps at (4, 1) over a 16,384-position
+     cache split by sequence, each teacher-forced in tokens and routing
+     against the one-process port at the same weights (logits, KV blocks
+     per rank, argmax, would-be routing flips; every rank against rank
+     0), then two-tower at serve_bulk and DIN at serve_p99 with tables
+     row-sharded over the 4 ranks; the flash kernel at a rank's heads
+     (the flash row's ``mesh``, row 4e) and the bag on a rank's row range
+     (the bag row's ``rank``, row 5-rank) against their plain versions,
+     timed; an NCCL world of min(cards, 4) ranks (one card: a free (1, 1)
+     run, bit for bit); and ``dryrun.run_cell`` of mixtral's decode_32k
+     over 4 gloo ranks, its collectives counted per op.
 
 Top-k doc ids must be identical. A swap is allowed only between scores
 tied within what the kernels' measured error allows (``tie_tolerance``),
@@ -5101,7 +5116,8 @@ def forced_bags(torch, model) -> None:
 
     from repro_torch.kernels import ops, ref
 
-    def bag(self, table, ids, weights):
+    def bag(self, name, ids, weights):
+        table = getattr(self, name)
         k = ops.embedding_bag(table, bag_indices=ids, bag_weights=weights, use_kernel=True)
         r = torch.sum(ref.take(table, ids) * weights.unsqueeze(-1), dim=1)
         return r.detach() + (k - k.detach())
@@ -5443,6 +5459,616 @@ def phase_gnn(torch, dev, seed: int, flush, check) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the mesh phase: the LM and recsys families over (data, model) meshes of ranks
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x7b at full width over gloo ranks that share the card. The
+# (1, 4) run is the zoo's 8-layer cut at the zoo's prompt; the (2, 2) run
+# splits the batch and gathers FSDP blocks, so it stays shallow (every
+# gather copies a layer's weights through the host).
+MESH_RANKS = 4
+MESH_LM = (  # tag, (data, model), layers, batch, prompt length, greedy tokens
+    ("1x4", (1, 4), 8, 2, 8192, 16),
+    ("2x2", (2, 2), 2, 2, 2048, 4),
+)
+MESH_SEQ = ("4x1", (4, 1), 2, 16384, 8)  # tag, mesh, layers, cache positions, decode steps
+MESH_RECSYS = (("two-tower-retrieval", "serve_bulk"), ("din", "serve_p99"))
+MESH_DRYRUN_LAYERS = 2
+MESH_JOIN_S = 900.0
+MESH_BUDGET_S = 240.0
+MESH_MFU_MAX = 1.05
+DIN_MESH_TOL = 1e-4  # DIN's logits over the mesh: within 1e-4 * max(1, |ref|)
+def mesh_lm_config(layers: int):
+    """mixtral-8x7b at full width, cut to ``layers``."""
+    from repro_torch.configs.registry import get_arch
+
+    return dataclasses.replace(get_arch("mixtral-8x7b").config, n_layers=layers)
+
+
+def mesh_generate(torch, model, prompt, n: int, batch: int, routes=None, forced=None):
+    """Greedy prefill + ``n - 1`` decode steps of ``model`` (over a mesh:
+    the rank's rows of a ``batch``-row prompt) -> (logits per step [n, B,
+    V] f32, tokens [B, n], the prompt's k/v after the prefill). ``routes``
+    collects each router call's (top_e, probs). ``forced`` (the reference's
+    {"tokens" [B, n] (the rank's rows), "routes": [top_e per router
+    call]}) teacher-forces the run as the zoo's parity run does: each
+    decode step takes the reference's previous token, and each router call
+    the reference's expert set, weighed with this run's own probabilities;
+    ``routes`` then holds the choices this run would have made."""
+    from unittest import mock
+
+    from repro_torch.models import KVCache, moe
+
+    sink = routes if routes is not None else []
+    route = moe.route
+
+    def forced_route(x, w, c):
+        probs, _, top_e = route(x, w, c)
+        want = forced["routes"][len(sink)].to(top_e.device)
+        sink.append((top_e, probs))
+        p = torch.gather(probs, 1, want)
+        return probs, p / p.sum(-1, keepdim=True), want
+
+    s = prompt.shape[1]
+    cache = KVCache.empty(model.cfg, batch, s + n, device=prompt.device, mesh=model.mesh)
+    router = capture_routes(torch, sink) if forced is None else forced_route
+    with mock.patch.object(moe, "route", router):
+        logits, cache = model.prefill(prompt, cache)
+        kv = (cache.k[:, :, :s].clone(), cache.v[:, :, :s].clone())
+        steps, toks = [logits.float()], [logits.argmax(-1)]
+        for t in range(n - 1):
+            fed = toks[-1] if forced is None else forced["tokens"][:, t].to(prompt.device)
+            logits, cache = model.decode_step(fed, cache)
+            steps.append(logits.float())
+            toks.append(logits.argmax(-1))
+    return torch.stack(steps), torch.stack(toks, 1), kv
+
+
+def mesh_seq_decode(torch, model, cache, forced):
+    """One decode step per token of ``forced`` [n, 1] over ``cache`` ->
+    logits [n, 1, V] f32."""
+    out = []
+    for t in forced:
+        logits, cache = model.decode_step(t, cache)
+        out.append(logits.float())
+    return torch.stack(out)
+
+
+def mesh_world(group, spec_path: str, out_dir: str) -> None:
+    """One rank of the mesh phase's worlds: each run of the spec on its
+    mesh over the world's ranks, weights drawn as the one-process reference
+    drew them (every rank keeps its blocks), the kernel launches counted
+    from 0 over the run; each rank saves what the parent checks."""
+    import torch
+
+    from repro_torch.configs import RECSYS_SHAPES
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import data_axes
+    from repro_torch.models import TransformerLM, init_params, serve_step
+    from repro_torch.models.recsys import RECSYS_MODELS
+    from repro_torch.models.transformer import KVCache, shard_cache
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev, r = group.device, group.rank
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def done(name, out):
+        torch.save(out, os.path.join(out_dir, f"{name}_rank{r}.pt"))
+        gc_cuda(torch, dev)
+
+    for run in spec["lm"]:
+        mesh = group.mesh(tuple(run["mesh"]))
+        cfg = mesh_lm_config(run["layers"])
+        g = torch.Generator(device=dev)
+        g.manual_seed(run["seed"])
+        t0 = time.perf_counter()
+        model = TransformerLM.from_params(
+            cfg, init_params(cfg, g, device=dev, dtype=torch.bfloat16, mesh=mesh), mesh=mesh)
+        prompt = torch.load(run["prompt"]).to(dev)
+        data = sharding.P(data_axes(mesh), None)
+        forced = None
+        if run.get("forced"):  # the reference's tokens (the rank's rows) and routing
+            forced = torch.load(run["forced"])
+            forced["tokens"] = sharding.local_block(forced["tokens"], data, mesh)
+        routes = []
+        sync()
+        made = time.perf_counter() - t0
+        reset_launches()  # the path starts here
+        t0 = time.perf_counter()
+        logits, toks, (k, v) = mesh_generate(torch, model, sharding.local_block(prompt, data, mesh),
+                                             run["new"], prompt.shape[0], routes, forced)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)  # read right after the path's run
+        toks = sharding.gather_block(toks, data, mesh)
+        done(run["tag"], {"logits": logits.cpu(), "tokens": toks.cpu(), "k": k.cpu(), "v": v.cpu(),
+                          "routes": [e.cpu() for e, _ in routes], "launches": launches,
+                          "wall_s": wall, "made_s": made,
+                          "peak": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0})
+        del model, k, v
+    if spec.get("seq"):
+        run = spec["seq"]
+        mesh = group.mesh(tuple(run["mesh"]))
+        cfg = mesh_lm_config(run["layers"])
+        g = torch.Generator(device=dev)
+        g.manual_seed(run["seed"])
+        model = TransformerLM.from_params(
+            cfg, init_params(cfg, g, device=dev, dtype=torch.bfloat16, mesh=mesh), mesh=mesh)
+        full = torch.load(run["cache"])
+        cache = shard_cache(KVCache(full["k"], full["v"], full["length"]), cfg, mesh,
+                            shard_seq=True, device=dev)
+        del full
+        forced = torch.load(run["forced"]).to(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        logits = mesh_seq_decode(torch, model, cache, forced)
+        sync()
+        done(run["tag"], {"logits": logits.cpu(), "launches": dict(LAUNCHES),
+                          "wall_s": time.perf_counter() - t0})
+        del model, cache
+    for run in spec["recsys"]:
+        mesh = group.mesh(tuple(run["mesh"]))
+        a = get_arch(run["arch"])
+        cfg, shape = a.config, RECSYS_SHAPES[run["shape"]]
+        g = torch.Generator(device=dev)
+        g.manual_seed(run["seed"])
+        batch = recsys_batch(torch, cfg, shape, g, dev)  # drawn as the reference drew it
+        model = RECSYS_MODELS[type(cfg)].from_params(
+            cfg, init_params(cfg, g, device=dev, mesh=mesh), mesh=mesh)
+        specs = a.family.input_pspec(a, run["shape"], mesh)
+        local = {k: sharding.local_block(t, specs[k], mesh) for k, t in batch.items()}
+        step = serve_step(model, shape)
+        step(local)  # warm
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = step(local)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        out = sharding.gather_block(out, a.family.output_pspec(a, run["shape"], mesh), mesh)
+        bags = {}
+        if run["arch"] == "two-tower-retrieval":
+            with torch.inference_mode():
+                for side in ("user", "item"):
+                    bags[side] = sharding.gather_block(
+                        model._bag(f"{side}_table", local[f"{side}_ids"], local[f"{side}_mask"]),
+                        sharding.P(data_axes(mesh), None), mesh).cpu()
+        done(f"rs_{run['arch']}", {"out": out.cpu(), "bags": bags, "launches": launches,
+                                   "wall_s": wall})
+        del model
+
+
+def mesh_device(dev) -> str:
+    """The one card every gloo rank of the phase shares."""
+    return f"cuda:{dev.index or 0}"
+
+
+def gc_cuda(torch, dev) -> None:
+    import gc
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def mesh_lm_check(torch, what: str, got: dict, want: dict, rows, *, bitwise=False) -> dict:
+    """One rank's mesh run against the one-process run (its rows): the
+    prompt's KV block, layer 0 within one bf16 ulp, later layers within
+    ``LM_KV_TOL`` of the norm. ``bitwise`` (a free run on a mesh of one):
+    logits, tokens and KV identical. Else the run was teacher-forced in
+    tokens and routing (``mesh_generate``'s ``forced``), as the zoo's
+    parity run is: logits at every step within ``LM_LOGITS_TOL``; a step
+    whose argmax is not the reference's token only at a reference top-2
+    gap within ``LM_LOGITS_TOL`` (reported); every expert set the rank's
+    router would have picked apart from the reference's only at a
+    reference k-th/(k+1)-th probability gap within ``MOE_FLIP_GAP``."""
+    lg, lw = got["logits"], want["logits"][:, rows]
+    kv = {}
+    for name in ("k", "v"):
+        blk, ref_blk = got[name], want[name]
+        if bitwise and not torch.equal(blk, ref_blk):
+            fail(f"mesh {what}: {name} cache differs from the one-process run")
+        kv[name] = []
+        for layer in range(blk.shape[0]):
+            g_, w_ = blk[layer].float(), ref_blk[layer].float()
+            if layer == 0:
+                _, excess = bf16_excess(torch, g_, w_)
+                if not excess <= FLASH_BF16_ATOL:
+                    fail(f"mesh {what}: layer 0 {name} cache differs by {excess} beyond one bf16 ulp")
+            rel = float((g_ - w_).norm() / w_.norm())
+            if not rel <= LM_KV_TOL:
+                fail(f"mesh {what}: layer {layer} {name} cache, relative norm {rel} > {LM_KV_TOL}")
+            kv[name].append(rel)
+    if bitwise:
+        if not (torch.equal(lg, lw) and torch.equal(got["tokens"], want["tokens"])):
+            fail(f"mesh {what}: logits or tokens differ from the one-process run")
+        return {"kv_rel": kv, "logits": 0.0, "argmax_differs": []}
+    worst = float((lg - lw).abs().max())
+    if not worst <= LM_LOGITS_TOL:
+        fail(f"mesh {what}: teacher-forced logits differ from the one-process run by {worst} > "
+             f"{LM_LOGITS_TOL}")
+    tw = want["tokens"][rows]
+    differs = []
+    for i, t in (lg.argmax(-1).T != tw).nonzero().tolist():
+        top2 = torch.topk(lw[t, i], 2).values.tolist()
+        if not top2[0] - top2[1] <= LM_LOGITS_TOL:
+            fail(f"mesh {what}: row {i}'s argmax at step {t} is not the reference's token, whose "
+                 f"top-2 logits {top2} are more than {LM_LOGITS_TOL} apart")
+        differs.append([i, t, top2[0] - top2[1]])
+    flips, worst_gap = 0, 0.0
+    k = want["top_k"]
+    for own, ref_e, ref_p in zip(got["routes"], want["routes"], want["probs"]):
+        _, gaps = routing_flips(own, ref_e, ref_p, k)
+        flips += int(gaps.numel())
+        worst_gap = max([worst_gap, *gaps.tolist()])
+    if not worst_gap <= MOE_FLIP_GAP:
+        fail(f"mesh {what}: the rank's router would pick other experts than the reference's "
+             f"where they are {worst_gap} apart (> {MOE_FLIP_GAP})")
+    if len(got["routes"]) != len(want["routes"]):
+        fail(f"mesh {what}: {len(got['routes'])} router calls, the reference made "
+             f"{len(want['routes'])}")
+    return {"kv_rel": kv, "logits": worst, "argmax_differs": differs,
+            "would_flip": [flips, worst_gap]}
+
+
+def mesh_ranks_agree(torch, what: str, outs: list, groups) -> None:
+    """Every rank's tokens and routing bit-identical with rank 0's, and its
+    logits with those of the ranks that hold its rows (``groups``: lists of
+    ranks that share rows)."""
+    for r, o in enumerate(outs):
+        if not torch.equal(o["tokens"], outs[0]["tokens"]):
+            fail(f"mesh {what}: rank {r}'s tokens differ from rank 0's")
+        if len(o["routes"]) != len(outs[0]["routes"]) or any(
+                not torch.equal(a, b) for a, b in zip(o["routes"], outs[0]["routes"])):
+            fail(f"mesh {what}: rank {r}'s routing differs from rank 0's")
+    for grp in groups:
+        for r in grp[1:]:
+            if not torch.equal(outs[r]["logits"], outs[grp[0]]["logits"]):
+                fail(f"mesh {what}: rank {r}'s logits differ from rank {grp[0]}'s")
+
+
+def phase_mesh(torch, dev, seed: int, flush, work: str) -> tuple[dict, dict]:
+    """The LM and recsys families over (data, model) meshes of ranks
+    placed by ``launch/sharding.py``'s rules. (a) One gloo world of 4 ranks
+    on this card: mixtral-8x7b at full width at (1, 4) (8 layers, 2 x 8192
+    prompt, 16 greedy tokens), at (2, 2) (2 layers, 2 x 2048, 4 tokens) and
+    a batch-1 decode of 8 steps at (4, 1) over a 16,384-position cache
+    split by sequence, each held to the one-process port at the same cut
+    and weights (run first and freed): logits, KV blocks, tokens, and every
+    rank's tokens, routing and logits against rank 0's. (b) In the same
+    world, two-tower at serve_bulk and DIN at serve_p99 with tables
+    row-sharded over the 4 ranks: bags within twice ``ref.embedding_bag_
+    error_bound``, two-tower's top-100 identical up to tie swaps, DIN's
+    logits within 1e-4 * max(1, |ref|). (c) The flash kernel at the (1, 4)
+    rank's shapes and the bag kernel at rank 0's row range, each against
+    its plain version and timed. (d) An NCCL world of min(cards, 4) ranks
+    runs (a)'s (1, 4) check (one card: a (1, 1) world, bit for bit). (e)
+    ``dryrun.run_cell`` of mixtral's decode_32k over 4 gloo ranks: its
+    collectives per op as the layers imply, 0 < MFU <= 1.05. Returns the
+    kernels rows' mesh entries (row 4e, row 5-rank)."""
+    from repro_torch.configs import RECSYS_SHAPES
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+    from repro_torch.kernels.embedding_bag import work as bag_work
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import work as flash_work
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.ranks import run_world
+    from repro_torch.models import KVCache, TransformerLM, init_params, serve_step
+    from repro_torch.models.recsys import RECSYS_MODELS
+
+    t_phase = time.perf_counter()
+    os.makedirs(work, exist_ok=True)
+    spec = {"lm": [], "seq": None, "recsys": []}
+    refs = {}
+    # (a) the one-process references, each freed before the next
+    for i, (tag, shape, layers, b, s, n) in enumerate(MESH_LM):
+        t0 = time.perf_counter()
+        cfg = mesh_lm_config(layers)
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + i)
+        model = TransformerLM.from_params(cfg, init_params(cfg, g, device=dev, dtype=torch.bfloat16))
+        prompt = torch.randint(0, cfg.vocab, (b, s), generator=g, device=dev)
+        routes = []
+        logits, toks, (k, v) = mesh_generate(torch, model, prompt, n, b, routes)
+        torch.cuda.synchronize()
+        refs[tag] = {"logits": logits.cpu(), "tokens": toks.cpu(), "k": k.cpu(), "v": v.cpu(),
+                     "routes": [e.cpu() for e, _ in routes], "probs": [p.cpu() for _, p in routes]}
+        path = os.path.join(work, f"{tag}_prompt.pt")
+        torch.save(prompt.cpu(), path)
+        forced = os.path.join(work, f"{tag}_forced.pt")
+        torch.save({"tokens": refs[tag]["tokens"], "routes": refs[tag]["routes"]}, forced)
+        spec["lm"].append({"tag": tag, "mesh": list(shape), "layers": layers, "seed": seed + i,
+                           "prompt": path, "new": n, "forced": forced})
+        del model, logits, k, v, prompt
+        gc_cuda(torch, dev)
+        log(f"[mesh] one-process reference {tag}: mixtral-8x7b {layers} of 32 layers, prompt "
+            f"{b} x {s}, {n} greedy tokens, in {time.perf_counter() - t0:.1f}s")
+    tag, shape, layers, positions, n = MESH_SEQ
+    cfg = mesh_lm_config(layers)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 10)
+    model = TransformerLM.from_params(cfg, init_params(cfg, g, device=dev, dtype=torch.bfloat16))
+    prompt = torch.randint(0, cfg.vocab, (1, positions - n), generator=g, device=dev)
+    cache = KVCache.empty(cfg, 1, positions, device=dev)
+    logits, cache = model.prefill(prompt, cache)
+    torch.save({"k": cache.k.cpu(), "v": cache.v.cpu(), "length": cache.length.cpu()},
+               os.path.join(work, "seq_cache.pt"))
+    forced = [logits.argmax(-1)]
+    seq_logits = []
+    for _ in range(n):
+        logits, cache = model.decode_step(forced[-1], cache)
+        seq_logits.append(logits.float())
+        forced.append(logits.argmax(-1))
+    forced = torch.stack(forced[:n])
+    torch.save(forced.cpu(), os.path.join(work, "seq_forced.pt"))
+    refs[tag] = {"logits": torch.stack(seq_logits).cpu()}
+    spec["seq"] = {"tag": tag, "mesh": list(shape), "layers": layers, "seed": seed + 10,
+                   "cache": os.path.join(work, "seq_cache.pt"),
+                   "forced": os.path.join(work, "seq_forced.pt")}
+    del model, cache, prompt, logits
+    gc_cuda(torch, dev)
+    # (b)'s references: the outputs, the bags and their limits
+    rank_bag = {}
+    for i, (arch, shape_name) in enumerate(MESH_RECSYS):
+        cfg, rshape = get_arch(arch).config, RECSYS_SHAPES[shape_name]
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + 20 + i)
+        batch = recsys_batch(torch, cfg, rshape, g, dev)
+        params = init_params(cfg, g, device=dev)
+        model = RECSYS_MODELS[type(cfg)].from_params(cfg, params)
+        r = {"out": serve_step(model, rshape)(batch).cpu()}
+        if arch == "two-tower-retrieval":
+            r["bags"], r["limit"] = {}, {}
+            with torch.inference_mode():
+                for side in ("user", "item"):
+                    table, ids, w = params[f"{side}_table"], batch[f"{side}_ids"], batch[f"{side}_mask"]
+                    r["bags"][side] = model._bag(f"{side}_table", ids, w).cpu()
+                    r["limit"][side] = (2 * ref.embedding_bag_error_bound(table, ids, w)).cpu()
+            # (c)'s bag row: rank 0's row range of the user table, ids as the model passes them.
+            rows = cfg.user_vocab // MESH_RANKS
+            ids = batch["user_ids"]
+            own = (ids >= 0) & (ids < rows)
+            rank_bag = {"table": params["user_table"][:rows].clone(),
+                        "ids": torch.where(own, ids, -1),
+                        "w": torch.where(own, batch["user_mask"], 0.0).contiguous()}
+        refs[f"rs_{arch}"] = r
+        spec["recsys"].append({"arch": arch, "shape": shape_name, "mesh": [1, MESH_RANKS],
+                               "seed": seed + 20 + i})
+        del model, params, batch
+        gc_cuda(torch, dev)
+    spec_path = os.path.join(work, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    t_refs = time.perf_counter() - t_phase
+
+    # (a) + (b): one gloo world of 4 ranks on this card
+    t0 = time.perf_counter()
+    out_dir = os.path.join(work, "gloo")
+    os.makedirs(out_dir)
+    run_world(mesh_world, MESH_RANKS, backend="gloo", device=mesh_device(dev),
+              args=(spec_path, out_dir), join_timeout_s=MESH_JOIN_S)
+    t_world = time.perf_counter() - t0
+
+    def load(name, n_ranks=MESH_RANKS, where=out_dir):
+        return [torch.load(os.path.join(where, f"{name}_rank{r}.pt")) for r in range(n_ranks)]
+
+    def ran(o):  # the kernels a rank launched on its run's path
+        return {k: c for k, c in o["launches"].items() if c}
+
+    launches, report = {}, {}
+    for tag, shape, layers, b, s, n in MESH_LM:
+        outs = load(tag)
+        d, m = shape
+        groups = [list(range(i * m, (i + 1) * m)) for i in range(d)]
+        mesh_ranks_agree(torch, tag, outs, groups)
+        cfg = mesh_lm_config(layers)
+        want = refs[tag]
+        for r, o in enumerate(outs):
+            di, mi = divmod(r, m)
+            per = b // d
+            rows = slice(di * per, (di + 1) * per)
+            hkv = max(1, cfg.n_kv_heads // m)
+            first = mi * hkv if cfg.n_kv_heads >= m else mi // (m // cfg.n_kv_heads)
+            w = dict(want, k=want["k"][:, rows, :, first:first + hkv],
+                     v=want["v"][:, rows, :, first:first + hkv], top_k=cfg.moe.top_k)
+            res = mesh_lm_check(torch, f"{tag} rank {r}", o, w, rows)
+            if r == 0:
+                report[tag] = res
+        launches[tag] = [ran(o) for o in outs]
+        fl = [o["launches"]["flash_attention"] for o in outs]
+        if fl != [layers] * MESH_RANKS:
+            fail(f"mesh {tag}: flash launches per rank {fl}, expected one per layer ({layers})")
+        log(f"[mesh] {tag} gloo on one card, teacher-forced in tokens and routing: rank 0 vs "
+            f"one-process: {json.dumps(report[tag])}; "
+            f"flash launches per rank {fl}; rank walls (s) {[round(o['wall_s'], 3) for o in outs]}, "
+            f"weights made in {[round(o['made_s'], 1) for o in outs]} s, peaks (GB) "
+            f"{[round(o['peak'] / 1e9, 2) for o in outs]}; every rank's tokens and routing equal "
+            f"rank 0's")
+        del outs
+    tag = MESH_SEQ[0]
+    outs = load(tag)
+    want = refs[tag]["logits"]
+    worst, flips = 0.0, []
+    for r, o in enumerate(outs):
+        if not torch.equal(o["logits"], outs[0]["logits"]):
+            fail(f"mesh {tag}: rank {r}'s logits differ from rank 0's")
+        worst = max(worst, float((o["logits"] - want).abs().max()))
+    for t in range(want.shape[0]):
+        a_, b_ = int(outs[0]["logits"][t].argmax()), int(want[t].argmax())
+        if a_ != b_:
+            top2 = torch.topk(want[t, 0], 2).values.tolist()
+            if not top2[0] - top2[1] <= LM_LOGITS_TOL:
+                fail(f"mesh {tag}: step {t}'s token differs at a top-2 gap of {top2}")
+            flips.append(t)
+    if not worst <= LM_LOGITS_TOL:
+        fail(f"mesh {tag}: the sequence-split decode's logits differ by {worst} > {LM_LOGITS_TOL}")
+    launches[tag] = [ran(o) for o in outs]
+    log(f"[mesh] {tag} decode over {MESH_SEQ[3]} positions split by sequence over 4 ranks, "
+        f"{MESH_SEQ[4]} steps teacher-forced: logits max abs diff {worst} (limit "
+        f"{LM_LOGITS_TOL}), greedy token differs at steps {flips}; rank walls (s) "
+        f"{[round(o['wall_s'], 3) for o in outs]}")
+    del outs
+    for arch, shape_name in MESH_RECSYS:
+        outs = load(f"rs_{arch}")
+        want = refs[f"rs_{arch}"]
+        for r, o in enumerate(outs):
+            if not torch.equal(o["out"], outs[0]["out"]):
+                fail(f"mesh {arch}: rank {r}'s output differs from rank 0's")
+        got = outs[0]["out"]
+        if arch == "two-tower-retrieval":
+            for side in ("user", "item"):
+                excess = float(((outs[0]["bags"][side] - want["bags"][side]).abs()
+                                - want["limit"][side]).max())
+                if not excess <= 0:
+                    fail(f"mesh {arch}: the {side} bags differ by {excess} beyond twice the limit")
+            k = RECSYS_TOPK
+            top_g, top_w = torch.topk(got, k), torch.topk(want["out"], k)
+            swaps = topk_swaps(f"mesh {arch} top-{k}", top_g.indices.numpy(), top_g.values.numpy(),
+                               top_w.indices.numpy(), top_w.values.numpy(), 0.0,
+                               tol=RECSYS_TT_TOL, tie=2 * RECSYS_TT_TOL)
+            err = float((got - want["out"]).abs().max())
+        else:
+            err = float(((got - want["out"]).abs() / want["out"].abs().clamp(min=1)).max())
+            if not err <= DIN_MESH_TOL:
+                fail(f"mesh {arch}: logits differ by {err} x max(1, |ref|) > {DIN_MESH_TOL}")
+            swaps = None
+        bl = [o["launches"]["embedding_bag"] for o in outs]
+        if min(bl) < 1:
+            fail(f"mesh {arch}: bag launches per rank {bl}")
+        launches[f"rs_{arch}"] = [ran(o) for o in outs]
+        log(f"[mesh] {arch} {shape_name}, tables row-sharded over 4 ranks: max err {err}, top-k "
+            f"swaps {swaps}, bag launches per rank {bl}, rank walls (s) "
+            f"{[round(o['wall_s'], 4) for o in outs]}")
+        del outs
+
+    # (c) the kernel rows at the ranks' inputs
+    tag, shape, layers, b, s, n = MESH_LM[0]
+    cfg = mesh_lm_config(layers)
+    m = shape[1]
+    h, hkv = cfg.n_heads // m, max(1, cfg.n_kv_heads // m)
+    dh, window = cfg.resolved_head_dim, cfg.sliding_window
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 30)
+    q, k, v = (torch.randn(b, nh, s, dh, generator=g, device=dev).to(torch.bfloat16)
+               for nh in (h, hkv, hkv))
+    got = flash_attention_cuda(q, k, v, causal=True, window=window)
+    want = ref.flash_attention(q, k, v, causal=True, window=window)
+    err, excess = bf16_excess(torch, got, want)
+    if not excess <= FLASH_BF16_ATOL:
+        fail(f"mesh: the flash kernel at the rank's heads differs by {excess} beyond one bf16 ulp")
+    ops_, nbytes = flash_work(b=b, h=h, hkv=hkv, sq=s, skv=s, dh=dh, itemsize=2, window=window)
+    pos = torch.arange(s, device=dev)
+    rel = pos.unsqueeze(1) - pos
+    mask = (rel >= 0) & (rel < window)
+    kr, vr = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / BF16_OPS_PER_S
+    flash_row = {
+        "shape": [b, h, hkv, s, dh], "window": window, "mesh": "1x4 rank",
+        "launches": sum(x.get("flash_attention", 0) for x in launches[tag]),
+        "max_abs_err": err,
+        "ms": time_cuda(torch, lambda: flash_attention_cuda(q, k, v, causal=True, window=window), flush),
+        "plain_ms": time_cuda(torch, lambda: ref.flash_attention(q, k, v, causal=True, window=window),
+                              flush, iters=3),
+        "library_ms": time_cuda(torch, lambda: sdpa(q, kr, vr, attn_mask=mask), flush),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    del q, k, v, kr, vr, mask, got, want
+    table, ids, w = rank_bag["table"], rank_bag["ids"], rank_bag["w"]
+    check = bag_check(torch, "rank 0's row range", table, ids, w)
+    bs, bl_ = ids.shape
+    needed = int(((ids >= 0) & (w != 0)).sum())  # rows in the rank's range, weight nonzero
+    ops_, nbytes = bag_work(s=bs, l=bl_, d=table.shape[1], needed=needed,
+                            index_bytes=ids.element_size())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S
+    lib = torch.nn.functional.embedding_bag
+    lib_ids = ids.clamp(min=0)  # the same sums: every dropped id has weight 0
+    bag_row = {
+        "shape": [bs, bl_, table.shape[1], table.shape[0]], "mesh": "1x4 rank 0",
+        "in_range": needed, "of": bs * bl_,
+        "launches": sum(x.get("embedding_bag", 0) for x in launches["rs_two-tower-retrieval"]),
+        "max_abs_err": check["max_abs_err"],
+        "ms": time_cuda(torch, lambda: embedding_bag_cuda(table, ids, w), flush),
+        "plain_ms": time_cuda(torch, lambda: ref.embedding_bag_bags(table, ids, w), flush, iters=5),
+        "library_ms": time_cuda(torch, lambda: lib(lib_ids, table, per_sample_weights=w,
+                                                   mode="sum"), flush),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    del table, ids, w, rank_bag, lib_ids
+    gc_cuda(torch, dev)
+    log(f"[mesh] row 4e (flash at a (1, 4) rank's heads): {json.dumps(flash_row)}; row 5-rank (the "
+        f"bag on rank 0's quarter of the user table, bound over its {bag_row['in_range']} rows in "
+        f"range of {bag_row['of']}): {json.dumps(bag_row)}; {card()}")
+
+    # (d) NCCL: (a)'s (1, 4) check on min(cards, 4) ranks
+    t0 = time.perf_counter()
+    cards = min(torch.cuda.device_count(), MESH_RANKS)
+    first = dict(spec["lm"][0], mesh=[1, cards])
+    if cards == 1:  # a mesh of one runs free and must be the one-process run bit for bit
+        first.pop("forced")
+    nccl_spec = dict(spec, lm=[first], seq=None, recsys=[])
+    nccl_path = os.path.join(work, "nccl.json")
+    with open(nccl_path, "w") as f:
+        json.dump(nccl_spec, f)
+    nccl_dir = os.path.join(work, "nccl")
+    os.makedirs(nccl_dir)
+    run_world(mesh_world, cards, backend="nccl", args=(nccl_path, nccl_dir),
+              join_timeout_s=MESH_JOIN_S)
+    tag, shape, layers, b, s, n = MESH_LM[0]
+    outs = load(tag, cards, nccl_dir)
+    cfg = mesh_lm_config(layers)
+    for r, o in enumerate(outs):
+        hkv = max(1, cfg.n_kv_heads // cards)
+        want = dict(refs[tag], k=refs[tag]["k"][:, :, :, r * hkv:(r + 1) * hkv],
+                    v=refs[tag]["v"][:, :, :, r * hkv:(r + 1) * hkv], top_k=cfg.moe.top_k)
+        res = mesh_lm_check(torch, f"nccl {cards} rank {r}", o, want, slice(0, b),
+                            bitwise=cards == 1)
+    if cards > 1:
+        mesh_ranks_agree(torch, "nccl", outs, [list(range(cards))])
+    log(f"[mesh] NCCL world of {cards} rank(s), mesh (1, {cards}): "
+        + ("bit for bit the one-process run" if cards == 1 else json.dumps(res))
+        + f"; flash launches per rank {[o['launches']['flash_attention'] for o in outs]}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    del outs, refs
+
+    # (e) the dry run over 4 gloo ranks on this card
+    t0 = time.perf_counter()
+    arch = get_arch("mixtral-8x7b")
+    cut = dataclasses.replace(arch, config=mesh_lm_config(MESH_DRYRUN_LAYERS))
+    rec = dryrun.run_cell("mixtral-8x7b", "decode_32k", device=mesh_device(dev), ranks=4,
+                          backend="gloo", arch=cut, iters=3, verbose=False)
+    want_counts = {"all-reduce": 2 * MESH_DRYRUN_LAYERS, "all-gather": 2}
+    if rec["collectives"]["counts"] != want_counts:
+        fail(f"mesh dryrun: collectives {rec['collectives']['counts']}, the layers imply "
+             f"{want_counts}")
+    mfu = rec["measured"]["mfu"]
+    if not 0 < mfu <= MESH_MFU_MAX:
+        fail(f"mesh dryrun: MFU {mfu} outside (0, {MESH_MFU_MAX}]")
+    log(f"[mesh] dryrun mixtral-8x7b/decode_32k over 4 gloo ranks on one card, "
+        f"{MESH_DRYRUN_LAYERS} layers (cut: {rec['reduced']}): p50 {rec['measured']['p50_ms']:.3f} ms, "
+        f"MFU {mfu:.6f} over 4 devices, collectives {json.dumps(rec['collectives'])}, bound "
+        f"{rec['roofline']['step_lower_bound_s'] * 1e3:.3f} ms ({rec['roofline']['bottleneck']}), "
+        f"{time.perf_counter() - t0:.1f}s")
+    elapsed = time.perf_counter() - t_phase
+    log(f"[mesh] phase took {elapsed:.1f}s (references {t_refs:.1f}s, gloo world {t_world:.1f}s); "
+        f"launches per run and rank {json.dumps(launches)}; {card()}")
+    if elapsed > MESH_BUDGET_S * 1.5:
+        log(f"[mesh] over its budget of {MESH_BUDGET_S:.0f}s")
+    return flash_row, bag_row
+
+
 def run(torch, dev, args) -> list:
     """All phases on ``dev``; returns the kernels rows (raises on any
     failed check)."""
@@ -5516,6 +6142,12 @@ def run(torch, dev, args) -> list:
     bag_backward = phase_train(torch, dev, args.seed + 11, flush)
     bag["din_history"] = bag_backward.pop("din_forward")  # row 5-DIN, the forward kernel's
     bag["xdeepfm_linear"]["launches"] = bag_backward.pop("xdeepfm_forward_launches")
+    torch.cuda.empty_cache()
+    mesh_dir = tempfile.mkdtemp(prefix="mesh_phase_")
+    try:
+        flash["mesh"], bag["rank"] = phase_mesh(torch, dev, args.seed + 14, flush, mesh_dir)
+    finally:
+        shutil.rmtree(mesh_dir, ignore_errors=True)
     return kernels + [flash, bag, bag_backward]
 
 

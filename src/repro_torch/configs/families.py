@@ -11,8 +11,11 @@ nothing is allocated even for dbrx-132b), ``input_specs`` (each input as a
 prefill, decode, serve and retrieval through the model) and ``smoke`` (the
 reduced config for real). The loss of a train step builds its model once
 per params dict, a view onto ``TrainState``'s parameters (``lm_loss_fn``,
-``gnn_loss_fn``, ``recsys_loss_fn``). JAX's ``state_pspec`` and
-``input_pspec`` place arrays on a TPU mesh and are not ported.
+``gnn_loss_fn``, ``recsys_loss_fn``). ``state_pspec`` and
+``input_pspec`` are JAX's, over a ``RankMesh`` (``launch/mesh.py``) and
+the port's own tensors (``launch/sharding.py``): they place the serving
+cells' state and inputs on the ranks of a mesh (``launch/dryrun.py``); a
+train cell's specs, ZeRO-1 moments included, are stated but not yet run.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import torch
 
 from repro_torch.configs.base import ArchDef, ShapeCell
 from repro_torch.core.types import resolve_device
+from repro_torch.launch import sharding as shd
+from repro_torch.launch.mesh import data_axes
 from repro_torch.models.convert import init_params
 from repro_torch.models.gnn import GIN, GINConfig
 from repro_torch.models.recsys import (
@@ -64,6 +69,11 @@ def _param_specs(cfg) -> dict:
     """``init_params(cfg)`` made on the ``meta`` device, as (shape, dtype)
     pairs: nothing is allocated."""
     return spec_tree(init_params(cfg, torch.Generator(), device="meta"))
+
+
+def _state_pspec_from_params(pp: dict) -> dict:
+    """``TrainState``'s specs: the moments mirror the parameters."""
+    return {"params": pp, "opt": {"m": pp, "v": pp, "step": shd.P()}}
 
 
 def _train_state_specs(cfg) -> dict:
@@ -168,6 +178,40 @@ class LMFamily:
         def decode_step(model: TransformerLM, batch):
             return model.decode_step(batch["tokens"], batch["cache"])
         return decode_step
+
+    @staticmethod
+    def state_pspec(arch: ArchDef, shape: str, mesh) -> dict:
+        """``lm_param_pspec`` of the weights (the config's ``embed_shard``
+        and ``moe_weight_mode``); a train cell's ``TrainState``, its moments
+        ZeRO-1 under ``tp_only``."""
+        s = LM_SHAPES[shape]
+        cfg: TransformerConfig = arch.config
+        params_abs = _param_specs(cfg)
+        pp = shd.lm_param_pspec(params_abs, mesh, embed_shard=cfg.embed_shard,
+                                moe_weight_mode=cfg.moe_weight_mode)
+        if s.kind != "train":
+            return pp
+        if cfg.moe_weight_mode == "tp_only":
+            opt_pp = shd.zero1_opt_pspec(pp, params_abs, mesh)
+            return {"params": pp, "opt": {"m": opt_pp, "v": opt_pp, "step": shd.P()}}
+        return _state_pspec_from_params(pp)
+
+    @staticmethod
+    def input_pspec(arch: ArchDef, shape: str, mesh) -> dict:
+        """Tokens over the data axes; the cache by ``kv_cache_pspec``, by
+        sequence for batch-1 decode (``long_500k``)."""
+        s = LM_SHAPES[shape]
+        fsdp = data_axes(mesh)
+        if s.kind == "train":
+            return {"tokens": shd.P(fsdp, None), "labels": shd.P(fsdp, None)}
+        shard_seq = s.global_batch == 1
+        cache = LMFamily.input_specs(arch, shape)["cache"]
+        cache_ps = shd.kv_cache_pspec(cache, mesh, shard_seq=shard_seq)
+        if s.kind == "prefill":
+            tok = shd.P(fsdp, None)
+        else:
+            tok = shd.P() if shard_seq else shd.P(fsdp)
+        return {"tokens": tok, "cache": cache_ps}
 
     @staticmethod
     def smoke(arch: ArchDef, shape: str, seed: int = 0, *, device=None) -> dict:
@@ -281,6 +325,18 @@ class GNNFamily:
         s = (GNN_SHAPES_REDUCED if reduced else GNN_SHAPES)[shape]
         cfg = GNNFamily._cfg_for(arch, s, reduced)
         return make_train_step(gnn_loss_fn(cfg, s.n_graphs), _OPT)
+
+    @staticmethod
+    def state_pspec(arch: ArchDef, shape: str, mesh) -> dict:
+        """Parameters (and moments) replicated."""
+        s = GNN_SHAPES[shape]
+        cfg = GNNFamily._cfg_for(arch, s, reduced=False)
+        return _state_pspec_from_params(shd.replicated(_param_specs(cfg)))
+
+    @staticmethod
+    def input_pspec(arch: ArchDef, shape: str, mesh) -> dict:
+        """Every node and edge array over the data axes."""
+        return shd.batch_pspec(GNNFamily.input_specs(arch, shape), mesh)
 
     @staticmethod
     def smoke(arch: ArchDef, shape: str, seed: int = 0, *, device=None, params=None) -> dict:
@@ -430,6 +486,45 @@ class RecsysFamily:
         def step(model, batch):
             return serve_step(model, s)(batch)
         return step
+
+    @staticmethod
+    def state_pspec(arch: ArchDef, shape: str, mesh) -> dict:
+        """``recsys_param_pspec`` of the weights (and of a train cell's
+        moments)."""
+        pp = shd.recsys_param_pspec(_param_specs(arch.config), mesh)
+        return _state_pspec_from_params(pp) if RECSYS_SHAPES[shape].kind == "train" else pp
+
+    @staticmethod
+    def input_pspec(arch: ArchDef, shape: str, mesh) -> dict:
+        """Batches over the data axes; at retrieval the candidate axis is
+        the parallel one (one user, history or sequence replicated)."""
+        specs = RecsysFamily.input_specs(arch, shape)
+        ps = shd.batch_pspec(specs, mesh)
+        if RECSYS_SHAPES[shape].kind == "retrieval":
+            fsdp = data_axes(mesh)
+            if "cand_emb" in specs:
+                ps.update(cand_emb=shd.P(fsdp, None), user_ids=shd.P(None, None),
+                          user_mask=shd.P(None, None))
+            if "cand_ids" in specs:
+                ps.update(cand_ids=shd.P(fsdp), seq_ids=shd.P(None, None),
+                          seq_mask=shd.P(None, None))
+            if "target_ids" in specs and "hist_ids" in specs:
+                ps.update(target_ids=shd.P(fsdp), hist_ids=shd.P(None, None),
+                          hist_mask=shd.P(None, None))
+            if "field_ids" in specs:
+                ps["field_ids"] = shd.P(fsdp, None)
+        return ps
+
+    @staticmethod
+    def output_pspec(arch: ArchDef, shape: str, mesh):
+        """The spec of a serve or retrieval step's output over ``mesh``: the
+        rows of the batch, or at retrieval the candidates (two-tower's and
+        SASRec's [B, N] scores along N), over the data axes."""
+        fsdp = data_axes(mesh)
+        s = RECSYS_SHAPES[shape]
+        if s.kind == "retrieval" and isinstance(arch.config, (TwoTowerConfig, SASRecConfig)):
+            return shd.P(None, fsdp)
+        return shd.P(fsdp)
 
     @staticmethod
     def smoke(arch: ArchDef, shape: str, seed: int = 0, *, device=None, params=None) -> dict:

@@ -214,6 +214,25 @@ class WarpFamily:
         return step
 
     @staticmethod
+    def state_pspec(arch: ArchDef, shape: str, mesh) -> dict:
+        """Each array of ``abstract_state``'s stack split over the data axes
+        (its leading shard axis)."""
+        from repro_torch.launch.mesh import data_axes
+        from repro_torch.launch.sharding import P
+
+        axes = data_axes(mesh)
+        return {name: P(axes) for name in WarpFamily.abstract_state(arch, shape)}
+
+    @staticmethod
+    def input_pspec(arch: ArchDef, shape: str, mesh) -> dict:
+        """The queries replicated on every rank."""
+        from repro_torch.launch.sharding import P
+
+        if WARP_SHAPES[shape].batch > 1:
+            return {"q": P(None, None, None), "qmask": P(None, None)}
+        return {"q": P(None, None), "qmask": P(None)}
+
+    @staticmethod
     def smoke(arch: ArchDef, shape: str, seed: int = 0, *, device=None, index=None) -> dict:
         """JAX's smoke on ``device`` (None: the card): the reduced cell's
         corpus (``make_corpus`` seed 0), a document-sharded build of it at

@@ -251,6 +251,14 @@ class RankGroup:
     def __repr__(self) -> str:
         return f"RankGroup(rank={self.rank}, size={self.size}, {self.backend}, {self.device})"
 
+    def mesh(self, shape: tuple[int, ...], axes: tuple[str, ...] = ("data", "model")):
+        """A ``RankMesh`` of ``shape`` over this world's ranks, for SPMD
+        steps in which every rank runs (``launch/ranks.py::run_mesh``).
+        Collective: every rank makes it, meshes in one order."""
+        from repro_torch.launch.mesh import make_mesh
+
+        return make_mesh(shape, axes, self)
+
     # ---- numbered objects ----
     def register(self, obj) -> int:
         oid, self._next_id = self._next_id, self._next_id + 1

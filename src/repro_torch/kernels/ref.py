@@ -19,8 +19,6 @@ import math
 
 import torch
 
-from repro_torch.core.quantization import unpack_codes
-from repro_torch.core.worklist import TileWorklist, per_slot, worklist_slot_positions
 
 __all__ = [
     "selective_sum",
@@ -69,6 +67,7 @@ def selective_sum(
 ) -> torch.Tensor:
     """packed u8[Q, N, PB], v f32[Q, D, 2^b] -> f32[Q, N],
     out[q, n] = sum_d v[q, d, code(q, n, d)]."""
+    from repro_torch.core.quantization import unpack_codes  # core's package imports kernels
     q, n, _ = packed.shape
     nb = 1 << nbits
     codes = unpack_codes(packed, nbits, dim)  # u8[Q, N, D]
@@ -114,6 +113,7 @@ def ragged_selective_sum(
 ) -> torch.Tensor:
     """packed u8[N, PB], qtok i32[N], v f32[Q, D, 2^b] -> f32[N],
     out[n] = sum_d v[qtok[n], d, code(n, d)]."""
+    from repro_torch.core.quantization import unpack_codes  # core's package imports kernels
     n = packed.shape[0]
     nb = 1 << nbits
     codes = unpack_codes(packed, nbits, dim)  # u8[N, D]
@@ -269,6 +269,7 @@ def ragged_fused_gather_score(
     f32[W], v f32[Q, D, 2^b] -> f32[W * tile_c]: slot (w, c) is
     ``pscore[w] + sum_d v[qtok[w], d, code_d]`` of row ``row0[w] + c``
     when ``c < nvalid[w]`` and exactly 0 otherwise."""
+    from repro_torch.core.worklist import TileWorklist, per_slot, worklist_slot_positions
     wl = TileWorklist(row0=row0, nvalid=nvalid, qtok=qtok, pscore=pscore)
     pos, valid = worklist_slot_positions(
         wl, tile_c=tile_c, n_tokens=packed_codes.shape[0]
@@ -407,6 +408,7 @@ def segmented_ragged_fused_gather_score(
     slot (w, c) is ``pscore[w] + sum_d v[qtok[w], d, code_d]`` of row
     ``row0[w] + c`` of segment ``seg[w]`` when ``c < nvalid[w]`` and
     exactly 0 otherwise -> f32[W * tile_c]."""
+    from repro_torch.core.worklist import per_slot
     gathered, valid = segmented_ragged_gather_codes(
         packed_list, row0, nvalid, seg, tile_c=tile_c
     )

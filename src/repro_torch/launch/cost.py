@@ -129,6 +129,7 @@ class StepCost:
         self.kernels: dict = {}
         self.kernel_calls: list = []
         self.per_op: dict = collections.defaultdict(float)
+        self.op_counts: dict = collections.defaultdict(int)  # collectives by op
         self.n_collectives = 0
         self._quiet = 0
         self._mode = None
@@ -205,6 +206,7 @@ class StepCost:
 
     def add_collective(self, op: str, nbytes: float, group: int) -> None:
         self.per_op[op] += collective_bytes(op, nbytes, group)
+        self.op_counts[op] += 1
         self.n_collectives += 1
 
 

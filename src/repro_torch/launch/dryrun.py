@@ -7,6 +7,7 @@ port has no compiler to ask, so it runs the step and counts it.
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--out build/dryrun]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch warp-xtr --ranks 4
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mixtral-8x7b --ranks 4
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cpu --reduced
 
 For each cell (``run_cell``):
@@ -38,7 +39,17 @@ devices x ``roofline.peak_for`` the step's compute dtype. ``--ranks N``
 runs the warp cells over a world of N shard ranks (``launch/ranks.py``:
 NCCL on the cards, gloo on the CPU), each rank cutting its own shard of
 the synthetic index (``distributed.rank_shard``); rank 0 times and counts,
-and its collectives come from the counter. A failing cell is recorded with
+and its collectives come from the counter. For the LM and recsys
+families ``--ranks N`` runs the serving cells over a (data, model) mesh
+of N ranks (``--mesh D,M``, (1, N) by default; ``launch/ranks.py::
+run_mesh``): every rank materializes its own blocks of the state and the
+inputs, placed by the family's ``state_pspec`` and ``input_pspec``
+(``long_500k``'s cache split by sequence), and runs the step; rank 0's
+time, peak and counted work (its collectives counted per op in
+``collectives.counts``) make the record, ``mesh`` "ranks<N>", MFU over N
+devices. The fit reckons each rank's share as 1/N of the state and inputs,
+times the ranks that share a card. Train cells over ranks raise: training
+over a mesh is the next step of the port. A failing cell is recorded with
 ``ok: false``, its error and traceback, and the run exits 1. Nothing falls
 back to the CPU or to a plain version.
 """
@@ -310,7 +321,15 @@ def _recsys(cell: _Cell, g, dev):
     from repro_torch.models.recsys import RECSYS_MODELS
     from repro_torch.train.loop import TrainState
 
-    cfg, s = cell.config, cell.shape_obj
+    batch = _recsys_batch(cell, g, dev)
+    params = init_params(cell.config, g, device=dev)
+    if cell.shape_obj.kind == "train":
+        return TrainState.create(params), batch
+    return RECSYS_MODELS[type(cell.config)].from_params(cell.config, params), batch
+
+
+def _recsys_batch(cell: _Cell, g, dev) -> dict:
+    cfg = cell.config
     specs = _batch_axis_specs(cell, cell.family.input_specs(cell.arch, cell.shape,
                                                             reduced=cell.reduced))
     batch = {}
@@ -325,10 +344,7 @@ def _recsys(cell: _Cell, g, dev):
             batch[name] = _ints(g, 2, dims, dev).float()
         else:
             batch[name] = torch.randn(dims, generator=g, device=dev)
-    params = init_params(cfg, g, device=dev)
-    if s.kind == "train":
-        return TrainState.create(params), batch
-    return RECSYS_MODELS[type(cfg)].from_params(cfg, params), batch
+    return batch
 
 
 def _warp_queries(index, cfg, batch: int, g):
@@ -474,7 +490,7 @@ def _record(arch: ArchDef, shape, cell: _Cell, *, mesh: str, n_devices: int, dev
         "per_device_bytes": c.bytes,
         "kernels": kernels,
         "kernel_calls": calls,
-        "collectives": c.collectives,
+        "collectives": {**c.collectives, "counts": dict(c.op_counts)},
         "roofline": terms,
         "model_flops": mf,
         "model_flops_run": mf_run,
@@ -523,12 +539,17 @@ def run_cell(
     arch: ArchDef | None = None,
     search_overrides: dict | None = None,
     verbose: bool = True,
+    mesh: tuple[int, int] | None = None,
+    backend: str | None = None,
 ) -> dict:
     """Run one cell on ``device`` and return its record (see the module).
     ``arch`` replaces the registry's ``ArchDef`` (``hillclimb``'s
     variants); ``search_overrides`` replace fields of a warp cell's
     ``search_config``; ``ranks`` runs a warp cell over that many shard
-    ranks."""
+    ranks, an LM or recsys serving cell over a (data, model) mesh of that
+    many ranks (``mesh``, (1, ranks) by default). ``backend`` is the
+    world's: NCCL on the cards (one rank per card) and gloo on the CPU by
+    default; gloo with ``device="cuda:0"`` puts every rank on that card."""
     dev = _resolve(device)
     arch = arch or get_arch(arch_name)
     if shape not in arch.shapes:
@@ -536,9 +557,10 @@ def run_cell(
     fam = arch.family
     cell = _Cell(arch, shape, _shapes(fam, reduced)[shape], reduced, [])
     if ranks is not None:
-        if fam.name != "warp":
-            raise ValueError("--ranks runs the warp cells (one document shard per rank)")
-        return _run_ranked(arch_name, cell, dev, ranks, seed, iters, search_overrides, verbose)
+        if fam.name == "warp":
+            return _run_ranked(arch_name, cell, dev, ranks, seed, iters, search_overrides,
+                               verbose)
+        return _run_mesh(cell, dev, ranks, mesh or (1, ranks), backend, seed, iters, verbose)
     reckoned = _reckon(cell)
     budget = int(torch.cuda.mem_get_info(dev)[0] * FIT_SHARE) if dev.type == "cuda" else None
     cell = _fit(cell, budget)
@@ -648,6 +670,127 @@ def _run_ranked(arch_name, cell, dev, n, seed, iters, search_overrides, verbose)
 
 
 # ---------------------------------------------------------------------------
+# an LM or recsys serving cell over a mesh of ranks
+# ---------------------------------------------------------------------------
+
+
+def _materialize_mesh(cell: _Cell, mesh, seed: int):
+    """This rank's blocks of the cell's state and inputs: every rank draws
+    the same numbers (one seeded generator on its device) and keeps its
+    own blocks."""
+    from repro_torch.launch import sharding
+    from repro_torch.models import KVCache, TransformerLM, init_params
+    from repro_torch.models.recsys import RECSYS_MODELS
+
+    dev = mesh.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    cfg, s = cell.config, cell.shape_obj
+    if cell.family.name == "recsys":
+        batch = _recsys_batch(cell, g, dev)
+        specs = cell.family.input_pspec(cell.arch, cell.shape, mesh)
+        batch = {k: sharding.local_block(v, specs[k], mesh).clone() for k, v in batch.items()}
+        params = init_params(cfg, g, device=dev, mesh=mesh)
+        return RECSYS_MODELS[type(cfg)].from_params(cfg, params, mesh=mesh), batch
+    params = init_params(cfg, g, device=dev, dtype=torch.bfloat16, mesh=mesh)
+    model = TransformerLM.from_params(cfg, params, mesh=mesh)
+    specs = cell.family.input_pspec(cell.arch, cell.shape, mesh)
+    b, sl = s.global_batch, s.seq_len
+    tokens = _ints(g, cfg.vocab, (b, sl) if s.kind == "prefill" else (b,), dev)
+    tokens = sharding.local_block(tokens, specs["tokens"], mesh).clone()
+    shard_seq = specs["cache"]["k"][2] is not None  # long_500k: the cache split by sequence
+    shape = (cfg.n_layers, b, sl, cfg.n_kv_heads, cfg.resolved_head_dim)
+    shape = sharding.local_shape(shape, specs["cache"]["k"], mesh)[:3] + (
+        sharding.kv_heads_of_rank(cfg, mesh)[1], cfg.resolved_head_dim)
+    cache = KVCache(torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                    torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                    torch.zeros(sharding.local_shape((b,), specs["cache"]["length"], mesh),
+                                dtype=torch.int32, device=dev), seq_split=shard_seq)
+    if s.kind == "decode":
+        cache.length.fill_(sl - 1)  # decode one token against a cache of sl - 1
+    return model, {"tokens": tokens, "cache": cache}
+
+
+def _mesh_body(mesh, cell, seed, iters, out_path):
+    """One rank of a cell over a mesh: its blocks materialized, the step
+    timed and counted on every rank (they run in lockstep); rank 0 writes
+    its numbers."""
+    dev = mesh.device
+    state, batch = _materialize_mesh(cell, mesh, seed)
+    step = cell.family.step_fn(cell.arch, cell.shape, reduced=cell.reduced)
+    p50, peak, out = _time(step, state, batch, dev, iters)
+    out_bytes = _new_bytes(out, (state, batch))
+    out = None
+    c, launches = _count(step, state, batch, dev)
+    arg_bytes = sum(t.numel() * t.element_size() for t in _tensors((state, batch)))
+    if mesh.rank == 0:
+        with open(out_path, "w") as f:
+            json.dump({"p50": p50, "peak": peak, "out_bytes": out_bytes, "arg_bytes": arg_bytes,
+                       "aten_flops": c.aten_flops, "aten_bytes": c.aten_bytes, "n_ops": c.n_ops,
+                       "kernels": c.kernels, "per_op": dict(c.per_op),
+                       "op_counts": dict(c.op_counts), "launches": launches,
+                       "kernel_calls": [[n, f"{w.__module__}:{w.__name__}", sh]
+                                        for n, w, sh in c.kernel_calls],
+                       "n_collectives": c.n_collectives}, f)
+
+
+def _run_mesh(cell: _Cell, dev, n: int, shape, backend, seed, iters, verbose) -> dict:
+    from repro_torch.launch.ranks import run_mesh
+
+    fam = cell.family
+    if fam.name not in ("lm", "recsys") or cell.shape_obj.kind == "train":
+        raise NotImplementedError(
+            f"{cell.arch.name}/{cell.shape} over ranks: the mesh runs the LM and recsys serving "
+            "cells; training over a mesh (FSDP gradients, ZeRO-1 moments, the train cells over "
+            "ranks) is the next step of the port (ROADMAP queue 1, item 1)"
+        )
+    shape = tuple(int(d) for d in shape)
+    if shape[0] * shape[1] != n:
+        raise ValueError(f"a mesh of shape {shape} does not have {n} ranks")
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if dev.type == "cpu":
+        world_dev, per_card = "cpu", n
+    elif backend == "gloo" and dev.index is not None:
+        world_dev, per_card = str(dev), n
+    else:
+        world_dev, per_card = None, 1 if backend == "nccl" else -(-n // torch.cuda.device_count())
+    from repro_torch.launch.ranks import WorldFailed
+
+    reckoned = _reckon(cell)
+    if dev.type == "cuda":  # each rank holds ~1/n of the state and inputs
+        cell = _fit(cell, int(torch.cuda.mem_get_info(dev)[0] * FIT_SHARE * n / per_card))
+    while True:
+        with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
+            out_path = os.path.join(tmp, "rank0.json")
+            try:
+                run_mesh(_mesh_body, shape, backend=backend, device=world_dev,
+                         args=(cell, seed, iters, out_path))
+            except WorldFailed as e:  # a rank out of memory: cut, as one card does
+                if "OutOfMemoryError" not in str(e):
+                    raise
+                cell = _cut_once(cell)
+                cell.cuts[-1] += " (out of memory)"
+                continue
+            with open(out_path) as f:
+                got = json.load(f)
+            break
+    c = cost.StepCost()
+    c.aten_flops, c.aten_bytes, c.n_ops = got["aten_flops"], got["aten_bytes"], got["n_ops"]
+    c.kernels, c.n_collectives = got["kernels"], got["n_collectives"]
+    c.kernel_calls = [(k, resolve_work(w), sh) for k, w, sh in got["kernel_calls"]]
+    c.per_op.update(got["per_op"])
+    c.op_counts.update(got["op_counts"])
+    rank0 = torch.device("cuda", dev.index or 0) if dev.type == "cuda" else dev
+    rec = _record(cell.arch, cell.shape, cell, mesh=f"ranks{n}", n_devices=n, dev=rank0,
+                  p50_ms=got["p50"], peak=got["peak"], arg_bytes=got["arg_bytes"],
+                  out_bytes=got["out_bytes"], c=c, launches=got["launches"],
+                  reckoned=(reckoned[0] // n, reckoned[1] // n))
+    if verbose:
+        _print(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # the command line
 # ---------------------------------------------------------------------------
 
@@ -658,7 +801,12 @@ def main(argv=None) -> int:
     ap.add_argument("--shape")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--ranks", type=int, default=None,
-                    help="run the warp cells over N shard ranks (NCCL on the cards)")
+                    help="run the warp cells over N shard ranks, the LM and recsys serving "
+                    "cells over a mesh of N ranks (NCCL on the cards)")
+    ap.add_argument("--mesh", default=None,
+                    help="the (data, model) shape of the mesh as D,M (default 1,N)")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="the ranks' backend (default: nccl on the cards, gloo on the CPU)")
     ap.add_argument("--out", default="build/dryrun")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     ap.add_argument("--reduced", action="store_true", help="the arch's reduced configs")
@@ -669,12 +817,18 @@ def main(argv=None) -> int:
         ap.error("give --all or --arch")
     _resolve(args.device)
 
+    def over_ranks(a, s):  # the cells a world of ranks runs
+        fam = get_arch(a).family
+        return fam.name == "warp" or (fam.name in ("lm", "recsys")
+                                      and fam.shape_cell(get_arch(a), s).kind != "train")
+
     if args.all:
         cells = all_cells(include_warp=True)
-        if args.ranks is not None:
-            cells = [(a, s) for a, s in cells if get_arch(a).family.name == "warp"]
     else:
         cells = [(args.arch, s) for s in ([args.shape] if args.shape else get_arch(args.arch).shapes)]
+    if args.ranks is not None and not (args.shape and args.arch):
+        cells = [(a, s) for a, s in cells if over_ranks(a, s)]
+    mesh_shape = tuple(int(d) for d in args.mesh.split(",")) if args.mesh else None
     mesh = "single" if args.ranks is None else f"ranks{args.ranks}"
     outdir = os.path.join(args.out, mesh)
     os.makedirs(outdir, exist_ok=True)
@@ -682,7 +836,8 @@ def main(argv=None) -> int:
     for arch_name, shape in cells:
         try:
             rec = run_cell(arch_name, shape, device=args.device, reduced=args.reduced,
-                           ranks=args.ranks, seed=args.seed, iters=args.iters)
+                           ranks=args.ranks, seed=args.seed, iters=args.iters, mesh=mesh_shape,
+                           backend=args.backend)
         except Exception as e:  # noqa: BLE001 — record and continue
             failures += 1
             rec = {

@@ -16,6 +16,12 @@ leads: it loads ``Retriever.from_store(path, group=group)`` and drives it
 operation rank 0 leads, the load included. ``fn`` and ``args`` are
 pickled, so ``fn`` is a module-level function.
 
+SPMD worlds (``run_mesh``) carry a mesh instead: ``fn(mesh, *args)``
+runs in every rank with its ``RankMesh`` (``launch/mesh.py``) over the
+world, and every rank runs the step (the LM and recsys families placed by
+``launch/sharding.py``'s rules). One world may lay several meshes over its
+ranks in turn (``group.mesh(shape, axes)``).
+
 - Processes come from ``torch.multiprocessing.get_context("spawn")``; the
   caller's start method is left alone.
 - The ranks meet through a ``FileStore`` in a temporary directory: no
@@ -50,7 +56,7 @@ import torch
 
 from repro_torch.core.distributed import RankGroup
 
-__all__ = ["BACKENDS", "WorldFailed", "run_world", "world_devices"]
+__all__ = ["BACKENDS", "WorldFailed", "run_mesh", "run_world", "world_devices"]
 
 BACKENDS = ("nccl", "gloo")
 # A collective that waits longer than this raises in the ranks that wait.
@@ -259,3 +265,20 @@ def run_world(
     finally:
         _kill(procs)
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _spmd(group, fn, shape, axes, args) -> None:
+    fn(group.mesh(shape, axes), *args)
+
+
+def run_mesh(fn, shape: tuple[int, ...], axes: tuple[str, ...] = ("data", "model"), *,
+             backend: str, device=None, args: tuple = (), join_timeout_s: float = 600.0,
+             threads: int | None = None, workdir: str | None = None) -> None:
+    """``run_world`` over a mesh of ``shape`` (named ``axes``): one rank
+    per position, each running ``fn(mesh, *args)`` with its ``RankMesh``.
+    ``fn`` is a module-level function (it is pickled)."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    run_world(_spmd, n, backend=backend, device=device, args=(fn, tuple(shape), tuple(axes), args),
+              join_timeout_s=join_timeout_s, threads=threads, workdir=workdir)

@@ -5,7 +5,10 @@ Both dispatch on the config's type (``TransformerConfig``,
 ``EncoderConfig``, ``GINConfig`` or one of the four recsys configs) and
 return a state dict in the module's names (see ``TransformerLM``,
 ``TokenEncoder``, ``GIN`` and ``models/recsys.py``), for the model's
-``from_params``; float32 weights go into ``train.TrainState.create`` as
+``from_params``. Given a ``mesh`` (``launch/mesh.py``), both return this
+rank's blocks only, placed by the family's rule (``launch/sharding.py``):
+the LM's weights are cut one tensor at a time, so no rank holds the whole
+model; float32 weights go into ``train.TrainState.create`` as
 they are, and train as its ``nn.Parameter``s. The JAX trees of
 the LM and the encoder stack their layers on a leading axis; the port
 keeps one module per layer. Dense weights are stored [d_out, d_in] (``nn.Linear``'s
@@ -27,18 +30,89 @@ from repro_torch.models.moe import moe_init
 from repro_torch.models.recsys import DINConfig, SASRecConfig, TwoTowerConfig, XDeepFMConfig
 from repro_torch.models.transformer import TransformerConfig
 
-__all__ = ["params_from_jax", "init_params"]
+__all__ = ["params_from_jax", "init_params", "jax_leaf", "port_layout", "param_specs"]
 
 _NORMS = ("attn_norm", "ffn_norm", "q_norm", "k_norm")
 _DENSE = ("wq", "wk", "wv", "wo")
 _FFN = ("gate", "up", "down")
 
 
-def params_from_jax(tree, cfg, *, device=None, dtype=torch.float32) -> dict:
+def jax_leaf(name: str, *, stacked: bool = True) -> tuple[tuple, int | None, bool]:
+    """The JAX leaf of the port's parameter ``name``: (its path of keys,
+    its layer on the leading axis of JAX's stacked ``layers`` or None,
+    whether the port stores it transposed). Dense ``weight`` is JAX's
+    ``w`` transposed, ``bias`` its ``b``; a number is a list index.
+    ``stacked`` is False for trees whose ``layers`` are a list (GIN)."""
+    parts = name.split(".")
+    layer = None
+    if stacked and parts[0] == "layers":
+        layer, parts = int(parts[1]), ["layers", *parts[2:]]
+    path, transpose = [], False
+    for p in parts:
+        if p == "weight":
+            path.append("w")
+            transpose = True
+        elif p == "bias":
+            path.append("b")
+        else:
+            path.append(int(p) if p.isdigit() else p)
+    return tuple(path), layer, transpose
+
+
+def port_layout(parts, name: str, *, stacked: bool = True) -> tuple:
+    """A JAX leaf's per-dimension tuple (its shape, or its partition
+    spec's entries) in the port's layout of ``name``: the stacked layer
+    axis dropped, a Dense weight's two dims swapped."""
+    _, layer, transpose = jax_leaf(name, stacked=stacked)
+    parts = tuple(parts)
+    if layer is not None:
+        parts = parts[1:]
+    return parts[::-1] if transpose else parts
+
+
+def param_specs(cfg, mesh) -> dict:
+    """name -> ``PartitionSpec`` of ``cfg``'s parameters on ``mesh``: the
+    LM's by ``lm_param_pspec`` (its config's ``embed_shard`` and
+    ``moe_weight_mode``), the recsys models' by ``recsys_param_pspec``,
+    GIN's replicated."""
+    from repro_torch.launch import sharding
+
+    shapes = {k: (tuple(v.shape), v.dtype)
+              for k, v in init_params(cfg, torch.Generator(), device="meta").items()}
+    if isinstance(cfg, TransformerConfig):
+        return sharding.lm_param_pspec(shapes, mesh, embed_shard=cfg.embed_shard,
+                                       moe_weight_mode=cfg.moe_weight_mode)
+    if isinstance(cfg, GINConfig):
+        return sharding.replicated(shapes)
+    if isinstance(cfg, EncoderConfig):
+        raise TypeError("the token encoder is not placed on a mesh")
+    return sharding.recsys_param_pspec(shapes, mesh)
+
+
+def _placer(cfg, mesh):
+    """``place(name, full) -> this rank's block`` (a copy, so the full
+    tensor can be freed), or None without a mesh."""
+    if mesh is None:
+        return None
+    from repro_torch.launch import sharding
+
+    specs = param_specs(cfg, mesh)
+    if isinstance(cfg, TransformerConfig):
+        sharding.kv_heads_of_rank(cfg, mesh)  # raises where the heads do not divide
+        return lambda name, t: sharding.lm_local_block(name, t, specs[name], mesh, cfg).clone()
+    return lambda name, t: sharding.local_block(t, specs[name], mesh).clone()
+
+
+def params_from_jax(tree, cfg, *, device=None, dtype=torch.float32, mesh=None) -> dict:
     """The JAX ``init`` pytree of ``cfg``'s model (arrays as numpy or
     anything ``np.asarray`` takes) -> the port's state dict on ``device`` in
-    ``dtype``. ``device=None`` is the card."""
+    ``dtype``; with ``mesh``, this rank's blocks of it. ``device=None`` is
+    the card."""
     dev = resolve_device(device)
+    place = _placer(cfg, mesh)
+    if place is not None:
+        full = params_from_jax(tree, cfg, device="cpu", dtype=dtype)
+        return {k: place(k, v).to(dev) for k, v in full.items()}
 
     def t(a, transpose=False):
         a = np.asarray(a, dtype=np.float32)
@@ -141,20 +215,24 @@ def _encoder_from_jax(tree, cfg: EncoderConfig, t) -> dict:
 
 def init_params(
     cfg, generator: torch.Generator | None = None, *, device=None, dtype=torch.float32,
+    mesh=None,
 ) -> dict:
     """Random weights for ``cfg``'s model with its JAX ``init``'s
     distributions, drawn in float32 from ``generator`` (one on ``device``;
-    seed 0 when None), stored in ``dtype``. ``device=None`` is the card."""
+    seed 0 when None), stored in ``dtype``. ``device=None`` is the card.
+    With ``mesh``, every rank draws the same numbers in the same order and
+    keeps its own blocks: the LM one tensor at a time, the recsys and GNN
+    models after the whole draw."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+    place = _placer(cfg, mesh)
     if isinstance(cfg, TransformerConfig):
-        return _lm_init(cfg, generator, dev, dtype)
+        return _lm_init(cfg, generator, dev, dtype, place)
     if isinstance(cfg, EncoderConfig):
         return _encoder_init(cfg, generator, dev, dtype)
-    if isinstance(cfg, GINConfig):
-        return _gin_init(cfg, generator, dev, dtype)
-    return _recsys_init(cfg, generator, dev, dtype)
+    out = (_gin_init if isinstance(cfg, GINConfig) else _recsys_init)(cfg, generator, dev, dtype)
+    return out if place is None else {k: place(k, v) for k, v in out.items()}
 
 
 def _gin_init(cfg: GINConfig, generator, dev, dtype) -> dict:
@@ -267,11 +345,13 @@ def _recsys_init(cfg, generator, dev, dtype) -> dict:
     raise TypeError(f"no port of a model with config {type(cfg).__name__}")
 
 
-def _lm_init(cfg: TransformerConfig, generator, dev, dtype) -> dict:
+def _lm_init(cfg: TransformerConfig, generator, dev, dtype, place=None) -> dict:
     """Random weights with ``TransformerLM.init``'s distributions: dense
     weights normal * 1/sqrt(d_in), biases 0, norm scales 1, the embedding
-    normal * 1/sqrt(d_model); MoE layers as ``moe.moe_init`` draws them."""
+    normal * 1/sqrt(d_model); MoE layers as ``moe.moe_init`` draws them.
+    ``place(name, full)`` keeps each tensor's block as it is drawn."""
     dh, d = cfg.resolved_head_dim, cfg.d_model
+    out = _Kept(place)
 
     def normal(d_out, d_in):
         w = torch.randn(d_out, d_in, generator=generator, device=dev)
@@ -280,11 +360,9 @@ def _lm_init(cfg: TransformerConfig, generator, dev, dtype) -> dict:
     def const(n, value):
         return torch.full((n,), value, dtype=dtype, device=dev)
 
-    out = {
-        "embed": (torch.randn(cfg.vocab, d, generator=generator, device=dev)
-                  * (1.0 / math.sqrt(d))).to(dtype),
-        "final_norm.scale": const(d, 1.0),
-    }
+    out["embed"] = (torch.randn(cfg.vocab, d, generator=generator, device=dev)
+                    * (1.0 / math.sqrt(d))).to(dtype)
+    out["final_norm.scale"] = const(d, 1.0)
     shapes = {
         "wq": cfg.n_heads * dh, "wk": cfg.n_kv_heads * dh, "wv": cfg.n_kv_heads * dh,
     }
@@ -302,11 +380,26 @@ def _lm_init(cfg: TransformerConfig, generator, dev, dtype) -> dict:
             out[pre + "k_norm.scale"] = const(dh, 1.0)
         if cfg.moe is not None:
             moe = moe_init(generator, cfg.moe, d, cfg.d_ff, device=dev, dtype=dtype)
-            out.update({pre + f"moe.{name}": w for name, w in moe.items()})
+            for name in list(moe):
+                out[pre + f"moe.{name}"] = moe.pop(name)
             continue
         out[pre + "ffn.gate.weight"] = normal(cfg.d_ff, d)
         out[pre + "ffn.up.weight"] = normal(cfg.d_ff, d)
         out[pre + "ffn.down.weight"] = normal(d, cfg.d_ff)
     if not cfg.tie_embeddings:
         out["lm_head.weight"] = normal(cfg.vocab, d)
-    return out
+    return dict(out)
+
+
+class _Kept(dict):
+    """A state dict that keeps ``place(name, tensor)`` of each tensor set
+    in it (None: the tensor itself)."""
+
+    def __init__(self, place):
+        super().__init__()
+        self._place = place
+
+    def __setitem__(self, name, t):
+        if self._place is not None:
+            t = self._place(name, t)
+        super().__setitem__(name, t)

@@ -7,6 +7,17 @@ dtype, attention q [..., S, H, Dh] against k/v [..., S, Hkv, Dh] with
 query head h reading kv head h // (H / Hkv). ``RMSNorm``, ``Dense`` and
 ``SwiGLU`` are the modules that hold parameters; ``Dense`` keeps its
 weight in ``nn.Linear``'s [d_out, d_in] layout.
+
+Over a mesh of ranks (``launch/mesh.py``), the pieces that
+``launch/sharding.py``'s rules imply: a column-parallel dense is ``dense``
+on the rank's rows of the weight (its output features are the rank's); a
+row-parallel dense (``row_dense``) sums the ranks' partial products over
+the model axis; ``gather_fsdp`` joins a weight's blocks over the data
+axes just before its layer runs (the caller drops it after); and
+``decode_attention_partial`` with ``merge_attention`` decode over a cache
+whose sequence axis is split over the data axes, merging each rank's
+partial softmax by its log-sum-exp. Each collective reports to the step
+counter through the mesh.
 """
 
 from __future__ import annotations
@@ -27,6 +38,11 @@ __all__ = [
     "chunked_attention",
     "gqa_attention",
     "decode_attention",
+    "decode_attention_partial",
+    "merge_attention",
+    "row_dense",
+    "gather_fsdp",
+    "assign_blocks",
     "swiglu",
     "RMSNorm",
     "Dense",
@@ -219,6 +235,97 @@ def decode_attention(
     logits = torch.where(valid[:, None, None, :], logits, _MASKED)
     p = torch.softmax(logits, dim=-1).to(v_cache.dtype)
     return _ungrouped(p @ v_cache.transpose(1, 2), 1)  # [B, 1, H, Dh]
+
+
+def decode_attention_partial(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    kv_len: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``decode_attention`` over one block of the cache's positions
+    (``positions`` [S], their absolute positions): (out f32[B, 1, H, Dh],
+    normalized over the block, with probabilities cast to the cache's dtype
+    as ``decode_attention`` casts them; lse f32[B, H], the log-sum-exp of
+    the block's scaled logits). A block with no visible position gives
+    ~-1e30, which ``merge_attention`` weighs as 0."""
+    b, _, h, dh = q.shape
+    hkv = k_cache.shape[2]
+    scale = 1.0 / math.sqrt(dh)
+    ct = torch.promote_types(q.dtype, k_cache.dtype)
+    qg = _grouped(q.to(ct), hkv)  # [B, Hkv, rep, Dh]
+    kc = k_cache.to(ct).transpose(1, 2)  # [B, Hkv, S, Dh]
+    logits = (qg @ kc.transpose(-1, -2)).float() * scale  # [B, Hkv, rep, S]
+    valid = positions < kv_len.unsqueeze(-1)  # [B, S]
+    if window is not None:
+        valid = valid & (positions >= kv_len.unsqueeze(-1) - window)
+    logits = torch.where(valid[:, None, None, :], logits, _MASKED)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
+    denom = p.sum(-1, keepdim=True)
+    out = ((p / denom).to(v_cache.dtype) @ v_cache.transpose(1, 2)).float()
+    lse = (m + torch.log(denom)).reshape(b, h)
+    return _ungrouped(out, 1), lse
+
+
+def merge_attention(out: torch.Tensor, lse: torch.Tensor, mesh, axes, dtype) -> torch.Tensor:
+    """The ranks' ``decode_attention_partial`` results along ``axes``
+    merged by their log-sum-exp: one all-gather of (out, lse), then
+    sum_r exp(lse_r - lse) * out_r, the same bits on every rank -> [B, 1,
+    H, Dh] in ``dtype``."""
+    n = mesh.size_of(axes)
+    if n == 1:
+        return out.to(dtype)
+    b, _, h, dh = out.shape
+    packed = torch.cat([out.reshape(-1), lse.reshape(-1)])
+    got = mesh.all_gather(packed, axes, 0).reshape(n, -1)
+    outs = got[:, : out.numel()].reshape(n, b, 1, h, dh)
+    lses = got[:, out.numel():].reshape(n, b, 1, h, 1)
+    w = torch.exp(lses - lses.amax(0, keepdim=True))
+    return ((w * outs).sum(0) / w.sum(0)).to(dtype)
+
+
+def row_dense(x: torch.Tensor, weight: torch.Tensor, mesh, bias=None) -> torch.Tensor:
+    """A row-parallel dense: x's features and the weight's d_in are the
+    rank's block; the partial products are summed over the model axis
+    (in float32), then the bias is added once."""
+    from repro_torch.launch.mesh import MODEL_AXIS
+
+    y = dense(x, weight)
+    if mesh is not None:
+        y = mesh.all_reduce(y, MODEL_AXIS)
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+def gather_fsdp(weight: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """A weight whose spec splits some dims over the data axes (FSDP),
+    joined over them; its model-axis split stays."""
+    from repro_torch.launch.mesh import data_axes
+    from repro_torch.launch.sharding import gather_block
+
+    return gather_block(weight, spec, mesh, axes=data_axes(mesh))
+
+
+def assign_blocks(module: nn.Module, params: dict, local_shape) -> None:
+    """Make ``params`` (a rank's blocks, by state-dict name) the frozen
+    parameters of ``module``, a model built on the ``meta`` device at full
+    size: the names must be the module's, and each block's shape
+    ``local_shape(name, full_shape)``."""
+    full = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    if set(params) != set(full):
+        raise ValueError(f"the blocks' names differ from the model's: missing "
+                         f"{sorted(set(full) - set(params))}, unexpected "
+                         f"{sorted(set(params) - set(full))}")
+    for name, t in params.items():
+        want = local_shape(name, full[name])
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: this rank's block is {tuple(t.shape)}; its spec gives {want}")
+        parent, _, leaf = name.rpartition(".")
+        setattr(module.get_submodule(parent) if parent else module, leaf,
+                nn.Parameter(t, requires_grad=False))
 
 
 # ----------------------------------------------------------------- SwiGLU

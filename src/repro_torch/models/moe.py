@@ -13,12 +13,19 @@ is the order in which JAX's ``segment_sum`` over the flattened [E, cap]
 slots meets them. (``index_add_`` would add them with atomics on CUDA, in
 an order that changes from run to run.)
 
-``local_dispatch`` is JAX's ``shard_map`` over the data and model axes.
-On one device it is the same function: one data shard holds every token
-and the ``psum`` over a one-device axis adds nothing; its aux loss takes
-the mean of the one-hot over (tokens, slots) at once, as JAX's local body
-does. ``dispatch_data_axes``, ``dispatch_model_axis`` and the model
-config's ``moe_weight_mode`` only place arrays on a TPU mesh.
+Over a mesh of ranks (``moe_apply(..., mesh=)``) the experts are split
+over the model axis along d_ff (the caller has joined any FSDP blocks of
+their weights over the data axes), and each rank's partial outputs are
+summed over the model axis in float32. The global dispatch (JAX's
+``_moe_apply_global``) routes every token of the batch: a rank's tokens,
+split over the data axes, are all-gathered first, capacity is the global
+``cap``, and each rank keeps its own rows of the result. ``local_dispatch``
+(JAX's ``shard_map`` body) routes each data shard's tokens with its own
+``cap``; its aux loss takes the mean of the one-hot over (tokens, slots)
+at once, as JAX's local body does (the caller averages it over the data
+axes). On one device both are the one-process functions.
+``dispatch_data_axes`` and ``dispatch_model_axis`` name JAX's mesh axes;
+the port's are ``data_axes(mesh)`` and "model".
 """
 
 from __future__ import annotations
@@ -116,10 +123,32 @@ def dispatch(top_e: torch.Tensor, top_p: torch.Tensor, cfg: MoEConfig) -> Dispat
     return Dispatch(order, counts, cap, stok[pos], valid, gate_w, slot)
 
 
-def moe_apply(params: dict, cfg: MoEConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(params: dict, cfg: MoEConfig, x: torch.Tensor, mesh=None, *,
+              tokens_split: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """x [T, D] -> (y [T, D] in ``x.dtype``, aux loss f32 scalar). The
     caller flattens batch x sequence. ``params``: "router" [E, D], "gate"
-    and "up" [E, D, F], "down" [E, F, D]; the experts run in ``x.dtype``."""
+    and "up" [E, D, F], "down" [E, F, D]; the experts run in ``x.dtype``.
+    With ``mesh``: x is the rank's tokens (``tokens_split``: its block of
+    tokens split over the data axes; else every token, replicated), F the
+    rank's block of d_ff (see the module)."""
+    if mesh is None:
+        y, aux = _experts(params, cfg, x)
+        return y.to(x.dtype), aux
+    from repro_torch.launch.mesh import MODEL_AXIS, data_axes
+
+    data = data_axes(mesh)
+    gathered = tokens_split and not cfg.local_dispatch and mesh.size_of(data) > 1
+    xs = mesh.all_gather(x, data, 0) if gathered else x
+    y, aux = _experts(params, cfg, xs)
+    y = mesh.all_reduce(y, MODEL_AXIS)
+    if gathered:
+        y = y.narrow(0, mesh.index_of(data) * x.shape[0], x.shape[0])
+    return y.to(x.dtype), aux
+
+
+def _experts(params: dict, cfg: MoEConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Routing, dispatch, the experts and the combine of x [T, D] -> (y
+    [T, D] in the experts' dtype, aux loss)."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     probs, top_p, top_e = route(x, params["router"], cfg)
@@ -145,7 +174,7 @@ def moe_apply(params: dict, cfg: MoEConfig, x: torch.Tensor) -> tuple[torch.Tens
     y = torch.zeros((t, d), dtype=ye.dtype, device=x.device)
     for j in range(k):
         y = y + parts[:, j]
-    return y.to(x.dtype), aux
+    return y, aux
 
 
 class MoE(nn.Module):

@@ -20,6 +20,18 @@ Gathers that are not bag sums use ``ref.take``, ``jnp.take``'s semantics
 [0, V) instead, as the TPU kernel does, so the executors agree on ids in
 range.
 
+Over a mesh of ranks (``from_params(..., mesh=)``, weights from
+``convert.init_params(..., mesh=)``), each table whose rows divide the
+model axis holds only the rank's row range (``recsys_param_pspec``); the
+rest is replicated. A bag sum runs on the rank's rows, ids shifted by the
+range's start (an id outside the range adds 0, the kernel's own rule; it
+goes in as -1 with weight 0, so the kernel reads no row for it), and the
+partial bags are all-reduced over the model axis. A plain gather
+(``take``) takes the rank's rows, 0 elsewhere, all-reduced: exact, since
+one rank gives each element; an id outside the table's [-V, V) still
+gives ``ref.take``'s NaN. Batches are the rank's block (split over the
+data axes by ``RecsysFamily.input_pspec``), and so are the outputs.
+
 Training: ``from_params(..., trainable=True)`` keeps the weights
 trainable, and each model's ``loss(batch) -> (loss, metrics)`` is JAX's
 line for line (two-tower: in-batch softmax with the logQ correction;
@@ -82,18 +94,26 @@ class _Recsys(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.executor = executor
+        self.mesh = None
+        self._row_range: dict = {}  # table name -> (first row, rows of the full table)
 
     @classmethod
-    def from_params(cls, cfg, params: dict, *, executor: str = "auto", trainable: bool = False):
+    def from_params(cls, cfg, params: dict, *, executor: str = "auto", trainable: bool = False,
+                    mesh=None):
         """A model that takes ``params`` (a state dict in the module's names)
         as its parameters without copying them: two models of one set of
         weights (one per executor) share the tensors. Serving weights are
         frozen. ``trainable=True`` leaves them trainable; where ``params``
         holds ``nn.Parameter``s (``train.TrainState``'s), the model's
-        parameters are those very objects, so gradients land on them."""
+        parameters are those very objects, so gradients land on them.
+        With ``mesh``, ``params`` are this rank's blocks (see the module);
+        such a model serves."""
         with torch.device("meta"):
             model = cls(cfg, executor="reference")
-        model.load_state_dict(params, strict=True, assign=True)
+        if mesh is None:
+            model.load_state_dict(params, strict=True, assign=True)
+        else:
+            model._place(params, mesh)
         if not trainable:
             model.requires_grad_(False)
         model.executor = executor
@@ -109,10 +129,59 @@ class _Recsys(nn.Module):
             self.executor, self.device, "the CUDA embedding-bag kernel"
         )
 
-    def _bag(self, table, ids, weights) -> torch.Tensor:
-        """sum_l weights[b, l] * table[ids[b, l]] through the kernel
-        (differentiable in the table and the weights)."""
-        return ops.embedding_bag(table, bag_indices=ids, bag_weights=weights, use_kernel=True)
+    def _place(self, params: dict, mesh) -> None:
+        """Take this rank's blocks as the parameters (``L.assign_blocks``),
+        and note each table held by row range."""
+        from repro_torch.launch import sharding
+        from repro_torch.launch.mesh import MODEL_AXIS
+        from repro_torch.models.convert import param_specs
+
+        specs = param_specs(self.cfg, mesh)
+        rows = {k: v.shape[0] for k, v in self.state_dict().items()}
+        L.assign_blocks(self, params, lambda name, shape: sharding.local_shape(
+            shape, specs[name], mesh))
+        for name, spec in specs.items():
+            if spec[0] is not None and mesh.size_of(spec[0]) > 1:
+                local = params[name].shape[0]
+                self._row_range[name] = (mesh.index_of(MODEL_AXIS) * local, rows[name])
+        self.mesh = mesh
+
+    def take(self, name: str, ids) -> torch.Tensor:
+        """``ref.take(table, ids)`` of the table ``name``; over a mesh, of
+        its rows wherever they are held (see the module)."""
+        table = getattr(self, name)
+        if name not in self._row_range:
+            return ref.take(table, ids)
+        from repro_torch.launch.mesh import MODEL_AXIS
+
+        start, v = self._row_range[name]
+        rows = table.shape[0]
+        idx = ids.long()
+        idx = torch.where(idx < 0, idx + v, idx)
+        valid = (idx >= 0) & (idx < v)
+        local = idx - start
+        own = (local >= 0) & (local < rows)
+        shape = (*own.shape, *[1] * (table.dim() - 1))
+        part = torch.where(own.reshape(shape), table[local.clamp(0, rows - 1)], 0.0)
+        out = self.mesh.all_reduce(part, MODEL_AXIS)
+        return out.masked_fill_(~valid.reshape(shape), math.nan)
+
+    def _bag(self, name: str, ids, weights) -> torch.Tensor:
+        """sum_l weights[b, l] * table[ids[b, l]] of the table ``name``
+        through the kernel (differentiable in the table and the weights);
+        over a mesh, on the rank's rows, all-reduced."""
+        table = getattr(self, name)
+        if name not in self._row_range:
+            return ops.embedding_bag(table, bag_indices=ids, bag_weights=weights, use_kernel=True)
+        from repro_torch.launch.mesh import MODEL_AXIS
+
+        start, _ = self._row_range[name]
+        local = ids.long() - start
+        own = (local >= 0) & (local < table.shape[0])
+        local = torch.where(own, local, -1).to(ids.dtype)
+        part = ops.embedding_bag(table, bag_indices=local,
+                                 bag_weights=torch.where(own, weights, 0.0), use_kernel=True)
+        return self.mesh.all_reduce(part, MODEL_AXIS)
 
 
 def _bce(logit, labels):
@@ -152,29 +221,30 @@ class TwoTower(_Recsys):
         self._resolve_executor()
 
     def _tower(self, table, mlp, ids, mask):
-        """EmbeddingBag(mean) over feature slots + MLP + L2 norm."""
-        mask = mask.to(table.dtype)
+        """EmbeddingBag(mean) over feature slots + MLP + L2 norm; ``table``
+        is the table's name."""
+        mask = mask.to(getattr(self, table).dtype)
         denom = torch.clamp_min(mask.sum(-1, keepdim=True), 1.0)
         if self.executor == "kernel":
             pooled = self._bag(table, ids, mask) / denom
         else:
-            bags = ref.take(table, ids)  # [B, F, D]
+            bags = self.take(table, ids)  # [B, F, D]
             pooled = torch.sum(bags * mask.unsqueeze(-1), dim=1) / denom
         out = _mlp(mlp, pooled)
         return out * torch.rsqrt(torch.sum(out * out, -1, keepdim=True) + 1e-12)
 
     @torch.inference_mode()
     def user_embed(self, user_ids, user_mask):
-        return self._tower(self.user_table, self.user_mlp, user_ids, user_mask)
+        return self._tower("user_table", self.user_mlp, user_ids, user_mask)
 
     @torch.inference_mode()
     def item_embed(self, item_ids, item_mask):
-        return self._tower(self.item_table, self.item_mlp, item_ids, item_mask)
+        return self._tower("item_table", self.item_mlp, item_ids, item_mask)
 
     def loss(self, batch: dict):
         """In-batch sampled softmax with logQ correction."""
-        u = self._tower(self.user_table, self.user_mlp, batch["user_ids"], batch["user_mask"])
-        v = self._tower(self.item_table, self.item_mlp, batch["item_ids"], batch["item_mask"])
+        u = self._tower("user_table", self.user_mlp, batch["user_ids"], batch["user_mask"])
+        v = self._tower("item_table", self.item_mlp, batch["item_ids"], batch["item_mask"])
         logits = (u @ v.T) / self.cfg.temperature  # [B, B]
         logits = logits - batch["log_q"][None, :]  # sampling correction
         labels = torch.arange(u.shape[0], device=u.device)
@@ -237,7 +307,7 @@ class SASRec(_Recsys):
         b, s = seq_ids.shape
         d, h = self.cfg.embed_dim, self.cfg.n_heads
         seq_mask = seq_mask.float()
-        x = ref.take(self.item_table, seq_ids)
+        x = self.take("item_table", seq_ids)
         x = x + self.pos_table[None, :s, :]
         x = x * seq_mask.unsqueeze(-1)
         causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=x.device))
@@ -259,8 +329,8 @@ class SASRec(_Recsys):
     def loss(self, batch: dict):
         """Next-item BCE with sampled negatives (the paper's training loss)."""
         hid = self._hidden(batch["seq_ids"], batch["seq_mask"])
-        pos_emb = ref.take(self.item_table, batch["pos_ids"])
-        neg_emb = ref.take(self.item_table, batch["neg_ids"])
+        pos_emb = self.take("item_table", batch["pos_ids"])
+        neg_emb = self.take("item_table", batch["neg_ids"])
         pos_logit = torch.sum(hid * pos_emb, -1)
         neg_logit = torch.sum(hid * neg_emb, -1)
         mask = batch["seq_mask"]
@@ -272,7 +342,7 @@ class SASRec(_Recsys):
     def score_candidates(self, seq_ids, seq_mask, cand_ids):
         """User state (last position) vs candidate items [N] -> [B, N]."""
         last = self.hidden(seq_ids, seq_mask)[:, -1, :]
-        return last @ ref.take(self.item_table, cand_ids).T
+        return last @ self.take("item_table", cand_ids).T
 
 
 # ================================================================ xDeepFM
@@ -312,7 +382,7 @@ class XDeepFM(_Recsys):
         return _bce(self._logits(batch["field_ids"]), batch["labels"])
 
     def _logits(self, field_ids):
-        x0 = ref.take(self.table, field_ids)  # [B, F, D]
+        x0 = self.take("table", field_ids)  # [B, F, D]
         b, f, d = x0.shape
 
         # CIN: x^k[h] = W_k[h] . vec(x^{k-1} (outer) x^0), per embedding dim.
@@ -329,9 +399,9 @@ class XDeepFM(_Recsys):
         dnn_logit = _mlp(self.mlp, x0.reshape(b, f * d))[:, 0]
         if self.executor == "kernel":
             ones = torch.ones(field_ids.shape, dtype=torch.float32, device=field_ids.device)
-            lin_logit = self._bag(self.linear, field_ids, ones)[:, 0]
+            lin_logit = self._bag("linear", field_ids, ones)[:, 0]
         else:
-            lin_logit = torch.sum(ref.take(self.linear, field_ids), dim=(1, 2))
+            lin_logit = torch.sum(self.take("linear", field_ids), dim=(1, 2))
         return cin_logit + dnn_logit + lin_logit
 
 
@@ -369,14 +439,14 @@ class DIN(_Recsys):
         )
 
     def _logits(self, target_ids, hist_ids, hist_mask):
-        t = ref.take(self.table, target_ids)  # [B, D]
-        h = ref.take(self.table, hist_ids)  # [B, S, D]
+        t = self.take("table", target_ids)  # [B, D]
+        h = self.take("table", hist_ids)  # [B, S, D]
         tb = t.unsqueeze(1).expand_as(h)
         feat = torch.cat([h, tb, h - tb, h * tb], dim=-1)  # [B, S, 4D]
         w = _mlp(self.attn, feat)[..., 0]  # [B, S] activation weights
         w = w * hist_mask  # DIN: no softmax, masked sigmoid-free weights
         if self.executor == "kernel":
-            interest = self._bag(self.table, hist_ids, w)
+            interest = self._bag("table", hist_ids, w)
         else:
             interest = torch.sum(h * w.unsqueeze(-1), dim=1)  # [B, D]
         z = torch.cat([interest, t, interest * t], dim=-1)
@@ -424,7 +494,7 @@ def serve_step(model: _Recsys, shape):
                     batch["seq_ids"], batch["seq_mask"], batch["cand_ids"]
                 )
             hid = model.hidden(batch["seq_ids"], batch["seq_mask"])
-            tgt = ref.take(model.item_table, batch["target_ids"])
+            tgt = model.take("item_table", batch["target_ids"])
             return torch.sum(hid[:, -1, :] * tgt, dim=-1)
     elif isinstance(model, XDeepFM):
         def step(batch):

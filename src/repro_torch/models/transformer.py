@@ -28,6 +28,28 @@ computes those.
 
 The KV cache is updated in place (JAX returns a new one): ``prefill`` and
 ``decode_step`` return a ``KVCache`` that shares the updated tensors.
+
+Over a mesh of ranks (``from_params(..., mesh=)``, weights from
+``convert.init_params(..., mesh=)``: each rank holds its blocks by
+``launch/sharding.py::lm_param_pspec``), the forward follows the rules:
+wq, wk and wv are column-split over the model axis by heads, so each rank
+attends over its own heads (the flash kernel, on a prompt, at the rank's
+head counts) and wo is row-split, its partial products all-reduced; the
+FFN's gate and up likewise, down row-split; the MoE experts split along
+d_ff (``moe.moe_apply``); weights split over the data axes (FSDP) are
+all-gathered just before their layer runs. The embedding is D-split (a
+local row gather, then an all-gather over the model axis), V-split
+("vocab": the rank's rows, the others 0, all-reduced) or replicated;
+``lm_head`` is V-split, its logits all-gathered (tied: the D-split
+product all-reduced). Norms are replicated. Tokens and the KV cache are
+the rank's block of the batch (``kv_cache_pspec``), and the cache keeps
+only the kv heads the rank's attention reads (``sharding.kv_heads_of_rank``:
+where Hkv < model, one kv head, replicated over the ranks that share it).
+A cache split by sequence over the data axes (``KVCache.seq_split``, JAX's
+``shard_seq`` for batch-1 decode) decodes one token at a time, each rank
+over its positions, the partial softmaxes merged by their log-sum-exp; it
+comes from the caller (``shard_cache``), as JAX's ``long_500k`` cache is
+an input: the port does not prefill into one.
 """
 
 from __future__ import annotations
@@ -42,9 +64,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.types import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.moe import MoE, MoEConfig
+from repro_torch.models.moe import MoE, MoEConfig, moe_apply
 
-__all__ = ["TransformerConfig", "TransformerLM", "KVCache"]
+__all__ = ["TransformerConfig", "TransformerLM", "KVCache", "shard_cache"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,17 +128,47 @@ class KVCache:
     k: torch.Tensor  # [L, B, S, Hkv, Dh] in the cache dtype
     v: torch.Tensor  # [L, B, S, Hkv, Dh]
     length: torch.Tensor  # int32[B] tokens currently cached
+    seq_split: bool = False  # over a mesh: S is this rank's block of the positions
 
     @staticmethod
-    def empty(cfg: TransformerConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
-        """A zero cache; ``device=None`` is the card."""
+    def empty(cfg: TransformerConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None,
+              mesh=None):
+        """A zero cache; ``device=None`` is the card. With ``mesh``: this
+        rank's block of a cache of ``batch`` rows (split over the data
+        axes), with its own kv heads."""
         device = resolve_device(device)
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        if mesh is not None:
+            from repro_torch.launch import sharding
+
+            spec = sharding.kv_cache_pspec({"k": (shape, dtype)}, mesh, shard_seq=False)["k"]
+            heads = sharding.kv_heads_of_rank(cfg, mesh)[1]
+            shape = sharding.local_shape(shape, spec, mesh)[:3] + (heads, shape[4])
         return KVCache(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
-            length=torch.zeros(batch, dtype=torch.int32, device=device),
+            length=torch.zeros(shape[1], dtype=torch.int32, device=device),
         )
+
+
+def shard_cache(cache: KVCache, cfg: TransformerConfig, mesh, *, shard_seq: bool = False,
+                device=None) -> KVCache:
+    """This rank's block of a full cache (``kv_cache_pspec``: batch over the
+    data axes, or with ``shard_seq`` the sequence), with the kv heads its
+    attention reads, copied to ``device`` (None: the cache's)."""
+    from repro_torch.launch import sharding
+
+    full = {"k": cache.k, "v": cache.v, "length": cache.length}
+    specs = sharding.kv_cache_pspec(full, mesh, shard_seq=shard_seq)
+    first, count = sharding.kv_heads_of_rank(cfg, mesh)
+    dev = cache.k.device if device is None else device
+    out = {}
+    for name, t in full.items():
+        t = sharding.local_block(t, specs[name], mesh)
+        if t.dim() == 5:
+            t = t.narrow(3, first, count)
+        out[name] = t.to(dev, copy=True)
+    return KVCache(out["k"], out["v"], out["length"], seq_split=shard_seq)
 
 
 class _Layer(nn.Module):
@@ -167,25 +219,52 @@ class TransformerLM(nn.Module):
             self.lm_head = L.Dense(cfg.d_model, cfg.vocab)
         self.executor = executor
         self._resolve_executor()
+        self.mesh = None
+        self.n_heads, self.n_kv_heads = cfg.n_heads, cfg.n_kv_heads  # this rank's
+        self._fsdp: dict = {}  # id(parameter) -> its spec, for those split over the data axes
 
     @classmethod
     def from_params(cls, cfg: TransformerConfig, params: dict, *, executor: str = "auto",
-                    trainable: bool = False):
+                    trainable: bool = False, mesh=None):
         """A model that takes ``params`` (a state dict, see the class, from
         ``convert.init_params`` or ``convert.params_from_jax``) as its
         parameters without copying them: two models of one set of weights
         (say, one per executor) share the tensors. Serving weights are
         frozen. ``trainable=True`` leaves them trainable; where ``params``
         holds ``nn.Parameter``s (``train.TrainState``'s), the model's
-        parameters are those very objects, so gradients land on them."""
+        parameters are those very objects, so gradients land on them.
+        With ``mesh``, ``params`` are this rank's blocks (see the module);
+        such a model serves, and does not train."""
         with torch.device("meta"):
             model = cls(cfg, executor="reference")
-        model.load_state_dict(params, strict=True, assign=True)
+        if mesh is None:
+            model.load_state_dict(params, strict=True, assign=True)
+        else:
+            model._place(params, mesh)
         if not trainable:
             model.requires_grad_(False)
         model.executor = executor
         model._resolve_executor()
         return model
+
+    def _place(self, params: dict, mesh) -> None:
+        """Take this rank's blocks as the parameters (``L.assign_blocks``),
+        and note those split over the data axes, which the forward joins."""
+        from repro_torch.launch import sharding
+        from repro_torch.launch.mesh import data_axes
+        from repro_torch.models.convert import param_specs
+
+        cfg = self.cfg
+        specs = param_specs(cfg, mesh)
+        L.assign_blocks(self, params, lambda name, shape: sharding.lm_local_shape(
+            name, shape, specs[name], mesh, cfg))
+        data = set(data_axes(mesh))
+        for name, p in self.named_parameters():
+            if any(a in data for part in specs[name] if part for a in part):
+                self._fsdp[id(p)] = specs[name]
+        self.mesh = mesh
+        self.n_heads = cfg.n_heads // mesh.shape["model"]
+        self.n_kv_heads = sharding.kv_heads_of_rank(cfg, mesh)[1]
 
     def _resolve_executor(self) -> None:
         self.executor = L.resolve_executor(self.executor, self.embed.device, "the CUDA flash kernel")
@@ -194,6 +273,12 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def _full(self, w: torch.Tensor) -> torch.Tensor:
+        """A weight as its layer uses it: joined over the data axes where
+        it is split over them (FSDP), else itself."""
+        spec = self._fsdp.get(id(w))
+        return w if spec is None else L.gather_fsdp(w, spec, self.mesh)
+
     # ------------------------------------------------------- layer body
     def _attention(self, lp: _Layer, x, positions, rope, cache=None, layer=0, slots=None,
                    empty=False, train=False):
@@ -201,46 +286,95 @@ class TransformerLM(nn.Module):
         differentiable ``gqa_attention`` when ``train``). With one: write
         k/v at ``slots`` and attend to the cache (a prompt over an empty
         cache attends to its own k/v, rounded to the cache dtype)."""
-        cfg = self.cfg
+        cfg, h, hkv = self.cfg, self.n_heads, self.n_kv_heads
         b, s, _ = x.shape
         dh = cfg.resolved_head_dim
-        q = lp.wq(x).reshape(b, s, cfg.n_heads, dh)
-        k = lp.wk(x).reshape(b, s, cfg.n_kv_heads, dh)
-        v = lp.wv(x).reshape(b, s, cfg.n_kv_heads, dh)
+        q = L.dense(x, self._full(lp.wq.weight), lp.wq.bias).reshape(b, s, h, dh)
+        k = L.dense(x, self._full(lp.wk.weight), lp.wk.bias).reshape(b, s, hkv, dh)
+        v = L.dense(x, self._full(lp.wv.weight), lp.wv.bias).reshape(b, s, hkv, dh)
         if cfg.qk_norm:
             q, k = lp.q_norm(q), lp.k_norm(k)
         q, k = L.rotate(q, *rope), L.rotate(k, *rope)
-        if cache is not None:
-            kv_len = cache.length
-            k_cache, v_cache = cache.k[layer], cache.v[layer]
-            k_cache[slots] = k.to(k_cache.dtype)
-            v_cache[slots] = v.to(v_cache.dtype)
-        if cache is None and train:
-            out = L.gqa_attention(
-                q, k, v, causal=True, window=cfg.sliding_window, chunk_size=cfg.attn_chunk
-            )
-        elif cache is None or empty:
-            if cache is not None:  # what the cache holds
-                k = k.to(k_cache.dtype).to(q.dtype)
-                v = v.to(v_cache.dtype).to(q.dtype)
-            out = ops.flash_attention(
-                q, k, v, causal=True, window=cfg.sliding_window,
-                use_kernel=self.executor == "kernel",
-            )
-        elif s == 1:
-            out = L.decode_attention(q, k_cache, v_cache, kv_len + 1, window=cfg.sliding_window)
+        if cache is not None and cache.seq_split:
+            out = self._decode_seq_split(q, k, v, cache, layer)
         else:
-            # Chunked prefill against the cache: causal over absolute
-            # positions; slots beyond kv_len + s are hidden.
-            s_max = k_cache.shape[1]
-            kv_pos = torch.arange(s_max, device=x.device).expand(b, s_max)
-            kv_pos = torch.where(kv_pos < (kv_len + s).unsqueeze(-1), kv_pos, -(10**9))
-            out = L.chunked_attention(
-                q, k_cache, v_cache, causal=True, window=cfg.sliding_window,
-                q_positions=positions, kv_positions=kv_pos,
-                chunk_size=min(cfg.attn_chunk, s_max),
-            )
-        return lp.wo(out.reshape(b, s, cfg.n_heads * dh))
+            if cache is not None:
+                kv_len = cache.length
+                k_cache, v_cache = cache.k[layer], cache.v[layer]
+                k_cache[slots] = k.to(k_cache.dtype)
+                v_cache[slots] = v.to(v_cache.dtype)
+            if cache is None and train:
+                out = L.gqa_attention(
+                    q, k, v, causal=True, window=cfg.sliding_window, chunk_size=cfg.attn_chunk
+                )
+            elif cache is None or empty:
+                if cache is not None:  # what the cache holds
+                    k = k.to(k_cache.dtype).to(q.dtype)
+                    v = v.to(v_cache.dtype).to(q.dtype)
+                out = ops.flash_attention(
+                    q, k, v, causal=True, window=cfg.sliding_window,
+                    use_kernel=self.executor == "kernel",
+                )
+            elif s == 1:
+                out = L.decode_attention(q, k_cache, v_cache, kv_len + 1, window=cfg.sliding_window)
+            else:
+                # Chunked prefill against the cache: causal over absolute
+                # positions; slots beyond kv_len + s are hidden.
+                s_max = k_cache.shape[1]
+                kv_pos = torch.arange(s_max, device=x.device).expand(b, s_max)
+                kv_pos = torch.where(kv_pos < (kv_len + s).unsqueeze(-1), kv_pos, -(10**9))
+                out = L.chunked_attention(
+                    q, k_cache, v_cache, causal=True, window=cfg.sliding_window,
+                    q_positions=positions, kv_positions=kv_pos,
+                    chunk_size=min(cfg.attn_chunk, s_max),
+                )
+        out = out.reshape(b, s, h * dh)
+        if self.mesh is None:
+            return lp.wo(out)
+        return L.row_dense(out, self._full(lp.wo.weight), self.mesh, lp.wo.bias)
+
+    def _decode_seq_split(self, q, k, v, cache: KVCache, layer: int):
+        """One decode step over a cache whose positions are split over the
+        data axes: the rank that holds position ``length`` writes k/v
+        there, every rank attends over its own positions, and the partial
+        softmaxes are merged by their log-sum-exp."""
+        from repro_torch.launch.mesh import data_axes
+
+        if q.shape[1] != 1:
+            raise ValueError("a sequence-split cache decodes one token at a time; the port "
+                             "does not prefill into one (split a prefilled cache: shard_cache)")
+        data = data_axes(self.mesh)
+        k_cache, v_cache = cache.k[layer], cache.v[layer]
+        s_loc = k_cache.shape[1]
+        start = self.mesh.index_of(data) * s_loc
+        local = cache.length.long() - start
+        own = ((local >= 0) & (local < s_loc)).view(-1, 1, 1)
+        rows = torch.arange(local.shape[0], device=local.device)
+        at = local.clamp(0, s_loc - 1)
+        k_cache[rows, at] = torch.where(own, k[:, 0].to(k_cache.dtype), k_cache[rows, at])
+        v_cache[rows, at] = torch.where(own, v[:, 0].to(v_cache.dtype), v_cache[rows, at])
+        positions = start + torch.arange(s_loc, device=local.device)
+        out, lse = L.decode_attention_partial(q, k_cache, v_cache, cache.length + 1, positions,
+                                              window=self.cfg.sliding_window)
+        return L.merge_attention(out, lse, self.mesh, data, v_cache.dtype)
+
+    def _ffn(self, lp: _Layer, h):
+        """The dense FFN; over a mesh gate/up column-split, down row-split."""
+        if self.mesh is None:
+            return lp.ffn(h)
+        f = lp.ffn
+        act = F.silu(L.dense(h, self._full(f.gate.weight))) * L.dense(h, self._full(f.up.weight))
+        return L.row_dense(act, self._full(f.down.weight), self.mesh)
+
+    def _moe(self, lp: _Layer, h, tokens_split: bool):
+        """The MoE FFN of h [T, D] -> (y, aux); ``tokens_split``: h is the
+        rank's rows of a batch split over the data axes."""
+        if self.mesh is None:
+            return lp.moe(h)
+        m = lp.moe
+        params = {"router": m.router.weight, "gate": self._full(m.gate),
+                  "up": self._full(m.up), "down": self._full(m.down)}
+        return moe_apply(params, self.cfg.moe, h, mesh=self.mesh, tokens_split=tokens_split)
 
     def _layer(self, i, x, positions, rope, cache, slots, empty, train):
         """Layer ``i`` -> (x, its MoE aux loss: 0 for the dense FFN)."""
@@ -248,19 +382,34 @@ class TransformerLM(nn.Module):
         x = x + self._attention(lp, lp.attn_norm(x), positions, rope, cache, i, slots, empty, train)
         h = lp.ffn_norm(x)
         if self.cfg.moe is None:
-            return x + lp.ffn(h), torch.zeros((), dtype=torch.float32, device=x.device)
+            return x + self._ffn(lp, h), torch.zeros((), dtype=torch.float32, device=x.device)
         b, s, d = h.shape
-        y, aux = lp.moe(h.reshape(b * s, d))
+        y, aux = self._moe(lp, h.reshape(b * s, d), cache is None or not cache.seq_split)
         return x + y.reshape(b, s, d), aux
+
+    def _embed(self, tokens):
+        """The embedding rows of ``tokens`` in the compute dtype."""
+        cfg, mesh = self.cfg, self.mesh
+        if mesh is None or cfg.embed_shard == "replicated":
+            return self.embed[tokens].to(cfg.dtype)
+        from repro_torch.launch.mesh import MODEL_AXIS
+
+        if cfg.embed_shard == "d":
+            return mesh.all_gather(self.embed[tokens].to(cfg.dtype), MODEL_AXIS, -1)
+        rows = self.embed.shape[0]  # "vocab": this rank's rows, the others 0
+        local = tokens.long() - mesh.index_of(MODEL_AXIS) * rows
+        own = (local >= 0) & (local < rows)
+        x = torch.where(own.unsqueeze(-1), self.embed[local.clamp(0, rows - 1)], 0.0)
+        return mesh.all_reduce(x, MODEL_AXIS).to(cfg.dtype)
 
     def _run(self, tokens, positions, cache=None, empty=False, train=False):
         """-> (final-normed hidden, the MoE aux loss summed over layers)."""
         cfg = self.cfg
-        x = self.embed[tokens].to(cfg.dtype)
+        x = self._embed(tokens)
         freqs = L.rope_frequencies(cfg.resolved_head_dim, cfg.rope_theta, device=x.device)
         rope = L.rope_tables(positions, freqs)  # shared by every layer's q and k
         slots = None
-        if cache is not None:
+        if cache is not None and not cache.seq_split:
             slots = _cache_slots(cache.length, tokens.shape[1], cache.k.shape[2])
         remat = cfg.remat and train and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -277,15 +426,36 @@ class TransformerLM(nn.Module):
     def forward(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """tokens int[B, S] -> (hidden [B, S, D] in the compute dtype, the
         MoE aux loss summed over layers: 0 for the dense FFN). With grad
-        enabled, attention takes the training route (see the module)."""
+        enabled, attention takes the training route (see the module). Over
+        a mesh, the rank's rows; a local dispatch's aux loss is averaged
+        over the data axes."""
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-        return self._run(tokens, positions, train=torch.is_grad_enabled())
+        hidden, aux = self._run(tokens, positions, train=torch.is_grad_enabled())
+        if self.mesh is not None and self.cfg.moe is not None and self.cfg.moe.local_dispatch:
+            from repro_torch.launch.mesh import data_axes
+
+            data = data_axes(self.mesh)
+            aux = self.mesh.all_reduce(aux, data) / self.mesh.size_of(data)
+        return hidden, aux
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        if self.cfg.tie_embeddings:
+        mesh = self.mesh
+        if mesh is None:
+            if self.cfg.tie_embeddings:
+                return L.dense(hidden, self.embed)
+            return self.lm_head(hidden)
+        from repro_torch.launch.mesh import MODEL_AXIS
+
+        if not self.cfg.tie_embeddings:  # V-split
+            return mesh.all_gather(L.dense(hidden, self._full(self.lm_head.weight)), MODEL_AXIS, -1)
+        if self.cfg.embed_shard == "vocab":
+            return mesh.all_gather(L.dense(hidden, self.embed), MODEL_AXIS, -1)
+        if self.cfg.embed_shard == "replicated":
             return L.dense(hidden, self.embed)
-        return self.lm_head(hidden)
+        d = self.embed.shape[1]  # "d": this rank's columns of the hidden state
+        part = hidden.narrow(-1, mesh.index_of(MODEL_AXIS) * d, d)
+        return mesh.all_reduce(L.dense(part, self.embed), MODEL_AXIS)
 
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor):
         """Causal LM loss over float32 logits, labels < 0 masked out, plus
@@ -293,6 +463,11 @@ class TransformerLM(nn.Module):
         Labels are not shifted (JAX's are not). Attention takes the
         training route whether or not grad is enabled, so the loss under
         ``torch.no_grad`` is the one a train step differentiates."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "the LM trains on one device; training over a mesh (FSDP gradients, "
+                "ZeRO-1 moments) is queued next (ROADMAP queue 1, item 1)"
+            )
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         hidden, aux = self._run(tokens, positions, train=True)
@@ -310,13 +485,14 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: KVCache) -> tuple[torch.Tensor, KVCache]:
         """Write a prompt into the cache; returns (last-position logits
-        [B, V], the cache with its length advanced)."""
+        [B, V], the cache with its length advanced). Over a mesh: the
+        rank's rows of the batch and its cache block."""
         b, s = tokens.shape
         positions = cache.length.unsqueeze(-1) + torch.arange(s, device=tokens.device)
         empty = not bool(cache.length.any())
         hidden, _ = self._run(tokens, positions, cache, empty)
         logits = self.logits(hidden[:, -1:, :])[:, 0, :]
-        return logits, KVCache(cache.k, cache.v, cache.length + s)
+        return logits, dataclasses.replace(cache, length=cache.length + s)
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, cache: KVCache) -> tuple[torch.Tensor, KVCache]:
@@ -325,4 +501,4 @@ class TransformerLM(nn.Module):
         positions = cache.length.unsqueeze(-1)
         hidden, _ = self._run(tokens.unsqueeze(-1), positions, cache)
         logits = self.logits(hidden)[:, 0, :]
-        return logits, KVCache(cache.k, cache.v, cache.length + 1)
+        return logits, dataclasses.replace(cache, length=cache.length + 1)

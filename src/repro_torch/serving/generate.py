@@ -6,6 +6,13 @@ Greedy decoding takes ``argmax`` (the first maximal index, as
 Sampling at a temperature draws with ``torch.multinomial`` from the given
 ``torch.Generator``: reproducible per seed, but not the numbers
 ``jax.random`` would draw.
+
+Over a mesh (a model from ``TransformerLM.from_params(..., mesh=)``),
+every rank runs the same loop on the same prompt: it prefills and decodes
+its rows of the batch (split over the data axes, its cache block with its
+own kv heads), its logits are the whole vocabulary's (gathered over the
+model axis), and the tokens of every row are gathered over the data axes
+at the end, so every rank returns the same tokens.
 """
 
 from __future__ import annotations
@@ -37,14 +44,21 @@ def generate(
 ) -> torch.Tensor:
     """prompt int[B, S_prompt] (a tensor or anything ``torch.as_tensor``
     takes) -> int32[B, max_new_tokens] continuations, on the model's
-    device. ``generator`` (on that device) drives sampling; None is seed 0."""
-    dev = model.device
+    device. ``generator`` (on that device) drives sampling; None is seed 0.
+    Over a mesh every rank passes the whole prompt and gets every row's
+    tokens."""
+    dev, mesh = model.device, model.mesh
     prompt = torch.as_tensor(prompt, device=dev).long()
     b, s_prompt = prompt.shape
     max_len = max_len or (s_prompt + max_new_tokens)
     if temperature != 0.0 and generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    cache = KVCache.empty(model.cfg, b, max_len, cache_dtype, device=dev)
+    if mesh is not None:
+        from repro_torch.launch import sharding
+
+        spec = sharding.batch_pspec({"prompt": prompt}, mesh)["prompt"]
+        prompt = sharding.local_block(prompt, spec, mesh)
+    cache = KVCache.empty(model.cfg, b, max_len, cache_dtype, device=dev, mesh=mesh)
     logits, cache = model.prefill(prompt, cache)
     nxt = _pick(logits, temperature, generator)
     out = [nxt]
@@ -52,4 +66,5 @@ def generate(
         logits, cache = model.decode_step(nxt.long(), cache)
         nxt = _pick(logits, temperature, generator)
         out.append(nxt)
-    return torch.stack(out, dim=1)
+    tokens = torch.stack(out, dim=1)
+    return tokens if mesh is None else sharding.gather_block(tokens, spec, mesh)

@@ -276,6 +276,29 @@ def test_flash_attention_kernel_on_card(card, dtype, b, s, h, hkv, dh, causal, w
     _assert_flash_close(got, tref.flash_attention(q, k, v, causal=causal, window=window))
 
 
+# A TP rank's heads over a (data, model) mesh: mixtral's prefill shard at
+# model 4 (H 8, Hkv 2, window), the KV head replicated where Hkv < model
+# (8 / 1), and a 12 / 2 split.
+FLASH_TP_CASES = [
+    (2, 512, 8, 2, 128, True, 256),
+    (1, 300, 8, 1, 128, True, None),
+    (1, 384, 12, 2, 128, True, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,dh,causal,window", FLASH_TP_CASES)
+def test_flash_attention_kernel_at_tp_head_counts_on_card(card, dtype, b, s, h, hkv, dh, causal,
+                                                          window):
+    q, k, v = _flash_inputs(7 * h + hkv, b, s, h, hkv, dh, dtype, card)
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    _assert_flash_close(got, tref.flash_attention(q, k, v, causal=causal, window=window))
+
+
 FLASH_EDGE_CASES = [
     # b, sq, skv, h, hkv, dh, causal, window, layout: "model" passes the
     # transposed views of [B, S, H, Dh] tensors, as ops.flash_attention does
@@ -439,6 +462,30 @@ def test_embedding_bag_out_of_range_ids_add_exactly_zero_on_card(card):
         table, torch.where(valid, idx, 0), torch.where(valid, w, 0.0).contiguous()
     )
     assert torch.equal(got, in_range)  # fmaf(0, row, acc) == acc
+    _assert_bag_close(table, idx, w, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [4, 16])
+@pytest.mark.parametrize("dropped", [False, True])
+def test_embedding_bag_on_a_ranks_row_range_on_card(card, ranks, dropped):
+    """A rank's bag over its row range of a table split over ``ranks``:
+    ids of the whole table shifted by the range's start, so 3/4 (15/16) of
+    them fall outside [0, V); ``dropped`` gives them as -1, as the recsys
+    models over a mesh pass them."""
+    v = 1200
+    table, _, w = _bag_inputs(card, ranks, v=v, d=18, s=512, l=100)
+    g = torch.Generator(device=card).manual_seed(ranks)
+    idx = torch.randint(0, ranks * v, (512, 100), generator=g, device=card) - v
+    if dropped:
+        idx = torch.where((idx >= 0) & (idx < v), idx, -1)
+    idx = idx.to(torch.int32).contiguous()
+    outside = float(((idx < 0) | (idx >= v)).float().mean())
+    assert abs(outside - (ranks - 1) / ranks) < 0.02
+    before = LAUNCHES["embedding_bag"]
+    got = embedding_bag_cuda(table, idx, w)
+    torch.cuda.synchronize()
+    assert LAUNCHES["embedding_bag"] == before + 1
     _assert_bag_close(table, idx, w, got)
 
 
