@@ -196,7 +196,7 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      (``mesh``, last): one gloo world of 4 ranks sharing the card runs
      mixtral-8x7b at full width at (1, 4) (8 layers, 2 x 8192 prompt, 16
      steps), at (2, 2) (2 layers, 2 x 2048, 4 steps; the FSDP gathers)
-     and a batch-1 decode of 8 steps at (4, 1) over a 16,384-position
+     and a batch-1 decode of 2 steps at (4, 1) over a 16,384-position
      cache split by sequence, each teacher-forced in tokens and routing
      against the one-process port at the same weights (logits, KV blocks
      per rank, argmax, would-be routing flips; every rank against rank
@@ -207,6 +207,22 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      timed; an NCCL world of min(cards, 4) ranks (one card: a free (1, 1)
      run, bit for bit); and ``dryrun.run_cell`` of mixtral's decode_32k
      over 4 gloo ranks, its collectives counted per op.
+ 12. the LM and recsys families trained over meshes of ranks
+     (``mesh_train``, last): one gloo world of 4 ranks sharing the card
+     trains qwen2-0.5b whole at train_4k's sequence (batch 4 in 2
+     microbatches) and one mixtral-8x7b layer at full width (batch 2;
+     fsdp experts, then tp_only with local dispatch and ZeRO-1 moments) at
+     (2, 2), two-tower at 16,384 rows at (1, 4) and DIN at 65,536 at
+     (2, 2), 3 steps each (mixtral's batch of 2 in one microbatch), held
+     to the one-process port on the same state
+     and batch (run first); every rank's metrics, gradient blocks,
+     replicated blocks and collective counts (each run's recorded in
+     MESH_TRAIN_COUNTS) checked; qwen2's and DIN's resumes after a failure
+     injected at step 3 bit for bit; the bag kernels at DIN's rank
+     0 block (rows 5-rank-train and 5b-rank: the bag row's ``rank_train``,
+     the backward row's ``rank``) against their plain versions, timed; and
+     ``dryrun.run_cell`` of mixtral's train_4k at (2, 2), one layer
+     (tp_only).
 
 Top-k doc ids must be identical. A swap is allowed only between scores
 tied within what the kernels' measured error allows (``tie_tolerance``),
@@ -5472,7 +5488,9 @@ MESH_LM = (  # tag, (data, model), layers, batch, prompt length, greedy tokens
     ("1x4", (1, 4), 8, 2, 8192, 16),
     ("2x2", (2, 2), 2, 2, 2048, 4),
 )
-MESH_SEQ = ("4x1", (4, 1), 2, 16384, 8)  # tag, mesh, layers, cache positions, decode steps
+# The (4, 1) decode takes 2 steps (8 took 80 s of the phase) to leave the
+# mesh_train phase room in the script's 1200 s.
+MESH_SEQ = ("4x1", (4, 1), 2, 16384, 2)  # tag, mesh, layers, cache positions, decode steps
 MESH_RECSYS = (("two-tower-retrieval", "serve_bulk"), ("din", "serve_p99"))
 MESH_DRYRUN_LAYERS = 2
 MESH_JOIN_S = 900.0
@@ -5740,7 +5758,7 @@ def phase_mesh(torch, dev, seed: int, flush, work: str) -> tuple[dict, dict]:
     placed by ``launch/sharding.py``'s rules. (a) One gloo world of 4 ranks
     on this card: mixtral-8x7b at full width at (1, 4) (8 layers, 2 x 8192
     prompt, 16 greedy tokens), at (2, 2) (2 layers, 2 x 2048, 4 tokens) and
-    a batch-1 decode of 8 steps at (4, 1) over a 16,384-position cache
+    a batch-1 decode of 2 steps at (4, 1) over a 16,384-position cache
     split by sequence, each held to the one-process port at the same cut
     and weights (run first and freed): logits, KV blocks, tokens, and every
     rank's tokens, routing and logits against rank 0's. (b) In the same
@@ -6069,6 +6087,631 @@ def phase_mesh(torch, dev, seed: int, flush, work: str) -> tuple[dict, dict]:
     return flash_row, bag_row
 
 
+# ---------------------------------------------------------------------------
+# the mesh_train phase: the LM and recsys families trained over meshes of ranks
+# ---------------------------------------------------------------------------
+
+# Four gloo ranks on this card train each run for MESH_TRAIN_STEPS steps on
+# one repeated global batch, from weights every rank draws alike (each keeps
+# its blocks), TRAIN_OPT, each config's bf16 compute and remat (float32 for
+# the recsys models). qwen2 takes train_4k's sequence at a global batch of 4
+# in 2 microbatches (one row a rank a microbatch: 4 ranks' float32 logits
+# of 151,936 columns share the card); mixtral one layer at full width at
+# the one-card train phase's 2 rows, one a data rank, in one microbatch (2
+# microbatches of 1 row do not split over 2 data ranks, and a batch of 4
+# doubles the expert blocks every step moves through the host), with fsdp
+# experts and with tp_only experts, local dispatch and ZeRO-1 moments. two-tower is cut to 16,384 rows: every rank of the
+# (1, 4) mesh holds the [B, B] in-batch softmax, a quarter of the one-card
+# 32,768 run's memory at this batch. Resume: a checkpoint after step
+# MESH_TRAIN_RESUME[0], a failure injected at step index MESH_TRAIN_RESUME[1]
+# (every run), and the resume, for qwen2 (6 GB whole) and DIN: a mixtral
+# layer's state is 20.6 GB whole and two-tower's 28.7 GB, each written to
+# the machine's temporary directory and read back by four ranks, more than
+# the script's 1200 s leave room for (their resumes over a mesh are held on
+# the CPU by tests/test_torch_mesh_train_*.py).
+MESH_TRAIN_RUNS = (  # tag, arch, layers (None: all), batch, microbatches, mesh, overrides, resume
+    ("qwen2", "qwen2-0.5b", None, 4, 2, (2, 2), {}, True),
+    ("mixtral_fsdp", "mixtral-8x7b", 1, 2, 1, (2, 2), {}, False),
+    ("mixtral_tp", "mixtral-8x7b", 1, 2, 1, (2, 2),
+     {"moe_weight_mode": "tp_only", "local_dispatch": True}, False),
+)
+MESH_TRAIN_RECSYS = (  # tag, arch, batch, mesh, resume
+    ("two-tower", "two-tower-retrieval", 16_384, (1, 4), False),
+    ("din", "din", 65_536, (2, 2), True),
+)
+MESH_TRAIN_STEPS = 3
+# Step 1's collectives per op, recorded: each run's must equal its entry,
+# and so must launch.cost.mesh_train_collectives (the formula PERF.md
+# states), so that a change to the collectives changes a number here.
+MESH_TRAIN_COUNTS = {
+    "qwen2": {"all-gather": 100, "all-reduce": 246, "reduce-scatter": 48},
+    "mixtral_fsdp": {"all-gather": 7, "all-reduce": 11, "reduce-scatter": 3},
+    "mixtral_tp": {"all-gather": 13, "all-reduce": 11, "reduce-scatter": 10},
+    "two-tower": {"all-reduce": 3},
+    "din": {"all-reduce": 7},
+    "dryrun": {"all-gather": 13, "all-reduce": 11, "reduce-scatter": 10},
+}
+MESH_TRAIN_RESUME = (2, 2)  # checkpoint after step 2, a failure injected at step index 2
+# The LM over the mesh against one process: the TP and FSDP sums round in
+# another order and bf16 products run at other shapes, as microbatches 2 vs
+# 1 do on one card (TRAIN_MB_*): step-1 loss and grad_norm, relative.
+MESH_TRAIN_LOSS_TOL = 2.0 ** -7
+MESH_TRAIN_GNORM_TOL = 2.0 ** -5
+# The recsys models in float32: losses relative; the step-1 gradients,
+# teacher-forced (the bags' forward values the one-process reference
+# executor's, on each data rank's rows), each tensor within this of its norm.
+MESH_TRAIN_RECSYS_TOL = 1e-5
+# The dry run: mixtral's train_4k, one layer, tp_only experts with local
+# dispatch (the ZeRO-1 layout; fsdp's is the world's mixtral_fsdp run), a
+# batch of 2 in one microbatch, as the world's mixtral runs.
+MESH_TRAIN_DRYRUN = ("mixtral-8x7b", "train_4k", 1, 2, (2, 2))  # arch, shape, layers, batch, mesh
+MESH_TRAIN_JOIN_S = 900.0
+MESH_TRAIN_BUDGET_S = 300.0
+
+
+def mesh_train_config(run: dict):
+    """The run's config: the arch at full width, its depth and overrides."""
+    from repro_torch.configs.registry import get_arch
+
+    cfg = get_arch(run["arch"]).config
+    over = dict(run.get("overrides") or {})
+    if over.pop("local_dispatch", False):
+        over["moe"] = dataclasses.replace(cfg.moe, local_dispatch=True)
+    if run.get("layers"):
+        over["n_layers"] = run["layers"]
+    return dataclasses.replace(cfg, **over)
+
+
+def fingerprint(torch, t) -> list:
+    """The exact int64 sum of a tensor's bit patterns and the float64 sum
+    of its squares, with no temporary larger than the tensor: equal
+    tensors give equal fingerprints."""
+    t = t.detach()
+    bits = t.contiguous().view(torch.int32 if t.element_size() == 4 else torch.int16)
+    return [int(torch.sum(bits, dtype=torch.int64)),
+            float(torch.sum(t.float().square(), dtype=torch.float64))]
+
+
+def block_key(name: str, layout) -> tuple:
+    """Which block of ``name``'s parameter this rank holds: its position
+    along each axis its spec names (for a kv head shared by model ranks,
+    the head's)."""
+    mesh = layout.mesh
+    key = []
+    for p in layout.param_specs[name]:
+        if p is None:
+            continue
+        i = mesh.index_of(p)
+        if p == ("model",) and layout.kv_shared(name) > 1:
+            i //= layout.kv_shared(name)
+        key.append(i)
+    return tuple(key)
+
+
+def state_prints(torch, state) -> dict:
+    from repro_torch.train.checkpoint import flatten
+
+    return {k: fingerprint(torch, v) for k, v in flatten(state)}
+
+
+def meta_state(torch, state):
+    """``state``'s structure on the meta device: a template to restore into
+    once the state itself is freed."""
+    from torch import nn
+
+    from repro_torch.train import TrainState
+
+    def meta(t):
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+    def tree(d):
+        return None if d is None else {k: meta(v) for k, v in d.items()}
+
+    return TrainState(params={k: nn.Parameter(meta(v)) for k, v in state.params.items()},
+                      opt={"m": tree(state.opt["m"]), "v": tree(state.opt["v"]),
+                           "step": meta(state.opt["step"])}, error_fb=tree(state.error_fb))
+
+
+def mesh_train_world(group, spec_path: str, out_dir: str) -> None:
+    """One rank of the mesh_train phase's world: each run of the spec on its
+    mesh, weights drawn as the one-process reference drew them (each rank
+    keeps its blocks), the kernel launches counted from 0 over the run's
+    steps; step 1 counted (collectives per op), its synced gradients checked
+    per block (finite, not all zero), every parameter's fingerprint after
+    every step (so the parent checks replicated blocks alike), the resume
+    from a checkpoint after a failure injected at step index 2. Recsys runs
+    also give their teacher-forced step-1 gradients against the reference's
+    (rows the batch names, and every dense tensor); DIN's rank 0 saves its
+    bag kernels' inputs."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs.families import lm_loss_fn, recsys_loss_fn
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import cost
+    from repro_torch.launch.mesh import data_axes
+    from repro_torch.models import init_params
+    from repro_torch.models import recsys as rs
+    from repro_torch.models.convert import train_layout
+    from repro_torch.train import (
+        AdamWConfig, FailureInjector, TrainState, make_train_step, restore_checkpoint,
+        save_checkpoint,
+    )
+    from repro_torch.train import loop
+    from repro_torch.train.loop import shard_batch, sync_grads
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev, r = group.device, group.rank
+    opt = AdamWConfig(**TRAIN_OPT)
+
+    def sync():
+        torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+
+    for run in spec["runs"]:
+        mesh = group.mesh(tuple(run["mesh"]))
+        lm = run["kind"] == "lm"
+        cfg = mesh_train_config(run) if lm else get_arch(run["arch"]).config
+        layout = train_layout(cfg, mesh)
+        mb = run["microbatches"]
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev)
+        g.manual_seed(run["seed"])
+        if lm:
+            batch = {k: v.to(dev) for k, v in torch.load(run["batch"]).items()}
+        else:
+            batch = recsys_train_batch(torch, cfg, run["batch_rows"], g, dev)
+        params = init_params(cfg, g, device=dev, mesh=mesh)
+        batch = shard_batch(batch, mesh, mb)
+        made = time.perf_counter() - t0
+        res = {"metrics": [], "prints": [], "walls": [], "made_s": made,
+               "keys": {k: block_key(k, layout) for k in params},
+               "executor": "kernel" if dev.type == "cuda" else "reference"}
+
+        def loss_fn():
+            return (lm_loss_fn(cfg, mesh) if lm else recsys_loss_fn(cfg, mesh))
+
+        if not lm:  # the teacher-forced step-1 gradients and DIN's bag inputs
+            ref = torch.load(run["ref"], map_location=dev)
+            forced = ref["forced"][mesh.index_of(data_axes(mesh))]
+            p = {k: torch.nn.Parameter(v) for k, v in params.items()}
+            model = rs.RECSYS_MODELS[type(cfg)].from_params(cfg, p, trainable=True, mesh=mesh)
+            bag = type(model)._bag
+            seen = {}
+
+            def forced_bag(self, name, ids, weights):
+                out = bag(self, name, ids, weights)
+                return forced[name].detach() + (out - out.detach())
+
+            raw = rs.ops.embedding_bag
+
+            def capture(table, *, bag_indices, bag_weights, use_kernel):
+                out = raw(table, bag_indices=bag_indices, bag_weights=bag_weights,
+                          use_kernel=use_kernel)
+                if r == 0 and run["capture"] and "ids" not in seen:
+                    seen.update(table=table.detach().clone(), ids=bag_indices.clone(),
+                                w=bag_weights.detach().clone())
+                    out.register_hook(lambda gr: seen.setdefault("g", gr.detach().clone()))
+                return out
+
+            with mock.patch.object(type(model), "_bag", forced_bag), \
+                    mock.patch.object(rs.ops, "embedding_bag", capture):
+                loss, _ = model.loss(batch)
+                grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+            grads = sync_grads(grads, layout)
+            cmp = {}
+            for k, gk in grads.items():
+                if k in ref["rows"]:
+                    ids, want = ref["rows"][k]
+                    start = mesh.index_of(("model",)) * gk.shape[0]
+                    own = (ids >= start) & (ids < start + gk.shape[0])
+                    got = gk[ids[own] - start]
+                    rest = gk.clone()
+                    rest[ids[own] - start] = 0
+                    cmp[k] = [float((got - want[own]).square().sum()), float(want[own].square().sum()),
+                              bool(rest.any()), bool(torch.isfinite(gk).all()), bool(gk.any())]
+                else:
+                    want = ref["dense"][k]
+                    cmp[k] = [float((gk - want).square().sum()), float(want.square().sum()), False,
+                              bool(torch.isfinite(gk).all()), bool(gk.any())]
+            res["forced"] = {"loss": float(loss.detach()), "grads": cmp,
+                             "replicas": {k: layout.grad_replicas(k) for k in grads}}
+            if seen:
+                torch.save({k: v.cpu() for k, v in seen.items()}, os.path.join(out_dir, "din_bag.pt"))
+            del model, p, grads, ref, forced, loss
+            gc_cuda(torch, dev)
+
+        state = TrainState.create(params, layout=layout)
+        step = make_train_step(loss_fn(), opt, microbatches=mb, layout=layout)
+        ckdir = os.path.join(run["work"], run["tag"])
+        every, dies = MESH_TRAIN_RESUME
+        inj = FailureInjector(fail_at=(dies,))
+        checked = {}
+        sync_grads_ = loop.sync_grads
+
+        def grad_check(grads, lay):  # step 1's synced gradients, per block
+            out = sync_grads_(grads, lay)
+            if not checked:
+                checked.update({k: [bool(torch.isfinite(v).all()), bool(v.any())]
+                                for k, v in out.items()})
+            return out
+
+        sync()
+        reset_launches()  # the path starts here
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        for s in range(MESH_TRAIN_STEPS):
+            try:
+                inj.maybe_fail(s)
+            except RuntimeError as e:  # the unbroken run goes on; the resumed one is held to it
+                res["failed_at"] = [s, str(e)]
+            t1 = time.perf_counter()
+            with mock.patch.object(loop, "sync_grads", grad_check):
+                if s == 0:
+                    with cost.StepCost() as c:
+                        state, m = step(state, batch)
+                    res["counts"] = dict(c.op_counts)
+                else:
+                    state, m = step(state, batch)
+            sync()
+            res["walls"].append(time.perf_counter() - t1)
+            gc_cuda(torch, dev)  # the step's cached blocks back to the card the ranks share
+            res["metrics"].append({k: float(v) for k, v in m.items()})
+            res["prints"].append({k: fingerprint(torch, v) for k, v in state.params.items()})
+            if run["resume"] and s + 1 == every:
+                t1 = time.perf_counter()
+                save_checkpoint(ckdir, every, state, layout=layout)
+                res["save_s"] = time.perf_counter() - t1
+        res["launches"] = dict(LAUNCHES)
+        res["peak"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+        res["grad_ok"] = checked
+        if run["resume"]:
+            final = state_prints(torch, state)
+            template = meta_state(torch, state)
+            del state
+            gc_cuda(torch, dev)
+            t1 = time.perf_counter()
+            restored, at = restore_checkpoint(ckdir, template, every, dev, layout=layout)
+            step = make_train_step(loss_fn(), opt, microbatches=mb, layout=layout)
+            for _ in range(at, MESH_TRAIN_STEPS):
+                restored, _m = step(restored, batch)
+            sync()
+            again = state_prints(torch, restored)
+            res["resume"] = {"from": at, "equal": again == final,
+                             "differs": [k for k in final if again.get(k) != final[k]][:5],
+                             "s": time.perf_counter() - t1}
+            del restored
+        else:
+            del state
+        torch.save(res, os.path.join(out_dir, f"{run['tag']}_rank{r}.pt"))
+        del step, params, batch
+        gc_cuda(torch, dev)
+
+
+def recsys_forced_reference(torch, cfg, params, batch, d: int, mb: int = 1) -> dict:
+    """The one-process port's teacher-forced step-1 gradients of a recsys
+    model (the kernel executor, each bag's forward value the reference
+    executor's, ``forced_bags``) as ``d`` data ranks compute them: the
+    forward on each rank's rows (``shard_batch``'s blocks), the losses
+    summed over the blocks / d (the global mean: the blocks' sizes are
+    powers of two, so each row's gradient is scaled alike). Returns
+    {"loss", "grads", "forced": per block {table: bag values}}."""
+    from repro_torch.models.recsys import RECSYS_MODELS
+
+    p = {k: torch.nn.Parameter(v) for k, v in params.items()}
+    model = RECSYS_MODELS[type(cfg)].from_params(cfg, p, trainable=True)
+    model.executor = "kernel"
+    forced_bags(torch, model)
+    bag = model._bag
+    rows = next(iter(batch.values())).shape[0] // d
+    total, forced = 0.0, []
+    for i in range(d):
+        rec = {}
+
+        def recording(name, ids, weights, rec=rec):
+            out = bag(name, ids, weights)
+            rec[name] = out.detach().clone()
+            return out
+
+        model._bag = recording
+        loss, _ = model.loss({k: v[i * rows:(i + 1) * rows] for k, v in batch.items()})
+        total = total + loss / d
+        forced.append(rec)
+    grads = dict(zip(p, torch.autograd.grad(total, list(p.values()))))
+    return {"loss": float(total.detach()), "grads": grads, "forced": forced}
+
+
+def mesh_train_reference(torch, dev, run: dict, tmp: str) -> dict:
+    """The one-process port on the run's state and batch: MESH_TRAIN_STEPS
+    steps (metrics), and for a recsys model the teacher-forced step-1
+    gradients, saved for the ranks (a table's at the rows the batch names)."""
+    from repro_torch.configs.families import lm_loss_fn, recsys_loss_fn
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, TrainState, make_train_step
+
+    lm = run["kind"] == "lm"
+    cfg = mesh_train_config(run) if lm else get_arch(run["arch"]).config
+    g = torch.Generator(device=dev)
+    g.manual_seed(run["seed"])
+    if lm:
+        batch = {k: v.to(dev) for k, v in torch.load(run["batch"]).items()}
+    else:
+        batch = recsys_train_batch(torch, cfg, run["batch_rows"], g, dev)
+    params = init_params(cfg, g, device=dev)
+    out = {}
+    if not lm:
+        d = run["mesh"][0]
+        f = recsys_forced_reference(torch, cfg, params, batch, d)
+        tables = TABLE_IDS[type(cfg).__name__]
+        rows, dense = {}, {}
+        for k, gk in f["grads"].items():
+            if k in tables:
+                ids = torch.unique(torch.cat([batch[n].reshape(-1).long() for n in tables[k]]))
+                rows[k] = (ids, gk[ids])
+            else:
+                dense[k] = gk
+        torch.save({"rows": rows, "dense": dense, "forced": f["forced"]}, run["ref"])
+        out["forced_loss"] = f["loss"]
+        out["grad_norms"] = {k: float(v.norm()) for k, v in f["grads"].items()}
+        del f, rows, dense
+    state = TrainState.create(params)
+    loss_fn = lm_loss_fn(cfg) if lm else recsys_loss_fn(cfg)
+    step = make_train_step(loss_fn, AdamWConfig(**TRAIN_OPT), microbatches=run["microbatches"])
+    metrics, walls = [], []
+    for _ in range(MESH_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    out.update(metrics=metrics, walls=walls)
+    del state, step, loss_fn, params, batch
+    gc_cuda(torch, dev)
+    return out
+
+
+def mesh_train_check(torch, tag: str, outs: list, want: dict, run: dict, cfg, lm: bool) -> dict:
+    """A run's ranks against the one-process reference and each other (see
+    ``phase_mesh_train``); returns its report (rank 0's numbers)."""
+    from repro_torch.launch.cost import mesh_train_collectives
+
+    o0 = outs[0]
+    for r, o in enumerate(outs):
+        for s, (a, b) in enumerate(zip(o["metrics"], o0["metrics"])):
+            if a != b:
+                fail(f"mesh_train {tag}: rank {r}'s metrics at step {s + 1} differ from rank 0's")
+        bad = [k for k, (finite, nonzero) in o["grad_ok"].items() if not (finite and nonzero)]
+        if bad or not o["grad_ok"]:
+            fail(f"mesh_train {tag}: rank {r}'s step-1 gradient blocks not finite or all zero: {bad}")
+        if run["resume"] and not o["resume"]["equal"]:
+            fail(f"mesh_train {tag}: rank {r}'s run resumed from step {o['resume']['from']} does "
+                 f"not end bit for bit with the unbroken run ({o['resume']['differs']})")
+        if "failed_at" not in o:
+            fail(f"mesh_train {tag}: the failure injected at step index {MESH_TRAIN_RESUME[1]} "
+                 "did not fire")
+    for s in range(MESH_TRAIN_STEPS):  # replicated blocks alike on every rank that holds them
+        for k in o0["prints"][s]:
+            seen = {}
+            for r, o in enumerate(outs):
+                key = o["keys"][k]
+                if key in seen and seen[key][1] != o["prints"][s][k]:
+                    fail(f"mesh_train {tag}: {k}'s block {key} differs between ranks {seen[key][0]} "
+                         f"and {r} after step {s + 1}")
+                seen.setdefault(key, (r, o["prints"][s][k]))
+    formula = mesh_train_collectives(cfg, tuple(run["mesh"]), microbatches=run["microbatches"],
+                                     executor=o0["executor"])
+    if not o0["counts"] == formula == MESH_TRAIN_COUNTS[tag]:
+        fail(f"mesh_train {tag}: step 1 ran the collectives {o0['counts']}, the formula gives "
+             f"{formula}, the recorded counts are {MESH_TRAIN_COUNTS[tag]}")
+    got, ref = o0["metrics"], want["metrics"]
+    losses = [m["loss"] for m in got]
+    rel = {k: abs(got[0][k] - ref[0][k]) / abs(ref[0][k]) for k in ("loss", "grad_norm")}
+    if lm:
+        if not rel["loss"] <= MESH_TRAIN_LOSS_TOL or not rel["grad_norm"] <= MESH_TRAIN_GNORM_TOL:
+            fail(f"mesh_train {tag}: step 1 loss {rel['loss']}, grad_norm {rel['grad_norm']} "
+                 f"relative to one process (limits {MESH_TRAIN_LOSS_TOL}, {MESH_TRAIN_GNORM_TOL})")
+        if not losses[-1] < losses[0]:
+            fail(f"mesh_train {tag}: the loss did not fall over {MESH_TRAIN_STEPS} steps: {losses}")
+        forced = None
+    else:
+        worst = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(got, ref))
+        if not worst <= MESH_TRAIN_RECSYS_TOL:
+            fail(f"mesh_train {tag}: losses {worst} relative to one process > "
+                 f"{MESH_TRAIN_RECSYS_TOL}")
+        rel["losses"] = worst
+        f_loss = abs(o0["forced"]["loss"] - want["forced_loss"]) / abs(want["forced_loss"])
+        errs = {}
+        for k in o0["forced"]["grads"]:
+            diff = sum(o["forced"]["grads"][k][0] / o["forced"]["replicas"][k] for o in outs)
+            norm = sum(o["forced"]["grads"][k][1] / o["forced"]["replicas"][k] for o in outs)
+            errs[k] = (diff / norm) ** 0.5 if norm else float(diff > 0)
+            for r, o in enumerate(outs):
+                _, _, stray, finite, _ = o["forced"]["grads"][k]
+                if stray or not finite:
+                    fail(f"mesh_train {tag}: rank {r}'s {k} gradient is non-finite or off the "
+                         "rows the batch names")
+        worst_k = max(errs, key=errs.get)
+        if not (f_loss <= MESH_TRAIN_RECSYS_TOL and errs[worst_k] <= MESH_TRAIN_RECSYS_TOL):
+            fail(f"mesh_train {tag}: teacher-forced step 1: loss {f_loss} relative, {worst_k}'s "
+                 f"gradient {errs[worst_k]} of its norm (limit {MESH_TRAIN_RECSYS_TOL})")
+        forced = {"loss": f_loss, "worst_grad": [worst_k, errs[worst_k]]}
+    return {"vs_one_process": rel, "losses": losses, "ref_losses": [m["loss"] for m in ref],
+            "grad_norm": [got[0]["grad_norm"], ref[0]["grad_norm"]], "forced": forced,
+            "counts": o0["counts"], "rank_step_s": [round(w, 3) for w in o0["walls"]],
+            "one_process_step_s": [round(w, 3) for w in want["walls"]],
+            "peak_gb": [round(o["peak"] / 1e9, 2) for o in outs],
+            "made_s": round(o0["made_s"], 1), "save_s": o0.get("save_s"),
+            "resume": o0.get("resume")}
+
+
+def phase_mesh_train(torch, dev, seed: int, flush, work: str) -> tuple[dict, dict]:
+    """The LM and recsys families trained over (data, model) meshes of gloo
+    ranks on this card (``MESH_TRAIN_RUNS``, ``MESH_TRAIN_RECSYS``), each
+    held to the one-process port on the same state and batch (run first,
+    freed before the world): the LM's step-1 loss and grad_norm within
+    MESH_TRAIN_*_TOL and a falling loss, the recsys models' losses within
+    MESH_TRAIN_RECSYS_TOL and their teacher-forced step-1 gradients within
+    it of each tensor's norm; on every rank the metrics rank 0's, every
+    block's step-1 gradient finite and not all zero, every replicated block
+    alike after every step, step 1's collectives per op equal to
+    ``launch.cost.mesh_train_collectives`` and to MESH_TRAIN_COUNTS; the
+    resumed runs bit for bit.
+    Then the bag kernels at DIN's rank 0 block (rows 5-rank-train and
+    5b-rank, launches from the runs) against their plain versions, timed,
+    and ``dryrun.run_cell`` of mixtral train_4k over 4 gloo ranks at (2, 2),
+    one layer: its collectives the formula's, 0 < MFU <= 1.05. Returns the
+    two rows."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_bag import (
+        embedding_bag_backward_cuda, embedding_bag_cuda, grad_table_work, grad_weights_work,
+    )
+    from repro_torch.kernels.embedding_bag import work as bag_work
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cost import mesh_train_collectives
+    from repro_torch.launch.ranks import run_world
+
+    t_phase = time.perf_counter()
+    os.makedirs(work, exist_ok=True)
+    runs = []
+    for i, (tag, arch, layers, b, mb, shape, over, resume) in enumerate(MESH_TRAIN_RUNS):
+        cfg = mesh_train_config({"arch": arch, "layers": layers, "overrides": over})
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + 50 + i)
+        tokens = torch.randint(0, cfg.vocab, (b, TRAIN_SEQ), generator=g, device=dev)
+        labels = tokens.clone()
+        labels[0, : TRAIN_SEQ // 4] = -1  # masked labels in one row: the count is global
+        path = os.path.join(work, f"{tag}_batch.pt")
+        torch.save({"tokens": tokens.cpu(), "labels": labels.cpu()}, path)
+        runs.append({"tag": tag, "kind": "lm", "arch": arch, "layers": layers, "overrides": over,
+                     "microbatches": mb, "mesh": list(shape), "seed": seed + 60 + i,
+                     "batch": path, "resume": resume, "work": work, "capture": False})
+    for i, (tag, arch, b, shape, resume) in enumerate(MESH_TRAIN_RECSYS):
+        runs.append({"tag": tag, "kind": "recsys", "arch": arch, "batch_rows": b,
+                     "microbatches": 1, "mesh": list(shape), "seed": seed + 70 + i,
+                     "ref": os.path.join(work, f"{tag}_ref.pt"), "resume": resume, "work": work,
+                     "capture": tag == "din"})
+    refs = {}
+    for run in runs:
+        t0 = time.perf_counter()
+        refs[run["tag"]] = mesh_train_reference(torch, dev, run, work)
+        log(f"[mesh_train] one-process reference {run['tag']}: losses "
+            f"{[m['loss'] for m in refs[run['tag']]['metrics']]}, step 1 "
+            f"{json.dumps(refs[run['tag']]['metrics'][0])}, steps (s) "
+            f"{[round(w, 3) for w in refs[run['tag']]['walls']]}; {time.perf_counter() - t0:.1f}s")
+    spec_path = os.path.join(work, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump({"runs": runs}, f)
+    t_refs = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(work, "world")
+    os.makedirs(out_dir)
+    gc_cuda(torch, dev)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"  # the ranks' allocators
+    try:
+        run_world(mesh_train_world, MESH_RANKS, backend="gloo", device=mesh_device(dev),
+                  args=(spec_path, out_dir), join_timeout_s=MESH_TRAIN_JOIN_S)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    t_world = time.perf_counter() - t0
+    launches = {}
+    for run in runs:
+        tag = run["tag"]
+        outs = [torch.load(os.path.join(out_dir, f"{tag}_rank{r}.pt")) for r in range(MESH_RANKS)]
+        lm = run["kind"] == "lm"
+        cfg = mesh_train_config(run) if lm else get_arch(run["arch"]).config
+        rep = mesh_train_check(torch, tag, outs, refs[tag], run, cfg, lm)
+        launches[tag] = [{k: c for k, c in o["launches"].items() if c} for o in outs]
+        log(f"[mesh_train] {tag} ({run['arch']}, mesh {tuple(run['mesh'])}, "
+            f"{run['microbatches']} microbatch(es)) on 4 gloo ranks of one card: {json.dumps(rep)}; "
+            f"launches per rank {json.dumps(launches[tag])}; {card()}")
+        del outs
+
+    # rows 5-rank-train and 5b-rank: the bag kernels at DIN's rank 0 block
+    cap = torch.load(os.path.join(out_dir, "din_bag.pt"))
+    table, ids, w, gr = (cap[k].to(dev) for k in ("table", "ids", "w", "g"))
+    bs, bl = ids.shape
+    d, v = table.shape[1], table.shape[0]
+    fwd = bag_check(torch, "DIN rank 0's block (train)", table, ids, w)
+    needed = int(((ids >= 0) & (w != 0)).sum())
+    ops_, nbytes = bag_work(s=bs, l=bl, d=d, needed=needed, index_bytes=ids.element_size())
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S
+    lib = torch.nn.functional.embedding_bag
+    lib_ids = ids.clamp(min=0)  # the same sums: every dropped id has weight 0
+    din_launches = launches["din"]
+    fwd_row = {
+        "shape": [bs, bl, d, v], "mesh": "2x2 rank 0", "in_range": needed, "of": bs * bl,
+        "launches": sum(x.get("embedding_bag", 0) for x in din_launches),
+        "max_abs_err": fwd["max_abs_err"],
+        "ms": time_cuda(torch, lambda: embedding_bag_cuda(table, ids, w), flush),
+        "plain_ms": time_cuda(torch, lambda: ref.embedding_bag_bags(table, ids, w), flush, iters=5),
+        "library_ms": time_cuda(torch, lambda: lib(lib_ids, table, per_sample_weights=w,
+                                                   mode="sum"), flush),
+        "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
+    }
+    bwd = bag_backward_check(torch, "DIN rank 0's block (train)", table, ids, w, gr, True)
+    shapes = dict(s=bs, l=bl, d=d, index_bytes=ids.element_size())
+    ops_, nbytes = (sum(x) for x in zip(grad_table_work(v=v, **shapes),
+                                        grad_weights_work(after_table=True, **shapes)))
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S
+    leaves = (table.detach().requires_grad_(True), w.detach().requires_grad_(True))
+    lib_out = lib(lib_ids, leaves[0], per_sample_weights=leaves[1], mode="sum")
+    bwd_row = {
+        "shape": [bs, bl, d, v], "mesh": "2x2 rank 0",
+        "launches": sum(x.get("embedding_bag_backward", 0) for x in din_launches),
+        "max_abs_err": max(bwd["dtable_max_abs_err"], bwd["dweights_max_abs_err"]),
+        "ms": time_cuda(torch, lambda: embedding_bag_backward_cuda(table, ids, w, gr,
+                                                                   weights_grad=True), flush),
+        "plain_ms": time_cuda(torch, lambda: ref.embedding_bag_bags_backward(
+            table, ids, w, gr, weights_grad=True), flush, iters=5),
+        "library_ms": time_cuda(torch, lambda: torch.autograd.grad(lib_out, leaves, gr,
+                                                                   retain_graph=True), flush),
+        "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
+    }
+    del cap, table, ids, w, gr, leaves, lib_out, lib_ids
+    gc_cuda(torch, dev)
+    for name, row in (("embedding_bag", fwd_row), ("embedding_bag_backward", bwd_row)):
+        if row["launches"] < 1:
+            fail(f"mesh_train: DIN's ranks launched {name} {row['launches']} times")
+    log(f"[mesh_train] row 5-rank-train (the bag forward on DIN's rank 0 block at (2, 2), bound "
+        f"over its {needed} ids in range of {bs * bl}): {json.dumps(fwd_row)}; row 5b-rank (the "
+        f"backward there, dtable and dw): {json.dumps(bwd_row)}; {card()}")
+
+    # the dry run over 4 gloo ranks on this card
+    t0 = time.perf_counter()
+    arch_name, shape, layers, batch, mesh = MESH_TRAIN_DRYRUN
+    cut = mesh_train_config({"arch": arch_name, "layers": layers, "overrides": MESH_TRAIN_RUNS[2][6]})
+    cut = dataclasses.replace(get_arch(arch_name), config=cut, train_microbatches=1)
+    rec = dryrun.run_cell(arch_name, shape, device=mesh_device(dev), ranks=4, mesh=mesh,
+                          backend="gloo", arch=cut, iters=1, batch=batch, verbose=False)
+    formula = mesh_train_collectives(cut.config, mesh, microbatches=1)
+    if not rec["collectives"]["counts"] == formula == MESH_TRAIN_COUNTS["dryrun"]:
+        fail(f"mesh_train dryrun: collectives {rec['collectives']['counts']}, the formula gives "
+             f"{formula}, the recorded counts are {MESH_TRAIN_COUNTS['dryrun']}")
+    mfu = rec["measured"]["mfu"]
+    if not 0 < mfu <= MESH_MFU_MAX:
+        fail(f"mesh_train dryrun: MFU {mfu} outside (0, {MESH_MFU_MAX}]")
+    log(f"[mesh_train] dryrun {arch_name}/{shape} (tp_only, local dispatch, ZeRO-1) over 4 gloo "
+        f"ranks at {mesh}, {layers} layer "
+        f"(cut: {rec['reduced']}): p50 {rec['measured']['p50_ms']:.3f} ms, MFU {mfu:.6f} over 4 "
+        f"devices, collectives {json.dumps(rec['collectives'])}, peak "
+        f"{rec['measured']['peak_bytes']}, {time.perf_counter() - t0:.1f}s")
+    elapsed = time.perf_counter() - t_phase
+    log(f"[mesh_train] phase took {elapsed:.1f}s (references {t_refs:.1f}s, gloo world "
+        f"{t_world:.1f}s); {card()}")
+    if elapsed > MESH_TRAIN_BUDGET_S * 1.5:
+        log(f"[mesh_train] over its budget of {MESH_TRAIN_BUDGET_S:.0f}s")
+    return fwd_row, bwd_row
+
+
 def run(torch, dev, args) -> list:
     """All phases on ``dev``; returns the kernels rows (raises on any
     failed check)."""
@@ -6146,6 +6789,13 @@ def run(torch, dev, args) -> list:
     mesh_dir = tempfile.mkdtemp(prefix="mesh_phase_")
     try:
         flash["mesh"], bag["rank"] = phase_mesh(torch, dev, args.seed + 14, flush, mesh_dir)
+    finally:
+        shutil.rmtree(mesh_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    mesh_dir = tempfile.mkdtemp(prefix="mesh_train_phase_")
+    try:
+        bag["rank_train"], bag_backward["rank"] = phase_mesh_train(torch, dev, args.seed + 15,
+                                                                   flush, mesh_dir)
     finally:
         shutil.rmtree(mesh_dir, ignore_errors=True)
     return kernels + [flash, bag, bag_backward]

@@ -3,8 +3,9 @@
 (NCCL), for a machine with four cards.
 
     python3 scripts/mesh_smoke.py [--seed 0] [--skip-dbrx] [--skip-dryrun]
+    python3 scripts/mesh_smoke.py --train [--seed 0]
 
-1. Holds mixtral-8x7b's 8-layer cut at full width (``chip_smoke.py``'s
+1. Holds mixtral-8x7b's (1, 4) cut at full width (``chip_smoke.py``'s
    mesh phase, 2 x 8192 prompt, 16 greedy tokens) over the four cards
    against the one-process run on card 0, teacher-forced in tokens and
    routing (``mesh_lm_check``: logits, argmax, would-be routing flips,
@@ -24,6 +25,24 @@
 4. ``python -m repro_torch.launch.dryrun --arch mixtral-8x7b --ranks 4``:
    its serving cells over the four cards, records under
    ``chiprun_out/mesh_dryrun``.
+
+With ``--train`` it trains over the four cards (NCCL, one rank a card)
+instead:
+
+1. mixtral-8x7b's train_4k at (2, 2), full width, as many layers as the
+   cards hold (``deepest_train``: ~17.5 GB of float32 state a layer, a
+   quarter a card, beside the gathered experts and the activations), a
+   global batch of ``TRAIN_BATCH`` rows of 4096 in its 2 microbatches;
+2. qwen2-0.5b whole at (4, 1), ``QWEN_BATCH`` rows of 4096.
+
+Each takes ``TRAIN_STEPS`` steps (the first counted: its collectives per op
+must equal ``launch.cost.mesh_train_collectives``; every rank's metrics
+equal rank 0's; the loss falls) and reports tokens/s over the timed steps,
+each rank's peak bytes and the collectives' share of one more step whose
+collectives are synchronized and timed on the host. Then
+``launch.dryrun --arch mixtral-8x7b --shape train_4k --ranks 4 --mesh 2,2``
+(from the run's batch and depth) and ``launch.train --ranks 4 --mesh 2,2`` (mixtral's
+reduced config, 4 steps) run over the cards.
 
 Prints each card's name and power limit, and exits nonzero when a check
 fails.
@@ -202,11 +221,174 @@ def deepest(torch, arch_name: str) -> int:
     return max(1, min(cfg.n_layers, layers))
 
 
+TRAIN_STEPS = 4
+TRAIN_BATCH = 8  # mixtral train_4k rows a step (its 256 cut to what the activations leave room for)
+QWEN_BATCH = 16
+TRAIN_STATE = 20.0  # float32 bytes a parameter: itself, m, v, its gradient and the microbatch sum
+TRAIN_TRANSIENT = 18e9  # bytes a rank keeps for a layer's gathered experts, grads and activations
+
+
+def deepest_train(torch, arch_name: str, cards: int = 4) -> int:
+    """The most layers of ``arch_name`` whose training state, split over
+    ``cards``, fits ``CARD_SHARE`` of card 0's free memory less
+    ``TRAIN_TRANSIENT``."""
+    from repro_torch.configs.registry import get_arch
+
+    cfg = get_arch(arch_name).config
+    free = torch.cuda.mem_get_info(0)[0] * CARD_SHARE - TRAIN_TRANSIENT
+    embed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    per_layer = (cfg.param_count() - embed - cfg.d_model) / cfg.n_layers
+    layers = int((free - embed * TRAIN_STATE / cards) // (per_layer * TRAIN_STATE / cards))
+    return max(1, min(cfg.n_layers, layers))
+
+
+def train_world(group, arch_name: str, layers: int, batch: int, shape, seed: int,
+                out_dir: str) -> None:
+    """One rank of a training run over the cards: its blocks drawn from
+    ``seed`` (every rank draws each tensor and keeps its block), the global
+    batch drawn alike and cut to its rows, ``TRAIN_STEPS`` steps (the first
+    counted), then one more with each collective synchronized and timed."""
+    import torch
+
+    from repro_torch.configs.families import lm_loss_fn
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import cost
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import init_params
+    from repro_torch.models.convert import train_layout
+    from repro_torch.train import AdamWConfig, TrainState, make_train_step
+    from repro_torch.train.loop import shard_batch
+
+    mesh = group.mesh(tuple(shape))
+    dev = mesh.device
+    arch = get_arch(arch_name)
+    cfg = dataclasses.replace(arch.config, n_layers=layers)
+    mb = arch.train_microbatches
+    layout = train_layout(cfg, mesh)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (batch, 4096), generator=g, device=dev)
+    local = shard_batch({"tokens": tokens, "labels": tokens}, mesh, mb)
+    state = TrainState.create(init_params(cfg, g, device=dev, mesh=mesh), layout=layout)
+    step = make_train_step(lm_loss_fn(cfg, mesh), AdamWConfig(**cs.TRAIN_OPT), microbatches=mb,
+                           layout=layout)
+    torch.cuda.synchronize(dev)
+    made = time.perf_counter() - t0
+    state_bytes = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    metrics, walls = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        if i == 0:
+            with cost.StepCost() as c:
+                state, m = step(state, local)
+            counts = dict(c.op_counts)
+        else:
+            state, m = step(state, local)
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    spent = [0.0]
+    real = {name: getattr(mesh_mod.RankMesh, name)
+            for name in ("_all_reduce", "_all_gather", "_reduce_scatter")}
+
+    def timed(name):
+        def call(self, *a, **k):
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            out = real[name](self, *a, **k)
+            torch.cuda.synchronize(dev)
+            spent[0] += time.perf_counter() - t
+            return out
+        return call
+
+    for name in real:
+        setattr(mesh_mod.RankMesh, name, timed(name))
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    state, _ = step(state, local)
+    torch.cuda.synchronize(dev)
+    synced = time.perf_counter() - t0
+    for name, fn in real.items():
+        setattr(mesh_mod.RankMesh, name, fn)
+    torch.save({"metrics": metrics, "walls": walls, "counts": counts, "made_s": made,
+                "state_bytes": state_bytes, "peak": torch.cuda.max_memory_allocated(dev),
+                "synced_s": synced, "collective_s": spent[0]},
+               os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def train_over_cards(torch, arch_name: str, layers: int, batch: int, shape, seed: int,
+                     work: str) -> dict:
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.cost import mesh_train_collectives
+    from repro_torch.launch.ranks import run_world
+
+    arch = get_arch(arch_name)
+    out = os.path.join(work, f"train_{arch_name}_{layers}")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    run_world(train_world, 4, backend="nccl",
+              args=(arch_name, layers, batch, tuple(shape), seed, out), join_timeout_s=1500)
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(4)]
+    for r, o in enumerate(ranks):
+        if o["metrics"] != ranks[0]["metrics"]:
+            cs.fail(f"{arch_name} training: rank {r}'s metrics differ from rank 0's")
+    cfg = dataclasses.replace(arch.config, n_layers=layers)
+    want = mesh_train_collectives(cfg, tuple(shape), microbatches=arch.train_microbatches)
+    if ranks[0]["counts"] != want:
+        cs.fail(f"{arch_name} training: step 1 ran {ranks[0]['counts']}, the formula gives {want}")
+    losses = [m["loss"] for m in ranks[0]["metrics"]]
+    if not losses[-1] < losses[0]:
+        cs.fail(f"{arch_name} training: the loss did not fall: {losses}")
+    step = max(sorted(o["walls"][1:])[len(o["walls"][1:]) // 2] for o in ranks)
+    rep = {
+        "arch": arch_name, "layers": layers, "of": arch.config.n_layers, "mesh": list(shape),
+        "batch": [batch, 4096], "microbatches": arch.train_microbatches, "losses": losses,
+        "step_1": ranks[0]["metrics"][0], "counts": ranks[0]["counts"],
+        "step_p50_s": step, "tokens_per_s": batch * 4096 / step,
+        "first_step_s": max(o["walls"][0] for o in ranks),
+        "state_gb_per_rank": [o["state_bytes"] / 1e9 for o in ranks],
+        "peak_gb_per_rank": [o["peak"] / 1e9 for o in ranks],
+        "collective_share_of_a_step": [o["collective_s"] / o["synced_s"] for o in ranks],
+        "synced_step_s": [o["synced_s"] for o in ranks],
+        "made_s": max(o["made_s"] for o in ranks), "world_s": time.perf_counter() - t0,
+    }
+    cs.log(f"[mesh_smoke] train {json.dumps(rep)}; {cs.card()}")
+    return rep
+
+
+def train_main(torch, seed: int, work: str) -> None:
+    layers = deepest_train(torch, "mixtral-8x7b")
+    cs.log(f"[mesh_smoke] training state reckoned at {TRAIN_STATE:g} bytes a parameter")
+    cs.log(f"[mesh_smoke] mixtral-8x7b: {layers} of 32 layers' training state fits "
+           f"{CARD_SHARE} of a card's free memory less {TRAIN_TRANSIENT / 1e9:.0f} GB")
+    train_over_cards(torch, "mixtral-8x7b", layers, TRAIN_BATCH, (2, 2), seed, work)
+    train_over_cards(torch, "qwen2-0.5b", 24, QWEN_BATCH, (4, 1), seed, work)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    for cmd in (
+        ["-m", "repro_torch.launch.dryrun", "--arch", "mixtral-8x7b", "--shape", "train_4k",
+         "--ranks", "4", "--mesh", "2,2", "--batch", str(TRAIN_BATCH), "--layers", str(layers),
+         "--iters", "3", "--out", os.path.join(ROOT, "chiprun_out", "mesh_dryrun")],
+        ["-m", "repro_torch.launch.train", "--arch", "mixtral-8x7b", "--ranks", "4", "--mesh",
+         "2,2", "--steps", "4", "--ckpt-dir", os.path.join(work, "ckpt"), "--ckpt-every", "2"],
+    ):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *cmd], cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=1500)
+        cs.log(f"[mesh_smoke] {' '.join(cmd[:3])} ... exit {proc.returncode} in "
+               f"{time.perf_counter() - t0:.1f}s: {proc.stdout[-3000:]}")
+        if proc.returncode:
+            cs.log(proc.stderr[-6000:])
+            cs.fail(f"mesh_smoke: {' '.join(cmd)} failed")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--skip-dbrx", action="store_true")
     ap.add_argument("--skip-dryrun", action="store_true")
+    ap.add_argument("--train", action="store_true", help="train over the four cards instead")
     args = ap.parse_args()
     os.environ.setdefault("REPRO_AUTOTUNE_TABLE", os.devnull)
 
@@ -223,12 +405,20 @@ def main() -> int:
     cs.log(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s; "
            f"{torch.cuda.device_count()} cards: {cs.card()}")
     work = tempfile.mkdtemp(prefix="mesh_smoke_")
+    if args.train:
+        try:
+            train_main(torch, args.seed, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        cs.log(cs.card())
+        return 0
     try:
-        # 1. the 8-layer cut over four cards against one process on card 0
+        # 1. the (1, 4) cut over four cards against one process on card 0
         cs.MESH_RANKS = 4
         t0 = time.perf_counter()
         check = mesh_cut_check(torch, args.seed, work)
-        cs.log(f"[mesh_smoke] mixtral-8x7b 8-layer cut, NCCL (1, 4) vs one process: "
+        cs.log(f"[mesh_smoke] mixtral-8x7b {cs.MESH_LM[0][2]}-layer cut, NCCL (1, 4) vs one "
+               f"process: "
                f"{json.dumps(check)} in {time.perf_counter() - t0:.1f}s")
         # 2. mixtral whole; 3. dbrx as deep as the cards hold
         serve_whole(torch, "mixtral-8x7b", 32, args.seed, work)

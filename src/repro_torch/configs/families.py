@@ -13,9 +13,14 @@ reduced config for real). The loss of a train step builds its model once
 per params dict, a view onto ``TrainState``'s parameters (``lm_loss_fn``,
 ``gnn_loss_fn``, ``recsys_loss_fn``). ``state_pspec`` and
 ``input_pspec`` are JAX's, over a ``RankMesh`` (``launch/mesh.py``) and
-the port's own tensors (``launch/sharding.py``): they place the serving
-cells' state and inputs on the ranks of a mesh (``launch/dryrun.py``); a
-train cell's specs, ZeRO-1 moments included, are stated but not yet run.
+the port's own tensors (``launch/sharding.py``): they place a cell's
+state and inputs on the ranks of a mesh (``launch/dryrun.py``). The LM and
+recsys ``step_fn(..., mesh=)`` of a train cell is the rank's step over its
+blocks (``train.make_train_step(..., layout=convert.train_layout(cfg,
+mesh))``, ZeRO-1 moments where ``state_pspec`` makes them so), on its
+rows of the global batch: ``train.shard_batch(batch, mesh,
+microbatches)``, ``input_pspec``'s block of each microbatch in JAX's
+order.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from repro_torch.configs.base import ArchDef, ShapeCell
 from repro_torch.core.types import resolve_device
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import data_axes
-from repro_torch.models.convert import init_params
+from repro_torch.models.convert import init_params, train_layout
 from repro_torch.models.gnn import GIN, GINConfig
 from repro_torch.models.recsys import (
     RECSYS_MODELS,
@@ -124,10 +129,17 @@ class _Loss:
         return self._call(self._model, batch)
 
 
-def lm_loss_fn(cfg: TransformerConfig) -> _Loss:
-    """``TransformerLM.loss`` of ``cfg``."""
-    return _Loss(lambda p: TransformerLM.from_params(cfg, p, trainable=True),
+def lm_loss_fn(cfg: TransformerConfig, mesh=None) -> _Loss:
+    """``TransformerLM.loss`` of ``cfg`` (over ``mesh``: of a rank's blocks)."""
+    return _Loss(lambda p: TransformerLM.from_params(cfg, p, trainable=True, mesh=mesh),
                  lambda m, b: m.loss(b["tokens"], b["labels"]))
+
+
+def _train_step(cfg, loss_fn, microbatches: int, mesh):
+    """``make_train_step`` of a train cell, over ``mesh`` when given."""
+    if mesh is None:
+        return make_train_step(loss_fn, _OPT, microbatches=microbatches)
+    return make_train_step(loss_fn, _OPT, microbatches=microbatches, layout=train_layout(cfg, mesh))
 
 
 class LMFamily:
@@ -163,13 +175,14 @@ class LMFamily:
         return {"tokens": (tokens, torch.int32), "cache": cache}
 
     @staticmethod
-    def step_fn(arch: ArchDef, shape: str, *, reduced: bool = False):
-        """train: ``step(TrainState, batch) -> (TrainState, metrics)``;
-        prefill and decode: ``step(model, batch) -> (logits, cache)``."""
+    def step_fn(arch: ArchDef, shape: str, *, reduced: bool = False, mesh=None):
+        """train: ``step(TrainState, batch) -> (TrainState, metrics)`` (with
+        ``mesh``, a rank's, see the module); prefill and decode:
+        ``step(model, batch) -> (logits, cache)``."""
         cfg: TransformerConfig = arch.reduced if reduced else arch.config
         s = (LM_SHAPES_REDUCED if reduced else LM_SHAPES)[shape]
         if s.kind == "train":
-            return make_train_step(lm_loss_fn(cfg), _OPT, microbatches=arch.train_microbatches)
+            return _train_step(cfg, lm_loss_fn(cfg, mesh), arch.train_microbatches, mesh)
         if s.kind == "prefill":
             def prefill_step(model: TransformerLM, batch):
                 return model.prefill(batch["tokens"], batch["cache"])
@@ -475,13 +488,14 @@ class RecsysFamily:
         raise TypeError(type(cfg))
 
     @staticmethod
-    def step_fn(arch: ArchDef, shape: str, *, reduced: bool = False):
-        """train: ``step(TrainState, batch) -> (TrainState, metrics)``; serve
-        and retrieval: ``step(model, batch)``, ``serve_step``'s."""
+    def step_fn(arch: ArchDef, shape: str, *, reduced: bool = False, mesh=None):
+        """train: ``step(TrainState, batch) -> (TrainState, metrics)`` (with
+        ``mesh``, a rank's, see the module); serve and retrieval:
+        ``step(model, batch)``, ``serve_step``'s."""
         cfg = arch.reduced if reduced else arch.config
         s = (RECSYS_SHAPES_REDUCED if reduced else RECSYS_SHAPES)[shape]
         if s.kind == "train":
-            return make_train_step(recsys_loss_fn(cfg), _OPT)
+            return _train_step(cfg, recsys_loss_fn(cfg, mesh), arch.train_microbatches, mesh)
 
         def step(model, batch):
             return serve_step(model, s)(batch)
@@ -562,8 +576,10 @@ class RecsysFamily:
         return {"scores": step(RECSYS_MODELS[type(cfg)].from_params(cfg, params), batch)}
 
 
-def recsys_loss_fn(cfg) -> _Loss:
+def recsys_loss_fn(cfg, mesh=None) -> _Loss:
     """The recsys model's ``loss`` for ``cfg`` (the executor resolved from
-    the weights' device: the bag kernel on the card)."""
+    the weights' device: the bag kernel on the card; over ``mesh``, of a
+    rank's blocks)."""
     model = RECSYS_MODELS[type(cfg)]
-    return _Loss(lambda p: model.from_params(cfg, p, trainable=True), lambda m, b: m.loss(b))
+    return _Loss(lambda p: model.from_params(cfg, p, trainable=True, mesh=mesh),
+                 lambda m, b: m.loss(b))

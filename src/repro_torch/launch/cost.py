@@ -28,6 +28,10 @@ they dispatch:
     with StepCost() as c:
         step(state, batch)
     c.flops, c.bytes, c.collective_bytes, c.kernels
+
+``mesh_train_collectives`` reckons, from a config and a mesh shape, the
+collectives a train step over the mesh runs (``train/loop.py``), op by
+op: what ``StepCost.op_counts`` must count.
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
-__all__ = ["StepCost", "active", "collective", "collective_bytes", "kernel", "COLLECTIVES"]
+__all__ = ["StepCost", "active", "collective", "collective_bytes", "kernel", "COLLECTIVES",
+           "mesh_train_collectives"]
 
 COLLECTIVES = (
     "all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute", "broadcast",
@@ -243,3 +248,109 @@ def collective(op: str, nbytes: float, group: int) -> None:
     c = active()
     if c is not None:
         c.add_collective(op, nbytes, group)
+
+
+def mesh_train_collectives(cfg, shape: tuple[int, int], *, microbatches: int = 1,
+                           executor: str = "kernel") -> dict:
+    """The collectives one train step of ``cfg`` runs over a (data, model)
+    mesh of ``shape``, by op, as the layers' code implies (an op over axes
+    of one rank runs nothing). Per microbatch, for the LM with L layers:
+
+      forward   all-gather: each layer's weights split over the data axes
+                  (FSDP, one collective), the head's, and a gathered MoE
+                  dispatch's tokens, over
+                  data; the D-split embedding, V-split logits and a tied
+                  D-split head's table over model
+                all-reduce: each layer's two row-parallel sums (after wo,
+                  after the FFN or MoE), a vocab-split embedding over model;
+                  the loss's numerator and count, and a local dispatch's
+                  aux, over data
+      backward  reduce-scatter: each forward gather over data (FSDP, tokens)
+                all-reduce: each ``copy_to`` over model (the attention's
+                  and FFN's inputs, the experts' input and gate weights, the
+                  q/k norm scales, the head's input)
+      remat     each layer's forward collectives again, but its last sum
+                  (recomputation stops at the layer's last saved tensor)
+
+    and once per step: one all-reduce of the gradients replicated over the
+    data axes, one over model for kv heads shared by several model ranks,
+    a reduce-scatter and an all-gather per ZeRO-1 parameter, one all-reduce
+    of the global norm's squares over the mesh (compression adds one of the
+    maxes). The recsys models: their takes' and bags' model
+    sums, DIN's ``copy_to`` of the bag weights, two-tower's gather of the
+    item embeddings (reduce-scattered back) and of log_q, the loss's sums.
+    A tied D-split head is taken to see more positions a microbatch than
+    d_model (as at train_4k), so it gathers its table."""
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.convert import train_layout
+    from repro_torch.models.transformer import TransformerConfig
+
+    d, m = (int(x) for x in shape)
+    mesh = make_mesh((d, m), ("data", "model"))
+    D, M = d > 1, m > 1
+    n = collections.Counter()
+    if isinstance(cfg, TransformerConfig):
+        moe = cfg.moe
+        gathered_tokens = moe is not None and not moe.local_dispatch and D
+        fsdp_w = 1  # a layer's FSDP weights (wq, wk, wv, wo, the FFN's or experts') in one gather
+        # Each layer's forward; remat runs it again in the backward, up to the
+        # layer's last saved tensor: all but the final sum (after the FFN).
+        again = 1 if cfg.remat else 0
+        per = collections.Counter()
+        per["all-gather"] += cfg.n_layers * D * (fsdp_w + gathered_tokens) * (1 + again)
+        per["all-reduce"] += cfg.n_layers * M * (2 + again)
+        per["reduce-scatter"] += cfg.n_layers * D * (fsdp_w + gathered_tokens)
+        per["all-reduce"] += cfg.n_layers * M * (2 + (1 if moe is not None else 0)
+                                                 + (2 if cfg.qk_norm else 0))
+        if cfg.embed_shard == "d":
+            per["all-gather"] += M
+        elif cfg.embed_shard == "vocab":
+            per["all-reduce"] += M
+        if not cfg.tie_embeddings:  # the V-split head: its FSDP gather, the logits' gather
+            per["all-gather"] += D + M
+            per["reduce-scatter"] += D
+            per["all-reduce"] += M
+        elif cfg.embed_shard == "vocab":  # the V-split product gathered; copy_to's sum
+            per["all-gather"] += M
+            per["all-reduce"] += M
+        elif cfg.embed_shard == "d":  # the table gathered
+            per["all-gather"] += M
+        per["all-reduce"] += D * (2 + (moe is not None and moe.local_dispatch))
+        layout = train_layout(cfg, mesh)
+        zero1 = [k for k in layout.param_specs if D and layout.zero1_dim(k) is not None]
+        bucket = any(sharding.grad_sync_axes(sp, mesh) and layout.zero1_dim(k) is None
+                     for k, sp in layout.param_specs.items())
+        shared = cfg.n_kv_heads < m
+    else:
+        per = _recsys_collectives(cfg, D, M, executor)
+        zero1, bucket, shared = [], D, False
+    for op, k in per.items():
+        n[op] += microbatches * k
+    n["all-reduce"] += int(bool(bucket)) + int(shared)
+    n["reduce-scatter"] += len(zero1)
+    n["all-gather"] += len(zero1)
+    if d * m > 1:
+        n["all-reduce"] += 1
+    return {op: int(k) for op, k in sorted(n.items()) if k}
+
+
+def _recsys_collectives(cfg, D: bool, M: bool, executor: str) -> collections.Counter:
+    """Per (micro)batch collectives of a recsys model's train step (see
+    ``mesh_train_collectives``)."""
+    from repro_torch.models.recsys import DINConfig, SASRecConfig, TwoTowerConfig, XDeepFMConfig
+
+    kernel = executor == "kernel"
+    per = collections.Counter()
+    if isinstance(cfg, TwoTowerConfig):  # a bag or a take per tower; the in-batch gathers
+        per["all-reduce"] += 2 * M
+        per["all-gather"] += 2 * D
+        per["reduce-scatter"] += D
+        per["all-reduce"] += D
+    elif isinstance(cfg, SASRecConfig):  # the history, positives and negatives; two sums
+        per["all-reduce"] += 3 * M + 2 * D
+    elif isinstance(cfg, XDeepFMConfig):  # the table and the linear term
+        per["all-reduce"] += 2 * M + D
+    elif isinstance(cfg, DINConfig):  # target and history takes, the bag and its copy_to
+        per["all-reduce"] += (2 + 2 * kernel) * M + D
+    return per

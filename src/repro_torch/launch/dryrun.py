@@ -42,14 +42,18 @@ the synthetic index (``distributed.rank_shard``); rank 0 times and counts,
 and its collectives come from the counter. For the LM and recsys
 families ``--ranks N`` runs the serving cells over a (data, model) mesh
 of N ranks (``--mesh D,M``, (1, N) by default; ``launch/ranks.py::
-run_mesh``): every rank materializes its own blocks of the state and the
-inputs, placed by the family's ``state_pspec`` and ``input_pspec``
-(``long_500k``'s cache split by sequence), and runs the step; rank 0's
-time, peak and counted work (its collectives counted per op in
-``collectives.counts``) make the record, ``mesh`` "ranks<N>", MFU over N
-devices. The fit reckons each rank's share as 1/N of the state and inputs,
-times the ranks that share a card. Train cells over ranks raise: training
-over a mesh is the next step of the port. A failing cell is recorded with
+run_mesh``), the train cells too: every rank materializes its own blocks
+of the state and the inputs, placed by the family's ``state_pspec`` and
+``input_pspec`` (``long_500k``'s cache split by sequence; a train batch
+drawn whole and cut by ``train.shard_batch`` in JAX's microbatch order,
+the moments ZeRO-1 where the arch's experts are ``tp_only``), and runs the
+step; rank 0's time, peak and counted work (its collectives counted per
+op in ``collectives.counts``: all-reduces, all-gathers and
+reduce-scatters, a train step's backward and remat recomputation
+included) make the record, ``mesh`` "ranks<N>", MFU over N devices. The
+fit reckons each rank's share as 1/N of the state and inputs, times the
+ranks that share a card. gin-tu over ranks raises: GNN training over a
+mesh is the next step of the port. A failing cell is recorded with
 ``ok: false``, its error and traceback, and the run exits 1. Nothing falls
 back to the CPU or to a plain version.
 """
@@ -541,6 +545,8 @@ def run_cell(
     verbose: bool = True,
     mesh: tuple[int, int] | None = None,
     backend: str | None = None,
+    batch: int | None = None,
+    layers: int | None = None,
 ) -> dict:
     """Run one cell on ``device`` and return its record (see the module).
     ``arch`` replaces the registry's ``ArchDef`` (``hillclimb``'s
@@ -549,13 +555,21 @@ def run_cell(
     ranks, an LM or recsys serving cell over a (data, model) mesh of that
     many ranks (``mesh``, (1, ranks) by default). ``backend`` is the
     world's: NCCL on the cards (one rank per card) and gloo on the CPU by
-    default; gloo with ``device="cuda:0"`` puts every rank on that card."""
+    default; gloo with ``device="cuda:0"`` puts every rank on that card.
+    ``batch`` and ``layers`` start an LM cell at that batch and depth
+    (each listed as a cut), where the fit would only find them by running
+    out of memory (it reckons the state, not a train step's gradients)."""
     dev = _resolve(device)
     arch = arch or get_arch(arch_name)
     if shape not in arch.shapes:
         raise KeyError(f"{shape!r} is not a shape of {arch_name}: {arch.shapes}")
     fam = arch.family
     cell = _Cell(arch, shape, _shapes(fam, reduced)[shape], reduced, [])
+    field = _batch_field(fam, cell.shape_obj)
+    if batch is not None and field is not None and batch != getattr(cell.shape_obj, field):
+        cell = _with_batch(cell, batch)
+    if layers is not None and fam.name == "lm" and layers != cell.config.n_layers:
+        cell = _with_depth(cell, layers)
     if ranks is not None:
         if fam.name == "warp":
             return _run_ranked(arch_name, cell, dev, ranks, seed, iters, search_overrides,
@@ -680,12 +694,25 @@ def _materialize_mesh(cell: _Cell, mesh, seed: int):
     own blocks."""
     from repro_torch.launch import sharding
     from repro_torch.models import KVCache, TransformerLM, init_params
+    from repro_torch.models.convert import train_layout
     from repro_torch.models.recsys import RECSYS_MODELS
+    from repro_torch.train.loop import TrainState, shard_batch
 
     dev = mesh.device
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     cfg, s = cell.config, cell.shape_obj
+    if s.kind == "train":  # the global batch drawn whole, the rank's rows kept
+        if cell.family.name == "recsys":
+            batch = _recsys_batch(cell, g, dev)
+        else:
+            b, sl = s.global_batch, s.seq_len
+            batch = {"tokens": _ints(g, cfg.vocab, (b, sl), dev),
+                     "labels": _ints(g, cfg.vocab, (b, sl), dev)}
+        batch = {k: v.clone() for k, v in shard_batch(
+            batch, mesh, cell.arch.train_microbatches).items()}
+        params = init_params(cfg, g, device=dev, mesh=mesh)
+        return TrainState.create(params, layout=train_layout(cfg, mesh)), batch
     if cell.family.name == "recsys":
         batch = _recsys_batch(cell, g, dev)
         specs = cell.family.input_pspec(cell.arch, cell.shape, mesh)
@@ -717,7 +744,7 @@ def _mesh_body(mesh, cell, seed, iters, out_path):
     its numbers."""
     dev = mesh.device
     state, batch = _materialize_mesh(cell, mesh, seed)
-    step = cell.family.step_fn(cell.arch, cell.shape, reduced=cell.reduced)
+    step = cell.family.step_fn(cell.arch, cell.shape, reduced=cell.reduced, mesh=mesh)
     p50, peak, out = _time(step, state, batch, dev, iters)
     out_bytes = _new_bytes(out, (state, batch))
     out = None
@@ -738,11 +765,11 @@ def _run_mesh(cell: _Cell, dev, n: int, shape, backend, seed, iters, verbose) ->
     from repro_torch.launch.ranks import run_mesh
 
     fam = cell.family
-    if fam.name not in ("lm", "recsys") or cell.shape_obj.kind == "train":
+    if fam.name not in ("lm", "recsys"):
         raise NotImplementedError(
-            f"{cell.arch.name}/{cell.shape} over ranks: the mesh runs the LM and recsys serving "
-            "cells; training over a mesh (FSDP gradients, ZeRO-1 moments, the train cells over "
-            "ranks) is the next step of the port (ROADMAP queue 1, item 1)"
+            f"{cell.arch.name}/{cell.shape} over ranks: the mesh runs the LM and recsys cells; "
+            "GNN training over a mesh (the node and edge arrays split over the data axes) is "
+            "the next step of the port (ROADMAP queue 1, item 1)"
         )
     shape = tuple(int(d) for d in shape)
     if shape[0] * shape[1] != n:
@@ -801,8 +828,8 @@ def main(argv=None) -> int:
     ap.add_argument("--shape")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--ranks", type=int, default=None,
-                    help="run the warp cells over N shard ranks, the LM and recsys serving "
-                    "cells over a mesh of N ranks (NCCL on the cards)")
+                    help="run the warp cells over N shard ranks, the LM and recsys cells over a "
+                    "mesh of N ranks (NCCL on the cards)")
     ap.add_argument("--mesh", default=None,
                     help="the (data, model) shape of the mesh as D,M (default 1,N)")
     ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
@@ -812,15 +839,17 @@ def main(argv=None) -> int:
     ap.add_argument("--reduced", action="store_true", help="the arch's reduced configs")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="start each cell at this batch (listed as a cut)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="start each LM cell at this depth (listed as a cut)")
     args = ap.parse_args(argv)
     if not args.all and not args.arch:
         ap.error("give --all or --arch")
     _resolve(args.device)
 
     def over_ranks(a, s):  # the cells a world of ranks runs
-        fam = get_arch(a).family
-        return fam.name == "warp" or (fam.name in ("lm", "recsys")
-                                      and fam.shape_cell(get_arch(a), s).kind != "train")
+        return get_arch(a).family.name in ("warp", "lm", "recsys")
 
     if args.all:
         cells = all_cells(include_warp=True)
@@ -837,7 +866,7 @@ def main(argv=None) -> int:
         try:
             rec = run_cell(arch_name, shape, device=args.device, reduced=args.reduced,
                            ranks=args.ranks, seed=args.seed, iters=args.iters, mesh=mesh_shape,
-                           backend=args.backend)
+                           backend=args.backend, batch=args.batch, layers=args.layers)
         except Exception as e:  # noqa: BLE001 — record and continue
             failures += 1
             rec = {

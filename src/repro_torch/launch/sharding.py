@@ -1,6 +1,13 @@
 """Partition-spec rules per model family: the port's copy of
 ``repro/launch/sharding.py``, stated over the port's own tensors.
 
+Training (``TrainLayout``): a gradient is summed over the data axes its
+parameter's spec does not name (``grad_sync_axes``); over the model axis
+the layers' own collectives leave every rank its block's whole gradient,
+except a kv head shared by several model ranks (Hkv < model), summed over
+exactly those ranks. ZeRO-1 moments (``zero1_opt_pspec``) split a
+replicated parameter's update over the data axes.
+
 LM stack: FSDP + TP ("fsdp" = all batch axes, flattened ('pod', 'data')).
 The port keeps one module per layer and Dense weights [d_out, d_in]
 (``nn.Linear``'s layout), where JAX stacks [L, d_in, d_out]; so each
@@ -26,6 +33,10 @@ cuts a rank's block of a full tensor, ``gather_block`` joins blocks back.
 
 from __future__ import annotations
 
+import copy
+
+import torch
+
 from repro_torch.launch.mesh import MODEL_AXIS, data_axes
 
 __all__ = [
@@ -43,6 +54,10 @@ __all__ = [
     "kv_heads_of_rank",
     "lm_local_block",
     "lm_local_shape",
+    "lm_join_block",
+    "grad_sync_axes",
+    "replicas",
+    "TrainLayout",
 ]
 
 _TABLES = ("user_table", "item_table", "table", "linear")
@@ -251,7 +266,8 @@ def local_block(t, spec, mesh):
 def gather_block(t, spec, mesh, axes=None):
     """The inverse of ``local_block``: the blocks joined over the axes the
     spec names (only the dims split over ``axes`` where that is given: the
-    data axes of an FSDP weight)."""
+    data axes of an FSDP weight). Each gather's gradient is reduce-scattered
+    (a weight every rank uses on its own rows)."""
     for d, p in enumerate(spec):
         if p is None or (axes is not None and not set(p) <= set(axes)):
             continue
@@ -311,3 +327,166 @@ def lm_local_shape(name: str, shape, spec, mesh, cfg) -> tuple[int, ...]:
         shape = (cfg.resolved_head_dim,) + tuple(shape[1:])
         spec = P(None, *spec[1:])
     return local_shape(shape, spec, mesh)
+
+
+def lm_join_block(name: str, t, spec, mesh, cfg):
+    """The inverse of ``lm_local_block``: the whole tensor on every rank
+    (no gradient). Where Hkv < model, each kv head is taken from the first
+    of the model ranks that share it."""
+    names = name.split(".")
+    if _is_kv(names) and cfg.n_kv_heads < mesh.shape[MODEL_AXIS]:
+        t = gather_block(t, P(None, *spec[1:]), mesh)
+        share = mesh.shape[MODEL_AXIS] // cfg.n_kv_heads
+        heads = mesh.all_gather(t, MODEL_AXIS, 0)
+        return heads.reshape(cfg.n_kv_heads, share, *t.shape)[:, 0].reshape(-1, *t.shape[1:])
+    return gather_block(t, spec, mesh)
+
+
+# ---------------------------------------------------------------------------
+# training over a mesh
+# ---------------------------------------------------------------------------
+
+
+def _named(spec) -> set:
+    return {a for p in spec if p is not None for a in p}
+
+
+def grad_sync_axes(spec, mesh) -> tuple[str, ...]:
+    """The axes a parameter's gradient is summed over: the data axes its
+    spec does not name (each data rank's gradient is its own rows' share).
+    Over the data axes it names, the FSDP gather's backward already
+    reduce-scattered it; over the model axis, the layers' collectives
+    (``copy_to`` ahead of every block split over it, the identity backward
+    of the row-parallel sums) leave every rank its block's whole gradient."""
+    return tuple(a for a in data_axes(mesh) if a not in _named(spec) and mesh.shape[a] > 1)
+
+
+def replicas(spec, mesh, shared: int = 1) -> int:
+    """How many ranks hold each block of a tensor of ``spec``: the product
+    of the axes it does not name (times ``shared``: a kv head held by that
+    many model ranks)."""
+    named = _named(spec)
+    n = 1
+    for a in mesh.axis_names:
+        if a not in named:
+            n *= mesh.shape[a]
+    return n * shared
+
+
+class TrainLayout:
+    """How a ``TrainState`` lies on a mesh: each parameter's spec (by
+    state-dict name), its moments' (ZeRO-1 where ``zero1``), and the LM
+    config whose kv heads decide the rows of wk / wv (None for the other
+    families). ``cut`` and ``join`` take a checkpoint leaf ("params.<n>",
+    "opt.m.<n>", "opt.v.<n>", "opt.step", "error_fb.<n>") to this rank's
+    block and back, ``gather_to_root`` to rank 0 alone; the error feedback
+    has the moments' layout (the gradient block the rank updates)."""
+
+    def __init__(self, mesh, param_specs: dict, opt_specs: dict | None = None, cfg=None):
+        self.mesh, self.cfg = mesh, cfg
+        self.param_specs = dict(param_specs)
+        self.opt_specs = dict(opt_specs or param_specs)
+
+    def kv_shared(self, name: str) -> int:
+        """How many model ranks hold the kv head of ``name`` (1 unless it is
+        wk / wv with Hkv < model)."""
+        cfg, m = self.cfg, self.mesh.shape.get(MODEL_AXIS, 1)
+        if cfg is None or not _is_kv(name.split(".")) or cfg.n_kv_heads >= m:
+            return 1
+        return m // cfg.n_kv_heads
+
+    def zero1_dim(self, name: str) -> int | None:
+        """The dim along which ``name``'s moments (and its gradient and
+        update) are split over the data axes where its parameter is not."""
+        for d, (p, o) in enumerate(zip(self.param_specs[name], self.opt_specs[name])):
+            if p != o:
+                return d
+        return None
+
+    def grad_replicas(self, name: str) -> int:
+        """How many ranks hold each block of ``name``'s synced gradient (its
+        moments' layout)."""
+        return replicas(self.opt_specs[name], self.mesh, self.kv_shared(name))
+
+    def _leaf(self, leaf: str):
+        """(parameter name, the specs its leaf follows), or (None, None)
+        for a leaf every rank holds whole (the step)."""
+        parts = leaf.split(".")
+        if parts[0] == "params":
+            return ".".join(parts[1:]), self.param_specs
+        if parts[0] == "opt" and parts[1] in ("m", "v"):
+            return ".".join(parts[2:]), self.opt_specs
+        if parts[0] == "error_fb":
+            return ".".join(parts[1:]), self.opt_specs
+        return None, None
+
+    def cut(self, leaf: str, full):
+        """This rank's block of the whole tensor ``full`` of ``leaf`` (a view)."""
+        name, specs = self._leaf(leaf)
+        if name is None:
+            return full
+        spec = specs[name]
+        if self.cfg is not None:
+            t = lm_local_block(name, full, self.param_specs[name], self.mesh, self.cfg)
+            return _zero1_cut(t, self.param_specs[name], spec, self.mesh)
+        return local_block(full, spec, self.mesh)
+
+    def join(self, leaf: str, block):
+        """The whole tensor of ``leaf`` from the ranks' blocks, on every rank
+        (collective: every rank calls it, leaves in one order)."""
+        name, specs = self._leaf(leaf)
+        if name is None:
+            return block
+        spec = specs[name]
+        if self.cfg is not None:
+            block = _zero1_join(block, self.param_specs[name], spec, self.mesh)
+            return lm_join_block(name, block, self.param_specs[name], self.mesh, self.cfg)
+        return gather_block(block, spec, self.mesh)
+
+
+    def whole_shape(self, leaf: str, shape) -> tuple[int, ...]:
+        """The shape of ``leaf``'s whole tensor, of which a rank holds a
+        block of ``shape``."""
+        name, specs = self._leaf(leaf)
+        if name is None:
+            return tuple(shape)
+        spec = tuple(specs[name]) + (None,) * (len(shape) - len(specs[name]))
+        out = [n * self.mesh.size_of(p) if p is not None else n for n, p in zip(shape, spec)]
+        if self.cfg is not None and self.kv_shared(name) > 1:  # the rank's one kv head
+            out[0] = self.cfg.n_kv_heads * self.cfg.resolved_head_dim
+        return tuple(out)
+
+    def gather_to_root(self, leaf: str, block):
+        """The whole tensor of ``leaf`` on rank 0, on the host; None on the
+        other ranks (collective: every rank calls it, leaves in one order).
+        Each rank's block is sent to rank 0 alone, which writes it where
+        ``cut`` takes that rank's block from (a replicated block lands
+        where its replicas do, with the same bits)."""
+        name, _ = self._leaf(leaf)
+        if name is None:
+            return block.detach().cpu() if self.mesh.rank == 0 else None
+        parts = self.mesh.gather_to_root(block)
+        if parts is None:
+            return None
+        full = torch.empty(self.whole_shape(leaf, block.shape), dtype=block.dtype)
+        there = copy.copy(self)
+        for r, part in enumerate(parts):
+            there.mesh = self.mesh.at_rank(r)
+            there.cut(leaf, full).copy_(part)
+        return full
+
+
+def _zero1_cut(t, param_spec, opt_spec, mesh):
+    """A parameter block's ZeRO-1 slice: the dim its spec leaves None and
+    the moments' split over the data axes (``zero1_opt_pspec``)."""
+    for d, (p, o) in enumerate(zip(param_spec, opt_spec)):
+        if p != o:
+            return local_block(t, P(*([None] * d), o), mesh)
+    return t
+
+
+def _zero1_join(t, param_spec, opt_spec, mesh):
+    for d, (p, o) in enumerate(zip(param_spec, opt_spec)):
+        if p != o:
+            return mesh.all_gather(t, o, d)
+    return t

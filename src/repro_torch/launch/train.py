@@ -18,6 +18,19 @@ from ``--ckpt-dir`` (the newest committed step) trains on the batches the
 interrupted run would have. (JAX keys it by ``hash(name)``, which Python
 salts per process.) GIN's labels are drawn in [0, n_classes): JAX draws
 them in [0, 64) too, and a label >= n_classes makes every loss NaN.
+
+``--ranks N`` trains an LM or recsys arch over a (data, model) mesh of N
+ranks (``--mesh D,M``, (1, N) by default; ``launch/ranks.py::run_mesh``),
+as JAX's step does under its shardings: NCCL on the cards (one rank a
+card), gloo on the CPU (``--device cpu``) or on one card named with its
+index (``--backend gloo --device cuda:0``). Every rank draws the weights
+and the global batch as one process does and keeps its blocks and rows
+(``train.shard_batch``, JAX's microbatch order); the checkpoints are the
+one-process files (rank 0 writes them), so a run resumes on a mesh of
+another shape or in one process. Rank 0 prints.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
+      --steps 6 --ranks 4 --mesh 2,2 [--device cpu]
 """
 
 from __future__ import annotations
@@ -32,8 +45,9 @@ from repro_torch.configs.families import GNN_SHAPES_REDUCED
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.types import resolve_device
 from repro_torch.models.convert import init_params
+from repro_torch.models.convert import train_layout
 from repro_torch.train import checkpoint as ckpt
-from repro_torch.train.loop import TrainState
+from repro_torch.train.loop import TrainState, shard_batch
 
 
 def batch_key(seed: int, step: int, name: str) -> list[int]:
@@ -51,8 +65,41 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="train over a (data, model) mesh of N ranks (the LM and recsys archs)")
+    ap.add_argument("--mesh", default=None, help="the mesh's shape as D,M (default 1,N)")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="the ranks' backend (default: nccl on the cards, gloo on the CPU)")
     args = ap.parse_args(argv)
+    if args.ranks is not None:
+        return _over_ranks(args)
+    return _train(args)
 
+
+def _over_ranks(args) -> int:
+    from repro_torch.launch.ranks import run_mesh
+
+    fam = get_arch(args.arch).family
+    if fam.name not in ("lm", "recsys"):
+        raise SystemExit(f"--ranks trains the LM and recsys archs over a mesh; {args.arch} is a "
+                         f"{fam.name} arch (GNN training over a mesh is not ported yet)")
+    shape = tuple(int(d) for d in args.mesh.split(",")) if args.mesh else (1, args.ranks)
+    if len(shape) != 2 or shape[0] * shape[1] != args.ranks:
+        raise SystemExit(f"--mesh {args.mesh} is not a (data, model) shape of {args.ranks} ranks")
+    cpu = args.device == "cpu"
+    backend = args.backend or ("gloo" if cpu else "nccl")
+    device = args.device if cpu or backend == "gloo" else None
+    run_mesh(_rank, shape, backend=backend, device=device, args=(args,))
+    return 0
+
+
+def _rank(mesh, args) -> None:
+    args.device = str(mesh.device)
+    _train(args, mesh)
+
+
+def _train(args, mesh=None) -> int:
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     arch = get_arch(args.arch)
     fam = arch.family
     if fam.name == "warp":
@@ -65,7 +112,7 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
 
     specs = fam.input_specs(arch, shape, reduced=True)
-    step_fn = fam.step_fn(arch, shape, reduced=True)
+    step_fn = fam.step_fn(arch, shape, reduced=True, **({} if mesh is None else {"mesh": mesh}))
     cfg = arch.reduced
     if fam.name == "gnn":
         cfg = fam._cfg_for(arch, GNN_SHAPES_REDUCED[shape], True)
@@ -82,25 +129,29 @@ def main(argv=None) -> int:
                 hi = cfg.n_classes if fam.name == "gnn" and name == "labels" else 64
                 a = r.integers(0, hi, dims).astype(np.int32)
             out[name] = torch.from_numpy(a).to(dev)
+        if mesh is not None:  # this rank's rows, in JAX's microbatch order
+            out = shard_batch(out, mesh, arch.train_microbatches)
         return out
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
-    state = TrainState.create(init_params(cfg, g, device=dev))
+    layout = None if mesh is None else train_layout(cfg, mesh)
+    state = TrainState.create(init_params(cfg, g, device=dev, mesh=mesh), layout=layout)
     start = 0
     if args.ckpt_dir:
         latest = ckpt.latest_step(args.ckpt_dir)
         if latest is not None:
-            state, start = ckpt.restore_checkpoint(args.ckpt_dir, state)
-            print(f"[resume] step {start}")
+            state, start = ckpt.restore_checkpoint(args.ckpt_dir, state, layout=layout)
+            say(f"[resume] step {start}")
 
     for step in range(start, args.steps):
         state, metrics = step_fn(state, make_batch(step))
         if (step + 1) % max(1, args.steps // 10) == 0:
-            print(f"step {step+1}/{args.steps} loss={float(metrics['loss']):.4f}")
+            say(f"step {step+1}/{args.steps} loss={float(metrics['loss']):.4f}")
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            ckpt.save_checkpoint(args.ckpt_dir, step + 1, state)
-            ckpt.retain_last(args.ckpt_dir, 3)
-    print("done")
+            ckpt.save_checkpoint(args.ckpt_dir, step + 1, state, layout=layout)
+            if mesh is None or mesh.rank == 0:
+                ckpt.retain_last(args.ckpt_dir, 3)
+    say("done" if mesh is None else f"done ({mesh.size} ranks, mesh {tuple(mesh.devices_shape)})")
     return 0
 
 

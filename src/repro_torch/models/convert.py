@@ -13,7 +13,10 @@ they are, and train as its ``nn.Parameter``s. The JAX trees of
 the LM and the encoder stack their layers on a leading axis; the port
 keeps one module per layer. Dense weights are stored [d_out, d_in] (``nn.Linear``'s
 layout), the transpose of the JAX [d_in, d_out]; embedding tables and
-xDeepFM's CIN matrices keep the JAX layout.
+xDeepFM's CIN matrices keep the JAX layout. ``state_from_jax`` carries a
+whole JAX ``TrainState`` (parameters, moments, step, error feedback)
+across, to one process or to a rank's blocks (``train_layout``: ZeRO-1
+moments where the LM's experts are ``tp_only``, as JAX's ``state_pspec``).
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from repro_torch.models.moe import moe_init
 from repro_torch.models.recsys import DINConfig, SASRecConfig, TwoTowerConfig, XDeepFMConfig
 from repro_torch.models.transformer import TransformerConfig
 
-__all__ = ["params_from_jax", "init_params", "jax_leaf", "port_layout", "param_specs"]
+__all__ = ["params_from_jax", "init_params", "jax_leaf", "port_layout", "param_specs",
+           "train_layout", "state_from_jax"]
 
 _NORMS = ("attn_norm", "ffn_norm", "q_norm", "k_norm")
 _DENSE = ("wq", "wk", "wv", "wo")
@@ -87,6 +91,55 @@ def param_specs(cfg, mesh) -> dict:
     if isinstance(cfg, EncoderConfig):
         raise TypeError("the token encoder is not placed on a mesh")
     return sharding.recsys_param_pspec(shapes, mesh)
+
+
+def train_layout(cfg, mesh):
+    """The ``TrainLayout`` of ``cfg``'s ``TrainState`` on ``mesh``: its
+    ``param_specs``, the moments ZeRO-1 (``zero1_opt_pspec``) where JAX's
+    ``state_pspec`` makes them so (an LM with ``tp_only`` experts), and the
+    LM config for its kv heads."""
+    from repro_torch.launch import sharding
+
+    specs = param_specs(cfg, mesh)
+    lm = isinstance(cfg, TransformerConfig)
+    opt = specs
+    if lm and cfg.moe_weight_mode == "tp_only":
+        shapes = {k: (tuple(v.shape), v.dtype)
+                  for k, v in init_params(cfg, torch.Generator(), device="meta").items()}
+        opt = sharding.zero1_opt_pspec(specs, shapes, mesh)
+    return sharding.TrainLayout(mesh, specs, opt, cfg if lm else None)
+
+
+def state_from_jax(state, cfg, *, device=None, mesh=None):
+    """A JAX ``TrainState`` of ``cfg``'s model (its ``params``, ``opt``
+    {"m", "v", "step"} and ``error_fb``, as attributes or dict keys, arrays
+    as numpy) -> the port's ``TrainState`` on ``device``; with ``mesh``, this
+    rank's blocks (``train_layout``). The moments and error feedback are
+    trees shaped like the parameters, converted alike (error feedback where
+    JAX's state carries it)."""
+    from torch import nn
+
+    from repro_torch.train.loop import TrainState
+
+    def get(obj, key):
+        return obj[key] if isinstance(obj, dict) else getattr(obj, key)
+
+    dev = resolve_device(device)
+    layout = None if mesh is None else train_layout(cfg, mesh)
+
+    def tree(t, prefix):
+        full = params_from_jax(t, cfg, device="cpu")
+        if layout is None:
+            return {k: v.to(dev) for k, v in full.items()}
+        return {k: layout.cut(f"{prefix}.{k}", v).to(dev, copy=True) for k, v in full.items()}
+
+    opt = get(state, "opt")
+    err = get(state, "error_fb")
+    params = {k: nn.Parameter(v) for k, v in tree(get(state, "params"), "params").items()}
+    step = torch.as_tensor(np.asarray(get(opt, "step")), dtype=torch.int32).to(dev)
+    return TrainState(params=params, opt={"m": tree(get(opt, "m"), "opt.m"),
+                                          "v": tree(get(opt, "v"), "opt.v"), "step": step},
+                      error_fb=None if err is None else tree(err, "error_fb"))
 
 
 def _placer(cfg, mesh):

@@ -12,8 +12,13 @@ Over a mesh of ranks (``launch/mesh.py``), the pieces that
 ``launch/sharding.py``'s rules imply: a column-parallel dense is ``dense``
 on the rank's rows of the weight (its output features are the rank's); a
 row-parallel dense (``row_dense``) sums the ranks' partial products over
-the model axis; ``gather_fsdp`` joins a weight's blocks over the data
-axes just before its layer runs (the caller drops it after); and
+the model axis (its gradient passed on to every rank: Megatron's g);
+``gather_fsdp`` joins a weight's blocks over the data axes just before
+its layer runs (the caller drops it after), its gradient reduce-scattered
+back over them (``gather_fsdp_many``: a layer's weights in one
+collective); a column-parallel dense reads its input through
+``RankMesh.copy_to``, which sums the input's gradient over the model axis
+(Megatron's f); and
 ``decode_attention_partial`` with ``merge_attention`` decode over a cache
 whose sequence axis is split over the data axes, merging each rank's
 partial softmax by its log-sum-exp. Each collective reports to the step
@@ -42,6 +47,7 @@ __all__ = [
     "merge_attention",
     "row_dense",
     "gather_fsdp",
+    "gather_fsdp_many",
     "assign_blocks",
     "swiglu",
     "RMSNorm",
@@ -291,7 +297,8 @@ def merge_attention(out: torch.Tensor, lse: torch.Tensor, mesh, axes, dtype) -> 
 def row_dense(x: torch.Tensor, weight: torch.Tensor, mesh, bias=None) -> torch.Tensor:
     """A row-parallel dense: x's features and the weight's d_in are the
     rank's block; the partial products are summed over the model axis
-    (in float32), then the bias is added once."""
+    (in float32), then the bias is added once. The sum's gradient goes to
+    every rank's partial product as it is."""
     from repro_torch.launch.mesh import MODEL_AXIS
 
     y = dense(x, weight)
@@ -302,18 +309,44 @@ def row_dense(x: torch.Tensor, weight: torch.Tensor, mesh, bias=None) -> torch.T
 
 def gather_fsdp(weight: torch.Tensor, spec, mesh) -> torch.Tensor:
     """A weight whose spec splits some dims over the data axes (FSDP),
-    joined over them; its model-axis split stays."""
+    joined over them; its model-axis split stays. Its gradient is the sum
+    of the ranks' gradients, reduce-scattered back to the blocks (under
+    remat the recomputed forward gathers it again)."""
     from repro_torch.launch.mesh import data_axes
     from repro_torch.launch.sharding import gather_block
 
     return gather_block(weight, spec, mesh, axes=data_axes(mesh))
 
 
-def assign_blocks(module: nn.Module, params: dict, local_shape) -> None:
-    """Make ``params`` (a rank's blocks, by state-dict name) the frozen
-    parameters of ``module``, a model built on the ``meta`` device at full
-    size: the names must be the module's, and each block's shape
-    ``local_shape(name, full_shape)``."""
+def gather_fsdp_many(weights: list, specs: list, mesh) -> list:
+    """Several FSDP weights (a layer's) joined over the data axes in one
+    all-gather of their flattened blocks, each then rebuilt along the dim
+    its spec splits over the data axes; the gradient comes back in one
+    reduce-scatter. The weights share a dtype."""
+    from repro_torch.launch.mesh import data_axes
+
+    data = data_axes(mesh)
+    n = mesh.size_of(data)
+    if n == 1:
+        return list(weights)
+    flat = torch.cat([w.reshape(-1) for w in weights])
+    got = mesh.all_gather(flat, data, 0, backward="sum").reshape(n, -1)
+    out, at = [], 0
+    for w, spec in zip(weights, specs):
+        (dim,) = [d for d, p in enumerate(spec) if p is not None and set(p) <= set(data)]
+        piece = got[:, at:at + w.numel()].reshape(n, *w.shape)
+        out.append(torch.cat(piece.unbind(0), dim=dim))
+        at += w.numel()
+    return out
+
+
+def assign_blocks(module: nn.Module, params: dict, local_shape, trainable: bool = False) -> None:
+    """Make ``params`` (a rank's blocks, by state-dict name) the parameters
+    of ``module``, a model built on the ``meta`` device at full size: the
+    names must be the module's, and each block's shape ``local_shape(name,
+    full_shape)``. A block that is an ``nn.Parameter`` (``TrainState``'s)
+    becomes the parameter itself; another is wrapped, trainable only with
+    ``trainable``."""
     full = {k: tuple(v.shape) for k, v in module.state_dict().items()}
     if set(params) != set(full):
         raise ValueError(f"the blocks' names differ from the model's: missing "
@@ -324,8 +357,9 @@ def assign_blocks(module: nn.Module, params: dict, local_shape) -> None:
         if tuple(t.shape) != want:
             raise ValueError(f"{name}: this rank's block is {tuple(t.shape)}; its spec gives {want}")
         parent, _, leaf = name.rpartition(".")
-        setattr(module.get_submodule(parent) if parent else module, leaf,
-                nn.Parameter(t, requires_grad=False))
+        if not isinstance(t, nn.Parameter):
+            t = nn.Parameter(t, requires_grad=trainable)
+        setattr(module.get_submodule(parent) if parent else module, leaf, t)
 
 
 # ----------------------------------------------------------------- SwiGLU

@@ -24,6 +24,14 @@ split over the data axes, are all-gathered first, capacity is the global
 ``cap``; its aux loss takes the mean of the one-hot over (tokens, slots)
 at once, as JAX's local body does (the caller averages it over the data
 axes). On one device both are the one-process functions.
+
+Training over the mesh: the tokens' gather reduce-scatters its gradient
+over the data axes (every data rank routes every token, and each keeps
+only its rows' outputs), the model-axis sum passes its gradient on as it
+is, and both the experts' input and the slots' gate weights go through
+``copy_to`` over the model axis: each rank's experts hold a block of d_ff,
+so their gradients of x and of the gate weights are partial sums. The
+router reads x as it is, and its gradient is whole on every rank.
 ``dispatch_data_axes`` and ``dispatch_model_axis`` name JAX's mesh axes;
 the port's are ``data_axes(mesh)`` and "model".
 """
@@ -138,17 +146,19 @@ def moe_apply(params: dict, cfg: MoEConfig, x: torch.Tensor, mesh=None, *,
 
     data = data_axes(mesh)
     gathered = tokens_split and not cfg.local_dispatch and mesh.size_of(data) > 1
-    xs = mesh.all_gather(x, data, 0) if gathered else x
-    y, aux = _experts(params, cfg, xs)
+    xs = mesh.all_gather(x, data, 0, backward="sum") if gathered else x
+    y, aux = _experts(params, cfg, xs, mesh)
     y = mesh.all_reduce(y, MODEL_AXIS)
     if gathered:
         y = y.narrow(0, mesh.index_of(data) * x.shape[0], x.shape[0])
     return y.to(x.dtype), aux
 
 
-def _experts(params: dict, cfg: MoEConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _experts(params: dict, cfg: MoEConfig, x: torch.Tensor,
+             mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Routing, dispatch, the experts and the combine of x [T, D] -> (y
-    [T, D] in the experts' dtype, aux loss)."""
+    [T, D] in the experts' dtype, aux loss). With ``mesh`` the experts are
+    the rank's block of d_ff, and y its partial sum (see the module)."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     probs, top_p, top_e = route(x, params["router"], cfg)
@@ -160,11 +170,16 @@ def _experts(params: dict, cfg: MoEConfig, x: torch.Tensor) -> tuple[torch.Tenso
     aux = e * torch.sum(me * ce)
 
     dsp = dispatch(top_e, top_p, cfg)
+    gate_w = dsp.gate_w
+    if mesh is not None:
+        from repro_torch.launch.mesh import MODEL_AXIS
+
+        x, gate_w = mesh.copy_to(x, MODEL_AXIS), mesh.copy_to(gate_w, MODEL_AXIS)
     xe = x[dsp.tok_idx]  # [E, cap, D]
     h = F.silu(torch.bmm(xe, params["gate"].to(x.dtype)))
     h = h * torch.bmm(xe, params["up"].to(x.dtype))
     ye = torch.bmm(h, params["down"].to(x.dtype))  # [E, cap, D]
-    ye = (ye * dsp.gate_w.unsqueeze(-1).to(ye.dtype)).reshape(e * dsp.cap, d)
+    ye = (ye * gate_w.unsqueeze(-1).to(ye.dtype)).reshape(e * dsp.cap, d)
 
     # Each token's kept slots, in expert order (= flat slot order).
     by_expert = torch.sort(top_e, dim=-1).indices

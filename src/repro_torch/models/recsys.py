@@ -42,6 +42,17 @@ sums take their gradient from the bag kernel's backward
 (``kernels/embedding_bag.py``): the table's dense, DIN's attention
 weights' too. ``RecsysFamily.step_fn`` (``configs/families.py``) trains
 them.
+
+Over a mesh they train too (``from_params(..., trainable=True, mesh=)``):
+the model-axis sums of the takes and bags pass their gradient on as it is,
+so each rank's rows of a table get their whole gradient; the bag's weights
+(DIN's attention weights, replicated over the model axis) go through
+``copy_to``, since each rank's bag gives their gradient only at the slots
+of its own rows. The losses are JAX's over the global batch: a mean is a
+sum over the data axes divided by the global count, SASRec's masked mean
+the two sums; two-tower's in-batch softmax gathers the item embeddings and
+``log_q`` over the data axes (the gather reduce-scatters the embeddings'
+gradient), each rank's rows against every item of the batch.
 """
 
 from __future__ import annotations
@@ -106,14 +117,13 @@ class _Recsys(nn.Module):
         frozen. ``trainable=True`` leaves them trainable; where ``params``
         holds ``nn.Parameter``s (``train.TrainState``'s), the model's
         parameters are those very objects, so gradients land on them.
-        With ``mesh``, ``params`` are this rank's blocks (see the module);
-        such a model serves."""
+        With ``mesh``, ``params`` are this rank's blocks (see the module)."""
         with torch.device("meta"):
             model = cls(cfg, executor="reference")
         if mesh is None:
             model.load_state_dict(params, strict=True, assign=True)
         else:
-            model._place(params, mesh)
+            model._place(params, mesh, trainable)
         if not trainable:
             model.requires_grad_(False)
         model.executor = executor
@@ -129,7 +139,7 @@ class _Recsys(nn.Module):
             self.executor, self.device, "the CUDA embedding-bag kernel"
         )
 
-    def _place(self, params: dict, mesh) -> None:
+    def _place(self, params: dict, mesh, trainable: bool = False) -> None:
         """Take this rank's blocks as the parameters (``L.assign_blocks``),
         and note each table held by row range."""
         from repro_torch.launch import sharding
@@ -139,7 +149,7 @@ class _Recsys(nn.Module):
         specs = param_specs(self.cfg, mesh)
         rows = {k: v.shape[0] for k, v in self.state_dict().items()}
         L.assign_blocks(self, params, lambda name, shape: sharding.local_shape(
-            shape, specs[name], mesh))
+            shape, specs[name], mesh), trainable)
         for name, spec in specs.items():
             if spec[0] is not None and mesh.size_of(spec[0]) > 1:
                 local = params[name].shape[0]
@@ -179,17 +189,38 @@ class _Recsys(nn.Module):
         local = ids.long() - start
         own = (local >= 0) & (local < table.shape[0])
         local = torch.where(own, local, -1).to(ids.dtype)
+        weights = self.mesh.copy_to(weights, MODEL_AXIS)
         part = ops.embedding_bag(table, bag_indices=local,
                                  bag_weights=torch.where(own, weights, 0.0), use_kernel=True)
         return self.mesh.all_reduce(part, MODEL_AXIS)
 
 
-def _bce(logit, labels):
-    """Mean stable BCE with logits (JAX's recsys losses)."""
+def _data(mesh):
+    """The data axes of ``mesh`` when they hold more than one rank, else None."""
+    if mesh is None:
+        return None
+    from repro_torch.launch.mesh import data_axes
+
+    data = data_axes(mesh)
+    return data if mesh.size_of(data) > 1 else None
+
+
+def _global_mean(x, mesh):
+    """The mean of x over the global batch: over the data axes, the sum of
+    the ranks' sums over the global count (each rank's gradient is its own
+    rows' share)."""
+    data = _data(mesh)
+    if data is None:
+        return torch.mean(x)
+    return mesh.all_reduce(torch.sum(x), data) / (x.numel() * mesh.size_of(data))
+
+
+def _bce(logit, labels, mesh=None):
+    """Mean stable BCE with logits (JAX's recsys losses), over the global
+    batch."""
     y = labels.float()
-    bce = torch.mean(
-        torch.clamp_min(logit, 0) - logit * y + torch.log1p(torch.exp(-torch.abs(logit)))
-    )
+    bce = _global_mean(
+        torch.clamp_min(logit, 0) - logit * y + torch.log1p(torch.exp(-torch.abs(logit))), mesh)
     return bce, {"bce": bce}
 
 
@@ -245,11 +276,16 @@ class TwoTower(_Recsys):
         """In-batch sampled softmax with logQ correction."""
         u = self._tower("user_table", self.user_mlp, batch["user_ids"], batch["user_mask"])
         v = self._tower("item_table", self.item_mlp, batch["item_ids"], batch["item_mask"])
+        log_q, labels = batch["log_q"], torch.arange(u.shape[0], device=u.device)
+        data = _data(self.mesh)
+        if data is not None:  # this rank's rows against every item of the global batch
+            v = self.mesh.all_gather(v, data, 0, backward="sum")
+            log_q = self.mesh.all_gather(log_q, data, 0)
+            labels = labels + self.mesh.index_of(data) * u.shape[0]
         logits = (u @ v.T) / self.cfg.temperature  # [B, B]
-        logits = logits - batch["log_q"][None, :]  # sampling correction
-        labels = torch.arange(u.shape[0], device=u.device)
+        logits = logits - log_q[None, :]  # sampling correction
         logp = torch.log_softmax(logits, dim=-1)
-        loss = -torch.mean(torch.take_along_dim(logp, labels[:, None], dim=-1))
+        loss = -_global_mean(torch.take_along_dim(logp, labels[:, None], dim=-1), self.mesh)
         return loss, {"softmax": loss}
 
     @torch.inference_mode()
@@ -335,7 +371,11 @@ class SASRec(_Recsys):
         neg_logit = torch.sum(hid * neg_emb, -1)
         mask = batch["seq_mask"]
         bce = -F.logsigmoid(pos_logit) - F.logsigmoid(-neg_logit)
-        loss = torch.sum(bce * mask) / torch.clamp_min(torch.sum(mask), 1)
+        num, count = torch.sum(bce * mask), torch.sum(mask)
+        data = _data(self.mesh)
+        if data is not None:
+            num, count = self.mesh.all_reduce(num, data), self.mesh.all_reduce(count, data)
+        loss = num / torch.clamp_min(count, 1)
         return loss, {"bce": loss}
 
     @torch.inference_mode()
@@ -379,7 +419,7 @@ class XDeepFM(_Recsys):
         return self._logits(field_ids)
 
     def loss(self, batch: dict):
-        return _bce(self._logits(batch["field_ids"]), batch["labels"])
+        return _bce(self._logits(batch["field_ids"]), batch["labels"], self.mesh)
 
     def _logits(self, field_ids):
         x0 = self.take("table", field_ids)  # [B, F, D]
@@ -435,7 +475,7 @@ class DIN(_Recsys):
     def loss(self, batch: dict):
         return _bce(
             self._logits(batch["target_ids"], batch["hist_ids"], batch["hist_mask"]),
-            batch["labels"],
+            batch["labels"], self.mesh,
         )
 
     def _logits(self, target_ids, hist_ids, hist_mask):

@@ -37,11 +37,12 @@ attends over its own heads (the flash kernel, on a prompt, at the rank's
 head counts) and wo is row-split, its partial products all-reduced; the
 FFN's gate and up likewise, down row-split; the MoE experts split along
 d_ff (``moe.moe_apply``); weights split over the data axes (FSDP) are
-all-gathered just before their layer runs. The embedding is D-split (a
+all-gathered just before their layer runs, a layer's in one collective. The embedding is D-split (a
 local row gather, then an all-gather over the model axis), V-split
 ("vocab": the rank's rows, the others 0, all-reduced) or replicated;
-``lm_head`` is V-split, its logits all-gathered (tied: the D-split
-product all-reduced). Norms are replicated. Tokens and the KV cache are
+``lm_head`` is V-split, its logits all-gathered (tied with the D-split
+embedding: the table's columns gathered where there are more positions
+than columns, else the D-split product all-reduced). Norms are replicated. Tokens and the KV cache are
 the rank's block of the batch (``kv_cache_pspec``), and the cache keeps
 only the kv heads the rank's attention reads (``sharding.kv_heads_of_rank``:
 where Hkv < model, one kv head, replicated over the ranks that share it).
@@ -50,6 +51,20 @@ A cache split by sequence over the data axes (``KVCache.seq_split``, JAX's
 over its positions, the partial softmaxes merged by their log-sum-exp; it
 comes from the caller (``shard_cache``), as JAX's ``long_500k`` cache is
 an input: the port does not prefill into one.
+
+Such a model also trains (``from_params(..., trainable=True, mesh=)`` on
+``TrainState``'s blocks): every collective carries the backward its
+consumers need (``launch/mesh.py``). A tensor replicated over the model
+axis goes through ``copy_to`` before each block split over it (wq/wk/wv,
+gate/up, the experts, a V-split or tied head, and the q/k norms' scales,
+which the rank's heads alone read), the row-parallel sums pass
+their gradient on as it is, the FSDP gathers reduce-scatter theirs, and
+the D-split embedding's and V-split logits' gathers keep the rank's own
+block. ``loss`` is JAX's over the global batch: the numerator and the
+count of unmasked labels are each summed over the data axes, so every rank
+holds the global loss and its backward its own rows' share; a gathered
+MoE dispatch's aux loss, computed alike on every data rank, counts once
+(each rank's gradient of it is divided by the data axes' size).
 """
 
 from __future__ import annotations
@@ -67,6 +82,19 @@ from repro_torch.models import layers as L
 from repro_torch.models.moe import MoE, MoEConfig, moe_apply
 
 __all__ = ["TransformerConfig", "TransformerLM", "KVCache", "shard_cache"]
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """x itself; its gradient times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,6 +250,7 @@ class TransformerLM(nn.Module):
         self.mesh = None
         self.n_heads, self.n_kv_heads = cfg.n_heads, cfg.n_kv_heads  # this rank's
         self._fsdp: dict = {}  # id(parameter) -> its spec, for those split over the data axes
+        self._gathered: dict = {}  # id(parameter) -> the layer running's joined FSDP weights
 
     @classmethod
     def from_params(cls, cfg: TransformerConfig, params: dict, *, executor: str = "auto",
@@ -233,21 +262,20 @@ class TransformerLM(nn.Module):
         frozen. ``trainable=True`` leaves them trainable; where ``params``
         holds ``nn.Parameter``s (``train.TrainState``'s), the model's
         parameters are those very objects, so gradients land on them.
-        With ``mesh``, ``params`` are this rank's blocks (see the module);
-        such a model serves, and does not train."""
+        With ``mesh``, ``params`` are this rank's blocks (see the module)."""
         with torch.device("meta"):
             model = cls(cfg, executor="reference")
         if mesh is None:
             model.load_state_dict(params, strict=True, assign=True)
         else:
-            model._place(params, mesh)
+            model._place(params, mesh, trainable)
         if not trainable:
             model.requires_grad_(False)
         model.executor = executor
         model._resolve_executor()
         return model
 
-    def _place(self, params: dict, mesh) -> None:
+    def _place(self, params: dict, mesh, trainable: bool = False) -> None:
         """Take this rank's blocks as the parameters (``L.assign_blocks``),
         and note those split over the data axes, which the forward joins."""
         from repro_torch.launch import sharding
@@ -257,7 +285,7 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         specs = param_specs(cfg, mesh)
         L.assign_blocks(self, params, lambda name, shape: sharding.lm_local_shape(
-            name, shape, specs[name], mesh, cfg))
+            name, shape, specs[name], mesh, cfg), trainable)
         data = set(data_axes(mesh))
         for name, p in self.named_parameters():
             if any(a in data for part in specs[name] if part for a in part):
@@ -273,11 +301,32 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def _split_in(self, x: torch.Tensor) -> torch.Tensor:
+        """x (replicated over the model axis) as a block split over that
+        axis reads it: its gradient summed over the axis."""
+        from repro_torch.launch.mesh import MODEL_AXIS
+
+        return x if self.mesh is None else self.mesh.copy_to(x, MODEL_AXIS)
+
     def _full(self, w: torch.Tensor) -> torch.Tensor:
         """A weight as its layer uses it: joined over the data axes where
-        it is split over them (FSDP), else itself."""
+        it is split over them (FSDP), else itself. The blocks travel in the
+        compute dtype, the layer's cast moved ahead of the gather (the same
+        values; half the bytes of a float32 training state)."""
+        if id(w) in self._gathered:
+            return self._gathered[id(w)]
         spec = self._fsdp.get(id(w))
-        return w if spec is None else L.gather_fsdp(w, spec, self.mesh)
+        return w if spec is None else L.gather_fsdp(w.to(self.cfg.dtype), spec, self.mesh)
+
+    def _gather_layer(self, lp: _Layer) -> dict:
+        """The layer's FSDP weights joined in one collective
+        (``gather_fsdp_many``), by id: what ``_full`` gives the layer."""
+        ws = [p for p in lp.parameters() if id(p) in self._fsdp]
+        if not ws:
+            return {}
+        full = L.gather_fsdp_many([w.to(self.cfg.dtype) for w in ws],
+                                  [self._fsdp[id(w)] for w in ws], self.mesh)
+        return {id(w): f for w, f in zip(ws, full)}
 
     # ------------------------------------------------------- layer body
     def _attention(self, lp: _Layer, x, positions, rope, cache=None, layer=0, slots=None,
@@ -289,11 +338,13 @@ class TransformerLM(nn.Module):
         cfg, h, hkv = self.cfg, self.n_heads, self.n_kv_heads
         b, s, _ = x.shape
         dh = cfg.resolved_head_dim
+        x = self._split_in(x)
         q = L.dense(x, self._full(lp.wq.weight), lp.wq.bias).reshape(b, s, h, dh)
         k = L.dense(x, self._full(lp.wk.weight), lp.wk.bias).reshape(b, s, hkv, dh)
         v = L.dense(x, self._full(lp.wv.weight), lp.wv.bias).reshape(b, s, hkv, dh)
-        if cfg.qk_norm:
-            q, k = lp.q_norm(q), lp.k_norm(k)
+        if cfg.qk_norm:  # over a mesh the scales are read by the rank's heads alone
+            q = L.rms_norm(q, self._split_in(lp.q_norm.scale))
+            k = L.rms_norm(k, self._split_in(lp.k_norm.scale))
         q, k = L.rotate(q, *rope), L.rotate(k, *rope)
         if cache is not None and cache.seq_split:
             out = self._decode_seq_split(q, k, v, cache, layer)
@@ -363,6 +414,7 @@ class TransformerLM(nn.Module):
         if self.mesh is None:
             return lp.ffn(h)
         f = lp.ffn
+        h = self._split_in(h)
         act = F.silu(L.dense(h, self._full(f.gate.weight))) * L.dense(h, self._full(f.up.weight))
         return L.row_dense(act, self._full(f.down.weight), self.mesh)
 
@@ -377,15 +429,22 @@ class TransformerLM(nn.Module):
         return moe_apply(params, self.cfg.moe, h, mesh=self.mesh, tokens_split=tokens_split)
 
     def _layer(self, i, x, positions, rope, cache, slots, empty, train):
-        """Layer ``i`` -> (x, its MoE aux loss: 0 for the dense FFN)."""
+        """Layer ``i`` -> (x, its MoE aux loss: 0 for the dense FFN). Over
+        a mesh its FSDP weights are joined first, in one collective (again
+        when remat recomputes the layer)."""
         lp = self.layers[i]
-        x = x + self._attention(lp, lp.attn_norm(x), positions, rope, cache, i, slots, empty, train)
-        h = lp.ffn_norm(x)
-        if self.cfg.moe is None:
-            return x + self._ffn(lp, h), torch.zeros((), dtype=torch.float32, device=x.device)
-        b, s, d = h.shape
-        y, aux = self._moe(lp, h.reshape(b * s, d), cache is None or not cache.seq_split)
-        return x + y.reshape(b, s, d), aux
+        self._gathered = {} if self.mesh is None else self._gather_layer(lp)
+        try:
+            x = x + self._attention(lp, lp.attn_norm(x), positions, rope, cache, i, slots, empty,
+                                    train)
+            h = lp.ffn_norm(x)
+            if self.cfg.moe is None:
+                return x + self._ffn(lp, h), torch.zeros((), dtype=torch.float32, device=x.device)
+            b, s, d = h.shape
+            y, aux = self._moe(lp, h.reshape(b * s, d), cache is None or not cache.seq_split)
+            return x + y.reshape(b, s, d), aux
+        finally:
+            self._gathered = {}
 
     def _embed(self, tokens):
         """The embedding rows of ``tokens`` in the compute dtype."""
@@ -395,7 +454,8 @@ class TransformerLM(nn.Module):
         from repro_torch.launch.mesh import MODEL_AXIS
 
         if cfg.embed_shard == "d":
-            return mesh.all_gather(self.embed[tokens].to(cfg.dtype), MODEL_AXIS, -1)
+            return mesh.all_gather(self.embed[tokens].to(cfg.dtype), MODEL_AXIS, -1,
+                                   backward="slice")
         rows = self.embed.shape[0]  # "vocab": this rank's rows, the others 0
         local = tokens.long() - mesh.index_of(MODEL_AXIS) * rows
         own = (local >= 0) & (local < rows)
@@ -432,12 +492,25 @@ class TransformerLM(nn.Module):
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         hidden, aux = self._run(tokens, positions, train=torch.is_grad_enabled())
-        if self.mesh is not None and self.cfg.moe is not None and self.cfg.moe.local_dispatch:
-            from repro_torch.launch.mesh import data_axes
+        return hidden, self._global_aux(aux)
 
-            data = data_axes(self.mesh)
-            aux = self.mesh.all_reduce(aux, data) / self.mesh.size_of(data)
-        return hidden, aux
+    def _global_aux(self, aux: torch.Tensor) -> torch.Tensor:
+        """The aux loss of the global batch from this rank's: a local
+        dispatch's averaged over the data axes; a gathered dispatch's is
+        the same on every data rank, and its gradient is divided among
+        them so that the gradients' sum over the data axes counts it once."""
+        mesh, moe = self.mesh, self.cfg.moe
+        if mesh is None or moe is None:
+            return aux
+        from repro_torch.launch.mesh import data_axes
+
+        data = data_axes(mesh)
+        n = mesh.size_of(data)
+        if n == 1:
+            return aux
+        if moe.local_dispatch:
+            return mesh.all_reduce(aux, data) / n
+        return _ScaleGrad.apply(aux, 1.0 / n) if aux.requires_grad else aux
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         mesh = self.mesh
@@ -447,13 +520,23 @@ class TransformerLM(nn.Module):
             return self.lm_head(hidden)
         from repro_torch.launch.mesh import MODEL_AXIS
 
-        if not self.cfg.tie_embeddings:  # V-split
-            return mesh.all_gather(L.dense(hidden, self._full(self.lm_head.weight)), MODEL_AXIS, -1)
-        if self.cfg.embed_shard == "vocab":
-            return mesh.all_gather(L.dense(hidden, self.embed), MODEL_AXIS, -1)
-        if self.cfg.embed_shard == "replicated":
+        cfg = self.cfg
+        if cfg.embed_shard == "replicated" and cfg.tie_embeddings:
             return L.dense(hidden, self.embed)
-        d = self.embed.shape[1]  # "d": this rank's columns of the hidden state
+        if cfg.tie_embeddings and cfg.embed_shard == "d" and hidden.shape[:-1].numel() > cfg.d_model:
+            # More positions than columns (a prompt, a train step): the
+            # table's D-split columns gathered over the model axis are
+            # smaller than the partial logits' sum, and every rank's logits
+            # come from the whole table, as one device's do.
+            table = mesh.all_gather(self.embed.to(hidden.dtype), MODEL_AXIS, -1, backward="slice")
+            return L.dense(hidden, table)
+        hidden = self._split_in(hidden)
+        if not cfg.tie_embeddings:  # V-split
+            return mesh.all_gather(L.dense(hidden, self._full(self.lm_head.weight)), MODEL_AXIS, -1,
+                                   backward="slice")
+        if cfg.embed_shard == "vocab":
+            return mesh.all_gather(L.dense(hidden, self.embed), MODEL_AXIS, -1, backward="slice")
+        d = self.embed.shape[1]  # "d", a decode step: this rank's columns of the hidden state
         part = hidden.narrow(-1, mesh.index_of(MODEL_AXIS) * d, d)
         return mesh.all_reduce(L.dense(part, self.embed), MODEL_AXIS)
 
@@ -462,15 +545,13 @@ class TransformerLM(nn.Module):
         ``aux_loss_coef`` x the MoE aux loss -> (loss, {"ce", "aux"}).
         Labels are not shifted (JAX's are not). Attention takes the
         training route whether or not grad is enabled, so the loss under
-        ``torch.no_grad`` is the one a train step differentiates."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the LM trains on one device; training over a mesh (FSDP gradients, "
-                "ZeRO-1 moments) is queued next (ROADMAP queue 1, item 1)"
-            )
+        ``torch.no_grad`` is the one a train step differentiates. Over a
+        mesh: the rank's rows; the loss, ce and aux of the global batch
+        (see the module)."""
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         hidden, aux = self._run(tokens, positions, train=True)
+        aux = self._global_aux(aux)
         logits = self.logits(hidden).float()
         mask = labels >= 0
         safe = labels.clamp(min=0).long().unsqueeze(-1)
@@ -478,7 +559,13 @@ class TransformerLM(nn.Module):
             nll = torch.logsumexp(logits, -1) - torch.gather(logits, -1, safe)[..., 0]
         else:
             nll = -torch.gather(F.log_softmax(logits, -1), -1, safe)[..., 0]
-        ce = torch.sum(nll * mask) / mask.sum().clamp(min=1)
+        num, count = torch.sum(nll * mask), mask.sum()
+        if self.mesh is not None:
+            from repro_torch.launch.mesh import data_axes
+
+            data = data_axes(self.mesh)
+            num, count = self.mesh.all_reduce(num, data), self.mesh.all_reduce(count, data)
+        ce = num / count.clamp(min=1)
         return ce + self.cfg.aux_loss_coef * aux, {"ce": ce, "aux": aux}
 
     # ---------------------------------------------------------- serving

@@ -16,6 +16,14 @@ order, such as ``TrainState``), tensors and ``None`` (no leaf). The leaf
 order is this flattening's, and each leaf's dotted name is written in the
 manifest; restoring checks names (where the manifest has them), shapes
 and count against the template.
+
+Over a mesh (``layout``, a ``launch/sharding.py::TrainLayout``) the files
+are the same: JAX saves whole arrays, so every leaf is gathered from the
+ranks' blocks to rank 0 alone (a collective each rank enters, leaf by
+leaf), which writes the one-process layout and drops the leaf before the
+next; the other ranks wait for its commit.
+Restoring reads each whole leaf and cuts the rank's block, ZeRO-1 moments
+included, so a one-process checkpoint resumes on a mesh and the reverse.
 """
 
 from __future__ import annotations
@@ -66,29 +74,41 @@ def _step_dir(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step:08d}")
 
 
-def save_checkpoint(directory: str, step: int, tree) -> str:
-    os.makedirs(directory, exist_ok=True)
+def save_checkpoint(directory: str, step: int, tree, *, layout=None) -> str:
+    """Write ``tree`` as step ``step`` -> its directory. With ``layout``:
+    collective over the mesh, rank 0 writes (see the module)."""
     final = _step_dir(directory, step)
+    leader = layout is None or layout.mesh.rank == 0
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if leader:
+        os.makedirs(directory, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
     leaves = flatten(tree)
     manifest = {"step": step, "treedef": type(tree).__name__, "leaves": []}
     for i, (name, leaf) in enumerate(leaves):
+        if layout is not None:
+            leaf = layout.gather_to_root(name, leaf.detach())
+            if not leader:
+                continue
         arr = leaf.detach().cpu().numpy()
         fname = f"leaf_{i:05d}.npy"
         np.save(os.path.join(tmp, fname), arr)
         manifest["leaves"].append(
             {"file": fname, "name": name, "shape": list(arr.shape), "dtype": str(arr.dtype)}
         )
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    with open(os.path.join(tmp, _COMMIT), "w") as f:
-        f.write("ok")
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
+    if leader:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        with open(os.path.join(tmp, _COMMIT), "w") as f:
+            f.write("ok")
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    if layout is not None:  # no rank reads the step before rank 0 commits it
+        mesh = layout.mesh
+        mesh.all_reduce(torch.zeros(1, device=mesh.device), mesh.axis_names)
     return final
 
 
@@ -108,11 +128,14 @@ def latest_step(directory: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(directory: str, tree_like, step: int | None = None, device=None):
+def restore_checkpoint(directory: str, tree_like, step: int | None = None, device=None, *,
+                       layout=None):
     """Restore into the structure of ``tree_like`` (the template: its
     leaves give names, shapes, dtypes and, unless ``device`` is given, the
     device) -> (tree, step). A template ``nn.Parameter`` comes back as a
-    new ``nn.Parameter``. ``step=None`` is the newest committed one."""
+    new ``nn.Parameter``. ``step=None`` is the newest committed one. With
+    ``layout`` the template holds a rank's blocks, and each is cut from the
+    whole leaf on disk."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -129,10 +152,12 @@ def restore_checkpoint(directory: str, tree_like, step: int | None = None, devic
     for (name, t), meta in zip(like, manifest["leaves"]):
         if meta.get("name", name) != name:  # JAX's manifests name no leaf
             raise ValueError(f"checkpoint leaf {meta['name']!r} where the template has {name!r}")
-        arr = np.load(os.path.join(path, meta["file"]))
+        arr = torch.from_numpy(np.load(os.path.join(path, meta["file"])))
+        if layout is not None:
+            arr = layout.cut(name, arr)
         if tuple(arr.shape) != tuple(t.shape):
-            raise ValueError(f"shape mismatch at {name}: {arr.shape} vs {tuple(t.shape)}")
-        x = torch.from_numpy(arr).to(device=device or t.device, dtype=t.dtype)
+            raise ValueError(f"shape mismatch at {name}: {tuple(arr.shape)} vs {tuple(t.shape)}")
+        x = arr.to(device=device or t.device, dtype=t.dtype, copy=True)
         out.append(nn.Parameter(x, requires_grad=t.requires_grad) if isinstance(t, nn.Parameter) else x)
     return _rebuild(tree_like, iter(out)), step
 

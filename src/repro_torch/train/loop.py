@@ -9,6 +9,20 @@ tests. Counterpart of ``repro/train/loop.py``.
 (``configs.families.lm_loss_fn`` does so for the LM); gradients are taken
 with ``torch.autograd.grad``, which refuses a parameter the loss does not
 reach. The step updates the state in place (see ``train/optimizer.py``).
+
+Over a mesh (``make_train_step(..., layout=)``, ``layout`` a
+``launch/sharding.py::TrainLayout`` and its mesh) every rank runs the step on its
+blocks and its rows, and computes what JAX's ``jit(make_train_step)``
+computes under the same shardings: the loss is the global batch's (the
+model's collectives make each rank's gradient its own rows' share), each
+gradient is summed over the data axes its parameter is replicated over
+(one float32 all-reduce of all of them; a ZeRO-1 parameter's is
+reduce-scattered to the slice the rank updates), a kv head held by several
+model ranks has its gradient summed over them, and the optimizer runs on
+the blocks. Microbatches follow JAX's global order: microbatch i is the
+global rows [i·B/mb, (i+1)·B/mb), each cut over the data axes; a rank's
+batch (``shard_batch``) holds its block of each microbatch in turn. The
+metrics are the global ones, the same bits on every rank.
 """
 
 from __future__ import annotations
@@ -25,7 +39,8 @@ from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.compression import compress_grads, init_error_state
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 
-__all__ = ["TrainState", "make_train_step", "train_loop", "FailureInjector"]
+__all__ = ["TrainState", "make_train_step", "train_loop", "FailureInjector", "shard_batch",
+           "sync_grads"]
 
 
 @dataclasses.dataclass
@@ -35,15 +50,37 @@ class TrainState:
     error_fb: dict | None = None  # gradient-compression error feedback
 
     @staticmethod
-    def create(params: dict, *, compression: bool = False) -> "TrainState":
+    def create(params: dict, *, compression: bool = False, layout=None) -> "TrainState":
         """A fresh state over ``params`` (each tensor made an ``nn.Parameter``
-        sharing its storage)."""
+        sharing its storage); with ``layout``, a rank's blocks, its moments
+        and error feedback in the moments' layout (ZeRO-1 slices)."""
         params = {k: p if isinstance(p, nn.Parameter) else nn.Parameter(p) for k, p in params.items()}
         return TrainState(
             params=params,
-            opt=adamw_init(params),
-            error_fb=init_error_state(params) if compression else None,
+            opt=adamw_init(params, layout),
+            error_fb=init_error_state(params, layout) if compression else None,
         )
+
+
+def shard_batch(batch: dict, mesh, microbatches: int = 1) -> dict:
+    """This rank's rows of a global batch (each tensor's leading axis):
+    for each microbatch in turn (the global rows [i·B/mb, (i+1)·B/mb)),
+    the rank's block of it over the data axes. With one microbatch, the
+    block ``input_pspec`` names."""
+    from repro_torch.launch.mesh import data_axes
+
+    data = data_axes(mesh)
+    n, i = mesh.size_of(data), mesh.index_of(data)
+
+    def cut(x):
+        b = x.shape[0]
+        if b % (microbatches * n):
+            raise ValueError(f"a batch of {b} rows does not split into {microbatches} "
+                             f"microbatches over {n} data ranks")
+        per = b // (microbatches * n)
+        return x.reshape(microbatches, n, per, *x.shape[1:])[:, i].reshape(-1, *x.shape[1:])
+
+    return {k: cut(v) for k, v in batch.items()}
 
 
 def make_train_step(
@@ -52,6 +89,7 @@ def make_train_step(
     *,
     microbatches: int = 1,
     compression: bool = False,
+    layout=None,
 ):
     """Returns step(state, batch) -> (state, metrics).
 
@@ -59,6 +97,8 @@ def make_train_step(
     split into ``microbatches`` chunks; the gradients are summed in float32
     and divided, the loss is the mean of the chunks' losses, and the other
     metrics are those of the last chunk, as JAX's ``lax.scan`` gives them.
+    With ``layout`` (a ``TrainLayout``), the rank's step on its mesh, over
+    its blocks and its ``shard_batch`` rows (see the module).
     """
 
     def grad_one(params, mb):
@@ -90,17 +130,72 @@ def make_train_step(
             grads = {k: g / microbatches for k, g in grads.items()}
             loss = loss / microbatches
 
+        if layout is not None:
+            grads = sync_grads(grads, layout)
         error_fb = state.error_fb
         if compression:
-            grads, error_fb = compress_grads(grads, error_fb, enabled=True)
+            grads, error_fb = compress_grads(grads, error_fb, enabled=True, layout=layout)
 
-        params, opt, opt_metrics = adamw_update(opt_cfg, state.params, grads, state.opt)
+        params, opt, opt_metrics = adamw_update(opt_cfg, state.params, grads, state.opt, layout)
         del grads
         return TrainState(params=params, opt=opt, error_fb=error_fb), {
             "loss": loss, **metrics, **opt_metrics,
         }
 
     return step
+
+
+@torch.no_grad()
+def sync_grads(grads: dict, layout) -> dict:
+    """Each rank's gradients (its rows' share of each block) -> the global
+    gradient's blocks it keeps: a kv head's summed over the model ranks
+    that share it, a ZeRO-1 parameter's reduce-scattered over the data axes
+    to the rank's slice, and the others replicated over data axes summed
+    there, all of those in one float32 all-reduce per set of axes."""
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import MODEL_AXIS
+
+    mesh = layout.mesh
+    out = dict(grads)
+    shared = [k for k in grads if layout.kv_shared(k) > 1]
+    if shared:  # each rank's kv head at its place among the heads, summed over the model axis
+        m = mesh.shape[MODEL_AXIS]
+        slot = mesh.index_of(MODEL_AXIS) * layout.cfg.n_kv_heads // m
+        parts = []
+        for k in shared:
+            g = grads[k].float()
+            z = torch.zeros((layout.cfg.n_kv_heads, *g.shape), dtype=g.dtype, device=g.device)
+            z[slot] = g
+            parts.append(z)
+        summed = _flat_all_reduce(parts, mesh, MODEL_AXIS)
+        for k, z in zip(shared, summed):
+            out[k] = z[slot].to(grads[k].dtype)
+    buckets: dict = {}
+    for k, g in out.items():
+        axes = sharding.grad_sync_axes(layout.param_specs[k], mesh)
+        if not axes:
+            continue
+        dim = layout.zero1_dim(k)
+        if dim is not None:
+            out[k] = mesh.reduce_scatter(g, axes, dim)
+        else:
+            buckets.setdefault(axes, []).append(k)
+    for axes, names in buckets.items():
+        for k, g in zip(names, _flat_all_reduce([out[k] for k in names], mesh, axes)):
+            out[k] = g
+    return out
+
+
+def _flat_all_reduce(tensors: list, mesh, axes) -> list:
+    """The sums of ``tensors`` over ``axes`` through one all-reduce of their
+    concatenation, each cast back to its dtype."""
+    flat = torch.cat([t.float().reshape(-1) for t in tensors])
+    flat = mesh.all_reduce(flat, axes)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].reshape(t.shape).to(t.dtype))
+        at += t.numel()
+    return out
 
 
 class FailureInjector:

@@ -410,5 +410,7 @@ def test_dry_run_over_four_ranks(arch, shape, mesh):
 
 
 def test_train_cells_over_ranks_raise():
+    """The LM and recsys train cells run over ranks (tests/test_torch_mesh_
+    train_lm.py); gin-tu's still raise: GNN training over a mesh is next."""
     with pytest.raises(NotImplementedError, match="next step"):
-        dryrun.run_cell("qwen3-4b", "train_4k", device="cpu", reduced=True, ranks=4)
+        dryrun.run_cell("gin-tu", "molecule", device="cpu", reduced=True, ranks=4)
