@@ -67,7 +67,7 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      ``repro_torch.launch.serve`` (see ``phase_serving``);
   6b. document-sharded search (``sharded``, after ``serving``): the
      index cut into 4 contiguous token-balanced document shards that keep
-     its centroids and codec (``shard_index``), stacked on the card; 128
+     its centroids and codec (``shard_index``), stacked on the card; 64
      queries single and batched at the four configs x both executors
      through ``Retriever.from_index(sharded).plan``, doc ids equal to the
      single index's (shared centroids make them so) up to reported tie
@@ -86,7 +86,7 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      a gloo world of 4 ranks sharing the first card and an NCCL world of
      min(cards, 4) ranks, one card each (on one card, a world of 1 over a
      1-shard cut of the index), spawned by ``repro_torch.launch.ranks``;
-     the sharded step's 128 queries single and batched at the four
+     the sharded step's 64 queries single and batched at the four
      configs x both executors, ids equal to the one-process stack's up to
      reported tie swaps, one scoring launch per rank per retrieve, each
      rank holding its shard's bytes on its card and no more than
@@ -137,9 +137,9 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      per layer, and the logits at every step; tokens are identical or
      first differ at a reported near-tie of the reference's top-2 logits.
      ``--lm-seeds N`` repeats these checks on N weight seeds.
-     Then the ``zoo`` step: qwen3-4b (36 layers) and yi-6b (32) on a
-     4 x 2048 prompt, mixtral-8x7b (8 of its 32 layers) and dbrx-132b
-     (4 of 40) at full width on 2 x 8192 (mixtral's 4096-token window
+     Then the ``zoo`` step: qwen3-4b (4 of its 36 layers) and yi-6b (4
+     of 32) on a 4 x 2048 prompt, mixtral-8x7b (2 of 32) and dbrx-132b
+     (2 of 40) at full width on 2 x 8192 (mixtral's 4096-token window
      binds in prefill and decode), random bf16 weights, the same checks
      and rates, with the MoE parity run teacher-forced in routing too
      (the kernel run's own router choices may part from the reference's
@@ -162,8 +162,8 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      within 1e-5 and the top-100 candidates identical up to a reported
      swap inside a tie; DIN, xDeepFM and SASRec at serve_p99 (their
      retrieval_cand shapes do not fit on one card).
- 10. LM training (``train``): qwen2-0.5b at full width and depth (4 x
-     4096, train_4k's sequence) and one mixtral-8x7b layer at full width
+ 10. LM training (``train``): qwen2-0.5b at full width, 4 of its 24
+     layers (4 x 4096, train_4k's sequence) and one mixtral-8x7b layer at full width
      (2 x 4096 in its 2 microbatches), float32 parameters and Adam state,
      bf16 compute, remat, batches from ``ShardedBatcher`` +
      ``synthetic_lm_fetch``: the step-1 loss equals the no-grad loss,
@@ -194,9 +194,9 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      gin-tu on the card.
  11. the LM and recsys families over a (data, model) mesh of ranks
      (``mesh``, last): one gloo world of 4 ranks sharing the card runs
-     mixtral-8x7b at full width at (1, 4) (8 layers, 2 x 8192 prompt, 16
-     steps), at (2, 2) (2 layers, 2 x 2048, 4 steps; the FSDP gathers)
-     and a batch-1 decode of 2 steps at (4, 1) over a 16,384-position
+     mixtral-8x7b at full width at (1, 4) (4 layers, 2 x 8192 prompt, 16
+     steps), at (2, 2) (1 layer, 2 x 2048, 4 steps; the FSDP gathers)
+     and a batch-1 decode of 2 steps at (4, 1) (1 layer) over a 16,384-position
      cache split by sequence, each teacher-forced in tokens and routing
      against the one-process port at the same weights (logits, KV blocks
      per rank, argmax, would-be routing flips; every rank against rank
@@ -206,23 +206,29 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      (the bag row's ``rank``, row 5-rank) against their plain versions,
      timed; an NCCL world of min(cards, 4) ranks (one card: a free (1, 1)
      run, bit for bit); and ``dryrun.run_cell`` of mixtral's decode_32k
-     over 4 gloo ranks, its collectives counted per op.
- 12. the LM and recsys families trained over meshes of ranks
+     (1 layer) over 4 gloo ranks, its collectives counted per op.
+ 12. the LM, recsys and GNN families trained over meshes of ranks
      (``mesh_train``, last): one gloo world of 4 ranks sharing the card
-     trains qwen2-0.5b whole at train_4k's sequence (batch 4 in 2
-     microbatches) and one mixtral-8x7b layer at full width (batch 2;
+     trains qwen2-0.5b at 2 of its 24 layers at train_4k's sequence
+     (batch 4 in 2 microbatches) and one mixtral-8x7b layer at full width (batch 2;
      fsdp experts, then tp_only with local dispatch and ZeRO-1 moments) at
      (2, 2), two-tower at 16,384 rows at (1, 4) and DIN at 65,536 at
-     (2, 2), 3 steps each (mixtral's batch of 2 in one microbatch), held
-     to the one-process port on the same state
-     and batch (run first); every rank's metrics, gradient blocks,
-     replicated blocks and collective counts (each run's recorded in
-     MESH_TRAIN_COUNTS) checked; qwen2's and DIN's resumes after a failure
+     (2, 2), and gin-tu at its CONFIG (full_graph_sm and molecule at
+     (2, 2), minibatch_lg at (4, 1), inside MESH_TRAIN_GNN_BUDGET_S), 3
+     steps each (mixtral's batch of 2 in one microbatch), held to the
+     one-process port on the same state and batch (run first); every
+     rank's metrics, gradient blocks, replicated blocks and collective
+     counts (each run's recorded in MESH_TRAIN_COUNTS) checked; gin-tu's
+     step-1 gradients against the reference's and computed twice bit for
+     bit; qwen2's, DIN's and gin-tu molecule's resumes after a failure
      injected at step 3 bit for bit; the bag kernels at DIN's rank
      0 block (rows 5-rank-train and 5b-rank: the bag row's ``rank_train``,
      the backward row's ``rank``) against their plain versions, timed; and
-     ``dryrun.run_cell`` of mixtral's train_4k at (2, 2), one layer
-     (tp_only).
+     ``dryrun.run_cell`` of qwen2-0.5b's train_4k at (2, 2), 2 layers.
+
+The depths above are cut (and the segments and sharded steps run 64
+queries, not 128) so that the script ends inside its 1200 s on a slower
+host: ``[done] phase walls (s)`` prints each phase's time.
 
 Top-k doc ids must be identical. A swap is allowed only between scores
 tied within what the kernels' measured error allows (``tie_tolerance``),
@@ -347,15 +353,17 @@ LM_LOGITS_TOL = 0.125
 # later layer, and the difference grows with depth (to ~2^-6 at layer 23).
 LM_KV_TOL = 2.0 ** -5
 # Zoo step of the lm phase: the registry's other LMs at full width, random
-# bf16 weights from --seed, one arch at a time. Depth is cut only where
-# the weights do not fit one 80 GB card: mixtral's 32 layers (2.90 GB
-# each) and dbrx's 40 (6.52 GB each). The MoE prompts are longer than
-# mixtral's 4096-token window, so it binds in prefill and in decode.
+# bf16 weights from --seed, one arch at a time. Depth is cut to keep the
+# script inside its 1200 s on a slower host (at qwen3-4b's 36 layers,
+# yi-6b's 32, mixtral's 8 and dbrx's 4 the zoo took 143.6 s on an H100).
+# Whole, mixtral's 32 layers (2.90 GB each) and dbrx's 40 (6.52 GB each)
+# would not fit one 80 GB card. The MoE prompts are longer than mixtral's
+# 4096-token window, so it binds in prefill and in decode.
 ZOO = (  # arch, layers run (None: all), batch, prompt length
-    ("qwen3-4b", None, 4, 2048),
-    ("yi-6b", None, 4, 2048),
-    ("mixtral-8x7b", 8, 2, 8192),
-    ("dbrx-132b", 4, 2, 8192),
+    ("qwen3-4b", 4, 4, 2048),
+    ("yi-6b", 4, 4, 2048),
+    ("mixtral-8x7b", 2, 2, 8192),
+    ("dbrx-132b", 2, 2, 8192),
 )
 # A router choice the kernel run would make apart from the reference's
 # (teacher-forced tokens and routing) must sit at a near-tie: the
@@ -368,10 +376,11 @@ MOE_FLIP_GAP = 2.0 ** -5
 # Train phase: batches from ShardedBatcher + synthetic_lm_fetch at train_4k's
 # sequence length (configs/families.py LM_SHAPES), float32 parameters and
 # Adam state, each config's bf16 compute and remat. train_4k's global batch
-# of 256 is cut to what one card holds beside float32 logits.
+# of 256 is cut to what one card holds beside float32 logits. qwen2 runs 4
+# of its 24 layers: at 24 its run took 84.9 s of the script's 1200.
 TRAIN_SEQ = 4096
 TRAIN_RUNS = (  # arch, layers run (None: all), batch, microbatches
-    ("qwen2-0.5b", None, 4, 1),
+    ("qwen2-0.5b", 4, 4, 1),
     ("mixtral-8x7b", 1, 2, 2),  # its train_microbatches
 )
 TRAIN_STEPS = 10  # on one repeated batch; the loss must fall
@@ -463,7 +472,7 @@ LIFESTYLE_CHUNK = 4096  # tokens of the timed assignment chunk at 2^17 centroids
 SEG_DELTAS = 4
 SEG_DELTA_DOCS = 1200
 SEG_TOMBSTONE_FRAC = 0.01
-SEG_QUERIES = 128
+SEG_QUERIES = 64  # half the retrieve phase's 128, for the script's time
 SEG_BATCHES = 4  # retrieve_batch calls of B 4 per plan
 SEG_ALLOW_FRAC = 0.5
 
@@ -490,7 +499,7 @@ SERVE_OBS_QUERIES = 128
 # arrivals at half its rate, SHARD_FILTERED requests under a 50% allowlist
 # and SHARD_FILTERED after deleting SHARD_DELETE_FRAC of the docs.
 SHARDS = 4
-SHARD_QUERIES = 128
+SHARD_QUERIES = 64  # half the retrieve phase's 128, for the script's time
 SHARD_BATCHES = 4
 SHARD_SERVE_REQUESTS = 256
 SHARD_FILTERED = 32
@@ -5480,19 +5489,21 @@ def phase_gnn(torch, dev, seed: int, flush, check) -> None:
 # ---------------------------------------------------------------------------
 
 # Mixtral-8x7b at full width over gloo ranks that share the card. The
-# (1, 4) run is the zoo's 8-layer cut at the zoo's prompt; the (2, 2) run
+# (1, 4) run is the zoo's 4-layer cut at the zoo's prompt; the (2, 2) run
 # splits the batch and gathers FSDP blocks, so it stays shallow (every
-# gather copies a layer's weights through the host).
+# gather copies a layer's weights through the host). At 8, 2 and 2 layers
+# (and the dry run's 2) the phase took 155.0 s: the runs take half as many
+# to keep the script inside its 1200 s on a slower host.
 MESH_RANKS = 4
 MESH_LM = (  # tag, (data, model), layers, batch, prompt length, greedy tokens
-    ("1x4", (1, 4), 8, 2, 8192, 16),
-    ("2x2", (2, 2), 2, 2, 2048, 4),
+    ("1x4", (1, 4), 4, 2, 8192, 16),
+    ("2x2", (2, 2), 1, 2, 2048, 4),
 )
 # The (4, 1) decode takes 2 steps (8 took 80 s of the phase) to leave the
 # mesh_train phase room in the script's 1200 s.
-MESH_SEQ = ("4x1", (4, 1), 2, 16384, 2)  # tag, mesh, layers, cache positions, decode steps
+MESH_SEQ = ("4x1", (4, 1), 1, 16384, 2)  # tag, mesh, layers, cache positions, decode steps
 MESH_RECSYS = (("two-tower-retrieval", "serve_bulk"), ("din", "serve_p99"))
-MESH_DRYRUN_LAYERS = 2
+MESH_DRYRUN_LAYERS = 1
 MESH_JOIN_S = 900.0
 MESH_BUDGET_S = 240.0
 MESH_MFU_MAX = 1.05
@@ -5756,9 +5767,9 @@ def mesh_ranks_agree(torch, what: str, outs: list, groups) -> None:
 def phase_mesh(torch, dev, seed: int, flush, work: str) -> tuple[dict, dict]:
     """The LM and recsys families over (data, model) meshes of ranks
     placed by ``launch/sharding.py``'s rules. (a) One gloo world of 4 ranks
-    on this card: mixtral-8x7b at full width at (1, 4) (8 layers, 2 x 8192
-    prompt, 16 greedy tokens), at (2, 2) (2 layers, 2 x 2048, 4 tokens) and
-    a batch-1 decode of 2 steps at (4, 1) over a 16,384-position cache
+    on this card: mixtral-8x7b at full width at (1, 4) (4 layers, 2 x 8192
+    prompt, 16 greedy tokens), at (2, 2) (1 layer, 2 x 2048, 4 tokens) and
+    a batch-1 decode of 2 steps at (4, 1) (1 layer) over a 16,384-position cache
     split by sequence, each held to the one-process port at the same cut
     and weights (run first and freed): logits, KV blocks, tokens, and every
     rank's tokens, routing and logits against rank 0's. (b) In the same
@@ -6104,13 +6115,16 @@ def phase_mesh(torch, dev, seed: int, flush, work: str) -> tuple[dict, dict]:
 # (1, 4) mesh holds the [B, B] in-batch softmax, a quarter of the one-card
 # 32,768 run's memory at this batch. Resume: a checkpoint after step
 # MESH_TRAIN_RESUME[0], a failure injected at step index MESH_TRAIN_RESUME[1]
-# (every run), and the resume, for qwen2 (6 GB whole) and DIN: a mixtral
+# (every run), and the resume, for qwen2 (2.0 GB at 2 layers) and DIN: a mixtral
 # layer's state is 20.6 GB whole and two-tower's 28.7 GB, each written to
 # the machine's temporary directory and read back by four ranks, more than
 # the script's 1200 s leave room for (their resumes over a mesh are held on
 # the CPU by tests/test_torch_mesh_train_*.py).
+# qwen2 runs 2 of its 24 layers: its rank steps and its checkpoint and
+# resume at 24 took 26.0 + 17.0 + 17.5 s and 8.74 + 20.05 s, and the
+# script must end inside its 1200 s on a slower host too.
 MESH_TRAIN_RUNS = (  # tag, arch, layers (None: all), batch, microbatches, mesh, overrides, resume
-    ("qwen2", "qwen2-0.5b", None, 4, 2, (2, 2), {}, True),
+    ("qwen2", "qwen2-0.5b", 2, 4, 2, (2, 2), {}, True),
     ("mixtral_fsdp", "mixtral-8x7b", 1, 2, 1, (2, 2), {}, False),
     ("mixtral_tp", "mixtral-8x7b", 1, 2, 1, (2, 2),
      {"moe_weight_mode": "tp_only", "local_dispatch": True}, False),
@@ -6119,17 +6133,32 @@ MESH_TRAIN_RECSYS = (  # tag, arch, batch, mesh, resume
     ("two-tower", "two-tower-retrieval", 16_384, (1, 4), False),
     ("din", "din", 65_536, (2, 2), True),
 )
+# gin-tu at its CONFIG (5 layers, d_hidden 64) on full GNN_SHAPES: the
+# graph drawn as the gnn phase draws it (minibatch_lg's 59,474 padding
+# edges at the end of the edge arrays, so on the last data rank). Every
+# node and edge array over the data axes, the parameters replicated.
+# ogb_products stays out: gloo moves ~0.6 GB/s, and its 980 MB gather of x
+# and 627 MB [N, 64] collectives a layer would take ~25-30 s a step
+# (``scripts/mesh_smoke.py --train`` runs it over four cards, NCCL).
+MESH_TRAIN_GNN = (  # tag, shape, mesh, resume
+    ("gin_full_graph_sm", "full_graph_sm", (2, 2), False),
+    ("gin_minibatch_lg", "minibatch_lg", (4, 1), False),
+    ("gin_molecule", "molecule", (2, 2), True),
+)
 MESH_TRAIN_STEPS = 3
 # Step 1's collectives per op, recorded: each run's must equal its entry,
 # and so must launch.cost.mesh_train_collectives (the formula PERF.md
 # states), so that a change to the collectives changes a number here.
 MESH_TRAIN_COUNTS = {
-    "qwen2": {"all-gather": 100, "all-reduce": 246, "reduce-scatter": 48},
+    "qwen2": {"all-gather": 12, "all-reduce": 26, "reduce-scatter": 4},
     "mixtral_fsdp": {"all-gather": 7, "all-reduce": 11, "reduce-scatter": 3},
     "mixtral_tp": {"all-gather": 13, "all-reduce": 11, "reduce-scatter": 10},
     "two-tower": {"all-reduce": 3},
     "din": {"all-reduce": 7},
-    "dryrun": {"all-gather": 13, "all-reduce": 11, "reduce-scatter": 10},
+    "dryrun": {"all-gather": 6, "all-reduce": 14, "reduce-scatter": 2},
+    "gin_full_graph_sm": {"all-gather": 9, "all-reduce": 3, "reduce-scatter": 9},
+    "gin_minibatch_lg": {"all-gather": 9, "all-reduce": 3, "reduce-scatter": 9},
+    "gin_molecule": {"all-gather": 10, "all-reduce": 3, "reduce-scatter": 10},
 }
 MESH_TRAIN_RESUME = (2, 2)  # checkpoint after step 2, a failure injected at step index 2
 # The LM over the mesh against one process: the TP and FSDP sums round in
@@ -6141,12 +6170,21 @@ MESH_TRAIN_GNORM_TOL = 2.0 ** -5
 # teacher-forced (the bags' forward values the one-process reference
 # executor's, on each data rank's rows), each tensor within this of its norm.
 MESH_TRAIN_RECSYS_TOL = 1e-5
-# The dry run: mixtral's train_4k, one layer, tp_only experts with local
-# dispatch (the ZeRO-1 layout; fsdp's is the world's mixtral_fsdp run), a
-# batch of 2 in one microbatch, as the world's mixtral runs.
-MESH_TRAIN_DRYRUN = ("mixtral-8x7b", "train_4k", 1, 2, (2, 2))  # arch, shape, layers, batch, mesh
+# gin-tu in float32: the step-1 loss relative, and the step-1 gradients
+# (the same state and batch: GIN has no kernel, so nothing to force) each
+# within this of its tensor's norm.
+MESH_TRAIN_GNN_TOL = 1e-5
+# The dry run: qwen2-0.5b's train_4k at 2 layers, a batch of 4 in one
+# microbatch, as the world's qwen2 run. mixtral's (one layer, tp_only with
+# local dispatch, as the world's mixtral_tp run) took 75.7 s, its two steps
+# moving the layer's weights through the host; the script must end inside
+# its 1200 s on a slower host too.
+MESH_TRAIN_DRYRUN = ("qwen2-0.5b", "train_4k", 2, 4, (2, 2))  # arch, shape, layers, batch, mesh
 MESH_TRAIN_JOIN_S = 900.0
 MESH_TRAIN_BUDGET_S = 300.0
+# gin-tu's runs (their one-process references, and rank 0's runs in the
+# world); the phase fails past it.
+MESH_TRAIN_GNN_BUDGET_S = 120.0
 
 
 def mesh_train_config(run: dict):
@@ -6160,6 +6198,35 @@ def mesh_train_config(run: dict):
     if run.get("layers"):
         over["n_layers"] = run["layers"]
     return dataclasses.replace(cfg, **over)
+
+
+def mesh_train_run_config(run: dict):
+    """A run's config: the LM's by ``mesh_train_config``, gin-tu's at its
+    shape, the recsys arch's own."""
+    from repro_torch.configs.families import GNN_SHAPES
+    from repro_torch.configs.registry import get_arch
+
+    if run["kind"] == "lm":
+        return mesh_train_config(run)
+    arch = get_arch(run["arch"])
+    if run["kind"] == "gnn":
+        return arch.family._cfg_for(arch, GNN_SHAPES[run["shape"]], reduced=False)
+    return arch.config
+
+
+def mesh_train_step(run: dict, loss_fn, mesh=None, layout=None):
+    """A run's train step: gin-tu's through its family's entry point
+    (``GNNFamily.step_fn``, the family's AdamW: lr 3e-4 after 100 warmup
+    steps, as a gin-tu cell trains), the others ``make_train_step`` at
+    TRAIN_OPT; over ``mesh`` / ``layout`` a rank's."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    if run["kind"] == "gnn":
+        arch = get_arch(run["arch"])
+        return arch.family.step_fn(arch, run["shape"], mesh=mesh)
+    return make_train_step(loss_fn, AdamWConfig(**TRAIN_OPT), microbatches=run["microbatches"],
+                           layout=layout)
 
 
 def fingerprint(torch, t) -> list:
@@ -6227,53 +6294,54 @@ def mesh_train_world(group, spec_path: str, out_dir: str) -> None:
 
     import torch
 
-    from repro_torch.configs.families import lm_loss_fn, recsys_loss_fn
-    from repro_torch.configs.registry import get_arch
+    from repro_torch.configs.families import GNN_SHAPES, gnn_loss_fn, lm_loss_fn, recsys_loss_fn
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import cost
     from repro_torch.launch.mesh import data_axes
     from repro_torch.models import init_params
     from repro_torch.models import recsys as rs
     from repro_torch.models.convert import train_layout
-    from repro_torch.train import (
-        AdamWConfig, FailureInjector, TrainState, make_train_step, restore_checkpoint,
-        save_checkpoint,
-    )
+    from repro_torch.train import FailureInjector, TrainState, restore_checkpoint, save_checkpoint
     from repro_torch.train import loop
     from repro_torch.train.loop import shard_batch, sync_grads
 
     with open(spec_path) as f:
         spec = json.load(f)
     dev, r = group.device, group.rank
-    opt = AdamWConfig(**TRAIN_OPT)
 
     def sync():
         torch.cuda.synchronize(dev) if dev.type == "cuda" else None
 
     for run in spec["runs"]:
         mesh = group.mesh(tuple(run["mesh"]))
-        lm = run["kind"] == "lm"
-        cfg = mesh_train_config(run) if lm else get_arch(run["arch"]).config
+        lm, gnn = run["kind"] == "lm", run["kind"] == "gnn"
+        cfg = mesh_train_run_config(run)
         layout = train_layout(cfg, mesh)
         mb = run["microbatches"]
         t0 = time.perf_counter()
         g = torch.Generator(device=dev)
         g.manual_seed(run["seed"])
-        if lm:
-            batch = {k: v.to(dev) for k, v in torch.load(run["batch"]).items()}
+        if gnn:  # the weights drawn first, the graph as the reference drew it
+            params = init_params(cfg, g, device=dev, mesh=mesh)
+            batch = {k: v.to(dev) for k, v in shard_batch(torch.load(run["batch"]), mesh).items()}
         else:
-            batch = recsys_train_batch(torch, cfg, run["batch_rows"], g, dev)
-        params = init_params(cfg, g, device=dev, mesh=mesh)
-        batch = shard_batch(batch, mesh, mb)
+            if lm:
+                batch = {k: v.to(dev) for k, v in torch.load(run["batch"]).items()}
+            else:
+                batch = recsys_train_batch(torch, cfg, run["batch_rows"], g, dev)
+            params = init_params(cfg, g, device=dev, mesh=mesh)
+            batch = shard_batch(batch, mesh, mb)
         made = time.perf_counter() - t0
         res = {"metrics": [], "prints": [], "walls": [], "made_s": made,
                "keys": {k: block_key(k, layout) for k in params},
                "executor": "kernel" if dev.type == "cuda" else "reference"}
 
         def loss_fn():
-            return (lm_loss_fn(cfg, mesh) if lm else recsys_loss_fn(cfg, mesh))
+            if gnn:
+                return gnn_loss_fn(cfg, GNN_SHAPES[run["shape"]].n_graphs, mesh)
+            return lm_loss_fn(cfg, mesh) if lm else recsys_loss_fn(cfg, mesh)
 
-        if not lm:  # the teacher-forced step-1 gradients and DIN's bag inputs
+        if run["kind"] == "recsys":  # the teacher-forced step-1 gradients and DIN's bag inputs
             ref = torch.load(run["ref"], map_location=dev)
             forced = ref["forced"][mesh.index_of(data_axes(mesh))]
             p = {k: torch.nn.Parameter(v) for k, v in params.items()}
@@ -6324,18 +6392,30 @@ def mesh_train_world(group, spec_path: str, out_dir: str) -> None:
             gc_cuda(torch, dev)
 
         state = TrainState.create(params, layout=layout)
-        step = make_train_step(loss_fn(), opt, microbatches=mb, layout=layout)
+        step = mesh_train_step(run, loss_fn(), mesh, layout)
         ckdir = os.path.join(run["work"], run["tag"])
         every, dies = MESH_TRAIN_RESUME
         inj = FailureInjector(fail_at=(dies,))
         checked = {}
         sync_grads_ = loop.sync_grads
+        first = None
+        if gnn:  # step 1's gradients (whole: replicated) against the reference's
+            loss, _ = loss_fn()(state.params, batch)
+            first = sync_grads(dict(zip(state.params, torch.autograd.grad(
+                loss, list(state.params.values())))), layout)
+            want = torch.load(run["ref"], map_location=dev)
+            res["gnn"] = {"loss": float(loss.detach()),
+                          "grads": {k: [float((v - want[k]).square().sum()),
+                                        float(want[k].square().sum())] for k, v in first.items()}}
+            del loss, want
 
         def grad_check(grads, lay):  # step 1's synced gradients, per block
             out = sync_grads_(grads, lay)
             if not checked:
                 checked.update({k: [bool(torch.isfinite(v).all()), bool(v.any())]
                                 for k, v in out.items()})
+                if first is not None:  # the step's own computation, bit for bit the one above
+                    res["gnn"]["twice_equal"] = all(torch.equal(out[k], first[k]) for k in out)
             return out
 
         sync()
@@ -6374,7 +6454,7 @@ def mesh_train_world(group, spec_path: str, out_dir: str) -> None:
             gc_cuda(torch, dev)
             t1 = time.perf_counter()
             restored, at = restore_checkpoint(ckdir, template, every, dev, layout=layout)
-            step = make_train_step(loss_fn(), opt, microbatches=mb, layout=layout)
+            step = mesh_train_step(run, loss_fn(), mesh, layout)
             for _ in range(at, MESH_TRAIN_STEPS):
                 restored, _m = step(restored, batch)
             sync()
@@ -6385,8 +6465,9 @@ def mesh_train_world(group, spec_path: str, out_dir: str) -> None:
             del restored
         else:
             del state
+        res["run_s"] = time.perf_counter() - t0
         torch.save(res, os.path.join(out_dir, f"{run['tag']}_rank{r}.pt"))
-        del step, params, batch
+        del step, params, batch, first
         gc_cuda(torch, dev)
 
 
@@ -6426,23 +6507,37 @@ def recsys_forced_reference(torch, cfg, params, batch, d: int, mb: int = 1) -> d
 def mesh_train_reference(torch, dev, run: dict, tmp: str) -> dict:
     """The one-process port on the run's state and batch: MESH_TRAIN_STEPS
     steps (metrics), and for a recsys model the teacher-forced step-1
-    gradients, saved for the ranks (a table's at the rows the batch names)."""
-    from repro_torch.configs.families import lm_loss_fn, recsys_loss_fn
-    from repro_torch.configs.registry import get_arch
+    gradients, saved for the ranks (a table's at the rows the batch names);
+    for gin-tu the step-1 gradients and the graph, saved for the ranks."""
+    from repro_torch.configs.families import GNN_SHAPES, gnn_loss_fn, lm_loss_fn, recsys_loss_fn
     from repro_torch.models import init_params
-    from repro_torch.train import AdamWConfig, TrainState, make_train_step
+    from repro_torch.train import TrainState
 
-    lm = run["kind"] == "lm"
-    cfg = mesh_train_config(run) if lm else get_arch(run["arch"]).config
+    lm, gnn = run["kind"] == "lm", run["kind"] == "gnn"
+    cfg = mesh_train_run_config(run)
     g = torch.Generator(device=dev)
     g.manual_seed(run["seed"])
-    if lm:
-        batch = {k: v.to(dev) for k, v in torch.load(run["batch"]).items()}
-    else:
-        batch = recsys_train_batch(torch, cfg, run["batch_rows"], g, dev)
-    params = init_params(cfg, g, device=dev)
     out = {}
-    if not lm:
+    if gnn:  # the weights first, then the graph as the gnn phase draws it
+        s = GNN_SHAPES[run["shape"]]
+        params = init_params(cfg, g, device=dev)
+        batch = gnn_batch(torch, run["shape"], s, g, dev, run["seed"])
+        torch.save({k: v.cpu() for k, v in batch.items()}, run["batch"])
+        loss_fn = gnn_loss_fn(cfg, s.n_graphs)
+        p = {k: torch.nn.Parameter(v) for k, v in params.items()}
+        loss, _ = loss_fn(p, batch)
+        grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        torch.save({k: v.cpu() for k, v in grads.items()}, run["ref"])
+        out["grad_loss"] = float(loss.detach())
+        del p, loss, grads
+    else:
+        if lm:
+            batch = {k: v.to(dev) for k, v in torch.load(run["batch"]).items()}
+        else:
+            batch = recsys_train_batch(torch, cfg, run["batch_rows"], g, dev)
+        params = init_params(cfg, g, device=dev)
+        loss_fn = lm_loss_fn(cfg) if lm else recsys_loss_fn(cfg)
+    if run["kind"] == "recsys":
         d = run["mesh"][0]
         f = recsys_forced_reference(torch, cfg, params, batch, d)
         tables = TABLE_IDS[type(cfg).__name__]
@@ -6458,8 +6553,7 @@ def mesh_train_reference(torch, dev, run: dict, tmp: str) -> dict:
         out["grad_norms"] = {k: float(v.norm()) for k, v in f["grads"].items()}
         del f, rows, dense
     state = TrainState.create(params)
-    loss_fn = lm_loss_fn(cfg) if lm else recsys_loss_fn(cfg)
-    step = make_train_step(loss_fn, AdamWConfig(**TRAIN_OPT), microbatches=run["microbatches"])
+    step = mesh_train_step(run, loss_fn)
     metrics, walls = [], []
     for _ in range(MESH_TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -6473,7 +6567,7 @@ def mesh_train_reference(torch, dev, run: dict, tmp: str) -> dict:
     return out
 
 
-def mesh_train_check(torch, tag: str, outs: list, want: dict, run: dict, cfg, lm: bool) -> dict:
+def mesh_train_check(torch, tag: str, outs: list, want: dict, run: dict, cfg) -> dict:
     """A run's ranks against the one-process reference and each other (see
     ``phase_mesh_train``); returns its report (rank 0's numbers)."""
     from repro_torch.launch.cost import mesh_train_collectives
@@ -6509,13 +6603,31 @@ def mesh_train_check(torch, tag: str, outs: list, want: dict, run: dict, cfg, lm
     got, ref = o0["metrics"], want["metrics"]
     losses = [m["loss"] for m in got]
     rel = {k: abs(got[0][k] - ref[0][k]) / abs(ref[0][k]) for k in ("loss", "grad_norm")}
-    if lm:
+    if run["kind"] == "lm":
         if not rel["loss"] <= MESH_TRAIN_LOSS_TOL or not rel["grad_norm"] <= MESH_TRAIN_GNORM_TOL:
             fail(f"mesh_train {tag}: step 1 loss {rel['loss']}, grad_norm {rel['grad_norm']} "
                  f"relative to one process (limits {MESH_TRAIN_LOSS_TOL}, {MESH_TRAIN_GNORM_TOL})")
         if not losses[-1] < losses[0]:
             fail(f"mesh_train {tag}: the loss did not fall over {MESH_TRAIN_STEPS} steps: {losses}")
         forced = None
+    elif run["kind"] == "gnn":
+        if not rel["loss"] <= MESH_TRAIN_GNN_TOL:
+            fail(f"mesh_train {tag}: step 1 loss {rel['loss']} relative to one process > "
+                 f"{MESH_TRAIN_GNN_TOL}")
+        if not losses[-1] < losses[0]:
+            fail(f"mesh_train {tag}: the loss did not fall over {MESH_TRAIN_STEPS} steps: {losses}")
+        g_loss = abs(o0["gnn"]["loss"] - want["grad_loss"]) / abs(want["grad_loss"])
+        errs = {}
+        for r, o in enumerate(outs):
+            if not o["gnn"].get("twice_equal"):
+                fail(f"mesh_train {tag}: rank {r}'s two step-1 gradient computations differ")
+            for k, (diff, norm) in o["gnn"]["grads"].items():
+                errs[k] = max(errs.get(k, 0.0), (diff / norm) ** 0.5 if norm else float(diff > 0))
+        worst_k = max(errs, key=errs.get)
+        if not (g_loss <= MESH_TRAIN_GNN_TOL and errs[worst_k] <= MESH_TRAIN_GNN_TOL):
+            fail(f"mesh_train {tag}: step 1: loss {g_loss} relative, {worst_k}'s gradient "
+                 f"{errs[worst_k]} of its norm (limit {MESH_TRAIN_GNN_TOL})")
+        forced = {"loss": g_loss, "worst_grad": [worst_k, errs[worst_k]]}
     else:
         worst = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(got, ref))
         if not worst <= MESH_TRAIN_RECSYS_TOL:
@@ -6544,17 +6656,20 @@ def mesh_train_check(torch, tag: str, outs: list, want: dict, run: dict, cfg, lm
             "one_process_step_s": [round(w, 3) for w in want["walls"]],
             "peak_gb": [round(o["peak"] / 1e9, 2) for o in outs],
             "made_s": round(o0["made_s"], 1), "save_s": o0.get("save_s"),
-            "resume": o0.get("resume")}
+            "resume": o0.get("resume"), "run_s": round(o0["run_s"], 2)}
 
 
 def phase_mesh_train(torch, dev, seed: int, flush, work: str) -> tuple[dict, dict]:
-    """The LM and recsys families trained over (data, model) meshes of gloo
-    ranks on this card (``MESH_TRAIN_RUNS``, ``MESH_TRAIN_RECSYS``), each
-    held to the one-process port on the same state and batch (run first,
-    freed before the world): the LM's step-1 loss and grad_norm within
-    MESH_TRAIN_*_TOL and a falling loss, the recsys models' losses within
-    MESH_TRAIN_RECSYS_TOL and their teacher-forced step-1 gradients within
-    it of each tensor's norm; on every rank the metrics rank 0's, every
+    """The LM, recsys and GNN families trained over (data, model) meshes of
+    gloo ranks on this card (``MESH_TRAIN_RUNS``, ``MESH_TRAIN_RECSYS``,
+    ``MESH_TRAIN_GNN``), each held to the one-process port on the same state
+    and batch (run first, freed before the world): the LM's step-1 loss and
+    grad_norm within MESH_TRAIN_*_TOL and a falling loss, the recsys models'
+    losses within MESH_TRAIN_RECSYS_TOL and their teacher-forced step-1
+    gradients within it of each tensor's norm, gin-tu's step-1 loss and
+    gradients within MESH_TRAIN_GNN_TOL, its step-1 gradients computed twice
+    bit for bit, a falling loss, its runs inside MESH_TRAIN_GNN_BUDGET_S;
+    on every rank the metrics rank 0's, every
     block's step-1 gradient finite and not all zero, every replicated block
     alike after every step, step 1's collectives per op equal to
     ``launch.cost.mesh_train_collectives`` and to MESH_TRAIN_COUNTS; the
@@ -6594,10 +6709,18 @@ def phase_mesh_train(torch, dev, seed: int, flush, work: str) -> tuple[dict, dic
                      "microbatches": 1, "mesh": list(shape), "seed": seed + 70 + i,
                      "ref": os.path.join(work, f"{tag}_ref.pt"), "resume": resume, "work": work,
                      "capture": tag == "din"})
-    refs = {}
+    for i, (tag, shape, mesh_shape, resume) in enumerate(MESH_TRAIN_GNN):
+        runs.append({"tag": tag, "kind": "gnn", "arch": "gin-tu", "shape": shape,
+                     "microbatches": 1, "mesh": list(mesh_shape), "seed": seed + 80 + i,
+                     "batch": os.path.join(work, f"{tag}_batch.pt"),
+                     "ref": os.path.join(work, f"{tag}_ref.pt"), "resume": resume, "work": work,
+                     "capture": False})
+    refs, t_gnn = {}, 0.0
     for run in runs:
         t0 = time.perf_counter()
         refs[run["tag"]] = mesh_train_reference(torch, dev, run, work)
+        if run["kind"] == "gnn":
+            t_gnn += time.perf_counter() - t0
         log(f"[mesh_train] one-process reference {run['tag']}: losses "
             f"{[m['loss'] for m in refs[run['tag']]['metrics']]}, step 1 "
             f"{json.dumps(refs[run['tag']]['metrics'][0])}, steps (s) "
@@ -6626,14 +6749,19 @@ def phase_mesh_train(torch, dev, seed: int, flush, work: str) -> tuple[dict, dic
     for run in runs:
         tag = run["tag"]
         outs = [torch.load(os.path.join(out_dir, f"{tag}_rank{r}.pt")) for r in range(MESH_RANKS)]
-        lm = run["kind"] == "lm"
-        cfg = mesh_train_config(run) if lm else get_arch(run["arch"]).config
-        rep = mesh_train_check(torch, tag, outs, refs[tag], run, cfg, lm)
+        rep = mesh_train_check(torch, tag, outs, refs[tag], run, mesh_train_run_config(run))
+        if run["kind"] == "gnn":
+            t_gnn += outs[0]["run_s"]
         launches[tag] = [{k: c for k, c in o["launches"].items() if c} for o in outs]
         log(f"[mesh_train] {tag} ({run['arch']}, mesh {tuple(run['mesh'])}, "
             f"{run['microbatches']} microbatch(es)) on 4 gloo ranks of one card: {json.dumps(rep)}; "
             f"launches per rank {json.dumps(launches[tag])}; {card()}")
         del outs
+    log(f"[mesh_train] gin-tu's runs took {t_gnn:.1f}s (references and rank 0's runs; budget "
+        f"{MESH_TRAIN_GNN_BUDGET_S:.0f}s)")
+    if t_gnn > MESH_TRAIN_GNN_BUDGET_S:
+        fail(f"mesh_train: gin-tu's runs took {t_gnn:.1f}s, over their budget of "
+             f"{MESH_TRAIN_GNN_BUDGET_S:.0f}s")
 
     # rows 5-rank-train and 5b-rank: the bag kernels at DIN's rank 0 block
     cap = torch.load(os.path.join(out_dir, "din_bag.pt"))
@@ -6688,7 +6816,7 @@ def phase_mesh_train(torch, dev, seed: int, flush, work: str) -> tuple[dict, dic
     # the dry run over 4 gloo ranks on this card
     t0 = time.perf_counter()
     arch_name, shape, layers, batch, mesh = MESH_TRAIN_DRYRUN
-    cut = mesh_train_config({"arch": arch_name, "layers": layers, "overrides": MESH_TRAIN_RUNS[2][6]})
+    cut = mesh_train_config({"arch": arch_name, "layers": layers})
     cut = dataclasses.replace(get_arch(arch_name), config=cut, train_microbatches=1)
     rec = dryrun.run_cell(arch_name, shape, device=mesh_device(dev), ranks=4, mesh=mesh,
                           backend="gloo", arch=cut, iters=1, batch=batch, verbose=False)
@@ -6699,8 +6827,7 @@ def phase_mesh_train(torch, dev, seed: int, flush, work: str) -> tuple[dict, dic
     mfu = rec["measured"]["mfu"]
     if not 0 < mfu <= MESH_MFU_MAX:
         fail(f"mesh_train dryrun: MFU {mfu} outside (0, {MESH_MFU_MAX}]")
-    log(f"[mesh_train] dryrun {arch_name}/{shape} (tp_only, local dispatch, ZeRO-1) over 4 gloo "
-        f"ranks at {mesh}, {layers} layer "
+    log(f"[mesh_train] dryrun {arch_name}/{shape} over 4 gloo ranks at {mesh}, {layers} layers "
         f"(cut: {rec['reduced']}): p50 {rec['measured']['p50_ms']:.3f} ms, MFU {mfu:.6f} over 4 "
         f"devices, collectives {json.dumps(rec['collectives'])}, peak "
         f"{rec['measured']['peak_bytes']}, {time.perf_counter() - t0:.1f}s")
@@ -6717,6 +6844,13 @@ def run(torch, dev, args) -> list:
     failed check)."""
     from repro_torch.core import Retriever, WarpSearchConfig
 
+    walls, t_lap = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:  # the wall time since the last lap, under name
+        now = time.perf_counter()
+        walls[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     t0 = time.perf_counter()
     index = make_index(torch, args.seed, dev)
     torch.cuda.synchronize()
@@ -6731,18 +6865,24 @@ def run(torch, dev, args) -> list:
         nprobe=ARCH["nprobe"], k=ARCH["k"], k_impute=ARCH["k_impute"],
         gather="fused", layout="ragged", executor="kernel",
     ))
+    lap("index")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     kernels = phase_kernels(torch, index, plan_ragged, flush)
+    lap("kernels")
     kernel_err = max(row["max_abs_err"] for row in kernels)  # the scoring kernels
     queries, qmask = make_queries(torch, index, 128, args.seed + 1)
     counts, lat = phase_retrieve(torch, retriever, queries, qmask, 4, kernel_err)
     for row in kernels:
         row["launches"] = counts[row["name"]]
+    lap("retrieve")
     phase_autotune(torch, retriever, queries, qmask, args.seed + 12, kernel_err)
+    lap("autotune")
     if args.profile:
         phase_profile(torch, retriever, queries, qmask)
     phase_serve(torch, retriever, 256, args.seed + 2, kernel_err)
+    lap("serve")
     phase_fixture(torch, dev)
+    lap("fixture")
     serve_dir = tempfile.mkdtemp(prefix="serving_phase_")
     try:
         store = os.path.join(serve_dir, "store")
@@ -6750,7 +6890,9 @@ def run(torch, dev, args) -> list:
         for row in kernels:
             if row["name"] == "segmented_ragged_fused_gather_score":
                 row["launches"] = seg_launches
+        lap("segments")
         phase_serving(torch, index, dev, args.seed + 7, kernel_err, store)
+        lap("serving")
         shutil.rmtree(serve_dir, ignore_errors=True)
         os.makedirs(serve_dir)
         sh = phase_sharded(torch, index, dev, args.seed + 8, kernel_err,
@@ -6758,31 +6900,41 @@ def run(torch, dev, args) -> list:
         for row in kernels:
             if row["name"] in sh["counts"] and row["name"] != "segmented_ragged_fused_gather_score":
                 row["sharded_launches"] = sh["counts"][row["name"]]
+        lap("sharded")
         ranks = phase_ranks(torch, index, sh, args.seed + 13, kernel_err, serve_dir)
         for row in kernels:
             if row["name"] in ranks:
                 row["ranks_launches"] = ranks[row["name"]]
+        lap("ranks")
         phase_encode(torch, dev, args.seed + 9, kernel_err, sh, args.profile)
+        lap("encode")
         del sh
         phase_dryrun(torch, index, dev, args.seed, kernel_err)
+        lap("dryrun")
     finally:
         shutil.rmtree(serve_dir, ignore_errors=True)
     del retriever, index, plan_ragged, queries, qmask
     torch.cuda.empty_cache()
 
     phase_build(torch, dev, args.seed + 5, kernel_err, args.profile)
+    lap("build")
     torch.cuda.empty_cache()
 
     flash = phase_flash(torch, dev, flush)
+    lap("flash")
     seeds = [args.seed + 3 + i for i in range(args.lm_seeds)]
     flash["launches"] = phase_lm(torch, dev, seeds, args.profile)
+    lap("lm")
     torch.cuda.empty_cache()  # the LM's weights and caches are gone
     for arch, n in phase_zoo(torch, dev, args.seed + 10, args.profile).items():
         flash["zoo"][arch.split("-")[0]]["launches"] = n
+    lap("zoo")
 
     bag = phase_recsys(torch, dev, args.seed + 4, flush, args.profile)
+    lap("recsys")
     torch.cuda.empty_cache()
     bag_backward = phase_train(torch, dev, args.seed + 11, flush)
+    lap("train")
     bag["din_history"] = bag_backward.pop("din_forward")  # row 5-DIN, the forward kernel's
     bag["xdeepfm_linear"]["launches"] = bag_backward.pop("xdeepfm_forward_launches")
     torch.cuda.empty_cache()
@@ -6791,6 +6943,7 @@ def run(torch, dev, args) -> list:
         flash["mesh"], bag["rank"] = phase_mesh(torch, dev, args.seed + 14, flush, mesh_dir)
     finally:
         shutil.rmtree(mesh_dir, ignore_errors=True)
+    lap("mesh")
     torch.cuda.empty_cache()
     mesh_dir = tempfile.mkdtemp(prefix="mesh_train_phase_")
     try:
@@ -6798,6 +6951,8 @@ def run(torch, dev, args) -> list:
                                                                    flush, mesh_dir)
     finally:
         shutil.rmtree(mesh_dir, ignore_errors=True)
+    lap("mesh_train")
+    log(f"[done] phase walls (s) {json.dumps(walls)}")
     return kernels + [flash, bag, bag_backward]
 
 

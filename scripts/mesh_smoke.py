@@ -3,7 +3,7 @@
 (NCCL), for a machine with four cards.
 
     python3 scripts/mesh_smoke.py [--seed 0] [--skip-dbrx] [--skip-dryrun]
-    python3 scripts/mesh_smoke.py --train [--seed 0]
+    python3 scripts/mesh_smoke.py --train [--seed 0] [--only mixtral,qwen2,gnn,cli]
 
 1. Holds mixtral-8x7b's (1, 4) cut at full width (``chip_smoke.py``'s
    mesh phase, 2 x 8192 prompt, 16 greedy tokens) over the four cards
@@ -43,6 +43,21 @@ collectives are synchronized and timed on the host. Then
 ``launch.dryrun --arch mixtral-8x7b --shape train_4k --ranks 4 --mesh 2,2``
 (from the run's batch and depth) and ``launch.train --ranks 4 --mesh 2,2`` (mixtral's
 reduced config, 4 steps) run over the cards.
+
+3. gin-tu at its CONFIG on ogb_products, the whole graph (2,449,408 nodes,
+   61,859,840 edges), at (4, 1) (``gnn_over_cards``): the one-process port
+   on card 0 first (its step-1 loss, then freed), then ``TRAIN_STEPS``
+   steps over the cards from the same weights and graph (every rank draws
+   them alike and keeps its block of every node and edge array): step 1's
+   loss within ``GNN_LOSS_TOL`` relative of one process, its collectives
+   the recorded ``GNN_COUNTS`` and the formula's, every rank's metrics
+   rank 0's, the loss falls; a checkpoint after step 2 gathered to rank 0
+   alone (``gather_to_root`` over NCCL), restored on every rank, and steps
+   3 and 4 run again from it bit for bit. Reports edges/s, each rank's peak
+   and the collectives' share of a synchronized step.
+
+``--only`` picks among the training runs: mixtral, qwen2, gnn, and cli
+(the dry run and the launcher).
 
 Prints each card's name and power limit, and exits nonzero when a check
 fails.
@@ -358,13 +373,192 @@ def train_over_cards(torch, arch_name: str, layers: int, batch: int, shape, seed
     return rep
 
 
-def train_main(torch, seed: int, work: str) -> None:
-    layers = deepest_train(torch, "mixtral-8x7b")
-    cs.log(f"[mesh_smoke] training state reckoned at {TRAIN_STATE:g} bytes a parameter")
-    cs.log(f"[mesh_smoke] mixtral-8x7b: {layers} of 32 layers' training state fits "
-           f"{CARD_SHARE} of a card's free memory less {TRAIN_TRANSIENT / 1e9:.0f} GB")
-    train_over_cards(torch, "mixtral-8x7b", layers, TRAIN_BATCH, (2, 2), seed, work)
-    train_over_cards(torch, "qwen2-0.5b", 24, QWEN_BATCH, (4, 1), seed, work)
+GNN_SHAPE, GNN_MESH = "ogb_products", (4, 1)
+GNN_LOSS_TOL = 1e-5  # step 1's loss over the cards vs one process, relative (float32 sums)
+GNN_COUNTS = {"all-gather": 9, "all-reduce": 3, "reduce-scatter": 9}  # step 1's, recorded
+GNN_CKPT_AT = 2  # the checkpoint after this step; the steps after it run again from it
+
+
+def gnn_draw(torch, shape: str, seed: int, dev):
+    """gin-tu's weights, then the whole graph of ``shape``, drawn from
+    ``seed`` on ``dev`` as ``chip_smoke.py``'s mesh_train phase draws them."""
+    from repro_torch.configs.families import GNN_SHAPES
+    from repro_torch.models import init_params
+
+    cfg = cs.mesh_train_run_config({"kind": "gnn", "arch": "gin-tu", "shape": shape})
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    params = init_params(cfg, g, device=dev)
+    batch = cs.gnn_batch(torch, shape, GNN_SHAPES[shape], g, dev, seed)
+    return cfg, params, batch
+
+
+def gnn_world(group, shape: str, mesh_shape, seed: int, out_dir: str, ckdir: str) -> None:
+    """One rank of gin-tu over the cards: the weights (replicated) and its
+    block of the graph, ``TRAIN_STEPS`` steps (the first counted), a
+    checkpoint after ``GNN_CKPT_AT`` through rank 0, the steps after it run
+    again from the restored state, then one more step with each collective
+    synchronized and timed. (It also runs on gloo CPU ranks, for a
+    rehearsal at a small shape.)"""
+    import torch
+
+    from repro_torch.configs.families import GNN_SHAPES, gnn_loss_fn
+    from repro_torch.launch import cost
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.convert import train_layout
+    from repro_torch.train import AdamWConfig, TrainState, make_train_step
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import shard_batch
+
+    mesh = group.mesh(tuple(mesh_shape))
+    dev = mesh.device
+    card = dev.type == "cuda"
+
+    def sync():
+        if card:
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    cfg, params, whole = gnn_draw(torch, shape, seed, dev)
+    batch = {k: v.clone() for k, v in shard_batch(whole, mesh).items()}
+    del whole
+    layout = train_layout(cfg, mesh)
+    state = TrainState.create(params, layout=layout)
+    step = make_train_step(gnn_loss_fn(cfg, GNN_SHAPES[shape].n_graphs, mesh),
+                           AdamWConfig(**cs.TRAIN_OPT), layout=layout)
+    sync()
+    made = time.perf_counter() - t0
+    cs.gc_cuda(torch, dev)
+    if card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    metrics, walls, prints = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        if i == 0:
+            with cost.StepCost() as c:
+                state, m = step(state, batch)
+            counts = dict(c.op_counts)
+        else:
+            state, m = step(state, batch)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+        prints.append(cs.state_prints(torch, state))
+        if i + 1 == GNN_CKPT_AT:
+            t0 = time.perf_counter()
+            ckpt.save_checkpoint(ckdir, GNN_CKPT_AT, state, layout=layout)
+            save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, at = ckpt.restore_checkpoint(ckdir, cs.meta_state(torch, state), GNN_CKPT_AT, dev,
+                                           layout=layout)
+    for _ in range(at, TRAIN_STEPS):
+        restored, _m = step(restored, batch)
+    sync()
+    resume = {"from": at, "equal": cs.state_prints(torch, restored) == prints[-1],
+              "s": time.perf_counter() - t0}
+    del restored
+    spent = [0.0]
+    real = {name: getattr(mesh_mod.RankMesh, name)
+            for name in ("_all_reduce", "_all_gather", "_reduce_scatter")}
+
+    def timed(name):
+        def call(self, *a, **k):
+            sync()
+            t = time.perf_counter()
+            out = real[name](self, *a, **k)
+            sync()
+            spent[0] += time.perf_counter() - t
+            return out
+        return call
+
+    for name in real:
+        setattr(mesh_mod.RankMesh, name, timed(name))
+    sync()
+    t0 = time.perf_counter()
+    state, _ = step(state, batch)
+    sync()
+    synced = time.perf_counter() - t0
+    for name, fn in real.items():
+        setattr(mesh_mod.RankMesh, name, fn)
+    torch.save({"metrics": metrics, "walls": walls, "counts": counts, "made_s": made,
+                "peak": torch.cuda.max_memory_allocated(dev) if card else 0, "synced_s": synced,
+                "collective_s": spent[0], "save_s": save_s, "resume": resume,
+                "prints": prints[-1]}, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def gnn_over_cards(torch, seed: int, work: str) -> dict:
+    """gin-tu on ogb_products over the four cards against one process on
+    card 0 (see the module)."""
+    from repro_torch.configs.families import GNN_SHAPES, gnn_loss_fn
+    from repro_torch.launch.cost import mesh_train_collectives
+    from repro_torch.launch.ranks import run_world
+
+    s = GNN_SHAPES[GNN_SHAPE]
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    cfg, params, batch = gnn_draw(torch, GNN_SHAPE, seed, dev)
+    p = {k: torch.nn.Parameter(v) for k, v in params.items()}
+    with torch.no_grad():
+        want = float(gnn_loss_fn(cfg, s.n_graphs)(p, batch)[0])
+    one_s = time.perf_counter() - t0
+    del params, batch, p
+    cs.gc_cuda(torch, dev)
+    out = os.path.join(work, "train_gin")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    run_world(gnn_world, 4, backend="nccl",
+              args=(GNN_SHAPE, GNN_MESH, seed, out, os.path.join(work, "gin_ckpt")),
+              join_timeout_s=1500)
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(4)]
+    for r, o in enumerate(ranks):
+        if o["metrics"] != ranks[0]["metrics"] or o["prints"] != ranks[0]["prints"]:
+            cs.fail(f"gin-tu {GNN_SHAPE} training: rank {r}'s metrics or weights differ from "
+                    "rank 0's")
+        if not o["resume"]["equal"]:
+            cs.fail(f"gin-tu {GNN_SHAPE} training: rank {r}'s run resumed from step "
+                    f"{o['resume']['from']} does not end bit for bit with the unbroken run")
+    formula = mesh_train_collectives(cfg, GNN_MESH)
+    if not ranks[0]["counts"] == formula == GNN_COUNTS:
+        cs.fail(f"gin-tu training: step 1 ran {ranks[0]['counts']}, the formula gives {formula}, "
+                f"the recorded counts are {GNN_COUNTS}")
+    losses = [m["loss"] for m in ranks[0]["metrics"]]
+    rel = abs(losses[0] - want) / abs(want)
+    if not rel <= GNN_LOSS_TOL:
+        cs.fail(f"gin-tu training: step 1 loss {losses[0]} vs one process {want}: {rel} relative "
+                f"> {GNN_LOSS_TOL}")
+    if not losses[-1] < losses[0]:
+        cs.fail(f"gin-tu training: the loss did not fall: {losses}")
+    step = max(sorted(o["walls"][1:])[len(o["walls"][1:]) // 2] for o in ranks)
+    rep = {
+        "arch": "gin-tu", "shape": GNN_SHAPE, "mesh": list(GNN_MESH), "nodes": s.n_nodes,
+        "edges": s.n_edges, "losses": losses, "one_process_loss": want, "step_1_rel": rel,
+        "step_1": ranks[0]["metrics"][0], "counts": ranks[0]["counts"], "step_p50_s": step,
+        "edges_per_s": s.n_edges / step, "first_step_s": max(o["walls"][0] for o in ranks),
+        "peak_gb_per_rank": [o["peak"] / 1e9 for o in ranks],
+        "collective_share_of_a_step": [o["collective_s"] / o["synced_s"] for o in ranks],
+        "synced_step_s": [o["synced_s"] for o in ranks],
+        "save_s": ranks[0]["save_s"], "resume": ranks[0]["resume"],
+        "made_s": max(o["made_s"] for o in ranks), "one_process_s": one_s,
+        "world_s": time.perf_counter() - t0,
+    }
+    cs.log(f"[mesh_smoke] train {json.dumps(rep)}; {cs.card()}")
+    return rep
+
+
+def train_main(torch, seed: int, work: str, only: set) -> None:
+    if "mixtral" in only or "cli" in only:
+        layers = deepest_train(torch, "mixtral-8x7b")
+        cs.log(f"[mesh_smoke] training state reckoned at {TRAIN_STATE:g} bytes a parameter")
+        cs.log(f"[mesh_smoke] mixtral-8x7b: {layers} of 32 layers' training state fits "
+               f"{CARD_SHARE} of a card's free memory less {TRAIN_TRANSIENT / 1e9:.0f} GB")
+    if "mixtral" in only:
+        train_over_cards(torch, "mixtral-8x7b", layers, TRAIN_BATCH, (2, 2), seed, work)
+    if "qwen2" in only:
+        train_over_cards(torch, "qwen2-0.5b", 24, QWEN_BATCH, (4, 1), seed, work)
+    if "gnn" in only:
+        gnn_over_cards(torch, seed, work)
+    if "cli" not in only:
+        return
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     for cmd in (
         ["-m", "repro_torch.launch.dryrun", "--arch", "mixtral-8x7b", "--shape", "train_4k",
@@ -389,7 +583,12 @@ def main() -> int:
     ap.add_argument("--skip-dbrx", action="store_true")
     ap.add_argument("--skip-dryrun", action="store_true")
     ap.add_argument("--train", action="store_true", help="train over the four cards instead")
+    ap.add_argument("--only", default="mixtral,qwen2,gnn,cli",
+                    help="with --train, the runs to make (mixtral, qwen2, gnn, cli)")
     args = ap.parse_args()
+    only = set(args.only.split(","))
+    if not only <= {"mixtral", "qwen2", "gnn", "cli"}:
+        ap.error(f"--only takes mixtral, qwen2, gnn and cli, not {args.only}")
     os.environ.setdefault("REPRO_AUTOTUNE_TABLE", os.devnull)
 
     import torch
@@ -407,7 +606,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="mesh_smoke_")
     if args.train:
         try:
-            train_main(torch, args.seed, work)
+            train_main(torch, args.seed, work, only)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         cs.log(cs.card())

@@ -15,7 +15,8 @@ per params dict, a view onto ``TrainState``'s parameters (``lm_loss_fn``,
 ``input_pspec`` are JAX's, over a ``RankMesh`` (``launch/mesh.py``) and
 the port's own tensors (``launch/sharding.py``): they place a cell's
 state and inputs on the ranks of a mesh (``launch/dryrun.py``). The LM and
-recsys ``step_fn(..., mesh=)`` of a train cell is the rank's step over its
+recsys ``step_fn(..., mesh=)`` of a train cell (and GNN's, over its
+replicated parameters and its block of the graph) is the rank's step over its
 blocks (``train.make_train_step(..., layout=convert.train_layout(cfg,
 mesh))``, ZeRO-1 moments where ``state_pspec`` makes them so), on its
 rows of the global batch: ``train.shard_batch(batch, mesh,
@@ -281,12 +282,12 @@ GNN_SHAPES_REDUCED = {
 }
 
 
-def gnn_loss_fn(cfg: GINConfig, n_graphs: int | None = None) -> _Loss:
+def gnn_loss_fn(cfg: GINConfig, n_graphs: int | None = None, mesh=None) -> _Loss:
     """``GIN.loss`` of ``cfg``, with ``n_graphs`` added to each batch for
-    graph readout."""
+    graph readout (over ``mesh``, of a rank's blocks of the batch)."""
     extra = {"n_graphs": n_graphs} if n_graphs else {}
     return _Loss(lambda p: GIN.from_params(cfg, p, trainable=True),
-                 lambda m, b: m.loss({**b, **extra}))
+                 lambda m, b: m.loss({**b, **extra}, mesh=mesh))
 
 
 class GNNFamily:
@@ -333,11 +334,31 @@ class GNNFamily:
         return spec
 
     @staticmethod
-    def step_fn(arch: ArchDef, shape: str, *, reduced: bool = False):
-        """``step(TrainState, batch) -> (TrainState, metrics)``."""
+    def local_input_specs(arch: ArchDef, shape: str, mesh, *, reduced: bool = False) -> dict:
+        """``input_specs`` of one rank's block by ``input_pspec``: every node
+        and edge array (and molecule's graphs) over the data axes. Every
+        reduced and full shape divides over 2 and 4 data ranks, so there is
+        no padding rule: a mesh whose data axes do not divide a shape
+        raises."""
+        specs = GNNFamily.input_specs(arch, shape, reduced=reduced)
+        ps = GNNFamily.input_pspec(arch, shape, mesh)
+        out = {k: (shd.local_shape(dims, ps[k], mesh), dtype) for k, (dims, dtype) in specs.items()}
+        n_graphs = (GNN_SHAPES_REDUCED if reduced else GNN_SHAPES)[shape].n_graphs
+        if n_graphs:  # the readout's graphs, reduce-scattered to the labels' block
+            shd.local_shape((n_graphs,), ps["labels"], mesh)
+        return out
+
+    @staticmethod
+    def step_fn(arch: ArchDef, shape: str, *, reduced: bool = False, mesh=None):
+        """``step(TrainState, batch) -> (TrainState, metrics)``; with
+        ``mesh``, a rank's step over its blocks of the batch
+        (``local_input_specs``; ``train.shard_batch`` cuts them) and the
+        replicated state."""
         s = (GNN_SHAPES_REDUCED if reduced else GNN_SHAPES)[shape]
         cfg = GNNFamily._cfg_for(arch, s, reduced)
-        return make_train_step(gnn_loss_fn(cfg, s.n_graphs), _OPT)
+        if mesh is not None:  # raises where the mesh does not split the graph
+            GNNFamily.local_input_specs(arch, shape, mesh, reduced=reduced)
+        return _train_step(cfg, gnn_loss_fn(cfg, s.n_graphs, mesh), 1, mesh)
 
     @staticmethod
     def state_pspec(arch: ArchDef, shape: str, mesh) -> dict:

@@ -280,10 +280,26 @@ def mesh_train_collectives(cfg, shape: tuple[int, int], *, microbatches: int = 1
     sums, DIN's ``copy_to`` of the bag weights, two-tower's gather of the
     item embeddings (reduce-scattered back) and of log_q, the loss's sums.
     A tied D-split head is taken to see more positions a microbatch than
-    d_model (as at train_4k), so it gathers its table."""
+    d_model (as at train_4k), so it gathers its table.
+
+    GIN (``GINConfig``, L layers, D = [data > 1], g = [graph readout]):
+
+      forward   per layer an all-gather of the node rows and a
+                  reduce-scatter of the messages' partial sums, over data;
+                  the readout's reduce-scatter of the graphs' sums (g); one
+                  all-reduce of the loss's numerator and count
+      backward  each layer's transposes (a reduce-scatter of the gathered
+                  rows' gradient, an all-gather of the summed messages'),
+                  but layer 0's: its input x takes no gradient, so neither
+                  collective runs; the readout's all-gather (g)
+
+    so all-gathers D·(2L - 1 + g), reduce-scatters D·(2L - 1 + g) and
+    all-reduces D; the step adds the replicated gradients' all-reduce over
+    data (D) and the norm's over the mesh, none over model."""
     from repro_torch.launch import sharding
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.convert import train_layout
+    from repro_torch.models.gnn import GINConfig
     from repro_torch.models.transformer import TransformerConfig
 
     d, m = (int(x) for x in shape)
@@ -322,6 +338,13 @@ def mesh_train_collectives(cfg, shape: tuple[int, int], *, microbatches: int = 1
         bucket = any(sharding.grad_sync_axes(sp, mesh) and layout.zero1_dim(k) is None
                      for k, sp in layout.param_specs.items())
         shared = cfg.n_kv_heads < m
+    elif isinstance(cfg, GINConfig):
+        per = collections.Counter()
+        passes = 2 * cfg.n_layers - 1 + (cfg.readout == "graph")
+        per["all-gather"] += D * passes
+        per["reduce-scatter"] += D * passes
+        per["all-reduce"] += D
+        zero1, bucket, shared = [], D, False
     else:
         per = _recsys_collectives(cfg, D, M, executor)
         zero1, bucket, shared = [], D, False

@@ -8,6 +8,7 @@ port has no compiler to ask, so it runs the step and counts it.
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--out build/dryrun]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch warp-xtr --ranks 4
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mixtral-8x7b --ranks 4
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gin-tu --ranks 4 --mesh 4,1
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cpu --reduced
 
 For each cell (``run_cell``):
@@ -39,21 +40,22 @@ devices x ``roofline.peak_for`` the step's compute dtype. ``--ranks N``
 runs the warp cells over a world of N shard ranks (``launch/ranks.py``:
 NCCL on the cards, gloo on the CPU), each rank cutting its own shard of
 the synthetic index (``distributed.rank_shard``); rank 0 times and counts,
-and its collectives come from the counter. For the LM and recsys
-families ``--ranks N`` runs the serving cells over a (data, model) mesh
-of N ranks (``--mesh D,M``, (1, N) by default; ``launch/ranks.py::
-run_mesh``), the train cells too: every rank materializes its own blocks
-of the state and the inputs, placed by the family's ``state_pspec`` and
-``input_pspec`` (``long_500k``'s cache split by sequence; a train batch
-drawn whole and cut by ``train.shard_batch`` in JAX's microbatch order,
-the moments ZeRO-1 where the arch's experts are ``tp_only``), and runs the
-step; rank 0's time, peak and counted work (its collectives counted per
-op in ``collectives.counts``: all-reduces, all-gathers and
+and its collectives come from the counter. For the LM, recsys and GNN
+families ``--ranks N`` runs the cells over a (data, model) mesh of N
+ranks (``--mesh D,M``, (1, N) by default; ``launch/ranks.py::run_mesh``):
+the LM and recsys serving and train cells, and gin-tu's train cells.
+Every rank materializes its own blocks of the state and the inputs,
+placed by the family's ``state_pspec`` and ``input_pspec``
+(``long_500k``'s cache split by sequence; a train batch drawn whole and
+cut by ``train.shard_batch`` in JAX's microbatch order, the moments ZeRO-1
+where the arch's experts are ``tp_only``; a graph drawn whole and each
+node and edge array cut over the data axes, GIN's parameters replicated),
+and runs the step; rank 0's time, peak and counted work (its collectives
+counted per op in ``collectives.counts``: all-reduces, all-gathers and
 reduce-scatters, a train step's backward and remat recomputation
 included) make the record, ``mesh`` "ranks<N>", MFU over N devices. The
 fit reckons each rank's share as 1/N of the state and inputs, times the
-ranks that share a card. gin-tu over ranks raises: GNN training over a
-mesh is the next step of the port. A failing cell is recorded with
+ranks that share a card. A failing cell is recorded with
 ``ok: false``, its error and traceback, and the run exits 1. Nothing falls
 back to the CPU or to a plain version.
 """
@@ -298,8 +300,13 @@ def _lm(cell: _Cell, g, dev):
     return model, {"tokens": _ints(g, cfg.vocab, (b,), dev), "cache": cache}
 
 
-def _gnn(cell: _Cell, g, dev):
+def _gnn(cell: _Cell, g, dev, mesh=None):
+    """The cell's state and graph; over ``mesh``, this rank's replicated
+    state and its block of every node and edge array (the graph drawn
+    whole first, so every rank draws alike)."""
+    from repro_torch.launch import sharding
     from repro_torch.models import init_params
+    from repro_torch.models.convert import train_layout
     from repro_torch.train.loop import TrainState
 
     s = cell.shape_obj
@@ -317,7 +324,11 @@ def _gnn(cell: _Cell, g, dev):
     if s.n_graphs:
         batch["graph_ids"] = torch.repeat_interleave(
             torch.arange(s.n_graphs, device=dev, dtype=torch.int32), s.n_nodes // s.n_graphs)
-    return TrainState.create(init_params(cfg, g, device=dev)), batch
+    if mesh is None:
+        return TrainState.create(init_params(cfg, g, device=dev)), batch
+    batch = sharding.local_batch(batch, cell.family.input_pspec(cell.arch, cell.shape, mesh), mesh)
+    params = init_params(cfg, g, device=dev, mesh=mesh)
+    return TrainState.create(params, layout=train_layout(cfg, mesh)), batch
 
 
 def _recsys(cell: _Cell, g, dev):
@@ -552,8 +563,8 @@ def run_cell(
     ``arch`` replaces the registry's ``ArchDef`` (``hillclimb``'s
     variants); ``search_overrides`` replace fields of a warp cell's
     ``search_config``; ``ranks`` runs a warp cell over that many shard
-    ranks, an LM or recsys serving cell over a (data, model) mesh of that
-    many ranks (``mesh``, (1, ranks) by default). ``backend`` is the
+    ranks, any other cell over a (data, model) mesh of that many ranks
+    (``mesh``, (1, ranks) by default). ``backend`` is the
     world's: NCCL on the cards (one rank per card) and gloo on the CPU by
     default; gloo with ``device="cuda:0"`` puts every rank on that card.
     ``batch`` and ``layers`` start an LM cell at that batch and depth
@@ -684,7 +695,7 @@ def _run_ranked(arch_name, cell, dev, n, seed, iters, search_overrides, verbose)
 
 
 # ---------------------------------------------------------------------------
-# an LM or recsys serving cell over a mesh of ranks
+# an LM, recsys or GNN cell over a mesh of ranks
 # ---------------------------------------------------------------------------
 
 
@@ -702,6 +713,8 @@ def _materialize_mesh(cell: _Cell, mesh, seed: int):
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     cfg, s = cell.config, cell.shape_obj
+    if cell.family.name == "gnn":
+        return _gnn(cell, g, dev, mesh)
     if s.kind == "train":  # the global batch drawn whole, the rank's rows kept
         if cell.family.name == "recsys":
             batch = _recsys_batch(cell, g, dev)
@@ -714,9 +727,8 @@ def _materialize_mesh(cell: _Cell, mesh, seed: int):
         params = init_params(cfg, g, device=dev, mesh=mesh)
         return TrainState.create(params, layout=train_layout(cfg, mesh)), batch
     if cell.family.name == "recsys":
-        batch = _recsys_batch(cell, g, dev)
-        specs = cell.family.input_pspec(cell.arch, cell.shape, mesh)
-        batch = {k: sharding.local_block(v, specs[k], mesh).clone() for k, v in batch.items()}
+        batch = sharding.local_batch(_recsys_batch(cell, g, dev),
+                                     cell.family.input_pspec(cell.arch, cell.shape, mesh), mesh)
         params = init_params(cfg, g, device=dev, mesh=mesh)
         return RECSYS_MODELS[type(cfg)].from_params(cfg, params, mesh=mesh), batch
     params = init_params(cfg, g, device=dev, dtype=torch.bfloat16, mesh=mesh)
@@ -764,13 +776,6 @@ def _mesh_body(mesh, cell, seed, iters, out_path):
 def _run_mesh(cell: _Cell, dev, n: int, shape, backend, seed, iters, verbose) -> dict:
     from repro_torch.launch.ranks import run_mesh
 
-    fam = cell.family
-    if fam.name not in ("lm", "recsys"):
-        raise NotImplementedError(
-            f"{cell.arch.name}/{cell.shape} over ranks: the mesh runs the LM and recsys cells; "
-            "GNN training over a mesh (the node and edge arrays split over the data axes) is "
-            "the next step of the port (ROADMAP queue 1, item 1)"
-        )
     shape = tuple(int(d) for d in shape)
     if shape[0] * shape[1] != n:
         raise ValueError(f"a mesh of shape {shape} does not have {n} ranks")
@@ -828,8 +833,8 @@ def main(argv=None) -> int:
     ap.add_argument("--shape")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--ranks", type=int, default=None,
-                    help="run the warp cells over N shard ranks, the LM and recsys cells over a "
-                    "mesh of N ranks (NCCL on the cards)")
+                    help="run the warp cells over N shard ranks, the LM, recsys and gin-tu cells "
+                    "over a mesh of N ranks (NCCL on the cards)")
     ap.add_argument("--mesh", default=None,
                     help="the (data, model) shape of the mesh as D,M (default 1,N)")
     ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
@@ -848,15 +853,10 @@ def main(argv=None) -> int:
         ap.error("give --all or --arch")
     _resolve(args.device)
 
-    def over_ranks(a, s):  # the cells a world of ranks runs
-        return get_arch(a).family.name in ("warp", "lm", "recsys")
-
     if args.all:
         cells = all_cells(include_warp=True)
     else:
         cells = [(args.arch, s) for s in ([args.shape] if args.shape else get_arch(args.arch).shapes)]
-    if args.ranks is not None and not (args.shape and args.arch):
-        cells = [(a, s) for a, s in cells if over_ranks(a, s)]
     mesh_shape = tuple(int(d) for d in args.mesh.split(",")) if args.mesh else None
     mesh = "single" if args.ranks is None else f"ranks{args.ranks}"
     outdir = os.path.join(args.out, mesh)

@@ -39,7 +39,10 @@ need (Megatron's f and g, in the training of ``train/loop.py``):
   copy_to(x, axes)                   the identity, its gradient summed over
       the axes: a tensor replicated over the model axis read by a block
       split over it;
-  reduce_scatter, all_reduce_max     the gradient sync and compression.
+  reduce_scatter(...)                the sum, of which the rank keeps its
+      block; its gradient all-gathered over the axes (each rank's partial
+      sum fed every block): GIN's messages summed into every node row;
+  all_reduce_max                     the gradient compression (no gradient).
 
 ``gather_to_root`` (every rank's tensor on rank 0, no gradient) serves
 the checkpoint writer; ``at_rank`` gives the mesh as another rank sees
@@ -274,8 +277,11 @@ class RankMesh:
 
     def reduce_scatter(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
         """The sum of ``t`` over the ranks along ``axes``, of which this
-        rank keeps its block of ``dim`` (no gradient: the gradient sync's)."""
-        return self._reduce_scatter(t, axes, dim)
+        rank keeps its block of ``dim``. Its gradient is the blocks'
+        gradients all-gathered over the axes."""
+        if self.size_of(axes) == 1:
+            return t
+        return _ReduceScatter.apply(t, self, _axes(axes), dim)
 
     def copy_to(self, x: torch.Tensor, axes) -> torch.Tensor:
         """``x`` itself; its gradient summed over the ranks along ``axes``
@@ -320,6 +326,17 @@ class _AllGather(torch.autograd.Function):
         else:
             g = g.narrow(dim, m.index_of(ctx.axes) * ctx.size, ctx.size)
         return g, None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh._reduce_scatter(t, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._all_gather(g, ctx.axes, ctx.dim), None, None, None
 
 
 class _CopyTo(torch.autograd.Function):

@@ -24,7 +24,9 @@ swapped (``models/convert.py::jax_leaf`` maps each name to JAX's leaf):
   norms / scalars             -> replicated
 
 RecSys: tables row-sharded over model where their rows divide it, the
-rest replicated; batches over the data axes. GNN: parameters replicated.
+rest replicated; batches over the data axes. GNN: parameters (and their
+moments) replicated; every node and edge array over the data axes, its
+ids left global (``local_batch``).
 
 A spec is a ``PartitionSpec``: one entry per dimension, None or a tuple
 of axis names (a name alone is taken as a tuple of one). ``local_block``
@@ -49,6 +51,7 @@ __all__ = [
     "batch_pspec",
     "kv_cache_pspec",
     "local_block",
+    "local_batch",
     "local_shape",
     "gather_block",
     "kv_heads_of_rank",
@@ -261,6 +264,13 @@ def local_block(t, spec, mesh):
         size = _split(t.shape[d], n, f"dim {d} of {tuple(t.shape)} over {p}")
         t = t.narrow(d, mesh.index_of(p) * size, size)
     return t
+
+
+def local_batch(batch: dict, specs: dict, mesh) -> dict:
+    """This rank's block of each input of ``batch`` by its spec in
+    ``specs`` (an ``input_pspec``), each a copy, so the whole batch can be
+    freed."""
+    return {k: local_block(v, specs[k], mesh).clone() for k, v in batch.items()}
 
 
 def gather_block(t, spec, mesh, axes=None):

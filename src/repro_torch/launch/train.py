@@ -19,17 +19,20 @@ interrupted run would have. (JAX keys it by ``hash(name)``, which Python
 salts per process.) GIN's labels are drawn in [0, n_classes): JAX draws
 them in [0, 64) too, and a label >= n_classes makes every loss NaN.
 
-``--ranks N`` trains an LM or recsys arch over a (data, model) mesh of N
+``--ranks N`` trains an LM, recsys or GNN arch over a (data, model) mesh of N
 ranks (``--mesh D,M``, (1, N) by default; ``launch/ranks.py::run_mesh``),
 as JAX's step does under its shardings: NCCL on the cards (one rank a
 card), gloo on the CPU (``--device cpu``) or on one card named with its
 index (``--backend gloo --device cuda:0``). Every rank draws the weights
 and the global batch as one process does and keeps its blocks and rows
-(``train.shard_batch``, JAX's microbatch order); the checkpoints are the
+(``train.shard_batch``, JAX's microbatch order; gin-tu's replicated
+weights and its block of every node and edge array); the checkpoints are the
 one-process files (rank 0 writes them), so a run resumes on a mesh of
 another shape or in one process. Rank 0 prints.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
+      --steps 6 --ranks 4 --mesh 2,2 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu \
       --steps 6 --ranks 4 --mesh 2,2 [--device cpu]
 """
 
@@ -66,7 +69,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     ap.add_argument("--ranks", type=int, default=None,
-                    help="train over a (data, model) mesh of N ranks (the LM and recsys archs)")
+                    help="train over a (data, model) mesh of N ranks (the LM, recsys and GNN "
+                    "archs)")
     ap.add_argument("--mesh", default=None, help="the mesh's shape as D,M (default 1,N)")
     ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
                     help="the ranks' backend (default: nccl on the cards, gloo on the CPU)")
@@ -79,10 +83,8 @@ def main(argv=None) -> int:
 def _over_ranks(args) -> int:
     from repro_torch.launch.ranks import run_mesh
 
-    fam = get_arch(args.arch).family
-    if fam.name not in ("lm", "recsys"):
-        raise SystemExit(f"--ranks trains the LM and recsys archs over a mesh; {args.arch} is a "
-                         f"{fam.name} arch (GNN training over a mesh is not ported yet)")
+    if get_arch(args.arch).family.name == "warp":
+        raise SystemExit("warp-xtr is a serving arch; use launch.serve")
     shape = tuple(int(d) for d in args.mesh.split(",")) if args.mesh else (1, args.ranks)
     if len(shape) != 2 or shape[0] * shape[1] != args.ranks:
         raise SystemExit(f"--mesh {args.mesh} is not a (data, model) shape of {args.ranks} ranks")

@@ -22,6 +22,30 @@ row past the segments, sliced off after: no host sync, no copy of the
 messages, and a NaN message there reaches no output.
 ``GIN.from_params`` builds the module from a state dict (``convert``'s),
 dense layers in ``nn.Linear``'s [d_out, d_in] layout.
+
+Over a (data, model) mesh of ranks (``forward(..., mesh=)``, ``loss(...,
+mesh=)``; ``launch/mesh.py``) each rank holds the replicated parameters
+and its block of every node and edge array, split over the data axes as
+JAX's ``GNNFamily.input_pspec`` splits them; node and graph ids stay
+global. A rank computes what JAX's step computes under those shardings:
+
+- each layer all-gathers the node rows [N/D, d] over the data axes into
+  the whole [N, d] (its backward reduce-scatters), gathers and sums the
+  rank's edges into a partial [N, d] with N the global node count (so
+  JAX's index semantics hold as above), and reduce-scatters that back to
+  the rank's rows (its backward all-gathers); the rest of the layer runs
+  on the rank's rows;
+- the graph readout sums the rank's rows by their global ``graph_ids``
+  into [n_graphs, H] and reduce-scatters it to the rank's block of graphs,
+  the one its labels hold;
+- the loss is global: its numerator and count are all-reduced over the
+  data axes in one collective whose backward is the identity, so each
+  rank's gradient is its own rows' share (``train.sync_grads`` sums
+  them).
+
+Ranks that differ only along the model axis hold the same blocks and run
+the same ops, so they agree bit for bit. With no mesh, or one whose data
+axes hold one rank, the code is the one-process code.
 """
 
 from __future__ import annotations
@@ -114,17 +138,25 @@ class GIN(nn.Module):
             model.requires_grad_(False)
         return model
 
-    def forward(self, x, edge_src, edge_dst, edge_mask=None, graph_ids=None, n_graphs=None):
+    def forward(self, x, edge_src, edge_dst, edge_mask=None, graph_ids=None, n_graphs=None, *,
+                mesh=None):
         """x f32[N, d_feat], edge_src/edge_dst int[E], edge_mask [E] (padding),
-        graph_ids int[N] and n_graphs for graph readout -> logits."""
-        n = x.shape[0]
+        graph_ids int[N] and n_graphs for graph readout -> logits. Over
+        ``mesh``: the rank's blocks of the node and edge arrays, and its
+        rows (or graphs) of the logits (see the module)."""
+        data = _data_axes(mesh)
+        n = x.shape[0] if data is None else x.shape[0] * mesh.size_of(data)
         h = x
         for lp in self.layers:
-            msgs = gather_rows(h, edge_src)  # gather
+            whole = h if data is None else mesh.all_gather(h, data, 0)
+            msgs = gather_rows(whole, edge_src)  # gather
+            del whole
             if edge_mask is not None:
                 msgs = msgs * edge_mask[:, None]
             agg = segment_sum(msgs, edge_dst, n)  # scatter
             del msgs
+            if data is not None:
+                agg = mesh.reduce_scatter(agg, data, 0)
             h = (1.0 + lp.eps) * h + agg
             h = F.relu(lp.mlp1(h))
             h = F.relu(lp.mlp2(h))
@@ -132,12 +164,17 @@ class GIN(nn.Module):
             if graph_ids is None or n_graphs is None:
                 raise ValueError("graph readout needs graph_ids and n_graphs")
             h = segment_sum(h, graph_ids, n_graphs)
+            if data is not None:
+                h = mesh.reduce_scatter(h, data, 0)
         return self.head(h)
 
-    def loss(self, batch: dict):
+    def loss(self, batch: dict, *, mesh=None):
+        """The mean cross-entropy of the labels (over ``label_mask`` where
+        given) -> (loss, {"ce": loss}); over ``mesh``, of the global batch
+        from the rank's blocks."""
         logits = self(
             batch["x"], batch["edge_src"], batch["edge_dst"], batch.get("edge_mask"),
-            batch.get("graph_ids"), batch.get("n_graphs"),
+            batch.get("graph_ids"), batch.get("n_graphs"), mesh=mesh,
         )
         labels = torch.clamp_min(batch["labels"].long(), 0)
         mask = batch.get("label_mask")
@@ -145,11 +182,29 @@ class GIN(nn.Module):
         c = logp.shape[-1]
         picked = torch.take_along_dim(logp, labels.clamp_max(c - 1)[..., None], dim=-1)[..., 0]
         nll = torch.where(labels < c, -picked, math.nan)  # take_along_axis fills NaN
-        if mask is not None:
+        data = _data_axes(mesh)
+        if data is not None:  # the global numerator and count, one collective
+            if mask is not None:
+                num, count = torch.sum(nll * mask), torch.sum(mask)
+            else:
+                num, count = torch.sum(nll), torch.tensor(float(nll.numel()), device=nll.device)
+            num, count = mesh.all_reduce(torch.stack([num, count]), data).unbind()
+            loss = num / torch.clamp_min(count, 1)
+        elif mask is not None:
             loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1)
         else:
             loss = torch.mean(nll)
         return loss, {"ce": loss}
+
+
+def _data_axes(mesh):
+    """The data axes of ``mesh`` when they hold more than one rank, else None."""
+    if mesh is None:
+        return None
+    from repro_torch.launch.mesh import data_axes
+
+    data = data_axes(mesh)
+    return data if mesh.size_of(data) > 1 else None
 
 
 def neighbor_sample(

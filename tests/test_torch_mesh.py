@@ -410,7 +410,8 @@ def test_dry_run_over_four_ranks(arch, shape, mesh):
 
 
 def test_train_cells_over_ranks_raise():
-    """The LM and recsys train cells run over ranks (tests/test_torch_mesh_
-    train_lm.py); gin-tu's still raise: GNN training over a mesh is next."""
-    with pytest.raises(NotImplementedError, match="next step"):
-        dryrun.run_cell("gin-tu", "molecule", device="cpu", reduced=True, ranks=4)
+    """Every family's train cells run over ranks (gin-tu's in tests/test_
+    torch_mesh_train_gnn.py); a train cell over a mesh whose shape is not of
+    the ranks given still raises."""
+    with pytest.raises(ValueError, match="does not have 4 ranks"):
+        dryrun.run_cell("gin-tu", "molecule", device="cpu", reduced=True, ranks=4, mesh=(2, 3))

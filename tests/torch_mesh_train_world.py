@@ -1,5 +1,6 @@
-"""World bodies of ``tests/test_torch_mesh_train_lm.py`` and
-``tests/test_torch_mesh_train_recsys.py``: the LM and recsys families
+"""World bodies of ``tests/test_torch_mesh_train_lm.py``,
+``tests/test_torch_mesh_train_recsys.py`` and
+``tests/test_torch_mesh_train_gnn.py``: the LM, recsys and GNN families
 trained over (data, model) meshes of ranks.
 
 They run in the ranks that ``repro_torch.launch.ranks.run_world`` spawns,
@@ -16,7 +17,10 @@ import os
 import numpy as np
 import torch
 
-from repro_torch.configs.families import RECSYS_SHAPES_REDUCED, lm_loss_fn
+from repro_torch.configs import families
+from repro_torch.configs.families import (
+    GNN_SHAPES_REDUCED, RECSYS_SHAPES_REDUCED, GNNFamily, gnn_loss_fn, lm_loss_fn,
+)
 from repro_torch.configs.registry import get_arch
 from repro_torch.launch import cost, sharding
 from repro_torch.models.convert import state_from_jax, train_layout
@@ -288,6 +292,74 @@ def recsys_shape():
     return RECSYS_SHAPES_REDUCED["train_batch"]
 
 
+# ---------------------------------------------------------------------------
+# GNN
+# ---------------------------------------------------------------------------
+
+# case -> gin-tu's reduced shape; "nan" is full_graph_sm with one label
+# >= n_classes, whose losses are NaN.
+GNN_CASES = {"full_graph_sm": "full_graph_sm", "minibatch_lg": "minibatch_lg",
+             "ogb_products": "ogb_products", "molecule": "molecule", "nan": "full_graph_sm"}
+
+
+def gnn_cfg(case: str):
+    return GNNFamily._cfg_for(get_arch("gin-tu"), GNN_SHAPES_REDUCED[GNN_CASES[case]], True)
+
+
+def gnn_step(case: str, mesh=None):
+    """The family's train step of the case's shape (over ``mesh``: a rank's),
+    its AdamW at warmup 1 (``OPT``) so that 3 steps move the parameters."""
+    from unittest import mock
+
+    with mock.patch.object(families, "_OPT", AdamWConfig(**OPT)):
+        return GNNFamily.step_fn(get_arch("gin-tu"), GNN_CASES[case], reduced=True, mesh=mesh)
+
+
+def gnn_world(group, npz: str, out_dir: str) -> None:
+    """Every GNN case on every mesh from JAX's initial state: the step-1
+    gradients synced and joined, 3 steps of ``GNNFamily.step_fn(mesh=)``
+    (step 1 counted), the final params and moments joined, every leaf
+    gathered to rank 0 alone; at (2, 2) a checkpoint saved over the mesh."""
+    torch.set_num_threads(1)
+    z = np.load(npz)
+    res = {}
+    for shape in MESHES:
+        mesh = group.mesh(shape)
+        tag = f"{shape[0]}x{shape[1]}"
+        for case in GNN_CASES:
+            cfg = gnn_cfg(case)
+            layout = train_layout(cfg, mesh)
+            state = state_from_jax(jax_state(z, f"{case}/init/"), cfg, device="cpu", mesh=mesh)
+            blist = batches(z, f"{case}/")
+            loss_fn = gnn_loss_fn(cfg, GNN_SHAPES_REDUCED[GNN_CASES[case]].n_graphs, mesh)
+            loss, _ = loss_fn(state.params, shard_batch(blist[0], mesh))
+            g = dict(zip(state.params, torch.autograd.grad(loss, list(state.params.values()))))
+            g = sync_grads(g, layout)
+            out = {"grad_ok": {k: [bool(torch.isfinite(v).all()), bool(v.any())]
+                               for k, v in g.items()},
+                   "grads": {k: layout.join("opt.m." + k, v) for k, v in g.items()},
+                   "keys": {k: block_key(k, layout) for k in state.params},
+                   "metrics": [], "steps": []}
+            step = gnn_step(case, mesh)
+            for i, b in enumerate(blist):
+                if i == 0:
+                    with cost.StepCost() as c:
+                        state, m = step(state, shard_batch(b, mesh))
+                    out["counts"] = dict(c.op_counts)
+                else:
+                    state, m = step(state, shard_batch(b, mesh))
+                out["metrics"].append({k: float(v) for k, v in m.items()})
+                out["steps"].append({k: v.detach().numpy().tobytes()
+                                     for k, v in state.params.items()})
+            out["final"] = joined(state, layout)
+            out["root"] = root_gathered(state, layout)
+            if shape == (2, 2):
+                ckpt.save_checkpoint(os.path.join(out_dir, case), STEPS, state, layout=layout)
+            res[f"{case}/{tag}"] = out
+    torch.save(res, os.path.join(out_dir, f"rank{group.rank}.pt"))
+
+
 __all__ = ["MESHES", "LM_CASES", "RECSYS_ARCHS", "EXECUTORS", "B", "S", "MB", "STEPS", "OPT",
            "lm_cfg", "recsys_cfg", "tree_of", "jax_state", "batches", "prints", "lm_world",
-           "recsys_world", "recsys_loss_fn", "sharding"]
+           "recsys_world", "recsys_loss_fn", "sharding", "GNN_CASES", "gnn_cfg", "gnn_step",
+           "gnn_world"]
