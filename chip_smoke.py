@@ -96,6 +96,22 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      p99 beside the stack's and its collectives timed alone; then
      ``launch.serve --ranks`` (see ``phase_ranks``). Rows 1-3 of the
      kernels line carry the launches per rank as ``ranks_launches``;
+  6c'. the encoder trained (``encoder_train``, after ``encode``): the XTR
+     token encoder at ``EncoderConfig()`` trained with
+     ``examples/train_encoder_torch.py``'s in-batch objective and AdamW on
+     its ``make_batch`` batches (128 queries of 32 tokens, documents of
+     192): step-1 loss = no-grad loss, every gradient finite and not all
+     zero (the embedding's on exactly the rows the batch names), two
+     step-1 gradients bit for bit, the loss falling over 10 steps, a
+     ``train_loop`` killed at step 7 resumed from step 5 to the same bits;
+     step p50, tokens/s, peak memory and the step's parts printed; then
+     4,096 documents encoded with the untrained and the trained encoder,
+     each indexed by ``Retriever.build`` and searched by 128 sub-sequence
+     queries at the three scoring kernels' configs x both executors (ids
+     up to reported tie swaps, each kernel launched; the kernels line's
+     rows 1-3 carry the launches as ``encoder_train_launches``), success@5
+     no lower after training; and ``examples/train_encoder_torch.py`` run
+     on the card at its defaults (see ``phase_encoder_train``);
   6d. the cell layer (``dryrun``, after ``encode``): ``launch/dryrun.py``
      runs ``DRYRUN_CELLS`` (warp-xtr search_lifestyle, qwen2-0.5b
      long_500k, din serve_p99, gin-tu molecule) whole at full width, each
@@ -162,7 +178,7 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      within 1e-5 and the top-100 candidates identical up to a reported
      swap inside a tie; DIN, xDeepFM and SASRec at serve_p99 (their
      retrieval_cand shapes do not fit on one card).
- 10. LM training (``train``): qwen2-0.5b at full width, 4 of its 24
+ 10. LM training (``train``): qwen2-0.5b at full width, 2 of its 24
      layers (4 x 4096, train_4k's sequence) and one mixtral-8x7b layer at full width
      (2 x 4096 in its 2 microbatches), float32 parameters and Adam state,
      bf16 compute, remat, batches from ``ShardedBatcher`` +
@@ -194,7 +210,7 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      gin-tu on the card.
  11. the LM and recsys families over a (data, model) mesh of ranks
      (``mesh``, last): one gloo world of 4 ranks sharing the card runs
-     mixtral-8x7b at full width at (1, 4) (4 layers, 2 x 8192 prompt, 16
+     mixtral-8x7b at full width at (1, 4) (2 layers, 2 x 8192 prompt, 16
      steps), at (2, 2) (1 layer, 2 x 2048, 4 steps; the FSDP gathers)
      and a batch-1 decode of 2 steps at (4, 1) (1 layer) over a 16,384-position
      cache split by sequence, each teacher-forced in tokens and routing
@@ -209,7 +225,7 @@ LoTTE Lifestyle geometry (``repro/configs/warp_family.py``,
      (1 layer) over 4 gloo ranks, its collectives counted per op.
  12. the LM, recsys and GNN families trained over meshes of ranks
      (``mesh_train``, last): one gloo world of 4 ranks sharing the card
-     trains qwen2-0.5b at 2 of its 24 layers at train_4k's sequence
+     trains qwen2-0.5b at 2 of its 24 layers at 2,048 tokens a row
      (batch 4 in 2 microbatches) and one mixtral-8x7b layer at full width (batch 2;
      fsdp experts, then tp_only with local dispatch and ZeRO-1 moments) at
      (2, 2), two-tower at 16,384 rows at (1, 4) and DIN at 65,536 at
@@ -376,11 +392,12 @@ MOE_FLIP_GAP = 2.0 ** -5
 # Train phase: batches from ShardedBatcher + synthetic_lm_fetch at train_4k's
 # sequence length (configs/families.py LM_SHAPES), float32 parameters and
 # Adam state, each config's bf16 compute and remat. train_4k's global batch
-# of 256 is cut to what one card holds beside float32 logits. qwen2 runs 4
-# of its 24 layers: at 24 its run took 84.9 s of the script's 1200.
+# of 256 is cut to what one card holds beside float32 logits. qwen2 runs 2
+# of its 24 layers: at 24 its run took 84.9 s of the script's 1200, at 4
+# 23.2 s, and the encoder_train phase needs the time.
 TRAIN_SEQ = 4096
 TRAIN_RUNS = (  # arch, layers run (None: all), batch, microbatches
-    ("qwen2-0.5b", 4, 4, 1),
+    ("qwen2-0.5b", 2, 4, 1),
     ("mixtral-8x7b", 1, 2, 2),  # its train_microbatches
 )
 TRAIN_STEPS = 10  # on one repeated batch; the loss must fall
@@ -2940,6 +2957,361 @@ def phase_encode(torch, dev, seed: int, kernel_err: float, sh: dict, profile: bo
         f"queries' doc ids equal across the two up to {swaps} tie swaps; {smi}")
 
 
+# The encoder_train phase: the XTR token encoder at EncoderConfig() (12
+# layers, d 768, float32) trained with examples/train_encoder_torch.py's
+# in-batch objective and AdamW (lr 3e-3 after 20 warmup steps), on batches
+# drawn by its make_batch: ENC_BATCH queries of query_maxlen (32) tokens,
+# each a noisy sub-sequence of its own document of ENC_DOC_LEN tokens
+# (Lifestyle's documents hold 198.5 tokens on average), so 127 in-batch
+# negatives per query. Then a corpus of ENC_CORPUS_DOCS such documents is
+# encoded, indexed and searched by ENC_QUERIES of their sub-sequences, with
+# the untrained and the trained encoder.
+ENC_BATCH = 128
+ENC_DOC_LEN = 192
+ENC_STEPS = 10  # the loss must fall over them
+ENC_CORPUS_DOCS = 4096
+ENC_QUERIES = 128
+ENC_ENCODE_CHUNK = 256  # documents per serving encode call
+ENC_RETRIEVE_BATCH = 32  # queries per retrieve_batch call
+ENC_CORPUS_SEED = 10_000  # make_batch's step for the corpus: no training batch's
+ENC_EXAMPLE_TIMEOUT_S = 300
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (examples/ is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def encoder_step_parts(torch, cfg, params, batch, dev, flush) -> dict:
+    """Device ms of the parts of one encoder train step, each timed alone
+    at the step's shapes: attention (``layers.chunked_attention`` forward +
+    backward at the query and the document shape, times the layers), the
+    FFN (``layers.swiglu`` likewise), the embedding's dense gradient (what
+    autograd runs for the two ``embed[tokens]`` lookups: an ``index_put_``
+    with accumulation into [vocab, d] zeros each, then their sum) and
+    AdamW (one ``adamw_update`` of copies of every parameter)."""
+    from repro_torch.models import layers as L
+    from repro_torch.train import AdamWConfig, adamw_init, adamw_update
+
+    h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+    parts = {"attention": 0.0, "ffn": 0.0}
+    for s in (cfg.query_maxlen, ENC_DOC_LEN):
+        pos = torch.arange(s, device=dev).expand(ENC_BATCH, s)
+        q, k, v = (torch.randn(ENC_BATCH, s, h, dh, device=dev, requires_grad=True)
+                   for _ in range(3))
+        go = torch.randn(ENC_BATCH, s, h, dh, device=dev)
+
+        def attention():
+            out = L.chunked_attention(q, k, v, causal=False, q_positions=pos, kv_positions=pos,
+                                      chunk_size=s)
+            torch.autograd.grad(out, (q, k, v), go)
+
+        x = torch.randn(ENC_BATCH, s, cfg.d_model, device=dev, requires_grad=True)
+        gx = torch.randn_like(x)
+        ws = [params[f"layers.0.ffn.{n}.weight"].detach().clone().requires_grad_(True)
+              for n in ("gate", "up", "down")]
+
+        def ffn():
+            y = L.swiglu(x, (ws[0], None), (ws[1], None), (ws[2], None))
+            torch.autograd.grad(y, (x, *ws), gx)
+
+        parts["attention"] += cfg.n_layers * time_cuda(torch, attention, flush, iters=5)
+        parts["ffn"] += cfg.n_layers * time_cuda(torch, ffn, flush, iters=5)
+        del q, k, v, go, x, gx, ws
+    embed = params["embed"].detach()
+    ids = [batch[k].reshape(-1).long() for k in ("q_tok", "d_tok")]
+    gs = [torch.randn(i.numel(), cfg.d_model, device=dev) for i in ids]
+    parts["embedding_grad"] = time_cuda(torch, lambda: sum(
+        torch.zeros_like(embed).index_put_((i,), g, accumulate=True) for i, g in zip(ids, gs)
+    ), flush, iters=5)
+    copies = {k: p.detach().clone() for k, p in params.items()}
+    grads = {k: torch.randn_like(p) for k, p in copies.items()}
+    moments = adamw_init(copies)
+    parts["adamw"] = time_cuda(torch, lambda: adamw_update(AdamWConfig(), copies, grads, moments),
+                               flush, iters=5)
+    return parts
+
+
+def encoder_flops(cfg, n_params: int) -> float:
+    """Float32 operations of one encoder train step (forward + backward):
+    6 x the dense parameters (all but the embedding table, a lookup) x the
+    tokens, attention's two [S, S] products per layer, and the in-batch
+    MaxSim einsum."""
+    dense = n_params - cfg.vocab * cfg.d_model
+    q, d = cfg.query_maxlen, ENC_DOC_LEN
+    tokens = ENC_BATCH * (q + d)
+    attention = 3 * cfg.n_layers * ENC_BATCH * 4 * (q * q + d * d) * cfg.d_model
+    maxsim = 3 * 2 * ENC_BATCH * ENC_BATCH * q * d * cfg.out_dim
+    return 6.0 * dense * tokens + attention + maxsim
+
+
+def resume_check(torch, phase: str, name: str, kw: dict, final: list, check) -> None:
+    """``train_loop(**kw)`` with a checkpoint every TRAIN_RESUME_AT[0] steps
+    dies at step TRAIN_RESUME_AT[1], resumes from its newest checkpoint and
+    must end with every parameter and Adam moment of ``final`` (the
+    uninterrupted run's ``flatten(state)``) bit for bit."""
+    from repro_torch.train import FailureInjector, latest_step, train_loop
+    from repro_torch.train.checkpoint import flatten
+
+    every, dies = TRAIN_RESUME_AT
+    ckdir = tempfile.mkdtemp(prefix="resume_")
+    kw = dict(kw, ckpt_dir=ckdir, ckpt_every=every, keep=2)
+    t0 = time.perf_counter()
+    try:
+        try:
+            train_loop(failure=FailureInjector(fail_at=(dies,)), **kw)
+            check(False, f"{name}: the injected failure at step {dies} did not fire")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        check(latest_step(ckdir) == every, f"{name}: newest committed step {latest_step(ckdir)}, "
+                                           f"not {every}")
+        torch.cuda.empty_cache()
+        resumed, _ = train_loop(**kw)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    diffs = {k: float((v.detach().cpu() - want).abs().max())
+             for (k, v), (_, want) in zip(flatten(resumed), final)}
+    worst = max(diffs, key=diffs.get)
+    check(diffs[worst] == 0, f"{name}: the run resumed from step {every} ends {diffs[worst]} "
+                             f"from the uninterrupted run at {worst}")
+    log(f"[{phase}] {name}: train_loop died at step {dies}, resumed from its step-{every} "
+        f"checkpoint and ended at step {kw['n_steps']} with every parameter and Adam moment "
+        f"{'bit for bit' if diffs[worst] == 0 else 'apart'} (largest diff {diffs[worst]} at "
+        f"{worst}); {time.perf_counter() - t0:.1f} s with checkpoint writes")
+
+
+def encoder_end_to_end(torch, dev, cfg, corpus: dict, encoders: dict, kernel_err: float,
+                       check) -> dict:
+    """For each of ``encoders`` (tag -> a function giving its parameters,
+    untrained first): the corpus's documents and its first ENC_QUERIES
+    queries encoded (query i's document is doc i), an index built by
+    ``Retriever.build`` on the card, the queries retrieved in batches of
+    ENC_RETRIEVE_BATCH at the three scoring kernels' configs, kernel and
+    reference executor: doc ids equal up to reported tie swaps, scores
+    within TOL, each kernel launched, the reference launching none;
+    success@5 printed, and the last encoder's no lower than the first's.
+    Returns the launch counts of the run."""
+    from repro_torch.core import IndexBuildConfig, Retriever, WarpSearchConfig
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import TokenEncoder
+
+    d_tok, q_tok = corpus["d_tok"], corpus["q_tok"][:ENC_QUERIES]
+    n_docs = d_tok.shape[0]
+    d_mask = torch.ones(ENC_ENCODE_CHUNK, ENC_DOC_LEN, dtype=torch.bool, device=dev)
+    qmask = torch.ones(ENC_QUERIES, cfg.query_maxlen, dtype=torch.bool, device=dev)
+    doc_ids = torch.arange(n_docs, dtype=torch.int32, device=dev).repeat_interleave(ENC_DOC_LEN)
+    base = dict(nprobe=ARCH["nprobe"], k=ARCH["k"], k_impute=ARCH["k_impute"])
+    success, swaps = {}, 0
+    reset_launches()  # the end-to-end path starts here
+    for tag, params in encoders.items():
+        model = TokenEncoder.from_params(cfg, params())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb = torch.cat([model.encode(d_tok[lo: lo + ENC_ENCODE_CHUNK], d_mask)
+                         for lo in range(0, n_docs, ENC_ENCODE_CHUNK)])
+        q = model.encode(q_tok, qmask)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        retriever = Retriever.build(emb.reshape(-1, cfg.out_dim), doc_ids, n_docs,
+                                    IndexBuildConfig(nbits=ARCH["nbits"]), device=dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0 - t_enc
+        del emb, model
+        res = {}
+        for gather, layout in CONFIGS[:3]:
+            for executor in ("kernel", "reference"):
+                plan = retriever.plan(WarpSearchConfig(gather=gather, layout=layout,
+                                                       executor=executor, **base))
+                before = dict(LAUNCHES)
+                out = [plan.retrieve_batch(q[lo: lo + ENC_RETRIEVE_BATCH],
+                                           qmask[lo: lo + ENC_RETRIEVE_BATCH])
+                       for lo in range(0, ENC_QUERIES, ENC_RETRIEVE_BATCH)]
+                used = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+                kname = KERNEL_OF[(gather, layout)]
+                if executor == "kernel":
+                    check(used[kname] > 0, f"{tag} {gather}/{layout}: {kname} never launched")
+                else:
+                    check(not any(used.values()), f"{tag} {gather}/{layout}/reference launched "
+                                                  f"{used}")
+                res[(gather, layout, executor)] = (
+                    np.concatenate([r.doc_ids.cpu().numpy() for r in out]),
+                    np.concatenate([r.scores.cpu().numpy() for r in out]))
+        for gather, layout in CONFIGS[:3]:
+            ki, ks = res[(gather, layout, "kernel")]
+            ri, rs = res[(gather, layout, "reference")]
+            for i in range(ENC_QUERIES):
+                swaps += topk_swaps(f"encoder_train {tag} {gather}/{layout} kernel vs reference, "
+                                    f"query {i}", ki[i], ks[i], ri[i], rs[i], kernel_err)
+        success[tag] = {"/".join(key): float(np.mean([i in ids[i, :5] for i in range(ENC_QUERIES)]))
+                        for key, (ids, _) in res.items()}
+        log(f"[encoder_train] {tag} encoder: {n_docs} documents of {ENC_DOC_LEN} tokens and "
+            f"{ENC_QUERIES} queries encoded in {t_enc:.3f} s "
+            f"({(n_docs * ENC_DOC_LEN + ENC_QUERIES * cfg.query_maxlen) / t_enc:.1f} tokens/s), "
+            f"indexed by Retriever.build in {t_build:.3f} s ({retriever.index.n_centroids} "
+            f"centroids); success@5 {json.dumps(success[tag])}")
+        del retriever, q, res
+    counts = dict(LAUNCHES)  # read right after the end-to-end path's run
+    first, last = (success[t] for t in (next(iter(encoders)), list(encoders)[-1]))
+    lower = {k: (first[k], v) for k, v in last.items() if v < first[k]}
+    check(not lower, f"success@5 fell with training: {lower}")
+    log(f"[encoder_train] end to end: kernel and reference doc ids equal up to {swaps} tie swaps "
+        f"over {ENC_QUERIES} queries x 3 configs x {len(encoders)} encoders; launches "
+        f"{json.dumps(counts)}; success@5 {' -> '.join(encoders)} "
+        + ", ".join(f"{k} {first[k]:.4f} -> {v:.4f}" for k, v in last.items()))
+    return counts
+
+
+def phase_encoder_train(torch, dev, seed: int, kernel_err: float, flush) -> dict:
+    """The XTR token encoder trained on the card at ``EncoderConfig()``
+    with ``examples/train_encoder_torch.py``'s ``xtr_inbatch_loss`` and
+    AdamW, on its ``make_batch`` batches at ENC_BATCH x (32 + ENC_DOC_LEN)
+    tokens (see ENC_BATCH): the step-1 loss equals the no-grad loss within
+    TRAIN_LOSS_TOL; every parameter gets a finite gradient, none all zero,
+    the embedding's non-zero on exactly the rows the batch names; two
+    step-1 gradient computations bit for bit; the loss falls over
+    ENC_STEPS steps (step p50, tokens/s, FLOP rate, peak memory and the
+    parts of a step printed); a ``train_loop`` that dies at step 7 resumes
+    from its step-5 checkpoint and ends bit for bit where the uninterrupted
+    run ended. Then ENC_CORPUS_DOCS documents are encoded with the
+    untrained and the trained encoder, each indexed on the card by
+    ``Retriever.build`` and searched by ENC_QUERIES sub-sequence queries at
+    (materialize, dense), (fused, dense) and (fused, ragged) through
+    ``retrieve_batch`` at both executors: kernel and reference doc ids
+    equal up to reported tie swaps, scores within TOL, each scoring kernel
+    launched, the reference executor launching none, success@5 after
+    training no lower than before. ``python examples/train_encoder_torch.py``
+    runs at its defaults on the card beside the resume and must exit 0.
+    Returns the scoring kernels' launches in the end-to-end run."""
+    from repro_torch.configs.families import encoder_loss_fn
+    from repro_torch.models import EncoderConfig, init_params
+    from repro_torch.train import AdamWConfig, TrainState, make_train_step
+    from repro_torch.train.checkpoint import flatten
+
+    t_phase = time.perf_counter()
+    ex = load_example("train_encoder_torch")
+    cfg = EncoderConfig()
+    smi = card()
+    failures = []
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            failures.append(msg)
+            log(f"[encoder_train] FAILED: {msg}")
+
+    def draw(step: int, batch: int) -> dict:
+        b = ex.make_batch(step, cfg=cfg, doc_len=ENC_DOC_LEN, q_len=cfg.query_maxlen, batch=batch)
+        return {k: v.to(dev) for k, v in b.items()}
+
+    def fresh():
+        return init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+    batches = [draw(s, ENC_BATCH) for s in range(ENC_STEPS)]
+    opt = AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=ENC_STEPS)  # the example's
+    state = TrainState.create(fresh())
+    names = list(state.params)
+    n = sum(p.numel() for p in state.params.values())
+    loss_fn = encoder_loss_fn(cfg, ex.xtr_inbatch_loss)
+    b0 = batches[0]
+    with torch.no_grad():
+        nograd = float(loss_fn(state.params, b0)[0])
+    grads = []
+    for _ in range(2):
+        loss, _ = loss_fn(state.params, b0)
+        grads.append(torch.autograd.grad(loss, list(state.params.values())))
+        del loss
+    apart = [k for k, a, b in zip(names, *grads) if not torch.equal(a, b)]
+    check(not apart, f"two step-1 gradient computations differ at {apart}")
+    zero = [k for k, g in zip(names, grads[0]) if not bool(g.any())]
+    bad = [k for k, g in zip(names, grads[0]) if not bool(torch.isfinite(g).all())]
+    check(not zero and not bad, f"parameters with an all-zero gradient {zero}, non-finite {bad}")
+    rows = grads[0][names.index("embed")].abs().sum(-1) > 0
+    named = torch.zeros(cfg.vocab, dtype=torch.bool, device=dev)
+    for tok, mask in (("q_tok", "q_mask"), ("d_tok", "d_mask")):
+        named[b0[tok][b0[mask] > 0].long()] = True
+    stray, missing = int((rows & ~named).sum()), int((named & ~rows).sum())
+    check(stray == 0 and missing == 0, f"the embedding's gradient is non-zero on {stray} rows "
+                                       f"the batch does not name and zero on {missing} it names")
+    del grads
+    log(f"[encoder_train] TokenEncoder {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} "
+        f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, out {cfg.out_dim}: {n} float32 parameters "
+        f"({16 * n / 1e9:.2f} GB with gradients, m and v); batch {ENC_BATCH} queries of "
+        f"{cfg.query_maxlen} tokens and their documents of {ENC_DOC_LEN}; autograd took a "
+        f"gradient for all {len(names)} parameter tensors, none all zero or non-finite; the "
+        f"embedding's on the {int(named.sum())} rows the batch names and no other; two step-1 "
+        f"gradient computations {'bit for bit' if not apart else 'apart'}")
+
+    step = make_train_step(loss_fn, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, metrics = [], [], []
+    for s in range(ENC_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[s])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+        losses.append(metrics[-1]["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(times[1:]))
+    rel = abs(losses[0] - nograd) / abs(nograd)
+    check(rel <= TRAIN_LOSS_TOL, f"step-1 loss {losses[0]} vs the no-grad loss {nograd}: {rel} "
+                                 f"relative > {TRAIN_LOSS_TOL}")
+    check(losses[-1] < losses[0], f"the loss did not fall over {ENC_STEPS} steps: {losses}")
+    tokens = ENC_BATCH * (cfg.query_maxlen + ENC_DOC_LEN)
+    flops = encoder_flops(cfg, n)
+    parts = encoder_step_parts(torch, cfg, state.params, b0, dev, flush)
+    log(f"[encoder_train] step-1 loss {losses[0]} (no-grad {nograd}, {rel} relative; limit "
+        f"{TRAIN_LOSS_TOL}); losses over {ENC_STEPS} steps at lr {opt.lr} after "
+        f"{opt.warmup_steps} warmup steps {json.dumps(losses)}; step 1 {json.dumps(metrics[0])}; "
+        f"step p50 {p50 * 1e3:.3f} ms (first {times[0] * 1e3:.1f} ms), {tokens / p50:.1f} "
+        f"tokens/s, {flops / 1e12:.4f} TFLOP a step, {flops / p50 / 1e12:.3f} TFLOP/s (float32 "
+        f"bound {flops / F32_OPS_PER_S * 1e3:.3f} ms); peak memory {peak / 2**30:.2f} GiB; parts "
+        f"timed alone (ms, share of the step p50): "
+        + ", ".join(f"{k} {v:.3f} ({v / (p50 * 1e3):.3f})" for k, v in parts.items())
+        + f"; {smi}")
+
+    final = [(k, v.detach().cpu()) for k, v in flatten(state)]
+    trained = {k: p.detach() for k, p in state.params.items()}
+    del state, step, loss_fn
+    torch.cuda.empty_cache()
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t_ex = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, os.path.join(ROOT, "examples", "train_encoder_torch.py")],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        resume_check(torch, "encoder_train", "TokenEncoder", dict(
+            init_params_fn=fresh, loss_fn=encoder_loss_fn(cfg, ex.xtr_inbatch_loss),
+            batch_iter=lambda s: batches[s], opt_cfg=opt, n_steps=ENC_STEPS, log_every=ENC_STEPS,
+            log_fn=log, device=dev), final, check)
+        del final, batches
+        torch.cuda.empty_cache()
+        corpus = draw(ENC_CORPUS_SEED + seed, ENC_CORPUS_DOCS)
+        counts = encoder_end_to_end(torch, dev, cfg, corpus, {"untrained": fresh, "trained":
+                                    lambda: trained}, kernel_err, check)
+        del trained, corpus
+        torch.cuda.empty_cache()
+        out, err = proc.communicate(timeout=ENC_EXAMPLE_TIMEOUT_S)
+    finally:
+        proc.kill()
+    lines = out.strip().splitlines()
+    check(proc.returncode == 0 and any("trained encoder success@5" in x for x in lines),
+          f"examples/train_encoder_torch.py exited {proc.returncode}: {out[-2000:]} {err[-2000:]}")
+    log(f"[encoder_train] python examples/train_encoder_torch.py (its defaults, on the card): exit "
+        f"{proc.returncode} after {time.perf_counter() - t_ex:.1f} s; "
+        + " | ".join(x for x in lines if "success@5" in x))
+    log(f"[encoder_train] phase took {time.perf_counter() - t_phase:.1f} s; {smi}")
+    if failures:
+        fail("encoder_train: " + "; ".join(failures))
+    return {k: counts[k] for k in ("selective_sum", "fused_gather_score", "ragged_fused_gather_score")}
+
+
 # The dry-run phase's time budget (the whole script must end in 1200 s).
 DRYRUN_BUDGET_S = 90.0
 DRYRUN_QUERIES = 16
@@ -4671,9 +5043,7 @@ def phase_train(torch, dev, seed: int, flush) -> dict:
     from repro_torch.configs.registry import get_arch
     from repro_torch.data import ShardedBatcher, synthetic_lm_fetch
     from repro_torch.models import init_params
-    from repro_torch.train import (
-        AdamWConfig, FailureInjector, TrainState, latest_step, make_train_step, train_loop,
-    )
+    from repro_torch.train import AdamWConfig, TrainState, make_train_step
     from repro_torch.train.checkpoint import flatten
 
     failures = []
@@ -4771,39 +5141,16 @@ def phase_train(torch, dev, seed: int, flush) -> dict:
             torch.cuda.empty_cache()
 
             if final is not None:
-                every, dies = TRAIN_RESUME_AT
-                ckdir = os.path.join(tmp, arch)
-                kw = dict(init_params_fn=fresh, loss_fn=lm_loss_fn(cfg), batch_iter=lambda _: batch,
-                          opt_cfg=opt, n_steps=TRAIN_STEPS, ckpt_dir=ckdir, ckpt_every=every,
-                          keep=2, log_every=TRAIN_STEPS, log_fn=log, device=dev)
-                t0 = time.perf_counter()
-                try:
-                    train_loop(failure=FailureInjector(fail_at=(dies,)), **kw)
-                    check(False, f"{arch}: the injected failure at step {dies} did not fire")
-                except RuntimeError as e:
-                    if "injected failure" not in str(e):
-                        raise
-                check(latest_step(ckdir) == every, f"{arch}: newest committed step "
-                                                   f"{latest_step(ckdir)}, not {every}")
-                torch.cuda.empty_cache()
-                resumed, _ = train_loop(**kw)
-                diffs = {k: float((v.detach().cpu() - want).abs().max())
-                         for (k, v), (_, want) in zip(flatten(resumed), final)}
-                worst = max(diffs, key=diffs.get)
-                check(diffs[worst] == 0, f"{arch}: the run resumed from step {every} ends "
-                                         f"{diffs[worst]} from the uninterrupted run at {worst}")
-                log(f"[train] {arch}: train_loop died at step {dies}, resumed from its step-{every} "
-                    f"checkpoint and ended at step {TRAIN_STEPS} with every parameter and Adam "
-                    f"moment {'bit for bit' if diffs[worst] == 0 else 'apart'} (largest diff "
-                    f"{diffs[worst]} at {worst}); {time.perf_counter() - t0:.1f} s with "
-                    f"checkpoint writes")
-                del resumed, final, kw
-                shutil.rmtree(ckdir, ignore_errors=True)
+                resume_check(torch, "train", arch, dict(
+                    init_params_fn=fresh, loss_fn=lm_loss_fn(cfg), batch_iter=lambda _: batch,
+                    opt_cfg=opt, n_steps=TRAIN_STEPS, log_every=TRAIN_STEPS, log_fn=log,
+                    device=dev), final, check)
+                del final
                 torch.cuda.empty_cache()
             del batch, halves
             torch.cuda.empty_cache()
             log(f"[train] {arch} done in {time.perf_counter() - t_arch:.1f}s")
-        row = phase_recsys_train(torch, dev, seed + 20, flush, check, tmp)
+        row = phase_recsys_train(torch, dev, seed + 20, flush, check)
         torch.cuda.empty_cache()
         phase_gnn(torch, dev, seed + 40, flush, check)
         torch.cuda.empty_cache()
@@ -5151,7 +5498,7 @@ def forced_bags(torch, model) -> None:
 
 
 def recsys_train_model(torch, arch: str, b: int, mb: int, dev, seed: int, opt, flush,
-                       check, tmp: str) -> dict:
+                       check) -> dict:
     """One recsys model's training at full width: the no-grad loss, the
     step-1 gradients at both executors on the first microbatch (finite,
     non-zero, the tables' only on rows the batch names, kernel = reference
@@ -5165,7 +5512,7 @@ def recsys_train_model(torch, arch: str, b: int, mb: int, dev, seed: int, opt, f
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import init_params
     from repro_torch.models.recsys import RECSYS_MODELS
-    from repro_torch.train import FailureInjector, TrainState, latest_step, make_train_step, train_loop
+    from repro_torch.train import TrainState, make_train_step
     from repro_torch.train.checkpoint import flatten
     from repro_torch.train.optimizer import adamw_update
 
@@ -5283,39 +5630,18 @@ def recsys_train_model(torch, arch: str, b: int, mb: int, dev, seed: int, opt, f
             f"{json.dumps(res)}; loss {d_loss}, grad_norm {d_gn} relative (limit {XDEEPFM_MB_TOL})")
 
     if final is not None:
-        every, dies = TRAIN_RESUME_AT
-        ckdir = os.path.join(tmp, arch)
-        kw = dict(init_params_fn=fresh, loss_fn=recsys_loss_fn(cfg),
-                  batch_iter=lambda _: batch, opt_cfg=opt, n_steps=TRAIN_STEPS, ckpt_dir=ckdir,
-                  ckpt_every=every, keep=2, log_every=TRAIN_STEPS, log_fn=log, device=dev)
-        t0 = time.perf_counter()
-        try:
-            train_loop(failure=FailureInjector(fail_at=(dies,)), **kw)
-            check(False, f"{arch}: the injected failure at step {dies} did not fire")
-        except RuntimeError as e:
-            if "injected failure" not in str(e):
-                raise
-        check(latest_step(ckdir) == every, f"{arch}: newest committed step {latest_step(ckdir)}, "
-                                           f"not {every}")
-        resumed, _ = train_loop(**kw)
-        diffs = {k: float((v.detach().cpu() - want).abs().max())
-                 for (k, v), (_, want) in zip(flatten(resumed), final)}
-        worst = max(diffs, key=diffs.get)
-        check(diffs[worst] == 0, f"{arch}: the run resumed from step {every} ends {diffs[worst]} "
-                                 f"from the uninterrupted run at {worst}")
-        log(f"[recsys-train] {arch}: train_loop died at step {dies}, resumed from its step-{every} "
-            f"checkpoint and ended at step {TRAIN_STEPS} with every parameter and Adam moment "
-            f"{'bit for bit' if diffs[worst] == 0 else 'apart'} (largest diff {diffs[worst]} at "
-            f"{worst}); {time.perf_counter() - t0:.1f} s with checkpoint writes")
-        del resumed, final, kw
-        shutil.rmtree(ckdir, ignore_errors=True)
+        resume_check(torch, "recsys-train", arch, dict(
+            init_params_fn=fresh, loss_fn=recsys_loss_fn(cfg), batch_iter=lambda _: batch,
+            opt_cfg=opt, n_steps=TRAIN_STEPS, log_every=TRAIN_STEPS, log_fn=log, device=dev),
+            final, check)
+        del final
     del batch
     torch.cuda.empty_cache()
     log(f"[recsys-train] {arch} done in {time.perf_counter() - t_arch:.1f}s")
     return launched
 
 
-def phase_recsys_train(torch, dev, seed: int, flush, check, tmp: str) -> dict:
+def phase_recsys_train(torch, dev, seed: int, flush, check) -> dict:
     """Recsys training at full width (``RECSYS_TRAIN``): the bag backward's
     kernels first (``phase_bag_backward``, on the models' full-size
     tables), then each model (``recsys_train_model``). Returns the bag
@@ -5340,7 +5666,7 @@ def phase_recsys_train(torch, dev, seed: int, flush, check, tmp: str) -> dict:
     launches = 0
     for i, (arch, b, mb) in enumerate(RECSYS_TRAIN):
         launched = recsys_train_model(torch, arch, b, mb, dev, seed + 10 * (i + 1), opt_cfg, flush,
-                                      check, tmp)
+                                      check)
         launches += launched["embedding_bag_backward"]
         if arch == "din":
             row["din_dw"]["launches"] = launched["embedding_bag_backward"]
@@ -5489,14 +5815,16 @@ def phase_gnn(torch, dev, seed: int, flush, check) -> None:
 # ---------------------------------------------------------------------------
 
 # Mixtral-8x7b at full width over gloo ranks that share the card. The
-# (1, 4) run is the zoo's 4-layer cut at the zoo's prompt; the (2, 2) run
+# (1, 4) run is the zoo's 2-layer cut at the zoo's prompt; the (2, 2) run
 # splits the batch and gathers FSDP blocks, so it stays shallow (every
 # gather copies a layer's weights through the host). At 8, 2 and 2 layers
-# (and the dry run's 2) the phase took 155.0 s: the runs take half as many
-# to keep the script inside its 1200 s on a slower host.
+# (and the dry run's 2) the phase took 155.0 s: the runs took half as many
+# to keep the script inside its 1200 s on a slower host, and the (1, 4) run
+# half again (2 layers; layer 1 still meets the KV check's "later" rule)
+# to make room for the encoder_train phase.
 MESH_RANKS = 4
 MESH_LM = (  # tag, (data, model), layers, batch, prompt length, greedy tokens
-    ("1x4", (1, 4), 4, 2, 8192, 16),
+    ("1x4", (1, 4), 2, 2, 8192, 16),
     ("2x2", (2, 2), 1, 2, 2048, 4),
 )
 # The (4, 1) decode takes 2 steps (8 took 80 s of the phase) to leave the
@@ -5767,7 +6095,7 @@ def mesh_ranks_agree(torch, what: str, outs: list, groups) -> None:
 def phase_mesh(torch, dev, seed: int, flush, work: str) -> tuple[dict, dict]:
     """The LM and recsys families over (data, model) meshes of ranks
     placed by ``launch/sharding.py``'s rules. (a) One gloo world of 4 ranks
-    on this card: mixtral-8x7b at full width at (1, 4) (4 layers, 2 x 8192
+    on this card: mixtral-8x7b at full width at (1, 4) (2 layers, 2 x 8192
     prompt, 16 greedy tokens), at (2, 2) (1 layer, 2 x 2048, 4 tokens) and
     a batch-1 decode of 2 steps at (4, 1) (1 layer) over a 16,384-position cache
     split by sequence, each held to the one-process port at the same cut
@@ -6105,7 +6433,9 @@ def phase_mesh(torch, dev, seed: int, flush, work: str) -> tuple[dict, dict]:
 # Four gloo ranks on this card train each run for MESH_TRAIN_STEPS steps on
 # one repeated global batch, from weights every rank draws alike (each keeps
 # its blocks), TRAIN_OPT, each config's bf16 compute and remat (float32 for
-# the recsys models). qwen2 takes train_4k's sequence at a global batch of 4
+# the recsys models). The LM runs take MESH_TRAIN_SEQ tokens a row (train_4k's
+# 4096 until the encoder_train phase needed the time: their logits and
+# activations cross the host in every collective). qwen2 takes a global batch of 4
 # in 2 microbatches (one row a rank a microbatch: 4 ranks' float32 logits
 # of 151,936 columns share the card); mixtral one layer at full width at
 # the one-card train phase's 2 rows, one a data rank, in one microbatch (2
@@ -6123,6 +6453,7 @@ def phase_mesh(torch, dev, seed: int, flush, work: str) -> tuple[dict, dict]:
 # qwen2 runs 2 of its 24 layers: its rank steps and its checkpoint and
 # resume at 24 took 26.0 + 17.0 + 17.5 s and 8.74 + 20.05 s, and the
 # script must end inside its 1200 s on a slower host too.
+MESH_TRAIN_SEQ = 2048
 MESH_TRAIN_RUNS = (  # tag, arch, layers (None: all), batch, microbatches, mesh, overrides, resume
     ("qwen2", "qwen2-0.5b", 2, 4, 2, (2, 2), {}, True),
     ("mixtral_fsdp", "mixtral-8x7b", 1, 2, 1, (2, 2), {}, False),
@@ -6676,8 +7007,8 @@ def phase_mesh_train(torch, dev, seed: int, flush, work: str) -> tuple[dict, dic
     resumed runs bit for bit.
     Then the bag kernels at DIN's rank 0 block (rows 5-rank-train and
     5b-rank, launches from the runs) against their plain versions, timed,
-    and ``dryrun.run_cell`` of mixtral train_4k over 4 gloo ranks at (2, 2),
-    one layer: its collectives the formula's, 0 < MFU <= 1.05. Returns the
+    and ``dryrun.run_cell`` of qwen2-0.5b train_4k over 4 gloo ranks at (2,
+    2), two layers: its collectives the formula's, 0 < MFU <= 1.05. Returns the
     two rows."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels import ref
@@ -6696,9 +7027,9 @@ def phase_mesh_train(torch, dev, seed: int, flush, work: str) -> tuple[dict, dic
         cfg = mesh_train_config({"arch": arch, "layers": layers, "overrides": over})
         g = torch.Generator(device=dev)
         g.manual_seed(seed + 50 + i)
-        tokens = torch.randint(0, cfg.vocab, (b, TRAIN_SEQ), generator=g, device=dev)
+        tokens = torch.randint(0, cfg.vocab, (b, MESH_TRAIN_SEQ), generator=g, device=dev)
         labels = tokens.clone()
-        labels[0, : TRAIN_SEQ // 4] = -1  # masked labels in one row: the count is global
+        labels[0, : MESH_TRAIN_SEQ // 4] = -1  # masked labels in one row: the count is global
         path = os.path.join(work, f"{tag}_batch.pt")
         torch.save({"tokens": tokens.cpu(), "labels": labels.cpu()}, path)
         runs.append({"tag": tag, "kind": "lm", "arch": arch, "layers": layers, "overrides": over,
@@ -6909,6 +7240,12 @@ def run(torch, dev, args) -> list:
         phase_encode(torch, dev, args.seed + 9, kernel_err, sh, args.profile)
         lap("encode")
         del sh
+        torch.cuda.empty_cache()
+        enc = phase_encoder_train(torch, dev, args.seed + 16, kernel_err, flush)
+        for row in kernels:
+            if row["name"] in enc:
+                row["encoder_train_launches"] = enc[row["name"]]
+        lap("encoder_train")
         phase_dryrun(torch, index, dev, args.seed, kernel_err)
         lap("dryrun")
     finally:

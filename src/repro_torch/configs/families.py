@@ -11,7 +11,8 @@ nothing is allocated even for dbrx-132b), ``input_specs`` (each input as a
 prefill, decode, serve and retrieval through the model) and ``smoke`` (the
 reduced config for real). The loss of a train step builds its model once
 per params dict, a view onto ``TrainState``'s parameters (``lm_loss_fn``,
-``gnn_loss_fn``, ``recsys_loss_fn``). ``state_pspec`` and
+``gnn_loss_fn``, ``recsys_loss_fn``; ``encoder_loss_fn`` for the XTR token
+encoder, which has no family). ``state_pspec`` and
 ``input_pspec`` are JAX's, over a ``RankMesh`` (``launch/mesh.py``) and
 the port's own tensors (``launch/sharding.py``): they place a cell's
 state and inputs on the ranks of a mesh (``launch/dryrun.py``). The LM and
@@ -37,6 +38,7 @@ from repro_torch.core.types import resolve_device
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import data_axes
 from repro_torch.models.convert import init_params, train_layout
+from repro_torch.models.encoder import EncoderConfig, TokenEncoder
 from repro_torch.models.gnn import GIN, GINConfig
 from repro_torch.models.recsys import (
     RECSYS_MODELS,
@@ -53,6 +55,7 @@ from repro_torch.train.optimizer import AdamWConfig
 __all__ = [
     "spec_tree",
     "LMShape", "LM_SHAPES", "LM_SHAPES_REDUCED", "LMFamily", "lm_loss_fn",
+    "encoder_loss_fn",
     "GNNShape", "GNN_SHAPES", "GNN_SHAPES_REDUCED", "GNNFamily", "gnn_loss_fn",
     "RecsysShape", "RECSYS_SHAPES", "RECSYS_SHAPES_REDUCED", "RecsysFamily", "recsys_loss_fn",
 ]
@@ -134,6 +137,12 @@ def lm_loss_fn(cfg: TransformerConfig, mesh=None) -> _Loss:
     """``TransformerLM.loss`` of ``cfg`` (over ``mesh``: of a rank's blocks)."""
     return _Loss(lambda p: TransformerLM.from_params(cfg, p, trainable=True, mesh=mesh),
                  lambda m, b: m.loss(b["tokens"], b["labels"]))
+
+
+def encoder_loss_fn(cfg: EncoderConfig, loss) -> _Loss:
+    """``loss(encoder, batch)`` over a trainable ``TokenEncoder`` of ``cfg``
+    (the XTR in-batch objective of ``examples/train_encoder_torch.py``)."""
+    return _Loss(lambda p: TokenEncoder.from_params(cfg, p, trainable=True), loss)
 
 
 def _train_step(cfg, loss_fn, microbatches: int, mesh):

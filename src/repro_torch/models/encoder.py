@@ -9,6 +9,12 @@ it needs a key-padding mask the flash kernel does not take, and no TPU
 kernel runs here. The JAX package scans a ``vmap``-stacked layer tree;
 the port keeps one module per layer (``models/convert.py`` carries the
 stacked tree across).
+
+``forward`` is differentiable, as JAX's ``TokenEncoder.encode`` is: a
+module from ``from_params(..., trainable=True)`` trains the parameters
+it was given (``examples/train_encoder_torch.py`` trains it with the XTR
+in-batch objective). ``encode`` is the serving route: the same ops under
+``torch.no_grad``.
 """
 
 from __future__ import annotations
@@ -74,14 +80,21 @@ class TokenEncoder(nn.Module):
         self.proj = L.Dense(cfg.d_model, cfg.out_dim)
 
     @classmethod
-    def from_params(cls, cfg: EncoderConfig, params: dict) -> "TokenEncoder":
+    def from_params(cls, cfg: EncoderConfig, params: dict, *, trainable: bool = False
+                    ) -> "TokenEncoder":
         """A module that takes ``params`` (``convert.init_params`` or
         ``convert.params_from_jax``) as its parameters without copying
-        them, frozen (training is not ported)."""
+        them. Serving weights are frozen, and freezing leaves the tensors
+        it was given as they were. ``trainable=True`` leaves them
+        trainable; where ``params`` holds ``nn.Parameter``s
+        (``train.TrainState``'s), the module's parameters are those very
+        objects, so gradients land on them."""
+        if not trainable:
+            params = {k: v.detach() for k, v in params.items()}
         with torch.device("meta"):
             model = cls(cfg)
         model.load_state_dict(params, strict=True, assign=True)
-        return model.requires_grad_(False)
+        return model if trainable else model.requires_grad_(False)
 
     @property
     def device(self) -> torch.device:
@@ -89,7 +102,12 @@ class TokenEncoder(nn.Module):
 
     @torch.no_grad()
     def encode(self, tokens, mask) -> torch.Tensor:
-        """tokens i32[B, S], mask bool[B, S] -> f32[B, S, out_dim]."""
+        """tokens i32[B, S], mask bool[B, S] -> f32[B, S, out_dim], with no
+        autograd graph (serving)."""
+        return self.forward(tokens, mask)
+
+    def forward(self, tokens, mask) -> torch.Tensor:
+        """``encode``, differentiable with respect to the parameters."""
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device).long()
         mask = torch.as_tensor(mask, device=self.device).bool()
@@ -113,5 +131,3 @@ class TokenEncoder(nn.Module):
         emb = self.proj(self.final_norm(x)).float()
         emb = emb * torch.rsqrt((emb * emb).sum(-1, keepdim=True) + 1e-12)
         return emb * mask.unsqueeze(-1)
-
-    forward = encode
